@@ -1,0 +1,124 @@
+"""MobileNetV2 backbone (NCHW).
+
+Port of ``single_shot_detection_tpu/models/mobilenet_v2.py``: the custom
+TF-flavoured MobileNetV2 with inverted-residual bottlenecks, ReLU6, residual
+iff same-shape stride-1, TF-style asymmetric zero padding ``(0, 1, 0, 1)`` on
+stride-2 convs (an explicit ``F.pad`` before a ``padding=0`` conv, since
+``nn.Conv2d`` pads symmetrically), and 19 public stages (0..18) whose indices
+configs tap (``out_layers=(13, 18)``).  The inner tap ``expand_relu`` is
+returned in ``aux``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from single_shot_detection_tpu_torch.models.layers import batch_norm, tf_same_pad
+
+
+def _relu6(x):
+    return torch.clamp(F.relu(x), max=6.0)
+
+
+class _ConvBn(nn.Module):
+    """conv + BN + ReLU6 with TF-asymmetric stride-2 padding."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1):
+        super().__init__()
+        self.pad = tf_same_pad(kernel_size, stride)
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
+                              stride=stride, bias=False)
+        self.bn = batch_norm(out_channels)
+
+    def forward(self, x):
+        return _relu6(self.bn(self.conv(F.pad(x, self.pad))))
+
+
+class InvertedResidual(nn.Module):
+    """Inverted-residual bottleneck.  ``forward`` returns ``(out, aux)``
+    where ``aux['expand_relu']`` is the post-expansion activation."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int,
+                 expansion_ratio: int):
+        super().__init__()
+        inner = in_channels * expansion_ratio
+        self.residual = in_channels == out_channels and stride == 1
+        self.expand = expansion_ratio > 1
+        if self.expand:
+            self.expand_conv = nn.Conv2d(in_channels, inner, 1, bias=False)
+            self.expand_bn = batch_norm(inner)
+        self.pad = tf_same_pad(3, stride)
+        self.depthwise_conv = nn.Conv2d(inner, inner, 3, stride=stride,
+                                        groups=inner, bias=False)
+        self.depthwise_bn = batch_norm(inner)
+        self.project_conv = nn.Conv2d(inner, out_channels, 1, bias=False)
+        self.project_bn = batch_norm(out_channels)
+        self.aux_channels = {'expand_relu': inner} if self.expand else {}
+
+    def forward(self, x) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        aux = {}
+        h = x
+        if self.expand:
+            h = _relu6(self.expand_bn(self.expand_conv(h)))
+            aux['expand_relu'] = h
+        h = _relu6(self.depthwise_bn(self.depthwise_conv(F.pad(h, self.pad))))
+        h = self.project_bn(self.project_conv(h))
+        return (x + h if self.residual else h), aux
+
+
+# (features, stride, expansion) per stage 1..17; stage 0 and 18 are _ConvBn.
+_MBV2_STAGES = [
+    (16, 1, 1),
+    (24, 2, 6), (24, 1, 6),
+    (32, 2, 6), (32, 1, 6), (32, 1, 6),
+    (64, 2, 6), (64, 1, 6), (64, 1, 6), (64, 1, 6),
+    (96, 1, 6), (96, 1, 6), (96, 1, 6),
+    (160, 2, 6), (160, 1, 6), (160, 1, 6),
+    (320, 1, 6),
+]
+
+
+class MobileNetV2(nn.Module):
+    """19-stage MobileNetV2 feature extractor.
+
+    ``forward(x)`` returns ``(stages, aux)``: ``stages[i]`` is the output of
+    stage ``i`` (0..18), ``aux[(i, name)]`` holds inner taps.
+    ``stage_channels[i]`` and ``aux_channels[(i, name)]`` give their widths.
+    """
+
+    def __init__(self, depth_multiplier: float = 1.0, min_depth: int = 4):
+        super().__init__()
+        self.depth_multiplier = depth_multiplier
+        self.min_depth = min_depth
+        c = self.depth(32)
+        self.stage0 = _ConvBn(3, c, 3, stride=2)
+        self.stage_channels: List[int] = [c]
+        self.aux_channels: Dict[Tuple[int, str], int] = {}
+        for i, (f, s, e) in enumerate(_MBV2_STAGES, start=1):
+            block = InvertedResidual(c, self.depth(f), s, e)
+            self.add_module(f'stage{i}', block)
+            for name, width in block.aux_channels.items():
+                self.aux_channels[(i, name)] = width
+            c = self.depth(f)
+            self.stage_channels.append(c)
+        self.stage18 = _ConvBn(c, self.depth(1280), 1)
+        self.stage_channels.append(self.depth(1280))
+
+    def depth(self, d: int) -> int:
+        return max(int(d * self.depth_multiplier), self.min_depth)
+
+    def forward(self, x):
+        x = self.stage0(x)
+        stages, aux = [x], {}
+        for i in range(1, 18):
+            x, block_aux = getattr(self, f'stage{i}')(x)
+            stages.append(x)
+            for k, v in block_aux.items():
+                aux[(i, k)] = v
+        stages.append(self.stage18(x))
+        return stages, aux

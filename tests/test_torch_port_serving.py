@@ -1,0 +1,185 @@
+"""Port parity and rules for the serving slice: preprocessing, the
+``Predictor`` end to end, and the package's independence from JAX.
+
+Tolerances: preprocessing atol 1e-5 against the JAX eval ``Pipeline``; end
+to end on the committed checkpoint, ``valid`` masks equal and detections
+within atol 1e-3 px of JAX ``make_predict_step`` plus the eval ``Pipeline``.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import serialization
+
+from single_shot_detection_tpu.data.datasets import Synthetic
+from single_shot_detection_tpu.data.transforms import (Pipeline, identity_state,
+                                                      sample_view)
+from single_shot_detection_tpu.models import builder as jax_builder
+from single_shot_detection_tpu.ops.box_coder import BoxCoder
+from single_shot_detection_tpu.ops.postprocess import Postprocessor
+from single_shot_detection_tpu.train.step import make_predict_step
+from single_shot_detection_tpu.utils.config import load_config as jax_load_config
+from single_shot_detection_tpu_torch.data.preprocess import Preprocess, stage_images
+from single_shot_detection_tpu_torch.predict import Predictor
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / 'single_shot_detection_tpu_torch'
+CKPT_DIR = REPO / 'experiments/2026-08-16-225820'
+PREPROCESSING = [
+    {'name': 'ToFloatTensor', 'args': {'normalize': True}},
+    {'name': 'Normalize',
+     'args': {'mean': [0.485, 0.456, 0.406], 'std': [0.229, 0.224, 0.225]}},
+]
+
+
+def jax_eval_pipeline(images, input_size):
+    pipe = Pipeline((), PREPROCESSING, input_size, train=False)
+    b = len(images)
+    x, _, _ = pipe(jax.random.PRNGKey(0), images, np.zeros((b, 1, 7), np.float32),
+                   np.zeros((b, 1), bool))
+    return np.asarray(x)
+
+
+@pytest.fixture(scope='module')
+def checkpoint():
+    with open(CKPT_DIR / 'ckpt-1800.msgpack', 'rb') as f:
+        ckpt = serialization.msgpack_restore(f.read())
+    return {'params': ckpt['params'], 'batch_stats': ckpt['batch_stats']}
+
+
+# ---------------------------------------------------------- preprocessing
+
+def test_eval_sample_view_is_identity_at_input_size():
+    """At eval the JAX pipeline's resample is the identity when the staged
+    size equals the output size, so the port skips it."""
+    img = np.random.RandomState(0).randint(0, 256, (64, 64, 3)).astype(np.float32)
+    window = identity_state(64, 64, None, None)[:5]
+    out = sample_view(jnp.asarray(img), window, (64, 64), jnp.zeros(3))
+    np.testing.assert_array_equal(np.asarray(out), img)
+
+
+@pytest.mark.parametrize('size', [300, 128])
+def test_preprocess_matches_jax_eval_pipeline(size):
+    images = np.random.RandomState(1).randint(0, 256, (2, size, size, 3),
+                                              dtype=np.uint8)
+    want = jax_eval_pipeline(images, (size, size))
+    got = Preprocess(PREPROCESSING, (size, size))(torch.from_numpy(images))
+    assert got.shape == (2, 3, size, size) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), want,
+                               rtol=0, atol=1e-5)
+
+
+def test_stage_images_resize_is_bilinear_and_identity_at_size():
+    rng = np.random.RandomState(2)
+    img = torch.from_numpy(rng.randint(0, 256, (1, 40, 60, 3), dtype=np.uint8))
+    assert stage_images(img, (60, 40)) is img
+    # a 2x pixel-repeated image halves back to the original exactly
+    up = img.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    assert torch.equal(stage_images(up, (60, 40)), img)
+    # cv2's fixed-point INTER_LINEAR differs by at most one grey level
+    cv2 = pytest.importorskip('cv2')
+    src = rng.randint(0, 256, (97, 131, 3), dtype=np.uint8)
+    want = cv2.resize(src, (64, 48), interpolation=cv2.INTER_LINEAR)
+    got = stage_images(torch.from_numpy(src)[None], (64, 48))[0].numpy()
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+# ------------------------------------------------------------- end to end
+
+def test_predictor_matches_jax_predict_step(checkpoint):
+    config = str(CKPT_DIR / 'config.py')
+    cfg = jax_load_config(config)
+    model = dict(cfg.model)
+    bundle = jax_builder.build(
+        base=model['base'], anchor_generator=model['anchor_generator'],
+        input_size=tuple(cfg.input_size),
+        **{k: v for k, v in model['detector'].items()
+           if k in ('num_classes', 'use_depthwise', 'features', 'extras')})
+    post = Postprocessor(BoxCoder(**cfg.box_coder), use_pallas=False,
+                         **cfg.postprocess)
+    step = make_predict_step(bundle.module, post, bundle.anchors())
+    data = Synthetic(num_images=6, image_size=128, num_classes=5, max_boxes=3,
+                     seed=2)
+    staged = np.stack([a['image'] for a in data.annotations])
+    want_d, want_v = map(np.asarray, step(
+        checkpoint, jax_eval_pipeline(staged, tuple(cfg.input_size))))
+
+    pred = Predictor.from_config(config, variables=checkpoint, device='cpu')
+    got_d, got_v = pred.predict_batch(staged)
+    np.testing.assert_array_equal(got_v.numpy(), want_v)
+    assert want_v.sum() >= len(staged)  # the trained model finds objects
+    np.testing.assert_allclose(got_d.numpy()[want_v], want_d[want_v],
+                               rtol=0, atol=1e-3)
+
+    # predict(): one request of another size, rescaled to its own pixels
+    big = np.repeat(np.repeat(staged[0], 2, axis=0), 2, axis=1)
+    dets = pred.predict(big)
+    want_one = want_d[0][want_v[0]].copy()
+    want_one[:, :4] *= 2
+    np.testing.assert_allclose(dets, want_one, rtol=0, atol=2e-3)
+
+
+def test_predictor_random_weights_are_seeded():
+    config = str(CKPT_DIR / 'config.py')
+    a = Predictor.from_config(config, device='cpu', seed=5)
+    b = Predictor.from_config(config, device='cpu', seed=5)
+    images = np.random.RandomState(3).randint(0, 256, (2, 128, 128, 3),
+                                              dtype=np.uint8)
+    da, va = a.predict_batch(images)
+    db, vb = b.predict_batch(images)
+    assert torch.equal(va, vb) and torch.equal(da, db)
+    assert da.shape == (2, 50, 6) and torch.isfinite(da).all()
+
+
+def test_from_config_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        Predictor.from_config(str(CKPT_DIR / 'config.py'))
+
+
+# ---------------------------------------------------- independence from JAX
+
+def port_sources():
+    return sorted(PORT.rglob('*.py')) + [REPO / 'chip_smoke.py']
+
+
+def test_port_sources_import_no_jax():
+    banned = re.compile(r'^\s*(import|from)\s+(jax|flax)\b'
+                        r'|\bsingle_shot_detection_tpu\.', re.M)
+    for path in port_sources():
+        hits = banned.findall(path.read_text())
+        assert not hits, f'{path.relative_to(REPO)} names {hits}'
+
+
+def test_package_imports_with_jax_blocked():
+    modules = sorted(
+        'single_shot_detection_tpu_torch.' + '.'.join(
+            p.relative_to(PORT).with_suffix('').parts)
+        for p in PORT.rglob('*.py') if p.name != '__init__.py')
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'single_shot_detection_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from single_shot_detection_tpu_torch.predict import Predictor\n"
+        "p = Predictor.from_config('samples/synthetic_smoke.py', device='cpu')\n"
+        "import numpy as np\n"
+        "d, v = p.predict_batch(np.zeros((1, 128, 128, 3), np.uint8))\n"
+        "assert d.shape == (1, 50, 6)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith('ok')
