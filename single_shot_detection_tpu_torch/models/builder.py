@@ -9,7 +9,7 @@ model on the ``meta`` device (shapes only, no arithmetic, no memory).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +18,7 @@ from single_shot_detection_tpu_torch.models import backbones
 from single_shot_detection_tpu_torch.models.detector import Detector
 from single_shot_detection_tpu_torch.models.features import NECKS
 from single_shot_detection_tpu_torch.ops import anchors as anchor_ops
+from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
 
 
 @dataclasses.dataclass
@@ -94,3 +95,33 @@ def build(base: dict,
         anchors=anchor_ops.generate_anchors(generators, tuple(input_size), fms),
         input_size=tuple(input_size),
         num_classes=num_classes)
+
+
+def from_config(cfg, variables: Optional[Mapping] = None,
+                seed: Optional[int] = None) -> DetectorBundle:
+    """Build the detector of a loaded config, with weights.
+
+    ``variables``: a JAX ``{'params', 'batch_stats'}`` tree (e.g. a restored
+    checkpoint) loaded with ``strict=True``; without it the weights are the
+    JAX package's initializers drawn from a ``torch.Generator`` seeded with
+    ``seed`` (default: the config's).
+    """
+    model_cfg = dict(cfg.model)
+    detector_cfg = dict(model_cfg.get('detector', {}))
+    if 'num_classes' not in detector_cfg:
+        raise ValueError('model.detector.num_classes is required')
+    bundle = build(
+        base=model_cfg['base'],
+        anchor_generator=model_cfg['anchor_generator'],
+        input_size=tuple(cfg.input_size),
+        **{k: v for k, v in detector_cfg.items()
+           if k in ('num_classes', 'use_depthwise', 'features', 'extras',
+                    'heads')})
+    if variables is not None:
+        bundle.module.load_state_dict(from_jax_variables(variables),
+                                      strict=True)
+    else:
+        generator = torch.Generator().manual_seed(
+            int(cfg.seed if seed is None else seed))
+        bundle.module.reset_parameters(generator)
+    return bundle

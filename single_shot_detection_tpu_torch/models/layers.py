@@ -5,8 +5,10 @@ the flax submodule names (``conv``/``bn``, ``depthwise_conv``/...), so a JAX
 variable tree maps onto the ``state_dict`` by a plain walk
 (``utils/weights.py``).
 
-BatchNorm: flax's ``momentum=0.9`` is torch's ``momentum=0.1``, and both use
-``eps=1e-5``.  Eval mode (running statistics) is all this slice runs.
+BatchNorm (:class:`BatchNorm`): flax's ``momentum=0.9`` is torch's
+``momentum=0.1``, and both use ``eps=1e-5``.  Eval mode normalizes with the
+running statistics; train mode follows flax ``nn.BatchNorm`` (batch
+statistics, running statistics updated with the *biased* batch variance).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from single_shot_detection_tpu_torch.ops.bn_fused import fused_bn_train
 
 ACTIVATIONS = {
     'ReLU': F.relu,
@@ -40,8 +44,54 @@ def tf_same_pad(kernel_size: int, stride: int) -> Tuple[int, int, int, int]:
     return (p, p, p, p)
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same ``state_dict`` keys) with flax's train mode.
+
+    Eval mode is ``nn.BatchNorm2d``'s: the running statistics.  Train mode
+    normalizes with the batch statistics and updates the running statistics
+    in the forward as flax does: ``ra = 0.9 * ra + 0.1 * batch``, with the
+    biased batch variance (stock ``nn.BatchNorm2d`` uses the unbiased one).
+    ``num_batches_tracked`` is not advanced (flax keeps no such count).
+
+    ``fused`` (the config's ``train.fused_bn``) selects the batch-statistic
+    pass: on, ``ops/bn_fused.py::fused_bn_train`` (the four CUDA kernels on
+    the card); off, PyTorch's own ``torch.native_batch_norm``, the
+    counterpart of flax's XLA-lowered BN.  It is a configuration: neither
+    path stands in for the other when one fails.
+    """
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+        self.fused = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        if self.fused:
+            z, mean, var = fused_bn_train(x, self.weight, self.bias, self.eps)
+        else:
+            z, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            mean = mean.detach()
+            var = torch.clamp(invstd.detach().pow(-2) - self.eps, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                mean * self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var * self.momentum)
+        return z
+
+
+def batch_norm(channels: int) -> BatchNorm:
+    return BatchNorm(channels)
+
+
+def set_fused_bn(model: nn.Module, fused: bool) -> int:
+    """Set every :class:`BatchNorm`'s ``fused`` flag; returns their count."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in layers:
+        m.fused = fused
+    return len(layers)
 
 
 def xavier_(weight: torch.Tensor, generator: torch.Generator,

@@ -24,7 +24,6 @@ from single_shot_detection_tpu_torch.ops.postprocess import Postprocessor
 from single_shot_detection_tpu_torch.train.step import make_predict_step
 from single_shot_detection_tpu_torch.utils.config import load_config
 from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
-from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
 
 
 class Predictor:
@@ -61,32 +60,13 @@ class Predictor:
         """
         device = resolve_device(device)
         cfg = load_config(path, phases=('eval',))
-        input_size = tuple(cfg.input_size)
-        model_cfg = dict(cfg.model)
-        detector_cfg = dict(model_cfg.get('detector', {}))
-        if 'num_classes' not in detector_cfg:
-            raise ValueError(f'{path}: model.detector.num_classes is required')
-        bundle = builder.build(
-            base=model_cfg['base'],
-            anchor_generator=model_cfg['anchor_generator'],
-            input_size=input_size,
-            **{k: v for k, v in detector_cfg.items()
-               if k in ('num_classes', 'use_depthwise', 'features', 'extras',
-                        'heads')})
-        if variables is not None:
-            bundle.module.load_state_dict(from_jax_variables(variables),
-                                          strict=True)
-        else:
-            generator = torch.Generator().manual_seed(
-                int(cfg.seed if seed is None else seed))
-            bundle.module.reset_parameters(generator)
-
+        bundle = builder.from_config(cfg, variables, seed)
         box_coder = filter_kwargs(BoxCoder)(**(cfg.box_coder or {}))
         pp_cfg = Postprocessor.serving_preset(
             cfg.postprocess, len(bundle.anchors))
         postprocessor = filter_kwargs(Postprocessor)(box_coder=box_coder,
                                                      **pp_cfg)
-        preprocess = Preprocess(cfg.preprocessing, input_size)
+        preprocess = Preprocess(cfg.preprocessing, bundle.input_size)
         return cls(bundle, postprocessor, preprocess, device)
 
     def predict_batch(self, images: Union[np.ndarray, torch.Tensor]

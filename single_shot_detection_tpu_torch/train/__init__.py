@@ -1,1 +1,1 @@
-"""Step functions (this slice: the predict step)."""
+"""Step functions, train state, optimizer and schedule."""

@@ -79,6 +79,19 @@ class ConfigWrapper:
     def update(self, ctx: dict):
         self.interpolator.update(ctx)
 
+    def override(self, overrides: dict):
+        """Set top-level config values.  A dict merges into a dict entry one
+        level deep (``{'train': {'fused_bn': True}}`` keeps the rest of
+        ``train``); interpolation then runs again."""
+        merged = {}
+        for key, value in overrides.items():
+            old = getattr(self.config, key, None)
+            if isinstance(value, dict) and isinstance(old, dict):
+                value = {**old, **value}
+            setattr(self.config, key, value)
+            merged[key] = value
+        self.interpolator.update(merged)
+
     def __getattr__(self, name):
         return getattr(self.config, name, {})
 
