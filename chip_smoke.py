@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (``single_shot_detection_tpu_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-nms OTHER/kernels/nms.cu]
 
-Needs one CUDA card; exits non-zero without one.  Phases, each fatal:
+Needs one CUDA card; exits non-zero without one.  ``--parent-nms`` builds
+another version of the NMS kernel (say, from a ``git archive`` of an
+earlier commit), calls its ``nms_keep_launch`` directly, and times it
+beside this one in phase 5, in turns.  Phases, each fatal:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
 2. build: every CUDA kernel (``nms.cu``, ``bn.cu``) from the sources in
    this checkout, one ``nvcc`` per source, started together;
 3. kernels against their plain PyTorch versions on the card: exact keep
-   masks for NMS (including invalid rows, identical boxes and IoU exactly
-   at the threshold); the four train-mode BatchNorm kernels K1-K4 on the
+   masks for NMS (including invalid
+   rows, identical boxes, IoU exactly at the threshold and within 3 float
+   steps of it, nothing suppressed, ``-inf`` scores in the middle, NaN and
+   infinite coordinates, overflowing, tiny and zero areas, K = 1, 63, 64,
+   65, 1500 and 2048); the four train-mode BatchNorm kernels K1-K4 on the
    flagship's shapes at b32 from ``[32, 96, 150, 150]`` to
    ``[32, 128, 1, 1]``, a ragged ``[3, 24, 75, 75]`` and a bf16 case, at
    the tolerances stated at ``BN_TOL``;
@@ -21,8 +27,12 @@ Needs one CUDA card; exits non-zero without one.  Phases, each fatal:
    shape and finiteness, the forward against the CPU, and the kernel
    postprocessor against the plain one;
 5. serving times: ``predict_batch`` img/s at b32 and b128, postprocess ms,
-   the NMS kernel's time beside its plain version and its bound, and a
-   profiler table of device time by operator at b32;
+   the NMS kernel's device time per launch at the b32 and b128 paths'
+   inputs and at a synthetic sparse case (valid prefixes of 0-20 of 100),
+   each beside the launch floor (an empty kernel on the same grid), its
+   plain version, its bound
+   and the valid-prefix lengths; and a profiler table of device time by
+   operator at b32;
 6. the training path: ``Trainer`` on the flagship at full width (b32,
    300x300) with ``train.fused_bn`` and no augmentation, seeded random
    weights, 5 steps on seeded images and synthetic ground truth, with the
@@ -36,7 +46,9 @@ Needs one CUDA card; exits non-zero without one.  Phases, each fatal:
    at ``[32, 96, 150, 150]`` beside its bound, its plain version and the
    PyTorch pair that computes the same function (``native_batch_norm`` for
    K1+K2, its backward for K3+K4), each kernel's device time summed over a
-   step beside the step's bound, and a profiler table of one train step.
+   step beside the step's bound, a profiler table of one train step, and
+   the PyTorch pairs' device time summed over the step's 64 BN shapes
+   beside the kernel pairs' time per step.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -44,18 +56,23 @@ last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
 import copy
+import ctypes
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from single_shot_detection_tpu_torch.kernels import _build
 from single_shot_detection_tpu_torch.models.layers import BatchNorm
 from single_shot_detection_tpu_torch.ops import bn_kernel
 from single_shot_detection_tpu_torch.ops import nms as nms_ops
@@ -74,6 +91,10 @@ FP32_RATE = 67e12  # H100 SXM fp32 outside the tensor cores, dense
 # fp32 operations per box pair in the NMS IoU test: 4 min/max, 2 sub,
 # 2 clamp, 1 mul (intersection), 1 add + 1 sub (union), 1 div, 1 compare
 NMS_OPS_PER_PAIR = 13
+# Launches a profiled window of kernels_device_ms may miss, and the windows
+# profile_counted takes before it fails
+PROFILER_MISSED_LAUNCHES = 2
+PROFILER_TRIES = 10
 
 
 def log(msg: str) -> None:
@@ -105,25 +126,51 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profile_window(run):
+    """The profiler's trace of one call of ``run`` (which ends in a device
+    synchronize), taken after another call of it in the profiler's own
+    warm-up step: a trace that starts cold has missed launches, once all of
+    a window's."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            run()
+            prof.step()
+    return prof
+
+
+def profile_counted(run, kernel_names, expected: int, missed: int = 0):
+    """``profile_window(run)`` whose trace holds from ``expected - missed``
+    to ``expected`` launches of each kernel in ``kernel_names``.  A window
+    outside that range is printed and profiled again, ``PROFILER_TRIES``
+    windows at most; a count short of ``expected`` is printed."""
+    for _ in range(PROFILER_TRIES):
+        prof = profile_window(run)
+        counts = {name: device_us(prof, name)[1] for name in kernel_names}
+        if all(expected - missed <= c <= expected for c in counts.values()):
+            if any(c != expected for c in counts.values()):
+                log(f'  profiler saw {counts} of {expected} launches')
+            return prof
+        log(f'  profiler saw {counts} of {expected} launches; profiling again')
+    fail(f'profiler saw {counts} launches, expected {expected} of each')
+
+
 def kernels_device_ms(fn, kernel_names, iters: int) -> float:
     """Device time per call of ``fn``, summed over the CUDA kernels it
     launches (``kernel_names``, each once per call), from the profiler's
     CUPTI trace (events around back-to-back launches would time the host's
-    enqueue instead when the host is the slower of the two)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    enqueue instead when the host is the slower of the two).  Each kernel's
+    time is averaged over the launches the trace holds, which may fall
+    short of ``iters`` by ``PROFILER_MISSED_LAUNCHES``."""
+    def run():
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
-    for name in kernel_names:
-        us, count = device_us(prof, name)
-        if count != iters:
-            fail(f'profiler saw {count} launches of {name}, expected {iters}')
-        total += us
-    return total / iters / 1e3
+
+    prof = profile_counted(run, kernel_names, iters, PROFILER_MISSED_LAUNCHES)
+    return sum(us / count for us, count in
+               (device_us(prof, name) for name in kernel_names)) / 1e3
 
 
 def device_us(prof, kernel_name: str):
@@ -132,10 +179,20 @@ def device_us(prof, kernel_name: str):
     total_us, count = 0.0, 0
     for evt in prof.key_averages():
         if kernel_name in evt.key:
-            total_us += getattr(evt, 'self_device_time_total', None) or \
-                getattr(evt, 'self_cuda_time_total')
+            us = getattr(evt, 'self_device_time_total', None)
+            total_us += evt.self_cuda_time_total if us is None else us
             count += evt.count
     return total_us, count
+
+
+def busy_us(prof) -> float:
+    """Device µs summed over every kernel, copy and fill in a finished
+    profile, as its table's "Self CUDA time total" (the window's
+    ``ProfilerStep`` annotation spans the step on the device and is left
+    out)."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, 'is_user_annotation', False))
 
 
 def host_times_ms(fn, iters: int, warmup: int = 3):
@@ -151,10 +208,6 @@ def host_times_ms(fn, iters: int, warmup: int = 3):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     return times
-
-
-def host_median_ms(fn, iters: int, warmup: int = 3) -> float:
-    return statistics.median(host_times_ms(fn, iters, warmup))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -185,24 +238,118 @@ def nms_problems(rng: np.random.RandomState, n: int, k: int, thr: float):
     return boxes, scores, special
 
 
+def nms_ulp_pairs(thr: float):
+    """Two-box problems whose IoU lies within a few float steps of ``thr``:
+    a box and one inside it at IoU exactly ``thr`` (scaled and shifted),
+    with one coordinate of either box nudged by -3..3 float steps.  Returns
+    boxes ``[N, 2, 4]``, scores ``[N, 2]`` and each pair's IoU minus ``thr``
+    in float steps (the reference's arithmetic in numpy float32)."""
+    big, small = {0.45: ([0, 0, 4, 5], [0, 0, 3, 3]),
+                  0.5: ([0, 0, 1, 2], [0, 0, 1, 1])}[thr]
+    pairs = []
+    for scale in (1.0, 1.5, 7.25, 0.3, 33.0):
+        for off in (0.0, 17.0):
+            base = np.array([big, small], np.float64) * scale + off
+            for box in range(2):
+                for coord in range(4):
+                    for steps in range(-3, 4):
+                        pair = base.astype(np.float32)
+                        toward = np.float32(np.inf if steps > 0 else -np.inf)
+                        for _ in range(abs(steps)):
+                            pair[box, coord] = np.nextafter(pair[box, coord],
+                                                            toward)
+                        pairs.append(pair)
+    boxes = np.stack(pairs)
+    a, b = boxes[:, 0], boxes[:, 1]
+    zero = np.float32(0)
+    inter = (np.maximum(np.minimum(a[:, 2], b[:, 2]) - np.maximum(a[:, 0], b[:, 0]), zero)
+             * np.maximum(np.minimum(a[:, 3], b[:, 3]) - np.maximum(a[:, 1], b[:, 1]), zero))
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    iou = inter / (area_a + area_b - inter)
+    steps = (iou.view(np.int32).astype(np.int64)
+             - np.float32(thr).view(np.int32))
+    scores = np.tile(np.array([[0.9, 0.8]], np.float32), (len(boxes), 1))
+    return boxes, scores, steps
+
+
+def nms_disjoint(rng: np.random.RandomState, n: int, k: int):
+    """Problems in which no two boxes overlap, so nothing is suppressed and
+    the greedy sweep keeps every candidate (its longest chain)."""
+    i = np.arange(k)
+    x, y = (i % 64) * 10.0, (i // 64) * 10.0
+    one = np.stack([x, y, x + 5, y + 5], axis=-1).astype(np.float32)
+    scores = -np.sort(-rng.rand(n, k).astype(np.float32), axis=1)
+    return np.tile(one, (n, 1, 1)), scores
+
+
+def nms_ieee_corners(rng: np.random.RandomState, n: int = 60, k: int = 40):
+    """Random problems whose rows each hold one kind of awkward box: NaN or
+    infinite coordinates, areas that overflow (1e30 px), underflow
+    (1e-25 px) or exceed the division-free test's range (1e15 px), and
+    zero-area boxes."""
+    boxes, scores, _ = nms_problems(rng, n, k, 0.45)
+    for p in range(n):
+        pick = rng.rand(k) < 0.4
+        kind = p % 6
+        if kind == 0:
+            boxes[p, pick, rng.randint(0, 4)] = np.nan
+        elif kind == 1:
+            boxes[p, pick, 2] = np.inf
+        elif kind in (2, 3, 4):
+            boxes[p, pick] *= {2: 1e28, 3: 1e-27, 4: 1e13}[kind]
+        else:
+            boxes[p, pick, 2] = boxes[p, pick, 0]
+    return boxes, scores
+
+
 def check_nms_kernel(device: torch.device) -> dict:
+    """The kernel against the plain version, exactly, on random and special
+    problems."""
     rng = np.random.RandomState(SEED)
-    cases = [('flagship b32', 32 * 20, 100, 0.45),
-             ('synthetic_smoke', 8 * 4, 20, 0.45),
-             ('K=128', 96, 128, 0.45),
-             ('K=200', 64, 200, 0.5),
-             ('ragged N', 333, 100, 0.45),
-             ('K=1500 scratch path', 5, 1500, 0.45)]
-    worst = 0.0
-    for name, n, k, thr in cases:
-        boxes_np, scores_np, special = nms_problems(rng, n, k, thr)
+    cases = []  # (name, boxes, scores, thr, special)
+    for name, n, k, thr in [('flagship b32', 32 * 20, 100, 0.45),
+                            ('synthetic_smoke', 8 * 4, 20, 0.45),
+                            ('K=128', 96, 128, 0.45),
+                            ('K=200', 64, 200, 0.5),
+                            ('ragged N', 333, 100, 0.45),
+                            ('K=1500 scratch path', 5, 1500, 0.45),
+                            ('K=1', 8, 1, 0.45), ('K=63', 40, 63, 0.45),
+                            ('K=64', 40, 64, 0.45), ('K=65', 40, 65, 0.5),
+                            ('K=2048 scratch path', 4, 2048, 0.45)]:
+        boxes, scores, special = nms_problems(rng, n, k, thr)
+        cases.append((name, boxes, scores, thr, special))
+    ulp_steps = {}
+    for thr in (0.45, 0.5):
+        boxes, scores, steps = nms_ulp_pairs(thr)
+        ulp_steps[thr] = steps
+        cases.append((f'IoU within 3 float steps of {thr}', boxes, scores,
+                      thr, {}))
+    for name, n, k in [('nothing suppressed', 640, 100),
+                       ('nothing suppressed K=2048', 2, 2048)]:
+        cases.append((name, *nms_disjoint(rng, n, k), 0.45, {}))
+    for thr in (0.45, 0.0):
+        cases.append((f'IEEE corners thr={thr}', *nms_ieee_corners(rng), thr, {}))
+    boxes, scores, _ = nms_problems(rng, 64, 100, 0.45)
+    middle = rng.rand(64, 100) < 0.2
+    middle[:, -1] = False  # the last candidate stays valid
+    scores[middle] = -np.inf
+    cases.append(('-inf in the middle', boxes, scores, 0.45, {}))
+
+    for thr, steps in ulp_steps.items():
+        near = {d: int((steps == d).sum()) for d in range(-3, 4)}
+        if not all(near.values()):
+            fail(f'the threshold pairs miss a float step of {thr}: {near}')
+        log(f'  nms pairs by IoU - {thr} in float steps: {near}')
+    worst = 0
+    for name, boxes_np, scores_np, thr, special in cases:
+        n, k = scores_np.shape
         boxes = torch.from_numpy(boxes_np).to(device)
         scores = torch.from_numpy(scores_np).to(device)
+        want = nms_ops.nms_keep_sorted(boxes, scores, thr)
         got = nms_kernel.nms_keep_batched(boxes, scores, thr)
         torch.cuda.synchronize()
-        want = nms_ops.nms_keep_sorted(boxes, scores, thr)
-        err = (got.int() - want.int()).abs().max().item()
-        worst = max(worst, float(err))
+        worst = max(worst, (got.int() - want.int()).abs().max().item())
         if not torch.equal(got, want):
             bad = (got != want).any(dim=1).nonzero().flatten().tolist()
             fail(f'NMS kernel != plain on {name}: problems {bad[:10]}')
@@ -213,9 +360,11 @@ def check_nms_kernel(device: torch.device) -> dict:
                 fail(f'{name}: identical boxes kept {got[2].sum().item()}')
             if not got[special['at_threshold']].all():
                 fail(f'{name}: IoU equal to the threshold suppressed')
+        if name.startswith('nothing suppressed') and not got.all():
+            fail(f'{name}: a disjoint box was suppressed')
         log(f'  nms {name}: N={n} K={k} thr={thr} exact '
             f'({int(got.sum())} kept)')
-    return {'max_abs_err': worst}
+    return {'max_abs_err': float(worst)}
 
 
 BN_CASES = [  # (name, shape, dtype): the flagship's range at b32, ragged, bf16
@@ -434,9 +583,12 @@ def time_slice(pred: Predictor, heads: dict, rng) -> dict:
     out = {}
     for bs in (32, 128):
         imgs = rng.randint(0, 256, (bs, 300, 300, 3), dtype=np.uint8)
-        ms = host_median_ms(lambda: pred.predict_batch(imgs), iters=20)
+        times = host_times_ms(lambda: pred.predict_batch(imgs), iters=20)
+        ms = statistics.median(times)
         out[f'predict_batch_b{bs}_ms'] = ms
         out[f'predict_batch_b{bs}_img_per_s'] = bs * 1e3 / ms
+        out[f'predict_batch_b{bs}_min_ms'] = min(times)
+        out[f'predict_batch_b{bs}_max_ms'] = max(times)
     out['postprocess_b32_ms'] = cuda_ms(
         lambda: pred.postprocessor(heads['scores'], heads['locs'],
                                    pred.anchors), iters=50)
@@ -447,9 +599,9 @@ def time_slice(pred: Predictor, heads: dict, rng) -> dict:
     return out
 
 
-def time_nms(pred: Predictor, heads: dict, card: str) -> dict:
-    """The NMS kernel at the main path's inputs (b32), beside its plain
-    version and its bound."""
+def nms_inputs(pred: Predictor, images: np.ndarray):
+    """The NMS kernel's inputs (boxes ``[N, K, 4]``, scores ``[N, K]``) on
+    the serving path for ``images``."""
     captured = {}
     original = pred.postprocessor.nms_keep
 
@@ -458,39 +610,132 @@ def time_nms(pred: Predictor, heads: dict, card: str) -> dict:
         return original(boxes, scores)
 
     pred.postprocessor.nms_keep = capture
-    pred.postprocessor(heads['scores'], heads['locs'], pred.anchors)
-    del pred.postprocessor.nms_keep
-    boxes, scores = captured['boxes'], captured['scores']
-    thr = pred.postprocessor.overlap_threshold
-    n, k = scores.shape
-    launch = lambda: nms_kernel.nms_keep_batched(boxes, scores, thr)  # noqa: E731
-    ms = kernels_device_ms(launch, ('nms_keep_kernel',), iters=100)
-    call_ms = cuda_ms(launch, iters=200)
-    plain_ms = cuda_ms(lambda: nms_ops.nms_keep_sorted(boxes, scores, thr),
-                       iters=10)
-    nbytes = boxes.numel() * 4 + scores.numel() * 4 + n * k  # bool out
-    ops = NMS_OPS_PER_PAIR * n * k * (k - 1) / 2
+    try:
+        pred.predict_batch(images)
+    finally:
+        del pred.postprocessor.nms_keep
+    return captured['boxes'], captured['scores']
+
+
+def valid_prefix(scores: torch.Tensor) -> torch.Tensor:
+    """Per problem, 1 + the index of the last candidate with a score above
+    -inf: the candidates the kernel works on."""
+    idx = torch.arange(scores.shape[1], device=scores.device)
+    return torch.where(scores > float('-inf'), idx, -1).max(dim=1).values + 1
+
+
+def nms_bound(scores: torch.Tensor, card: str) -> dict:
+    """Least time for these inputs: scores read, the valid prefix's boxes
+    read, the keep mask written; ``NMS_OPS_PER_PAIR`` per pair of the
+    prefixes."""
+    n_valid = valid_prefix(scores).double()
+    pairs = (n_valid * (n_valid - 1) / 2).sum().item()
+    nbytes = scores.numel() * 5 + n_valid.sum().item() * 16
     bytes_ms = nbytes / hbm_rate(card) * 1e3
-    ops_ms = ops / FP32_RATE * 1e3
-    log(f'  nms inputs from the b32 path: N={n} K={k}, '
-        f'{int(torch.isfinite(scores).sum())} of {n * k} candidates valid')
-    return {'shape': [n, k], 'ms': ms, 'call_ms': call_ms, 'plain_ms': plain_ms,
-            'bound_ms': max(bytes_ms, ops_ms),
+    ops_ms = NMS_OPS_PER_PAIR * pairs / FP32_RATE * 1e3
+    return {'bound_ms': max(bytes_ms, ops_ms),
             'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
-            'bytes': nbytes, 'ops': ops}
+            'bytes': nbytes, 'pairs': pairs,
+            'n_valid': {'min': int(n_valid.min()), 'mean': n_valid.mean().item(),
+                        'max': int(n_valid.max())}}
+
+
+def load_parent_nms(source: str) -> ctypes.CDLL:
+    """Build another version of ``nms.cu`` and declare the C interface that
+    every version has (``nms_keep_scratch_words``, ``nms_keep_launch``)."""
+    lib = ctypes.CDLL(str(_build.build_source(Path(source))))
+    lib.nms_keep_scratch_words.argtypes = [ctypes.c_int]
+    lib.nms_keep_scratch_words.restype = ctypes.c_longlong
+    lib.nms_keep_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.nms_keep_launch.restype = ctypes.c_int
+    return lib
+
+
+def parent_launcher(lib: ctypes.CDLL, boxes: torch.Tensor,
+                    scores: torch.Tensor, thr: float):
+    """A call that launches the other build's kernel on these inputs into a
+    keep mask allocated once (the wrapper's launch count is untouched)."""
+    n, k = scores.shape
+    keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
+    words = lib.nms_keep_scratch_words(k)
+    scratch = (torch.empty(n * words, dtype=torch.int64, device=boxes.device)
+               if words else None)
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+
+    def launch():
+        err = lib.nms_keep_launch(
+            boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, n, k, thr,
+            boxes.device.index, stream)
+        if err:
+            fail(f'parent NMS kernel launch failed ({err})')
+        return keep
+    return launch
+
+
+def time_nms(pred: Predictor, inputs: dict, card: str, parent=None) -> dict:
+    """The NMS kernel's device time per launch at each input, beside the
+    launch floor (an empty kernel on the same grid), the plain version and
+    the bound; with ``parent`` (another build of ``nms.cu``, from
+    :func:`load_parent_nms`) that kernel too, in turns (parent, this, this,
+    parent), after checking that it gives the same keep mask."""
+    thr = pred.postprocessor.overlap_threshold
+    out = {}
+    for name, (boxes, scores) in inputs.items():
+        n, k = scores.shape
+
+        def launch():
+            return nms_kernel.nms_keep_batched(boxes, scores, thr)
+
+        def device_ms(fn, kernel='nms_keep_kernel'):
+            return kernels_device_ms(fn, (kernel,), iters=100)
+
+        row = {'shape': [n, k], **nms_bound(scores, card),
+               'kept_mean': launch().sum(dim=1).double().mean().item()}
+        if parent is not None:
+            parent_launch = parent_launcher(parent, boxes, scores, thr)
+            if not torch.equal(parent_launch(), launch()):
+                fail(f'the parent NMS kernel and this one differ on {name}')
+            turns = {'parent': [], 'this': []}
+            for side in ('parent', 'this', 'this', 'parent'):
+                turns[side].append(device_ms(
+                    parent_launch if side == 'parent' else launch))
+            row['ms'] = statistics.mean(turns['this'])
+            row['parent_ms'] = statistics.mean(turns['parent'])
+            row['turns_ms'] = turns
+        else:
+            row['ms'] = device_ms(launch)
+        row['floor_ms'] = device_ms(
+            lambda: nms_kernel.launch_floor(n, k, boxes.device),
+            'nms_floor_kernel')
+        row['call_ms'] = cuda_ms(launch, iters=200)
+        row['plain_ms'] = cuda_ms(
+            lambda: nms_ops.nms_keep_sorted(boxes, scores, thr), iters=5)
+        out[name] = row
+        parent_part = (f'parent {row["parent_ms"] * 1e3:.2f} us, '
+                       if parent is not None else '')
+        log(f'  nms {name}: N={n} K={k}, n_valid {row["n_valid"]}, '
+            f'{row["kept_mean"]:.2f} kept per problem: '
+            f'{row["ms"] * 1e3:.2f} us/launch ({parent_part}launch floor '
+            f'{row["floor_ms"] * 1e3:.2f} us, bound {row["bound_ms"] * 1e3:.3f} '
+            f'us {row["bound_by"]}); {row["call_ms"] * 1e3:.2f} us per wrapper '
+            f'call; plain {row["plain_ms"]:.3f} ms')
+    return out
 
 
 def profile_b32(pred: Predictor, rng) -> None:
     """Device time by operator over 5 b32 ``predict_batch`` calls."""
-    from torch.profiler import ProfilerActivity, profile
     imgs = rng.randint(0, 256, (32, 300, 300, 3), dtype=np.uint8)
-    for _ in range(3):
-        pred.predict_batch(imgs)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(5):
             pred.predict_batch(imgs)
         torch.cuda.synchronize()
+
+    prof = profile_window(run)
     log('  profile of 5 x predict_batch(32):')
     log(prof.key_averages().table(sort_by='self_cuda_time_total', row_limit=25,
                                   max_name_column_width=60))
@@ -588,10 +833,9 @@ def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str) -> dict:
     """One profiled b32 train step: each BN kernel's device time in the step
     beside its bound for the step's shapes, the card's busy time, and the
     table of device time by operator."""
-    from torch.profiler import ProfilerActivity, profile
     shapes = []
     hooks = [m.register_forward_pre_hook(
-        lambda mod, args: shapes.append((args[0].numel(), args[0].shape[1])))
+        lambda mod, args: shapes.append(tuple(args[0].shape)))
         for m in trainer.model.modules() if isinstance(m, BatchNorm)]
     trainer.train_step(*batch)
     torch.cuda.synchronize()
@@ -599,37 +843,90 @@ def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str) -> dict:
         h.remove()
     if len(shapes) != n_bn:
         fail(f'{len(shapes)} BN calls in a step, expected {n_bn}')
-    t = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    walls = []
+
+    def step():
+        t = time.perf_counter()
         trainer.train_step(*batch)
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t) * 1e3
+        walls.append((time.perf_counter() - t) * 1e3)
+
+    prof = profile_counted(step, [cuda_name for cuda_names, _, _ in
+                                  BN_KERNELS.values() for cuda_name in cuda_names],
+                           n_bn)
+    wall_ms = walls[-1]
     out = {}
     for name, (cuda_names, _, _) in BN_KERNELS.items():
-        total = 0.0
-        for cuda_name in cuda_names:
-            us, count = device_us(prof, cuda_name)
-            if count != n_bn:
-                fail(f'{cuda_name}: {count} launches in a profiled step, '
-                     f'expected {n_bn}')
-            total += us
+        total = sum(device_us(prof, cuda_name)[0] for cuda_name in cuda_names)
         out[name] = {'step_ms': total / 1e3, 'step_bound_ms': sum(
-            bn_bound_ms(name, e, c, card)[0] for e, c in shapes)}
-    averages = prof.key_averages()
-    busy_us = sum(getattr(e, 'self_device_time_total', 0) for e in averages
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    out['device_busy_ms'] = busy_us / 1e3
+            bn_bound_ms(name, math.prod(s), s[1], card)[0] for s in shapes)}
+    busy_ms = busy_us(prof) / 1e3
+    out['device_busy_ms'] = busy_ms
     out['profiled_step_wall_ms'] = wall_ms
-    out['bn_elements_per_step'] = sum(e for e, _ in shapes)
+    out['bn_elements_per_step'] = sum(math.prod(s) for s in shapes)
+    out['bn_shapes'] = shapes
     log(f'  profile of one train_step(32) with the BN kernels '
-        f'({busy_us / 1e3:.3f} ms of device time in {wall_ms:.3f} ms of wall '
+        f'({busy_ms:.3f} ms of device time in {wall_ms:.3f} ms of wall '
         f'time under the profiler):')
-    log(averages.table(sort_by='self_cuda_time_total', row_limit=30,
+    log(prof.key_averages().table(sort_by='self_cuda_time_total', row_limit=30,
                        max_name_column_width=60))
     return out
 
 
-def main() -> int:
+def device_busy_ms(fn, iters: int = 3) -> float:
+    """Device time per call of ``fn``, summed over every CUDA kernel it
+    launches, from the profiler's trace."""
+    def run():
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+
+    return busy_us(profile_window(run)) / iters / 1e3
+
+
+def library_bn_step_ms(shapes) -> dict:
+    """The PyTorch pairs over one train step's BN shapes (f32, one call per
+    shape): ``native_batch_norm`` (K1+K2) and
+    ``native_batch_norm_backward`` (K3+K4), device time summed over all of
+    their kernels."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
+    data = []
+    for shape in shapes:
+        c = shape[1]
+        data.append((torch.randn(shape, device='cuda', generator=gen),
+                     torch.randn(shape, device='cuda', generator=gen),
+                     torch.rand(c, device='cuda', generator=gen) + 0.5,
+                     torch.randn(c, device='cuda', generator=gen) * 0.1))
+
+    def forward():
+        return [torch.native_batch_norm(x, scale, bias, None, None, True, 0.0,
+                                        BN_EPS) for x, _, scale, bias in data]
+
+    saved = [(mean, invstd) for _, mean, invstd in forward()]
+
+    def backward():
+        for (x, dz, scale, _), (mean, invstd) in zip(data, saved):
+            torch.ops.aten.native_batch_norm_backward(
+                dz, x, scale, None, None, mean, invstd, True, BN_EPS,
+                [True, True, True])
+
+    out = {'K1+K2': device_busy_ms(forward), 'K3+K4': device_busy_ms(backward)}
+    del data, saved
+    torch.cuda.empty_cache()
+    return out
+
+
+def parse_args(argv):
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument(
+        '--parent-nms', metavar='NMS_CU',
+        help='another version of kernels/nms.cu (e.g. from a git archive '
+             'of an earlier commit) to build and time beside this one')
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     # 1. environment
     if not torch.cuda.is_available():
         print('FAIL: CUDA is not available', file=sys.stderr)
@@ -646,9 +943,14 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together
     t = time.perf_counter()
     with ThreadPoolExecutor() as pool:
-        for build in [pool.submit(m.build) for m in (nms_kernel, bn_kernel)]:
-            build.result()
-    log(f'[2] built the nms and bn kernels in {time.perf_counter() - t:.2f} s')
+        builds = [pool.submit(m.build) for m in (nms_kernel, bn_kernel)]
+        parent = (pool.submit(load_parent_nms, args.parent_nms)
+                  if args.parent_nms else None)
+        for b in builds:
+            b.result()
+        parent_nms = parent.result() if parent else None
+    log(f'[2] built the nms and bn kernels in {time.perf_counter() - t:.2f} s'
+        + (f' (and {args.parent_nms})' if args.parent_nms else ''))
 
     # 3. kernels against their plain versions
     log('[3] kernels vs plain versions on the card')
@@ -677,12 +979,18 @@ def main() -> int:
 
     # 5. serving times
     timing = time_slice(pred, heads, rng)
-    nms_time = time_nms(pred, heads, card)
     log(f'[5] {smi}: ' + ', '.join(f'{k} {v:.4g}' for k, v in timing.items()))
-    log(f'  nms kernel {nms_time["ms"] * 1e3:.2f} us/launch on the device, '
-        f'{nms_time["call_ms"] * 1e3:.2f} us per wrapper call, at N,K='
-        f'{nms_time["shape"]}; plain {nms_time["plain_ms"]:.3f} ms per call; '
-        f'bound {nms_time["bound_ms"] * 1e3:.3f} us ({nms_time["bound_by"]})')
+    b32 = nms_inputs(pred, batches[0])
+    sparse_scores = b32[1].clone()
+    prefix = torch.from_numpy(rng.randint(0, 21, len(sparse_scores))).cuda()
+    sparse_scores[torch.arange(sparse_scores.shape[1], device='cuda')[None]
+                  >= prefix[:, None]] = float('-inf')
+    nms_time = time_nms(pred, {
+        'b32': b32,
+        'b128': nms_inputs(pred, rng.randint(0, 256, (128, 300, 300, 3),
+                                             dtype=np.uint8)),
+        'sparse b32 (synthetic: valid prefixes of 0-20)': (b32[0], sparse_scores),
+    }, card, parent_nms)
     profile_b32(pred, rng)
     forward_err = heads['forward_vs_cpu']
     del pred, heads, outs
@@ -708,6 +1016,7 @@ def main() -> int:
                                     train_batches[0])
     bn_time = time_bn_kernels(card)
     step_profile = profile_train_step(trainer, train_batches[0], n_bn, card)
+    library_step = library_bn_step_ms(step_profile.pop('bn_shapes'))
     log(f'[7] {smi}: train_step b32 with the BN kernels '
         f'{train_timing["train_step_b32_fused_bn_ms"]:.3f} ms = '
         f'{train_timing["train_step_b32_fused_bn_img_per_s"]:.1f} img/s; with '
@@ -720,6 +1029,13 @@ def main() -> int:
             f'{k["plain_ms"] * 1e3:.2f} us; PyTorch {k["library_pair"]} pair '
             f'{k["library_ms"] * 1e3:.2f} us); {s["step_ms"]:.3f} ms per step '
             f'over {n_bn} launches (bound {s["step_bound_ms"]:.3f} ms)')
+    pair_steps = {'K1+K2': step_profile['bn_stats']['step_ms']
+                  + step_profile['bn_apply']['step_ms'],
+                  'K3+K4': step_profile['bn_grad_sums']['step_ms']
+                  + step_profile['bn_dx']['step_ms']}
+    for pair, ms in library_step.items():
+        log(f'  per step over the {n_bn} BN shapes: kernels {pair} {pair_steps[pair]:.3f} ms, '
+            f'PyTorch pair {ms:.3f} ms')
 
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
@@ -737,12 +1053,13 @@ def main() -> int:
         'replaces': 'single_shot_detection_tpu/ops/nms_pallas.py:33',
         'launches': launches,
         'max_abs_err': nms_check['max_abs_err'],
-        'ms': nms_time['ms'],
-        'call_ms': nms_time['call_ms'],
-        'plain_ms': nms_time['plain_ms'],
-        'bound_ms': nms_time['bound_ms'],
-        'bound_by': nms_time['bound_by'],
+        **{key: nms_time['b32'][key] for key in (
+            'shape', 'ms', 'call_ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'floor_ms', 'n_valid')},
         'library_ms': None,
+        'by_input': {name: {key: value for key, value in row.items()
+                            if key not in ('bytes', 'turns_ms')}
+                     for name, row in nms_time.items()},
     }]
     for name, (_, _, replaces) in BN_KERNELS.items():
         kernels.append({
@@ -755,6 +1072,7 @@ def main() -> int:
             'shape': list(BN_TIMED_SHAPE),
             **bn_time[name],
             **step_profile[name],
+            'library_step_ms': library_step[bn_time[name]['library_pair']],
         })
     log(json.dumps({'kernels': kernels}))
     log(smi)

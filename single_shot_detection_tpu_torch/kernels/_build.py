@@ -37,27 +37,34 @@ def find_nvcc() -> str:
                        'source at first use and need the CUDA toolkit')
 
 
-def library_path(name: str) -> Path:
-    source = KERNEL_DIR / f'{name}.cu'
+def library_path(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes()
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f'lib{name}-{digest}.so'
+    return BUILD_DIR / f'lib{source.stem}-{digest}.so'
 
 
 def build(name: str) -> Path:
-    """Compile ``<name>.cu`` unless an up-to-date library exists; return
-    its path."""
-    out = library_path(name)
+    """Compile ``<name>.cu`` of this directory unless an up-to-date library
+    exists; return its path."""
+    return build_source(KERNEL_DIR / f'{name}.cu')
+
+
+def build_source(source: Path) -> Path:
+    """Compile the CUDA source file ``source`` (this directory's or another
+    checkout's) into the build directory unless an up-to-date library
+    exists; return the library's path."""
+    source = Path(source).resolve()
+    out = library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, str(KERNEL_DIR / f'{name}.cu')]
+    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed for {name}.cu '
+            raise RuntimeError(f'nvcc failed for {source} '
                                f'(exit {proc.returncode}):\n{proc.stderr}')
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     finally:

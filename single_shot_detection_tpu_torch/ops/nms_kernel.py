@@ -3,7 +3,8 @@
 Port of ``single_shot_detection_tpu/ops/nms_pallas.py::nms_keep_batched``.
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain version
 ``ops/nms.py::nms_keep_sorted``.  On CUDA there is no fallback: a failed
-build or launch raises.
+build or launch raises.  The kernel takes K up to ``MAX_K`` candidates per
+problem (its greedy sweep holds one 64-bit word per lane of a warp).
 """
 
 from __future__ import annotations
@@ -17,6 +18,10 @@ from single_shot_detection_tpu_torch.kernels import _build
 from single_shot_detection_tpu_torch.ops import nms as nms_ops
 
 
+# Candidates per problem the kernel takes: 32 lanes x 64 bits
+MAX_K = 2048
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load('nms')
@@ -27,6 +32,9 @@ def _library() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p]
     lib.nms_keep_launch.restype = ctypes.c_int
+    lib.nms_floor_launch.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
+    lib.nms_floor_launch.restype = ctypes.c_int
     lib.nms_error_string.argtypes = [ctypes.c_int]
     lib.nms_error_string.restype = ctypes.c_char_p
     return lib
@@ -52,6 +60,9 @@ def _check(boxes: torch.Tensor, scores: torch.Tensor) -> None:
         raise ValueError('boxes and scores must be contiguous')
     if boxes.data_ptr() % 16:
         raise ValueError('boxes must be 16-byte aligned (read as float4)')
+    if boxes.shape[1] > MAX_K:
+        raise ValueError(f'the NMS kernel takes at most {MAX_K} candidates '
+                         f'per problem, got {boxes.shape[1]}')
 
 
 def nms_keep_batched(boxes: torch.Tensor, scores: torch.Tensor,
@@ -92,3 +103,15 @@ def nms_keep_batched(boxes: torch.Tensor, scores: torch.Tensor,
 
 # Kernel launches since the count was last set to 0.
 nms_keep_batched.launches = 0
+
+
+def launch_floor(n: int, k: int, device: torch.device) -> None:
+    """Launch an empty kernel on the grid, block and shared memory of the
+    NMS kernel for ``n`` problems of ``k`` candidates: the least time any
+    launch of that shape takes."""
+    lib = _library()
+    err = lib.nms_floor_launch(n, k, device.index,
+                               torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f'NMS floor launch failed: '
+                           f'{lib.nms_error_string(err).decode()} ({err})')

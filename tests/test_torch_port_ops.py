@@ -14,6 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
@@ -191,6 +193,28 @@ def test_nms_mask_unsorted_with_ties_matches_jax():
         np.testing.assert_array_equal(got[j], want)
 
 
+@settings(max_examples=80, deadline=None, derandomize=True, database=None)
+@given(k=st.integers(1, 40), seed=st.integers(0, 2 ** 31 - 1),
+       invalid=st.floats(0.0, 1.0), thr=st.sampled_from([0.0, 0.3, 0.45, 0.5]))
+def test_nms_keep_needs_only_the_valid_prefix(k, seed, invalid, thr):
+    """What the kernel relies on: past the last candidate with a score above
+    -inf nothing is kept, and the keep mask of the prefix [0, n_valid) does
+    not depend on the candidates after it, wherever -inf stands."""
+    rng = np.random.RandomState(seed)
+    boxes = random_corners(rng, (k,))
+    boxes[rng.rand(k) < 0.2] = boxes[0]  # some identical boxes
+    scores = -np.sort(-rng.rand(k).astype(np.float32))
+    scores[rng.rand(k) < invalid] = -np.inf
+    valid = np.flatnonzero(scores > -np.inf)
+    n_valid = valid[-1] + 1 if len(valid) else 0
+    full = pt_nms.nms_keep_sorted(t(boxes), t(scores), thr).numpy()
+    prefix = np.zeros(k, bool)
+    if n_valid:
+        prefix[:n_valid] = pt_nms.nms_keep_sorted(
+            t(boxes[:n_valid]), t(scores[:n_valid]), thr).numpy()
+    np.testing.assert_array_equal(full, prefix)
+
+
 def test_nms_wrapper_counts_only_kernel_launches():
     rng = np.random.RandomState(4)
     boxes = t(random_corners(rng, (3, 10)))
@@ -205,6 +229,8 @@ def test_nms_wrapper_counts_only_kernel_launches():
     (torch.zeros(2, 5, 3), torch.zeros(2, 5), ValueError),
     (torch.zeros(2, 5, 4), torch.zeros(2, 6), ValueError),
     (torch.zeros(2, 4, 5).transpose(1, 2), torch.zeros(2, 5), ValueError),
+    (torch.zeros(1, nms_kernel.MAX_K + 1, 4),
+     torch.zeros(1, nms_kernel.MAX_K + 1), ValueError),
 ])
 def test_nms_wrapper_rejects_what_the_kernel_does_not_take(boxes, scores, error):
     with pytest.raises(error):

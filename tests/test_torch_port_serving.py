@@ -20,6 +20,7 @@ import torch
 from flax import serialization
 
 from single_shot_detection_tpu.data.datasets import Synthetic
+from single_shot_detection_tpu.data.loader import stage_image
 from single_shot_detection_tpu.data.transforms import (Pipeline, identity_state,
                                                       sample_view)
 from single_shot_detection_tpu.models import builder as jax_builder
@@ -84,17 +85,50 @@ def test_stage_images_resize_is_bilinear_and_identity_at_size():
     # a 2x pixel-repeated image halves back to the original exactly
     up = img.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     assert torch.equal(stage_images(up, (60, 40)), img)
-    # cv2's fixed-point INTER_LINEAR differs by at most one grey level
+    # equal to cv2's fixed-point INTER_LINEAR, bit for bit
     cv2 = pytest.importorskip('cv2')
     src = rng.randint(0, 256, (97, 131, 3), dtype=np.uint8)
     want = cv2.resize(src, (64, 48), interpolation=cv2.INTER_LINEAR)
     got = stage_images(torch.from_numpy(src)[None], (64, 48))[0].numpy()
-    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    np.testing.assert_array_equal(got, want)
+
+
+# (h, w) -> (new_h, new_w): request sizes down to 300x300, an upscale, odd
+# sizes on both sides, a small case, and an exact 2x downscale (cv2's
+# INTER_AREA path)
+STAGE_SIZES = [((480, 640), (300, 300)), ((375, 500), (300, 300)),
+               ((720, 1280), (300, 300)), ((150, 150), (300, 300)),
+               ((299, 301), (300, 300)), ((97, 131), (48, 64)),
+               ((600, 600), (300, 300))]
+
+
+@pytest.mark.parametrize('src_hw,dst_hw', STAGE_SIZES)
+def test_stage_images_equals_jax_stage_image(src_hw, dst_hw):
+    pytest.importorskip('cv2')  # stage_image falls back to PIL without it
+    rng = np.random.RandomState(sum(src_hw))
+    src = rng.randint(0, 256, (2, *src_hw, 3), dtype=np.uint8)
+    (h, w), (new_h, new_w) = src_hw, dst_hw
+    got = stage_images(torch.from_numpy(src), (new_w, new_h)).numpy()
+    assert got.shape == (2, new_h, new_w, 3) and got.dtype == np.uint8
+    for i in range(2):
+        want, _ = stage_image(src[i], np.zeros((0, 4), np.float32),
+                              (new_w, new_h))
+        np.testing.assert_array_equal(got[i], want)
+
+
+def test_stage_images_takes_only_uint8_when_resizing():
+    img = torch.zeros(1, 20, 30, 3)
+    assert stage_images(img, (30, 20)) is img
+    with pytest.raises(TypeError):
+        stage_images(img, (15, 10))
 
 
 # ------------------------------------------------------------- end to end
 
-def test_predictor_matches_jax_predict_step(checkpoint):
+@pytest.fixture(scope='module')
+def jax_predict(checkpoint):
+    """The JAX serving path on the committed checkpoint: ``(config path,
+    input size, staged uint8 -> (detections, valid))``."""
     config = str(CKPT_DIR / 'config.py')
     cfg = jax_load_config(config)
     model = dict(cfg.model)
@@ -106,11 +140,21 @@ def test_predictor_matches_jax_predict_step(checkpoint):
     post = Postprocessor(BoxCoder(**cfg.box_coder), use_pallas=False,
                          **cfg.postprocess)
     step = make_predict_step(bundle.module, post, bundle.anchors())
+    size = tuple(cfg.input_size)
+
+    def run(staged):
+        return tuple(map(np.asarray, step(
+            checkpoint, jax_eval_pipeline(staged, size))))
+
+    return config, size, run
+
+
+def test_predictor_matches_jax_predict_step(checkpoint, jax_predict):
+    config, _, run = jax_predict
     data = Synthetic(num_images=6, image_size=128, num_classes=5, max_boxes=3,
                      seed=2)
     staged = np.stack([a['image'] for a in data.annotations])
-    want_d, want_v = map(np.asarray, step(
-        checkpoint, jax_eval_pipeline(staged, tuple(cfg.input_size))))
+    want_d, want_v = run(staged)
 
     pred = Predictor.from_config(config, variables=checkpoint, device='cpu')
     got_d, got_v = pred.predict_batch(staged)
@@ -125,6 +169,36 @@ def test_predictor_matches_jax_predict_step(checkpoint):
     want_one = want_d[0][want_v[0]].copy()
     want_one[:, :4] *= 2
     np.testing.assert_allclose(dets, want_one, rtol=0, atol=2e-3)
+
+
+def test_predict_480x640_request_matches_jax_stage_image(checkpoint,
+                                                         jax_predict):
+    """A 480x640 request: the port stages it on the device, JAX with cv2
+    (``stage_image``); then the same eval pipeline and predict step."""
+    pytest.importorskip('cv2')
+    config, (in_w, in_h), run = jax_predict
+    data = Synthetic(num_images=2, image_size=128, num_classes=5, max_boxes=3,
+                     seed=4)
+    # nearest-neighbour upscale of a synthetic image to the request size
+    img = data.annotations[0]['image']
+    request = img[(np.arange(480) * img.shape[0]) // 480][
+        :, (np.arange(640) * img.shape[1]) // 640]
+    staged, _ = stage_image(request, np.zeros((0, 4), np.float32),
+                            (in_w, in_h))
+    want_d, want_v = run(staged[None])
+
+    pred = Predictor.from_config(config, variables=checkpoint, device='cpu')
+    got_d, got_v = pred.predict_batch(request[None])
+    np.testing.assert_array_equal(got_v.numpy(), want_v)
+    assert want_v.sum() >= 1
+    np.testing.assert_allclose(got_d.numpy()[want_v], want_d[want_v],
+                               rtol=0, atol=1e-3)
+    # predict() returns the same rows in the request's own pixels
+    dets = pred.predict(request)
+    rows = got_d[0][got_v[0]].numpy().copy()
+    rows[:, [0, 2]] *= 640 / in_w
+    rows[:, [1, 3]] *= 480 / in_h
+    np.testing.assert_array_equal(dets, rows)
 
 
 def test_predictor_random_weights_are_seeded():
