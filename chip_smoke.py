@@ -48,7 +48,22 @@ beside this one in phase 5, in turns.  Phases, each fatal:
    K1+K2, its backward for K3+K4), each kernel's device time summed over a
    step beside the step's bound, a profiler table of one train step, and
    the PyTorch pairs' device time summed over the step's 64 BN shapes
-   beside the kernel pairs' time per step.
+   beside the kernel pairs' time per step;
+8. the flagship as shipped: ``Experiment`` on ``samples/ssd_mb2_voc.py``
+   with its augmentation chain, ``train.fused_bn``, seeded random weights
+   and the synthetic data of ``FLAGSHIP_DATA`` (500 px images, so the
+   loader stages a real resize to 300x300), one epoch of 8 b32 augmented
+   steps and an evaluation of 2 b64 batches, with the kernels' launch counts
+   read around that run (each BN kernel 64 x 8, the NMS kernel 2); losses
+   and mAP checked finite (mAP in [0, 1]), one augmentation draw applied to
+   the same b32 batch on the card and on the CPU (masks and boxes equal,
+   pixels within ``AUG_PIXEL_TOL``), and the eval postprocessor with the
+   kernel against the plain one (valid masks equal);
+9. the slice's times: train epoch img/s with augmentation, eval img/s, the
+   train loader alone (staging on the card and on the CPU) and an epoch
+   with CPU staging, the augmentation ``Pipeline``'s device and host ms per
+   b32 batch and its share of the augmented step, and a profiler table of
+   one augmented train step.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -77,7 +92,10 @@ from single_shot_detection_tpu_torch.models.layers import BatchNorm
 from single_shot_detection_tpu_torch.ops import bn_kernel
 from single_shot_detection_tpu_torch.ops import nms as nms_ops
 from single_shot_detection_tpu_torch.ops import nms_kernel
+from single_shot_detection_tpu_torch.data import transforms
 from single_shot_detection_tpu_torch.predict import Predictor
+from single_shot_detection_tpu_torch.train.engine import Experiment
+from single_shot_detection_tpu_torch.train.step import make_train_step
 from single_shot_detection_tpu_torch.trainer import Trainer
 
 FLAGSHIP = 'samples/ssd_mb2_voc.py'
@@ -916,6 +934,221 @@ def library_bn_step_ms(shapes) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 8
+
+# The flagship's data for phases 8-9: the JAX package's procedural dataset
+# at 500 px, so the loader stages a real resize to 300x300.
+FLAGSHIP_DATA = {
+    'train': {'name': 'Synthetic', 'num_images': 256, 'image_size': 500,
+              'num_classes': 21, 'max_boxes': 6, 'seed': 1},
+    'eval': {'name': 'Synthetic', 'num_images': 128, 'image_size': 500,
+             'num_classes': 21, 'max_boxes': 6, 'seed': 2},
+}
+# Pixels of the augmentation on the card against the CPU, same draws, on the
+# 0-255 scale: the image means (the contrast anchor and the expand fill, over
+# 90,000 pixels) and the two resample products sum in another order there.
+AUG_PIXEL_TOL = 2e-3
+
+
+def build_experiment() -> Experiment:
+    return Experiment(FLAGSHIP, phases=('train', 'eval'), device='cuda',
+                      seed=SEED, overrides={
+                          'dataset': FLAGSHIP_DATA,
+                          'train': {'epochs': 1, 'eval_every': 1,
+                                    'fused_bn': True}})
+
+
+def run_experiment(exp: Experiment):
+    """``Experiment.train()`` (one epoch, then ``evaluate()``) with every
+    kernel's count read around it."""
+    nms_kernel.nms_keep_batched.launches = 0
+    for fn in bn_kernel.KERNELS:
+        fn.launches = 0
+    t = time.perf_counter()
+    rows = exp.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {fn.__name__: fn.launches for fn in bn_kernel.KERNELS}
+    launches['nms_keep_batched'] = nms_kernel.nms_keep_batched.launches
+    return rows, launches, seconds
+
+
+def check_experiment(exp: Experiment, rows, launches, n_bn: int) -> None:
+    steps = len(exp.loaders['train'])
+    eval_batches = len(exp.loaders['eval'])
+    if (steps, eval_batches) != (8, 2) or len(rows) != 1:
+        fail(f'{steps} train steps, {eval_batches} eval batches, '
+             f'{len(rows)} epoch rows; expected 8, 2 and 1')
+    row = rows[0]
+    if not all(np.isfinite(v) for v in row.values()):
+        fail(f'non-finite epoch row {row}')
+    if not 0.0 <= row.get('eval_mAP', -1.0) <= 1.0:
+        fail(f'eval mAP {row.get("eval_mAP")} outside [0, 1]')
+    want = {fn.__name__: n_bn * steps for fn in bn_kernel.KERNELS}
+    want['nms_keep_batched'] = eval_batches
+    if launches != want:
+        fail(f'kernel launches {launches}, expected {want}')
+
+
+def first_batch(loader, device):
+    batch = next(iter(loader))
+    return tuple(torch.from_numpy(batch[k]).to(device)
+                 for k in ('image', 'boxes', 'box_mask'))
+
+
+def check_augmentation_card_vs_cpu(exp: Experiment, batch) -> dict:
+    """One draw dict applied to the same b32 batch on the card and on the
+    CPU: masks and boxes equal, pixels within ``AUG_PIXEL_TOL`` on the 0-255
+    scale."""
+    pipeline = exp.trainer.pipeline
+    draws = exp.trainer.draws(0, batch[0].shape[0])
+    with torch.no_grad():
+        card = pipeline.apply(transforms.draws_to(draws, batch[0].device), *batch)
+        cpu = pipeline.apply(draws, *(x.cpu() for x in batch))
+    x_card, boxes_card, mask_card = (x.cpu() for x in card)
+    if not torch.equal(mask_card, cpu[2]):
+        fail('augmented masks differ between the card and the CPU')
+    if not torch.equal(boxes_card, cpu[1]):
+        err = (boxes_card - cpu[1]).abs().max().item()
+        fail(f'augmented boxes differ between the card and the CPU by {err}')
+    pre = pipeline.preprocess
+    std = torch.tensor(pre.std or (1.0, 1.0, 1.0))[:, None, None]
+    err = ((x_card - cpu[0]).abs() * std * pre.divisor).max().item()
+    if not err <= AUG_PIXEL_TOL:
+        fail(f'augmented pixels differ between the card and the CPU by {err} '
+             f'> {AUG_PIXEL_TOL} on the 0-255 scale')
+    dropped = (batch[2].cpu() & ~cpu[2][:, :batch[2].shape[1]]).sum().item()
+    log(f'  augmentation card vs CPU (b{batch[0].shape[0]}, one draw dict): '
+        f'masks and boxes equal ({int(mask_card.sum())} boxes kept, '
+        f'{dropped} dropped), pixels max abs err {err:.3g} (tol '
+        f'{AUG_PIXEL_TOL}, 0-255 scale)')
+    return {'aug_card_vs_cpu_pixel_max_abs_err': err}
+
+
+def check_eval_kernel_vs_plain(exp: Experiment, batch) -> None:
+    """The eval postprocessor with the NMS kernel against the plain one on
+    one eval batch's heads: valid masks and detections equal."""
+    x, _, _ = exp.eval_pipeline.apply([], *batch)
+    exp.model.eval()
+    with torch.inference_mode():
+        scores, locs = exp.model(x)
+    plain = copy.copy(exp.postprocessor)
+    plain.nms_keep = lambda boxes, scores: nms_ops.nms_keep_sorted(
+        boxes, scores, plain.overlap_threshold)
+    d_k, v_k = exp.postprocessor(scores.float(), locs.float(), exp.anchors)
+    d_p, v_p = plain(scores.float(), locs.float(), exp.anchors)
+    if not torch.equal(v_k, v_p) or not torch.equal(d_k[v_k], d_p[v_p]):
+        fail('eval postprocessor with the NMS kernel differs from the plain one')
+    log(f'  eval postprocess (b{x.shape[0]}) with the NMS kernel == plain: '
+        f'{int(v_k.sum())} valid detections')
+
+
+# ---------------------------------------------------------------- phase 9
+
+def time_experiment(exp: Experiment, batch, card: str) -> dict:
+    """Epoch img/s with augmentation, eval img/s, the train loader's img/s
+    alone (staging on the card, then on the CPU) and an epoch's with CPU
+    staging, the ``Pipeline``'s device and host ms per b32 batch and its
+    share of the augmented step, and a profiler table of one augmented
+    train step."""
+    loader = exp.loaders['train']
+    images = len(loader) * loader.batch_size
+
+    def seconds(fn):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    epoch_s = seconds(lambda: exp.train_epoch(1))
+    eval_s = seconds(exp.evaluate)
+    out = {'train_epoch_s': epoch_s, 'train_epoch_img_per_s': images / epoch_s,
+           'eval_s': eval_s,
+           'eval_img_per_s': len(exp.datasets['eval']) / eval_s,
+           'loader_img_per_s': images / seconds(lambda: list(loader))}
+    # the loader staging on the CPU instead of the card
+    loader.staging_device = torch.device('cpu')
+    out['loader_cpu_staging_img_per_s'] = images / seconds(lambda: list(loader))
+    out['train_epoch_cpu_staging_img_per_s'] = images / seconds(
+        lambda: exp.train_epoch(2))
+    loader.staging_device = batch[0].device
+
+    trainer = exp.trainer
+    b = batch[0].shape[0]
+    draws = transforms.draws_to(trainer.draws(0, b), batch[0].device)
+
+    def augment():
+        with torch.no_grad():
+            trainer.pipeline.apply(draws, *batch)
+
+    def step():
+        trainer.train_step(*batch)
+
+    def augment_5():
+        for _ in range(5):
+            augment()
+        torch.cuda.synchronize()
+
+    prof = profile_window(augment_5)
+    out['pipeline_b32_device_ms'] = busy_us(prof) / 5 / 1e3
+    out['pipeline_b32_aten_calls'] = sum(
+        e.count for e in prof.key_averages() if e.key.startswith('aten::')) / 5
+    out['pipeline_b32_host_ms'] = statistics.median(host_times_ms(augment, 10))
+    out['aug_train_step_b32_ms'] = statistics.median(host_times_ms(step, 8))
+    # the step on the same batch with the chain and without it (given draws,
+    # so neither samples), in turns
+    plain = transforms.Pipeline((), exp.cfg.preprocessing,
+                                trainer.bundle.input_size)
+    sides = {side: (make_train_step(trainer.criterion, trainer.assigner,
+                                    trainer.anchors, trainer.schedule, pipe), d)
+             for side, pipe, d in (('augmented', trainer.pipeline, draws),
+                                   ('plain', plain, []))}
+    turns = {side: [] for side in sides}
+    for side in ('augmented', 'plain', 'plain', 'augmented'):
+        fn, d = sides[side]
+        turns[side] += host_times_ms(lambda: fn(trainer.state, *batch, d), 6,
+                                     warmup=1)
+    for side, times in turns.items():
+        out[f'{side}_step_given_draws_b32_ms'] = statistics.median(times)
+    walls = []
+
+    def profiled_step():
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+
+    prof = profile_window(profiled_step)
+    out['aug_train_step_b32_device_busy_ms'] = busy_us(prof) / 1e3
+    out['pipeline_share_of_step_device'] = (
+        out['pipeline_b32_device_ms'] / out['aug_train_step_b32_device_busy_ms'])
+    out['pipeline_share_of_step_wall'] = (
+        out['pipeline_b32_host_ms'] / out['aug_train_step_b32_ms'])
+    log(f'[9] {card}: train epoch ({images} images, augmented, fused_bn) '
+        f'{epoch_s:.3f} s = {out["train_epoch_img_per_s"]:.1f} img/s; '
+        f'evaluate ({len(exp.datasets["eval"])} images) {eval_s:.3f} s = '
+        f'{out["eval_img_per_s"]:.1f} img/s')
+    log(f'  loader alone {out["loader_img_per_s"]:.1f} img/s staging on the '
+        f'card, {out["loader_cpu_staging_img_per_s"]:.1f} img/s on the CPU; '
+        f'train epoch with CPU staging '
+        f'{out["train_epoch_cpu_staging_img_per_s"]:.1f} img/s')
+    log(f'  Pipeline b{b}: {out["pipeline_b32_aten_calls"]:.0f} aten calls '
+        f'(nested ones counted), {out["pipeline_b32_device_ms"]:.3f} ms of '
+        f'device time ({100 * out["pipeline_share_of_step_device"]:.1f} % of the '
+        f'augmented step\'s {out["aug_train_step_b32_device_busy_ms"]:.3f} ms), '
+        f'{out["pipeline_b32_host_ms"]:.3f} ms of wall time '
+        f'({100 * out["pipeline_share_of_step_wall"]:.1f} % of the augmented '
+        f'step\'s {out["aug_train_step_b32_ms"]:.3f} ms)')
+    log(f'  the step with draws given, in turns: with the chain '
+        f'{out["augmented_step_given_draws_b32_ms"]:.3f} ms, without it '
+        f'{out["plain_step_given_draws_b32_ms"]:.3f} ms (medians of 12)')
+    log(f'  profile of one augmented train_step(32) ({walls[-1]:.3f} ms of '
+        f'wall time under the profiler):')
+    log(prof.key_averages().table(sort_by='self_cuda_time_total', row_limit=30,
+                                  max_name_column_width=60))
+    return out
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
@@ -1036,6 +1269,28 @@ def main(argv=None) -> int:
     for pair, ms in library_step.items():
         log(f'  per step over the {n_bn} BN shapes: kernels {pair} {pair_steps[pair]:.3f} ms, '
             f'PyTorch pair {ms:.3f} ms')
+    del trainer, library_check['library']
+    torch.cuda.empty_cache()
+
+    # 8. the flagship as shipped: Experiment, train and eval
+    t = time.perf_counter()
+    exp = build_experiment()
+    log(f'[8] experiment built in {time.perf_counter() - t:.2f} s: {FLAGSHIP} '
+        f'with its augmentation chain ({len(exp.trainer.pipeline.stages)} '
+        f'stages), fused_bn, synthetic 500 px data, '
+        f'{len(exp.loaders["train"])} train and {len(exp.loaders["eval"])} '
+        f'eval batches')
+    exp_rows, exp_launches, exp_s = run_experiment(exp)
+    check_experiment(exp, exp_rows, exp_launches, n_bn)
+    log(f'  Experiment.train() (1 epoch + evaluate) in {exp_s:.2f} s: '
+        + json.dumps(exp_rows[0]) + '; kernel launches '
+        + json.dumps(exp_launches))
+    aug_batch = first_batch(exp.loaders['train'], device)
+    aug_check = check_augmentation_card_vs_cpu(exp, aug_batch)
+    check_eval_kernel_vs_plain(exp, first_batch(exp.loaders['eval'], device))
+
+    # 9. the slice's times
+    exp_timing = time_experiment(exp, aug_batch, smi)
 
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
@@ -1045,13 +1300,19 @@ def main(argv=None) -> int:
         'bn_vs_library_stats_max_abs_err': library_check['stats_max_abs_err'],
         'train_step_device_busy_ms': step_profile['device_busy_ms'],
         'profiled_train_step_wall_ms': step_profile['profiled_step_wall_ms'],
-        'bn_elements_per_step': step_profile['bn_elements_per_step']}}))
+        'bn_elements_per_step': step_profile['bn_elements_per_step'],
+        'experiment_epoch_row': exp_rows[0], 'experiment_s': exp_s,
+        **aug_check, **exp_timing}}))
+    # ``launches``: the count on this slice's path (phase 8's Experiment);
+    # ``launches_by_path``: each path's own run
     kernels = [{
         'name': 'nms_keep_batched',
         'route': 'cuda',
         'source': 'single_shot_detection_tpu_torch/kernels/nms.cu',
         'replaces': 'single_shot_detection_tpu/ops/nms_pallas.py:33',
-        'launches': launches,
+        'launches': exp_launches['nms_keep_batched'],
+        'launches_by_path': {'serving': launches, 'experiment':
+                             exp_launches['nms_keep_batched']},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
             'shape', 'ms', 'call_ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -1067,7 +1328,9 @@ def main(argv=None) -> int:
             'route': 'cuda',
             'source': 'single_shot_detection_tpu_torch/kernels/bn.cu',
             'replaces': replaces,
-            'launches': bn_launches[name],
+            'launches': exp_launches[name],
+            'launches_by_path': {'train_step': bn_launches[name],
+                                 'experiment': exp_launches[name]},
             'max_abs_err': bn_check[name],
             'shape': list(BN_TIMED_SHAPE),
             **bn_time[name],

@@ -1,0 +1,209 @@
+"""Batch loader: host decode and staging -> padded fixed-shape numpy batches.
+
+Port of the JAX package's ``data/loader.py``: decode on host threads, one
+staging resize to ``staging_size``, and padded ``[B, max_gt, 7]`` ground
+truth with a validity mask, in the same global order (a permutation seeded
+by ``seed + epoch``), with the same ``drop_last``, the eval batch twice the
+train batch, and ``ids = -1`` on the padding rows of a partial batch.
+Everything else (augmentation, normalization) runs on the device
+(``data/transforms.py``).
+
+The staging resize is :func:`data.preprocess.stage_images`, cv2's
+``INTER_LINEAR`` arithmetic bit for bit in int32 tensor ops, one call per
+run of same-size images of a batch.  It runs on CPU tensors unless
+``staging_device`` names a CUDA device: then each batch crosses to the card
+at its source size, is staged there on a stream of its own, and comes back
+as the same numpy batch (integer arithmetic, so equal on either device;
+``chip_smoke.py`` phase 9 times the loader with either).  The
+YUV420 staging colour space, the on-disk staging cache and the native JPEG
+decode path are not ported yet and raise ``NotImplementedError``; nor is the
+per-host sharding of multi-host runs.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from single_shot_detection_tpu_torch.data.preprocess import stage_images
+
+
+def _check_ported(staging_colorspace: str, cache_dir: Optional[str]) -> None:
+    if staging_colorspace != 'rgb':
+        raise NotImplementedError(
+            f'staging_colorspace {staging_colorspace!r} is not ported yet')
+    if cache_dir:
+        raise NotImplementedError('the staging cache is not ported yet')
+
+
+class Loader:
+    """Iterates padded numpy batches ``{'image', 'boxes', 'box_mask', 'ids'}``.
+
+    ``image`` is staged uint8 ``[B, S, S, 3]``; ``boxes`` ``[B, max_gt, 7]``
+    in staged pixels (difficult column zero-filled when absent); ``ids`` the
+    dataset index of each row, -1 on padding rows.
+    """
+
+    def __init__(self,
+                 dataset,
+                 batch_size: int,
+                 staging_size: Tuple[int, int],
+                 shuffle: bool = False,
+                 drop_last: bool = False,
+                 max_gt: int = 100,
+                 seed: int = 23,
+                 num_workers: int = 4,
+                 prefetch: int = 2,
+                 staging_colorspace: str = 'rgb',
+                 cache_dir: Optional[str] = None,
+                 staging_device: Optional[torch.device] = None):
+        _check_ported(staging_colorspace, cache_dir)
+        self.staging_device = torch.device(staging_device or 'cpu')
+        self._stream = None  # the staging stream on a CUDA staging device
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.staging_size = tuple(staging_size)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.max_gt = max_gt
+        self.seed = seed
+        self.num_workers = max(num_workers, 1)
+        self.prefetch = prefetch
+        self.epoch = 0
+
+    def _indices(self) -> np.ndarray:
+        """The (seed + epoch)-deterministic permutation of the dataset."""
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + self.epoch)
+            rng.shuffle(order)
+        return order
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _stage_rows(self, idxs, rows_out: np.ndarray,
+                    pool: ThreadPoolExecutor) -> np.ndarray:
+        """Decode and stage ``idxs`` into ``rows_out``; returns ``[k, 2]``
+        original (w, h) sizes."""
+        images = list(pool.map(self.dataset.load_image, [int(i) for i in idxs]))
+        sizes = np.array([(img.shape[1], img.shape[0]) for img in images],
+                         np.int64).reshape(-1, 2)
+        by_size: Dict[Tuple[int, int], List[int]] = {}
+        for r, img in enumerate(images):
+            by_size.setdefault(img.shape[:2], []).append(r)
+        for rows in by_size.values():
+            rows_out[rows] = self._stage(np.stack([images[r] for r in rows]))
+        return sizes
+
+    def _stage(self, images: np.ndarray) -> np.ndarray:
+        batch = torch.from_numpy(images)
+        if self.staging_device.type != 'cuda':
+            return stage_images(batch, self.staging_size).numpy()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.staging_device)
+        with torch.cuda.stream(self._stream):
+            staged = stage_images(batch.to(self.staging_device), self.staging_size)
+            return staged.cpu().numpy()
+
+    def _make_batch(self, idxs: np.ndarray, pool: ThreadPoolExecutor) -> dict:
+        s = self.staging_size
+        n = len(idxs)
+        images = np.zeros((self.batch_size, s[1], s[0], 3), np.uint8)
+        boxes = np.zeros((self.batch_size, self.max_gt, 7), np.float32)
+        mask = np.zeros((self.batch_size, self.max_gt), bool)
+        sizes = self._stage_rows(idxs, images[:n], pool)
+
+        for row, i in enumerate(idxs):
+            w, h = int(sizes[row, 0]), int(sizes[row, 1])
+            b = self.dataset.boxes(int(i))
+            if len(b):
+                b = b.copy()
+                b[:, [0, 2]] = np.clip(b[:, [0, 2]] * (s[0] / w),
+                                       0, s[0] - 1)
+                b[:, [1, 3]] = np.clip(b[:, [1, 3]] * (s[1] / h),
+                                       0, s[1] - 1)
+            k = min(len(b), self.max_gt)
+            if k:
+                boxes[row, :k, :b.shape[1]] = b[:k]
+                mask[row, :k] = True
+
+        ids = np.full((self.batch_size,), -1, np.int64)
+        ids[:n] = idxs
+        return {'image': images, 'boxes': boxes, 'box_mask': mask, 'ids': ids}
+
+    def __iter__(self) -> Iterator[dict]:
+        indices = self._indices()
+        self.epoch += 1
+        n_batches = len(self)
+        batches = [indices[i * self.batch_size:(i + 1) * self.batch_size]
+                   for i in range(n_batches)]
+
+        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        q: 'queue.Queue' = queue.Queue(maxsize=self.prefetch)
+        stop = object()
+        done = threading.Event()
+
+        def put(item) -> bool:
+            while not done.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            # a decode or annotation error surfaces in the consumer instead
+            # of silently truncating the epoch
+            try:
+                for idxs in batches:
+                    if not put(self._make_batch(idxs, pool)):
+                        return
+                put(stop)
+            except BaseException as exc:  # noqa: BLE001
+                put(exc)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is stop:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            done.set()
+            thread.join()
+            pool.shutdown(wait=True)
+
+
+def create_loaders(datasets: dict, batch_size: int, staging_size,
+                   shuffle: bool = False, num_workers: int = 4,
+                   max_gt: int = 100, seed: int = 23,
+                   staging_colorspace: str = 'rgb',
+                   cache_dir: Optional[str] = None,
+                   staging_device: Optional[torch.device] = None) -> dict:
+    """Per-phase loaders: the eval batch twice the train batch, ``drop_last``
+    and shuffling for train only."""
+    _check_ported(staging_colorspace, cache_dir)
+    return {phase: Loader(
+        dataset,
+        batch_size=batch_size * 2 if phase == 'eval' else batch_size,
+        staging_size=staging_size,
+        shuffle=shuffle and phase == 'train',
+        drop_last=phase == 'train',
+        max_gt=max_gt,
+        seed=seed,
+        num_workers=num_workers,
+        staging_device=staging_device) for phase, dataset in datasets.items()}

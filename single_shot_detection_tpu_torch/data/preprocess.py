@@ -1,24 +1,20 @@
 """Preprocessing: staged uint8 NHWC images -> normalized float32 NCHW model
-input, on the device, for serving (``__call__``) and for the train step
-(``train_batch``).
+input, on the device.
 
-Port of the JAX package's eval path: ``data/loader.py::stage_image`` (resize
-to the input size) followed by the eval ``data/transforms.py::Pipeline``
-(``ToFloatTensor``/``Normalize``/``Resize``).  At eval the pipeline's
-``sample_view`` resample is the identity when the staged size equals the
-output size, so once an image is staged only the normalization remains.
+Port of the JAX package's serving path: ``data/loader.py::stage_image``
+(resize to the input size) followed by the eval ``data/transforms.py::
+Pipeline`` (``ToFloatTensor``/``Normalize``/``Resize``).  At eval the
+pipeline's ``sample_view`` resample is the identity when the staged size
+equals the output size, so once an image is staged only the normalization
+remains.  The train side, with its augmentation and resample, is
+``data/transforms.py::Pipeline``, which normalizes through
+:meth:`Preprocess.normalize`.
 
 Resize: ``stage_image`` uses cv2's ``INTER_LINEAR`` on uint8 on the host.
-Here the same fixed-point arithmetic runs on the device in int32 tensor ops
-(:func:`stage_images`), so the staged pixels are equal to cv2's, bit for
-bit, without importing cv2.
-
-Train side: the JAX train ``Pipeline`` with no augmentation
-(``data/transforms.py::Pipeline._run_one``): the staged image is resampled
-to the output size (``sample_view`` of the identity window: bilinear, with
-out-of-frame weight blended toward the image's mean colour; the identity
-when the sizes agree), boxes are scaled to the output frame and clipped to
-``[0, size - 1]``, and boxes that became degenerate leave the mask.
+Here the same fixed-point arithmetic runs in int32 tensor ops
+(:func:`stage_images`), on the device for serving and on CPU tensors in the
+data loader, so the staged pixels are equal to cv2's, bit for bit, without
+importing cv2.
 """
 
 from __future__ import annotations
@@ -120,58 +116,13 @@ class Preprocess:
                 raise NotImplementedError(f'Unsupported preprocessing: {name}')
 
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
-        return self._normalize(stage_images(images, self.input_size).float())
+        return self.normalize(stage_images(images, self.input_size).float())
 
-    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        """float ``[B, h, w, 3]`` -> normalized ``[B, 3, h, w]``."""
         x = x / self.divisor
         if self.mean is not None:
             mean = torch.tensor(self.mean, dtype=torch.float32, device=x.device)
             std = torch.tensor(self.std, dtype=torch.float32, device=x.device)
             x = (x - mean) / std
         return x.permute(0, 3, 1, 2).contiguous()
-
-    def train_batch(self, images: torch.Tensor, boxes: torch.Tensor,
-                    mask: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Staged ``[B, S, S, 3]`` images, boxes ``[B, G, R>=4]`` in staged
-        pixels and mask ``[B, G]`` -> ``(x [B, 3, h, w], boxes, mask)`` with
-        boxes in output pixels."""
-        cur_h, cur_w = images.shape[1:3]
-        out_w, out_h = self.input_size
-        x = images.float()
-        if (cur_w, cur_h) != (out_w, out_h):
-            x = resample_view(x, (out_w, out_h))
-        sx = out_w / cur_w
-        sy = out_h / cur_h
-        resized = torch.stack([
-            torch.clamp(boxes[..., 0] * sx, 0, out_w - 1),
-            torch.clamp(boxes[..., 1] * sy, 0, out_h - 1),
-            torch.clamp(boxes[..., 2] * sx, 0, out_w - 1),
-            torch.clamp(boxes[..., 3] * sy, 0, out_h - 1),
-        ], dim=-1)
-        boxes = torch.cat([resized, boxes[..., 4:]], dim=-1)
-        degenerate = ((boxes[..., 0] == boxes[..., 2])
-                      | (boxes[..., 1] == boxes[..., 3]))
-        return self._normalize(x), boxes, mask & ~degenerate
-
-
-def resample_view(images: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resample of float ``[B, H, W, 3]`` to ``size=(w, h)`` as the
-    JAX ``sample_view`` does it for the identity window: separable weights
-    ``relu(1 - |src - j|)`` applied as two products, out-of-frame weight
-    filled with each image's mean colour."""
-    out_w, out_h = size
-    cur_h, cur_w = images.shape[1:3]
-    dev = images.device
-
-    def weights(out: int, cur: int) -> torch.Tensor:
-        src = (torch.arange(out, dtype=torch.float32, device=dev) + 0.5) \
-            * cur / out - 0.5
-        grid = torch.arange(cur, dtype=torch.float32, device=dev)
-        return torch.relu(1.0 - torch.abs(src[:, None] - grid[None, :]))
-
-    ry, rx = weights(out_h, cur_h), weights(out_w, cur_w)
-    out = torch.einsum('yi,bijc,xj->byxc', ry, images, rx)
-    coverage = ry.sum(dim=1)[:, None] * rx.sum(dim=1)[None, :]
-    fill = images.mean(dim=(1, 2))  # [B, 3]
-    return out + (1.0 - coverage)[None, :, :, None] * fill[:, None, None, :]

@@ -121,13 +121,19 @@ class MultiboxLoss:
         self.classification_weight = classification_weight
         self.localization_weight = localization_weight
 
-    def __call__(self, scores, locs, anchors, target):
+    def __call__(self, scores, locs, anchors, target, image_mask=None):
+        """``image_mask [B]`` (optional) drops whole images from the loss:
+        the zero-padded rows of a partial eval batch, which would otherwise
+        each add ``min_negative_per_image`` hard negatives."""
         target_locs = target[..., LOC_INDEX_START:LOC_INDEX_END]
         target_classes = target[..., CLASS_INDEX].to(torch.int32)
 
         positive_mask = ((target_classes != NEGATIVE_CLASS)
                          & (target_classes != IGNORE_CLASS))
         sampled_mask = self.sampler(scores, target_classes)
+        if image_mask is not None:
+            positive_mask = positive_mask & image_mask[:, None]
+            sampled_mask = sampled_mask & image_mask[:, None]
         class_loss = self.classification_loss(scores, target_classes,
                                               sampled_mask)
         encoded_target = self.box_coder.encode(

@@ -1,0 +1,269 @@
+"""``Experiment``: a config's datasets, loaders, model and steps, run as the
+``train`` and ``eval`` phases on one device.
+
+Port of the part of the JAX package's ``train/engine.py::Experiment`` that
+the flagship's ``--phases train eval`` needs on one card: datasets and
+loaders from the config, the train ``Trainer`` (augmentation ``Pipeline``,
+model, loss, optimizer and schedule, with milestones counted in epochs of
+the train loader), the eval pipeline and the config-exact postprocessor,
+the epoch loop with an evaluation every ``eval_every`` epochs, and
+``evaluate`` with the loss, VOC mAP and, for other datasets, the COCO sweep.
+
+Not ported yet, each raising ``NotImplementedError`` when asked for:
+checkpoint save and resume (``checkpoint_dir``, ``resume_from``, and with
+them ``log.csv``), weight files named in the config, ``ReduceLROnPlateau``,
+the device-resident dataset and the eval replay cache, int8, pruning, EMA,
+tensorboard and multi-host runs.  A failed step raises; nothing retries.
+
+Runs on ``cuda`` unless the caller passes ``device='cpu'``.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, List, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from single_shot_detection_tpu_torch.data.datasets import DATASETS
+from single_shot_detection_tpu_torch.data.loader import create_loaders
+from single_shot_detection_tpu_torch.data.transforms import Pipeline
+from single_shot_detection_tpu_torch.device import resolve_device
+from single_shot_detection_tpu_torch.ops import metrics as metrics_ops
+from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
+from single_shot_detection_tpu_torch.ops.postprocess import Postprocessor
+from single_shot_detection_tpu_torch.train.step import make_eval_step
+from single_shot_detection_tpu_torch.trainer import Trainer
+from single_shot_detection_tpu_torch.utils.config import ConfigWrapper, load_config
+from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
+
+METRIC_KEYS = ('loss', 'class_loss', 'loc_loss')
+
+
+def create_datasets(dataset_cfg: dict, phases) -> dict:
+    """Config-driven dataset factory, one dataset per phase present in both
+    the config and ``phases``."""
+    out = {}
+    labels = dataset_cfg.get('labels')
+    label_map = dataset_cfg.get('label_map', {})
+    for phase in ('train', 'eval'):
+        if phase not in dataset_cfg or phase not in phases:
+            continue
+        spec = dict(dataset_cfg[phase])
+        name = spec.pop('name')
+        spec.update({'labels': labels, 'label_map': label_map})
+        out[phase] = filter_kwargs(DATASETS[name])(**spec)
+    return out
+
+
+def check_experiment_ported(cfg) -> None:
+    """Raise ``NotImplementedError`` for the engine options the port does
+    not run yet (the train options are ``trainer.check_ported``'s)."""
+    train = dict(cfg.train or {})
+    for key in ('device_cache', 'staging_cache', 'async_checkpoint'):
+        if train.get(key):
+            raise NotImplementedError(f'train.{key} is not ported yet')
+    if dict(cfg.eval or {}).get('device_cache'):
+        raise NotImplementedError('eval.device_cache is not ported yet')
+    model = dict(cfg.model or {})
+    detector = dict(model.get('detector', {}))
+    for key in ('weight', 'torch_weight'):
+        if detector.get(key):
+            raise NotImplementedError(
+                f'model.detector.{key} is not ported yet; pass variables=')
+    if dict(model.get('base', {})).get('weight'):
+        raise NotImplementedError('model.base.weight is not ported yet')
+    if str(dict(model.get('base', {})).get('name', '')).startswith('torchhub://'):
+        raise NotImplementedError('torchhub:// backbones are not ported yet')
+
+
+class Experiment:
+    """Everything assembled from one config, on one device.
+
+    ``cfg`` is a ``samples/*.py`` path or a loaded ``ConfigWrapper``;
+    ``variables`` a JAX ``{'params', 'batch_stats'}`` tree of numpy arrays
+    (e.g. a restored checkpoint); ``seed`` seeds the weights, the loader
+    order and the augmentation (default: the config's); ``overrides`` as in
+    ``Trainer.from_config``.
+    """
+
+    def __init__(self, cfg: Union[str, ConfigWrapper],
+                 phases=('train', 'eval'),
+                 device: Optional[Union[str, torch.device]] = None,
+                 seed: Optional[int] = None,
+                 variables: Optional[Mapping] = None,
+                 overrides: Optional[Mapping] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 resume_from: Optional[str] = None,
+                 int8: bool = False,
+                 tensorboard: bool = False,
+                 process_count: int = 1):
+        for name, value in (('checkpoint_dir', checkpoint_dir),
+                            ('resume_from', resume_from), ('int8', int8),
+                            ('tensorboard', tensorboard),
+                            ('process_count > 1', process_count != 1)):
+            if value:
+                raise NotImplementedError(f'Experiment {name} is not ported yet')
+        self.device = resolve_device(device)
+        self.phases = list(phases)
+        if isinstance(cfg, str):
+            cfg = load_config(cfg, phases=self.phases)
+        else:
+            cfg.set_phases(self.phases)
+        if overrides:
+            cfg.override(dict(overrides))
+        check_experiment_ported(cfg)
+        self.cfg = cfg
+        self.seed = int(seed if seed is not None else (cfg.seed or 23))
+
+        # --- datasets & loaders -----------------------------------------
+        self.datasets = create_datasets(cfg.dataset, self.phases)
+        detector = dict(dict(cfg.model).get('detector', {}))
+        if 'num_classes' not in detector and self.datasets:
+            ref = self.datasets.get('train') or self.datasets.get('eval')
+            detector['num_classes'] = ref.num_classes
+            cfg.override({'model': {'detector': detector}})
+        train_cfg = dict(cfg.train or {})
+        input_size = tuple(cfg.input_size)
+        self.loaders = {}
+        if self.datasets:
+            self.loaders = create_loaders(
+                self.datasets,
+                batch_size=cfg.batch_size or 32,
+                staging_size=tuple(train_cfg.get('staging_size', input_size)),
+                shuffle=bool(cfg.shuffle),
+                num_workers=cfg.num_workers or 4,
+                max_gt=train_cfg.get('max_gt', 100),
+                seed=self.seed,
+                staging_colorspace=str(train_cfg.get('staging_colorspace', 'rgb')),
+                staging_device=self.device)
+
+        # --- train side: pipeline, model, loss, optimizer, schedule ------
+        self.epochs = int(train_cfg.get('epochs', 1))
+        self.eval_every = int(train_cfg.get('eval_every', 1))
+        self.num_batches_per_epoch = train_cfg.get('num_batches_per_epoch')
+        steps_per_epoch = None
+        if 'train' in self.loaders:
+            steps_per_epoch = (self.num_batches_per_epoch
+                               or len(self.loaders['train']))
+        self.trainer = Trainer.from_cfg(cfg, variables, self.device, self.seed,
+                                        steps_per_epoch)
+        self.bundle = self.trainer.bundle
+        self.anchors = self.trainer.anchors
+
+        # --- eval side ----------------------------------------------------
+        self.eval_pipeline = Pipeline((), cfg.preprocessing, input_size,
+                                      train=False)
+        box_coder = filter_kwargs(BoxCoder)(**(cfg.box_coder or {}))
+        self.postprocessor = filter_kwargs(Postprocessor)(
+            box_coder=box_coder, **cfg.postprocess)
+        self.eval_step = make_eval_step(self.trainer.criterion,
+                                        self.trainer.assigner, self.anchors,
+                                        self.postprocessor)
+
+    @property
+    def model(self) -> torch.nn.Module:
+        return self.trainer.model
+
+    def _to_device(self, batch: dict):
+        dev = self.device
+        return (torch.from_numpy(batch['image']).to(dev, non_blocking=True),
+                torch.from_numpy(batch['boxes']).to(dev, non_blocking=True),
+                torch.from_numpy(batch['box_mask']).to(dev, non_blocking=True))
+
+    # ------------------------------------------------------------------ train
+    def train(self) -> List[Dict[str, float]]:
+        """Run the epochs; returns one row per epoch (``train_*`` epoch means
+        and, after an evaluation, ``eval_*``)."""
+        rows = []
+        for epoch in range(self.epochs):
+            row = self.train_epoch(epoch)
+            if 'eval' in self.phases and (epoch + 1) % self.eval_every == 0:
+                row.update({f'eval_{k}': v for k, v in self.evaluate().items()})
+            rows.append(row)
+        return rows
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        """The steps of epoch ``epoch``, each with the draws of its global
+        step index; metric sums stay on the device and are read once.
+        Returns the epoch's row."""
+        loader = self.loaders['train']
+        num_batches = self.num_batches_per_epoch or len(loader)
+        loader.epoch = epoch  # a later start replays no earlier epoch's order
+        start = time.perf_counter()
+        sums = None
+        count = 0
+        for step_idx, batch in enumerate(loader):
+            if step_idx >= num_batches:
+                break
+            metrics = self.trainer.train_step(
+                *self._to_device(batch), step=epoch * num_batches + step_idx)
+            stacked = torch.stack([metrics[k] for k in METRIC_KEYS])
+            sums = stacked if sums is None else sums + stacked
+            count += 1
+        pulled = sums.tolist() if sums is not None else None
+        row = {'epoch': epoch}
+        for i, k in enumerate(METRIC_KEYS):
+            row[f'train_{k}'] = pulled[i] / max(count, 1) if pulled else 0.0
+        elapsed = time.perf_counter() - start
+        logging.info(f'[train] epoch {epoch}: {count} steps in {elapsed:.2f} s '
+                     f'({count * loader.batch_size / max(elapsed, 1e-9):.1f} '
+                     'img/s) ' + ' '.join(f'{k}={v:.4f}' for k, v in row.items()
+                                          if k != 'epoch'))
+        return row
+
+    # ------------------------------------------------------------------- eval
+    def evaluate(self) -> Dict[str, float]:
+        """Loss and mAP over the eval loader.  Detections stay on the device
+        until every batch has been dispatched."""
+        loader = self.loaders['eval']
+        start = time.perf_counter()
+        sums = None
+        count = 0
+        pending = []
+        for batch in loader:
+            images, boxes, mask = self._to_device(batch)
+            with torch.no_grad():
+                x, full_boxes, mask = self.eval_pipeline.apply([], images, boxes,
+                                                              mask)
+            # padding rows of a partial batch carry id -1 and add no loss
+            image_valid = torch.from_numpy(batch['ids'] >= 0).to(self.device)
+            metrics, dets, valid = self.eval_step(self.model, x,
+                                                  full_boxes[..., :6], mask,
+                                                  image_valid)
+            stacked = torch.stack([metrics[k] for k in METRIC_KEYS])
+            sums = stacked if sums is None else sums + stacked
+            count += 1
+            pending.append((dets, valid, mask, full_boxes, batch['ids']))
+
+        pulled = sums.tolist() if sums is not None else [0.0] * len(METRIC_KEYS)
+        all_preds, all_gts = [], []
+        for dets, valid, mask, gt, ids in pending:
+            dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+            mask, gt = mask.cpu().numpy(), gt.cpu().numpy()
+            for i in range(dets.shape[0]):
+                if ids[i] < 0:
+                    continue  # padding rows of the last partial batch
+                for row in dets[i][valid[i]]:
+                    all_preds.append([len(all_gts), *row])
+                all_gts.append(gt[i][mask[i]])
+
+        result = {k: v / max(count, 1) for k, v in zip(METRIC_KEYS, pulled)}
+        if all_gts:
+            preds = np.asarray(all_preds) if all_preds else np.zeros((0, 7))
+            is_voc = self.cfg.is_voc('eval')
+            result['mAP'] = metrics_ops.mean_average_precision(
+                preds, all_gts,
+                dict(enumerate(self.datasets['eval'].class_labels)),
+                iou_threshold=0.5, voc=is_voc)
+            # the COCO sweep for non-VOC datasets, or as the config says
+            coco_flag = self.cfg.coco_metrics
+            if coco_flag or (coco_flag == {} and not is_voc):
+                coco_kwargs = dict(coco_flag) if isinstance(coco_flag, dict) else {}
+                result.update(metrics_ops.coco_mean_average_precision(
+                    preds, all_gts, **coco_kwargs))
+        logging.info(f'[eval] {count} batches in {time.perf_counter() - start:.2f} s: '
+                     + ' '.join(f'{k}={v:.4f}' for k, v in result.items()))
+        return result

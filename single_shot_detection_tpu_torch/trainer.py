@@ -1,18 +1,22 @@
 """Training entry point: ``Trainer``.
 
 Port of the train half of the JAX package's ``Experiment``
-(``train/engine.py``): the model, target assigner, sampler, multibox loss,
-optimizer and learning-rate schedule built from a ``samples/*.py`` config,
-and ``make_train_step`` over them.  With ``train.fused_bn`` every train-mode
-BatchNorm runs on the four hand-written CUDA kernels of ``kernels/bn.cu``
-(the JAX package's ``ops/bn_pallas.py`` path); without it, on PyTorch's own
-batch norm.
+(``train/engine.py``): the model, the augmentation ``Pipeline``, target
+assigner, sampler, multibox loss, optimizer and learning-rate schedule built
+from a ``samples/*.py`` config, and ``make_train_step`` over them.  With
+``train.fused_bn`` every train-mode BatchNorm runs on the four hand-written
+CUDA kernels of ``kernels/bn.cu`` (the JAX package's ``ops/bn_pallas.py``
+path); without it, on PyTorch's own batch norm.
+
+Each step draws its augmentation from a generator seeded from ``(seed,
+step)``, as the JAX engine folds the global step index into its key, so a
+run that starts at step ``n`` draws what an uninterrupted one draws there.
 
 What is not ported yet raises ``NotImplementedError`` rather than being
-skipped: augmentations (the on-device augmentation chain belongs to the
-data-path slice; pass ``overrides={'augmentations': []}``), mixup,
-``frozen_bn``, EMA, QAT, gradient accumulation and clipping, ``lr_groups``,
-pruning, ``fused_steps`` and the multi-device options.
+skipped: mixup, ``frozen_bn``, EMA, QAT, gradient accumulation and
+clipping, ``lr_groups``, pruning, ``fused_steps``, the YUV420 staging and
+the multi-device options; an augmentation the ``Pipeline`` does not know
+raises as well.
 
 Runs on ``cuda`` unless the caller passes ``device='cpu'``.
 """
@@ -24,7 +28,7 @@ from typing import Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from single_shot_detection_tpu_torch.data.preprocess import Preprocess
+from single_shot_detection_tpu_torch.data.transforms import Pipeline, draws_to
 from single_shot_detection_tpu_torch.device import resolve_device
 from single_shot_detection_tpu_torch.models import builder
 from single_shot_detection_tpu_torch.models.layers import set_fused_bn
@@ -47,11 +51,6 @@ _UNPORTED_TRAIN_OPTIONS = ('mixup', 'frozen_bn', 'ema', 'qat', 'pruner',
 
 def check_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    for spec in cfg.augmentations or ():
-        raise NotImplementedError(
-            f'augmentation {spec["name"]!r} is not ported yet: the on-device '
-            f'augmentation chain belongs to the data-path slice (ROADMAP '
-            f"Queue 1 item 7); pass overrides={{'augmentations': []}}")
     train = dict(cfg.train or {})
     for key in _UNPORTED_TRAIN_OPTIONS:
         if train.get(key):
@@ -62,16 +61,31 @@ def check_ported(cfg) -> None:
         raise NotImplementedError('train.staging_colorspace is not ported yet')
 
 
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of the augmentation draws of global step ``step``."""
+    mixed = np.random.SeedSequence([int(seed), int(step)]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(mixed))
+
+
 class Trainer:
-    """A detector and its optimizer, ready to take train steps on one
-    device.  Build it with :meth:`from_config`."""
+    """A detector, its augmentation and its optimizer, ready to take train
+    steps on one device.  Build it with :meth:`from_config`."""
 
     def __init__(self, bundle: builder.DetectorBundle, state: TrainState,
-                 train_step, device: torch.device):
+                 pipeline: Pipeline, schedule, criterion: MultiboxLoss,
+                 assigner: TargetAssigner, device: torch.device, seed: int):
         self.bundle = bundle
         self.state = state
+        self.pipeline = pipeline
+        self.schedule = schedule  # optimizer step -> learning rate
+        self.criterion = criterion
+        self.assigner = assigner
         self.device = device
-        self._train_step = train_step
+        self.seed = seed
+        self.anchors = torch.from_numpy(bundle.anchors).to(device)
+        self._train_step = make_train_step(criterion, assigner, self.anchors,
+                                           schedule, pipeline)
 
     @property
     def model(self) -> torch.nn.Module:
@@ -81,24 +95,39 @@ class Trainer:
     def from_config(cls, path: str, variables: Optional[Mapping] = None,
                     device: Optional[Union[str, torch.device]] = None,
                     seed: Optional[int] = None,
-                    overrides: Optional[Mapping] = None) -> 'Trainer':
+                    overrides: Optional[Mapping] = None,
+                    steps_per_epoch: Optional[int] = None) -> 'Trainer':
         """Build from a ``samples/*.py`` config.
 
-        ``variables`` and ``seed`` as in ``Predictor.from_config``.
-        ``overrides`` sets config values before anything is built; a dict
-        merges into a dict entry one level deep, e.g.
-        ``{'augmentations': [], 'train': {'fused_bn': True}}``.
+        ``variables`` and ``seed`` as in ``Predictor.from_config``; ``seed``
+        also seeds the augmentation draws.  ``overrides`` sets config values
+        before anything is built; a dict merges into a dict entry one level
+        deep, e.g. ``{'train': {'fused_bn': True}}``.  ``steps_per_epoch``
+        (the train loader's length; ``train.num_batches_per_epoch`` wins,
+        and without either an epoch is one step) turns per-epoch schedule
+        milestones into steps.
         """
-        device = resolve_device(device)
         cfg = load_config(path, phases=('train',))
         if overrides:
             cfg.override(dict(overrides))
+        return cls.from_cfg(cfg, variables, device, seed, steps_per_epoch)
+
+    @classmethod
+    def from_cfg(cls, cfg, variables: Optional[Mapping] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 seed: Optional[int] = None,
+                 steps_per_epoch: Optional[int] = None) -> 'Trainer':
+        """Build from a loaded config (``utils/config.py::ConfigWrapper``)."""
+        device = resolve_device(device)
         check_ported(cfg)
+        seed = int(seed if seed is not None else (cfg.seed or 23))
 
         bundle = builder.from_config(cfg, variables, seed)
         model = bundle.module.to(device)
         train_cfg = dict(cfg.train or {})
         set_fused_bn(model, bool(train_cfg.get('fused_bn', False)))
+        pipeline = Pipeline(cfg.augmentations or (), cfg.preprocessing,
+                            bundle.input_size, train=True)
 
         sampler_cfg = dict(cfg.sampler or {'name': 'naive_sampler'})
         sampler = build_sampler(sampler_cfg.pop('name'), **sampler_cfg)
@@ -107,8 +136,8 @@ class Trainer:
             sampler=sampler, box_coder=box_coder, **cfg.loss)
         assigner = filter_kwargs(TargetAssigner)(**(cfg.target_assigner or {}))
 
-        # without a data loader the engine counts one step per epoch
-        steps_per_epoch = int(train_cfg.get('num_batches_per_epoch') or 1)
+        steps_per_epoch = int(train_cfg.get('num_batches_per_epoch')
+                              or steps_per_epoch or 1)
         epochs = int(train_cfg.get('epochs', 1))
         accumulation = int(train_cfg.get('accumulation_steps', 1))
         cfg.update({'epochs': epochs,
@@ -120,22 +149,26 @@ class Trainer:
         optimizer = optimizers.create_optimizer(
             opt_cfg, model.parameters(), accumulation_steps=accumulation,
             clip_grad_norm=train_cfg.get('clip_grad_norm'))
+        return cls(bundle, TrainState(model, optimizer), pipeline, schedule,
+                   criterion, assigner, device, seed)
 
-        anchors = torch.from_numpy(bundle.anchors).to(device)
-        preprocess = Preprocess(cfg.preprocessing, bundle.input_size)
-        train_step = make_train_step(criterion, assigner, anchors, schedule,
-                                     preprocess)
-        return cls(bundle, TrainState(model, optimizer), train_step, device)
+    def draws(self, step: int, batch: int) -> list:
+        """The augmentation draws of global step ``step`` (on the CPU)."""
+        return self.pipeline.sample_draws(step_generator(self.seed, step), batch)
 
     def train_step(self, images: Union[np.ndarray, torch.Tensor],
                    boxes: Union[np.ndarray, torch.Tensor],
-                   box_mask: Union[np.ndarray, torch.Tensor]
-                   ) -> Dict[str, torch.Tensor]:
+                   box_mask: Union[np.ndarray, torch.Tensor],
+                   step: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """One step on staged uint8 ``[B, S, S, 3]`` images, ground truth
-        ``boxes [B, G, 6]`` (``[x0, y0, x1, y1, class, score]`` in staged
-        pixels) and ``box_mask [B, G]``.  Returns ``{'loss', 'class_loss',
-        'loc_loss'}`` as 0-dim tensors on the device."""
+        ``boxes [B, G, R>=6]`` (``[x0, y0, x1, y1, class, score, ...]`` in
+        staged pixels) and ``box_mask [B, G]``, augmented with the draws of
+        global step ``step`` (default: the optimizer's step count).
+        Returns ``{'loss', 'class_loss', 'loc_loss'}`` as 0-dim tensors on
+        the device."""
         images = torch.as_tensor(images).to(self.device, non_blocking=True)
         boxes = torch.as_tensor(boxes, dtype=torch.float32).to(self.device)
         box_mask = torch.as_tensor(box_mask, dtype=torch.bool).to(self.device)
-        return self._train_step(self.state, images, boxes, box_mask)
+        step = self.state.step if step is None else step
+        draws = draws_to(self.draws(step, images.shape[0]), self.device)
+        return self._train_step(self.state, images, boxes, box_mask, draws)

@@ -2,7 +2,7 @@
 
 Functional-parity targets: reference ``bf/training/helpers.py:29-42``
 (config file IS a python module), ``bf/utils/config_wrapper.py`` (attribute
-access with ``{}`` default, phase filtering) and
+access with ``{}`` default, phase filtering, ``is_voc``) and
 ``bf/utils/object_formatter.py`` (recursive ``{field}`` interpolation against
 env vars + config attrs + runtime-injected context, with post-interpolation
 eval/int coercion enabling values like ``'{total_train_steps} * 2'``).
@@ -94,6 +94,11 @@ class ConfigWrapper:
 
     def __getattr__(self, name):
         return getattr(self.config, name, {})
+
+    def is_voc(self, phase: str) -> bool:
+        """True when the ``phase`` dataset is Pascal VOC: its eval scores
+        VOC 11-point AP instead of the COCO sweep."""
+        return self.config.dataset.get(phase, {}).get('name') == 'Voc'
 
     def set_phases(self, phases):
         self.phases = phases

@@ -39,7 +39,7 @@ from single_shot_detection_tpu.train import schedulers as jax_schedulers
 from single_shot_detection_tpu.train.state import create_train_state
 from single_shot_detection_tpu.train.step import make_train_step
 from single_shot_detection_tpu.utils.config import load_config as jax_load_config
-from single_shot_detection_tpu_torch.data.preprocess import Preprocess
+from single_shot_detection_tpu_torch.data.transforms import Pipeline as PortPipeline
 from single_shot_detection_tpu_torch.ops import bn_kernel
 from single_shot_detection_tpu_torch.ops import box_coder as pt_box_coder
 from single_shot_detection_tpu_torch.ops import losses as pt_losses
@@ -252,6 +252,9 @@ def test_unported_optimizers_and_schedules_raise(name):
 
 @pytest.mark.parametrize('staged,out', [(64, 64), (64, 48)])
 def test_train_preprocessing_matches_jax_pipeline(staged, out):
+    """The train ``Pipeline`` without augmentation: the identity window
+    (exact, skipped) and a resample to another size; boxes scaled and
+    clipped, the degenerate one dropped."""
     rng = np.random.RandomState(6)
     images = rng.randint(0, 256, (2, staged, staged, 3), dtype=np.uint8)
     boxes = np.zeros((2, 3, 6), np.float32)
@@ -260,8 +263,8 @@ def test_train_preprocessing_matches_jax_pipeline(staged, out):
     mask = np.array([[1, 1, 1], [1, 0, 1]], bool)
     pipe = Pipeline((), PREPROCESSING, (out, out), train=True)
     want = pipe(jax.random.PRNGKey(0), images, boxes, mask)
-    got = Preprocess(PREPROCESSING, (out, out)).train_batch(
-        t(images), t(boxes), t(mask))
+    got = PortPipeline((), PREPROCESSING, (out, out)).apply(
+        [], t(images), t(boxes), t(mask))
     np.testing.assert_allclose(got[0].numpy().transpose(0, 2, 3, 1),
                                np.asarray(want[0]), rtol=0, atol=1e-4)
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
@@ -394,16 +397,19 @@ def test_train_step_matches_jax_make_train_step(mining_gaps):
 
 
 def test_trainer_raises_on_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match='data-path slice'):
-        Trainer.from_config(SMOKE, device='cpu')          # augmentations
+    with pytest.raises(NotImplementedError, match='Unsupported augmentation'):
+        Trainer.from_config(SMOKE, device='cpu', overrides={
+            'augmentations': [{'name': 'Mosaic'}]})
     for key, value in (('mixup', {'alpha': 0.2, 'p': 0.5}), ('ema', 0.999),
                        ('frozen_bn', True), ('fused_steps', 2)):
         with pytest.raises(NotImplementedError, match=key):
             Trainer.from_config(SMOKE, device='cpu', overrides={
                 'augmentations': [], 'train': {key: value}})
     with pytest.raises(NotImplementedError, match='CosineAnnealingWithWarmupLR'):
-        Trainer.from_config(SMOKE, device='cpu',
-                            overrides={'augmentations': []})
+        Trainer.from_config(SMOKE, device='cpu')
+    with pytest.raises(NotImplementedError, match='staging_colorspace'):
+        Trainer.from_config(SMOKE, device='cpu', overrides={
+            'train': {'staging_colorspace': 'yuv420'}})
 
 
 def test_trainer_without_device_needs_cuda():
