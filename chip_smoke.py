@@ -73,12 +73,16 @@ from __future__ import annotations
 
 import argparse
 import copy
+import csv
 import ctypes
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -87,6 +91,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from single_shot_detection_tpu_torch import cli
 from single_shot_detection_tpu_torch.kernels import _build
 from single_shot_detection_tpu_torch.models.layers import BatchNorm
 from single_shot_detection_tpu_torch.ops import bn_kernel
@@ -94,12 +99,14 @@ from single_shot_detection_tpu_torch.ops import nms as nms_ops
 from single_shot_detection_tpu_torch.ops import nms_kernel
 from single_shot_detection_tpu_torch.data import transforms
 from single_shot_detection_tpu_torch.predict import Predictor
+from single_shot_detection_tpu_torch.train import checkpoint as ckpt
 from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.train.step import make_train_step
 from single_shot_detection_tpu_torch.trainer import Trainer
 
 FLAGSHIP = 'samples/ssd_mb2_voc.py'
 SEED = 23
+REPO = Path(__file__).resolve().parent
 
 # HBM rate by card name (bytes/s), NVIDIA data sheets; H100 SXM otherwise.
 HBM_RATE = [('H100 PCIe', 2.0e12), ('H100 NVL', 3.9e12), ('H200', 4.8e12),
@@ -694,13 +701,12 @@ def parent_launcher(lib: ctypes.CDLL, boxes: torch.Tensor,
     return launch
 
 
-def time_nms(pred: Predictor, inputs: dict, card: str, parent=None) -> dict:
+def time_nms(thr: float, inputs: dict, card: str, parent=None) -> dict:
     """The NMS kernel's device time per launch at each input, beside the
     launch floor (an empty kernel on the same grid), the plain version and
     the bound; with ``parent`` (another build of ``nms.cu``, from
     :func:`load_parent_nms`) that kernel too, in turns (parent, this, this,
     parent), after checking that it gives the same keep mask."""
-    thr = pred.postprocessor.overlap_threshold
     out = {}
     for name, (boxes, scores) in inputs.items():
         n, k = scores.shape
@@ -958,19 +964,27 @@ def build_experiment() -> Experiment:
                                     'fused_bn': True}})
 
 
-def run_experiment(exp: Experiment):
-    """``Experiment.train()`` (one epoch, then ``evaluate()``) with every
-    kernel's count read around it."""
+def zero_launches() -> None:
     nms_kernel.nms_keep_batched.launches = 0
     for fn in bn_kernel.KERNELS:
         fn.launches = 0
+
+
+def read_launches() -> dict:
+    out = {fn.__name__: fn.launches for fn in bn_kernel.KERNELS}
+    out['nms_keep_batched'] = nms_kernel.nms_keep_batched.launches
+    return out
+
+
+def run_experiment(exp: Experiment):
+    """``Experiment.train()`` (one epoch, then ``evaluate()``) with every
+    kernel's count read around it."""
+    zero_launches()
     t = time.perf_counter()
     rows = exp.train()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
-    launches = {fn.__name__: fn.launches for fn in bn_kernel.KERNELS}
-    launches['nms_keep_batched'] = nms_kernel.nms_keep_batched.launches
-    return rows, launches, seconds
+    return rows, read_launches(), seconds
 
 
 def check_experiment(exp: Experiment, rows, launches, n_bn: int) -> None:
@@ -1149,6 +1163,218 @@ def time_experiment(exp: Experiment, batch, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 10
+
+# The flagship's data for phase 10: phase 8's 500 px synthetic set, cut to
+# 4 b32 train steps and one b64 eval batch per epoch
+CLI_DATA = {
+    'train': {**FLAGSHIP_DATA['train'], 'num_images': 128},
+    'eval': {**FLAGSHIP_DATA['eval'], 'num_images': 64},
+}
+CLI_EPOCHS = 2
+JAX_RUN = 'experiments/2026-08-16-225820'  # a trained run of the JAX package
+
+
+def write_cli_config(path: Path, epochs: int) -> str:
+    """The flagship config with ``CLI_DATA``, ``epochs``, an evaluation and
+    a checkpoint every epoch and ``train.fused_bn``."""
+    path.write_text(
+        (REPO / FLAGSHIP).read_text()
+        + '\n# chip_smoke.py phase 10: synthetic 500 px data, fused BN\n'
+        + f'dataset = {CLI_DATA!r}\n'
+        + f'train = dict(train, epochs={epochs}, eval_every=1, save_every=1, '
+        'fused_bn=True)\n')
+    return str(path)
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` with every kernel's count set to 0 just before
+    and read just after, and each train epoch timed; returns the
+    experiment, its result, the launches, the seconds and the epochs'
+    seconds."""
+    epoch_s = []
+    train_epoch = Experiment.train_epoch
+
+    def timed(self, epoch):
+        t = time.perf_counter()
+        row = train_epoch(self, epoch)  # reads its sums: waits for the card
+        epoch_s.append(time.perf_counter() - t)
+        return row
+
+    Experiment.train_epoch = timed
+    try:
+        zero_launches()
+        t = time.perf_counter()
+        exp, result = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = read_launches()
+    finally:
+        Experiment.train_epoch = train_epoch
+    return exp, result, launches, seconds, epoch_s
+
+
+def read_log_csv(path: str):
+    with open(path, newline='') as f:
+        return list(csv.DictReader(f))
+
+
+def check_cli_run(exp, rows, launches, n_bn: int, run_dir: str) -> None:
+    steps = len(exp.loaders['train'])
+    eval_batches = len(exp.loaders['eval'])
+    if (steps, eval_batches) != (4, 1) or [r['epoch'] for r in rows] != [0, 1]:
+        fail(f'{steps} train steps, {eval_batches} eval batches, epochs '
+             f'{[r["epoch"] for r in rows]}; expected 4, 1 and [0, 1]')
+    for row in rows:
+        if not all(np.isfinite(v) for v in row.values()):
+            fail(f'non-finite epoch row {row}')
+    want = {fn.__name__: n_bn * steps * CLI_EPOCHS for fn in bn_kernel.KERNELS}
+    want['nms_keep_batched'] = eval_batches * CLI_EPOCHS
+    if launches != want:
+        fail(f'CLI kernel launches {launches}, expected {want}')
+    files = sorted(os.listdir(run_dir))
+    expected = ['ckpt-4.pt', 'ckpt-4.pt.meta.json', 'ckpt-8.pt',
+                'ckpt-8.pt.meta.json', 'config.py', 'log.csv', 'train.log']
+    if files != expected:
+        fail(f'the CLI wrote {files}, expected {expected}')
+
+
+def check_round_trip(exp, config: str, path: str) -> dict:
+    """``path`` restored into a fresh trainer on the card: every tensor and
+    momentum buffer, the step and ``lr_scale`` equal to the run's state bit
+    for bit; the restore's ms."""
+    fresh = Trainer.from_config(config, device='cuda', seed=SEED + 7,
+                                steps_per_epoch=len(exp.loaders['train']))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ckpt.restore(path, fresh.state)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t) * 1e3
+    state = exp.trainer.state
+    if (fresh.state.step, fresh.state.lr_scale) != (state.step, state.lr_scale):
+        fail(f'restored step/lr_scale {fresh.state.step}/{fresh.state.lr_scale}, '
+             f'saved {state.step}/{state.lr_scale}')
+    want = exp.model.state_dict()
+    got = fresh.model.state_dict()
+    if got.keys() != want.keys():
+        fail('the restored state_dict has other names')
+    for k in want:
+        if not torch.equal(got[k], want[k]):
+            fail(f'{k} differs after the save and restore')
+    buffers = 0
+    for p, q in zip(fresh.model.parameters(), exp.model.parameters()):
+        a = fresh.state.optimizer.state[p]['momentum_buffer']
+        b = state.optimizer.state[q]['momentum_buffer']
+        if a.device != b.device or not torch.equal(a, b):
+            fail('a momentum buffer differs after the save and restore')
+        buffers += 1
+    log(f'  save -> restore on the card: {len(want)} tensors and {buffers} '
+        f'momentum buffers bit-equal; step {state.step}')
+    return {'restore_ms': restore_ms, 'tensors': len(want),
+            'momentum_buffers': buffers}
+
+
+def time_checkpoint(exp, directory: str, iters: int = 3) -> dict:
+    """``checkpoint.save`` of the run's state, ms per call (median of
+    ``iters``) and the file's bytes."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = ckpt.save(directory, exp.trainer.state, 0)
+        times.append((time.perf_counter() - t) * 1e3)
+    return {'save_ms': statistics.median(times), 'save_all_ms': times,
+            'file_bytes': os.path.getsize(path)}
+
+
+def resume_in_a_fresh_process(run_dir: str) -> dict:
+    """``python -m single_shot_detection_tpu_torch --checkpoint run_dir``
+    with three epochs: it must start at epoch 2, write ``ckpt-12.pt`` and a
+    third ``log.csv`` row with finite losses, and keep the first two."""
+    before = read_log_csv(os.path.join(run_dir, 'log.csv'))
+    config = write_cli_config(Path(run_dir) / 'config.py', CLI_EPOCHS + 1)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'single_shot_detection_tpu_torch', '--config',
+         config, '--checkpoint', run_dir], cwd=REPO, capture_output=True,
+        text=True, timeout=900)
+    seconds = time.perf_counter() - t
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+        fail(f'the resumed CLI run exited {proc.returncode}')
+    out = proc.stdout
+    if ('Restored checkpoint' not in out or 'Epoch: 2/2' not in out
+            or 'Epoch: 0/' in out or 'Epoch: 1/' in out):
+        log(out[-4000:])
+        fail('the resumed run did not start at epoch 2')
+    if 'ckpt-12.pt' not in os.listdir(run_dir):
+        fail(f'the resumed run wrote no ckpt-12.pt: {os.listdir(run_dir)}')
+    rows = read_log_csv(os.path.join(run_dir, 'log.csv'))
+    if [r['epoch'] for r in rows] != ['0', '1', '2'] or rows[:2] != before:
+        fail(f'log.csv after the resume: epochs {[r["epoch"] for r in rows]}')
+    losses = {k: float(rows[2][k]) for k in ('train_loss', 'eval_loss')}
+    if not all(np.isfinite(v) for v in losses.values()):
+        fail(f'non-finite losses after the resume: {losses}')
+    log(f'  a fresh process resumed at epoch 2 in {seconds:.2f} s: '
+        + json.dumps({**losses, 'eval_mAP': float(rows[2]['eval_mAP'])}))
+    return {'resume_process_s': seconds, 'resumed_row': rows[2]}
+
+
+# --------------------------------------------------------------- phase 11
+
+def listing(root: str):
+    return sorted((os.path.join(d, f), os.stat(os.path.join(d, f)).st_size,
+                   os.stat(os.path.join(d, f)).st_mtime_ns)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def eval_jax_checkpoint(device_flag) -> tuple:
+    argv = ['--config', f'{JAX_RUN}/config.py', '--checkpoint', JAX_RUN,
+            '--phases', 'eval'] + device_flag
+    zero_launches()
+    exp, metrics = cli.main(argv)
+    return exp, metrics, read_launches()
+
+
+def check_jax_checkpoint(card_metrics, cpu_metrics) -> dict:
+    """Loss within 1e-4 relative and mAP within 0.005 of the CPU's."""
+    rel = abs(card_metrics['loss'] - cpu_metrics['loss']) / abs(cpu_metrics['loss'])
+    gap = abs(card_metrics['mAP'] - cpu_metrics['mAP'])
+    if not (rel <= 1e-4 and gap <= 0.005):
+        fail(f'the JAX checkpoint on the card: loss {card_metrics["loss"]} mAP '
+             f'{card_metrics["mAP"]}, on the CPU loss {cpu_metrics["loss"]} mAP '
+             f'{cpu_metrics["mAP"]}')
+    last = read_log_csv(f'{JAX_RUN}/log.csv')[-1]
+    log(f'  the JAX checkpoint ({JAX_RUN}, step 1800): card loss '
+        f'{card_metrics["loss"]!r} mAP {card_metrics["mAP"]!r}; CPU loss '
+        f'{cpu_metrics["loss"]!r} mAP {cpu_metrics["mAP"]!r} (loss rel '
+        f'{rel:.3g}, tol 1e-4; mAP gap {gap:.3g}, tol 0.005); its log.csv, '
+        f'from other hardware, not held: eval_loss {last["eval_loss"]} '
+        f'eval_mAP {last["eval_mAP"]}')
+    return {'loss_rel_err': rel, 'mAP_gap': gap,
+            'log_csv_eval_loss': float(last['eval_loss']),
+            'log_csv_eval_mAP': float(last['eval_mAP'])}
+
+
+def eval_nms_inputs(exp):
+    """The NMS kernel's inputs in ``exp.evaluate()``'s first batch."""
+    captured = {}
+    original = exp.postprocessor.nms_keep
+
+    def capture(boxes, scores):
+        if not captured:
+            captured.update(boxes=boxes.clone(), scores=scores.clone())
+        return original(boxes, scores)
+
+    exp.postprocessor.nms_keep = capture
+    try:
+        exp.evaluate()
+    finally:
+        del exp.postprocessor.nms_keep
+    return captured['boxes'], captured['scores']
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
@@ -1218,7 +1444,7 @@ def main(argv=None) -> int:
     prefix = torch.from_numpy(rng.randint(0, 21, len(sparse_scores))).cuda()
     sparse_scores[torch.arange(sparse_scores.shape[1], device='cuda')[None]
                   >= prefix[:, None]] = float('-inf')
-    nms_time = time_nms(pred, {
+    nms_time = time_nms(pred.postprocessor.overlap_threshold, {
         'b32': b32,
         'b128': nms_inputs(pred, rng.randint(0, 256, (128, 300, 300, 3),
                                              dtype=np.uint8)),
@@ -1291,6 +1517,56 @@ def main(argv=None) -> int:
 
     # 9. the slice's times
     exp_timing = time_experiment(exp, aug_batch, smi)
+    del exp, aug_batch
+    torch.cuda.empty_cache()
+
+    # 10. the port as users start it: the CLI, checkpoints, a resume in a
+    # fresh process
+    work = tempfile.mkdtemp(prefix='chip_smoke_cli_')
+    try:
+        config = write_cli_config(Path(work) / 'flagship_cli.py', CLI_EPOCHS)
+        cli_exp, cli_rows, cli_launches, cli_s, cli_epoch_s = run_cli(
+            ['--config', config, '--phases', 'train', 'eval', '--save-dir',
+             os.path.join(work, 'runs')])
+        run_dir = cli_exp.checkpoint_dir
+        check_cli_run(cli_exp, cli_rows, cli_launches, n_bn, run_dir)
+        images = len(cli_exp.loaders['train']) * cli_exp.loaders['train'].batch_size
+        log(f'[10] {smi}: python -m single_shot_detection_tpu_torch (in this '
+            f'process) on {FLAGSHIP} with fused_bn and synthetic 500 px data: '
+            f'{CLI_EPOCHS} epochs of {len(cli_exp.loaders["train"])} b32 steps, '
+            f'an evaluation and a checkpoint after each, in {cli_s:.2f} s; '
+            'epochs ' + ', '.join(f'{t:.3f} s = {images / t:.1f} img/s'
+                                  for t in cli_epoch_s)
+            + '; kernel launches ' + json.dumps(cli_launches))
+        for row in cli_rows:
+            log('  ' + json.dumps(row))
+        round_trip = check_round_trip(cli_exp, config,
+                                      ckpt.find_latest(run_dir))
+        ckpt_timing = time_checkpoint(cli_exp, os.path.join(work, 'timing'))
+        log(f'  checkpoint save {ckpt_timing["save_ms"]:.1f} ms (median of 3), '
+            f'restore {round_trip["restore_ms"]:.1f} ms, '
+            f'{ckpt_timing["file_bytes"]} bytes')
+        del cli_exp
+        torch.cuda.empty_cache()
+        resumed = resume_in_a_fresh_process(run_dir)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # 11. the JAX package's trained checkpoint on the card and on the CPU
+    before = listing('experiments')
+    jax_exp, card_metrics, jax_launches = eval_jax_checkpoint([])
+    if jax_launches['nms_keep_batched'] != len(jax_exp.loaders['eval']):
+        fail(f'the JAX checkpoint\'s evaluation launched NMS '
+             f'{jax_launches["nms_keep_batched"]} times')
+    _, cpu_metrics, _ = eval_jax_checkpoint(['--cpu'])
+    log(f'[11] {smi}:')
+    jax_check = check_jax_checkpoint(card_metrics, cpu_metrics)
+    trained = time_nms(jax_exp.postprocessor.overlap_threshold,
+                       {'trained smoke eval (b16)': eval_nms_inputs(jax_exp)},
+                       card)
+    if listing('experiments') != before:
+        fail('experiments/ changed')
+    log('  experiments/ unchanged')
 
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
@@ -1302,17 +1578,26 @@ def main(argv=None) -> int:
         'profiled_train_step_wall_ms': step_profile['profiled_step_wall_ms'],
         'bn_elements_per_step': step_profile['bn_elements_per_step'],
         'experiment_epoch_row': exp_rows[0], 'experiment_s': exp_s,
-        **aug_check, **exp_timing}}))
-    # ``launches``: the count on this slice's path (phase 8's Experiment);
+        **aug_check, **exp_timing,
+        'cli': {'seconds': cli_s, 'epoch_s': cli_epoch_s,
+                'epoch_img_per_s': [images / t for t in cli_epoch_s],
+                'rows': cli_rows, 'launches': cli_launches, **round_trip,
+                **ckpt_timing, **resumed},
+        'jax_checkpoint': {'card': card_metrics, 'cpu': cpu_metrics,
+                           **jax_check, 'launches': jax_launches}}}))
+    # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
         'name': 'nms_keep_batched',
         'route': 'cuda',
         'source': 'single_shot_detection_tpu_torch/kernels/nms.cu',
         'replaces': 'single_shot_detection_tpu/ops/nms_pallas.py:33',
-        'launches': exp_launches['nms_keep_batched'],
+        'launches': cli_launches['nms_keep_batched'],
         'launches_by_path': {'serving': launches, 'experiment':
-                             exp_launches['nms_keep_batched']},
+                             exp_launches['nms_keep_batched'],
+                             'cli': cli_launches['nms_keep_batched'],
+                             'cli_jax_checkpoint':
+                                 jax_launches['nms_keep_batched']},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
             'shape', 'ms', 'call_ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -1320,7 +1605,7 @@ def main(argv=None) -> int:
         'library_ms': None,
         'by_input': {name: {key: value for key, value in row.items()
                             if key not in ('bytes', 'turns_ms')}
-                     for name, row in nms_time.items()},
+                     for name, row in {**nms_time, **trained}.items()},
     }]
     for name, (_, _, replaces) in BN_KERNELS.items():
         kernels.append({
@@ -1328,9 +1613,10 @@ def main(argv=None) -> int:
             'route': 'cuda',
             'source': 'single_shot_detection_tpu_torch/kernels/bn.cu',
             'replaces': replaces,
-            'launches': exp_launches[name],
+            'launches': cli_launches[name],
             'launches_by_path': {'train_step': bn_launches[name],
-                                 'experiment': exp_launches[name]},
+                                 'experiment': exp_launches[name],
+                                 'cli': cli_launches[name]},
             'max_abs_err': bn_check[name],
             'shape': list(BN_TIMED_SHAPE),
             **bn_time[name],

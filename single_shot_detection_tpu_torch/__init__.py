@@ -7,7 +7,10 @@ SSD300-MobileNetV2 forward -> postprocessing with a hand-written CUDA NMS
 kernel -> ``[B, max_total, 6]`` detections and a ``valid`` mask) and the
 train step (``trainer.py::Trainer``: preprocessing -> target assignment ->
 train-mode forward -> multibox loss -> backward -> SGD, with the train-mode
-BatchNorm on four hand-written CUDA kernels under ``train.fused_bn``).  It
+BatchNorm on four hand-written CUDA kernels under ``train.fused_bn``), and
+the config's train and eval phases as users start them
+(``python -m single_shot_detection_tpu_torch``, ``cli.py``; checkpoints in
+``train/checkpoint.py``, which also reads the JAX package's files).  It
 imports ``torch`` only; the JAX package beside it is the reference the
 port's tests hold it against.
 

@@ -1,0 +1,181 @@
+"""Command line: ``python -m single_shot_detection_tpu_torch``.
+
+Port of the JAX package's ``main.py``, flag for flag::
+
+    python -m single_shot_detection_tpu_torch --config samples/synthetic_smoke.py \\
+        --phases train eval [--save-dir DIR] [--checkpoint FILE_OR_DIR]
+        [--new-checkpoint] [--load-weights] [--debug] [--cpu] [--profile DIR]
+
+``train`` runs the epochs (checkpoints, ``log.csv``, ``train.log`` and a
+copy of the config go to a timestamped directory under ``--save-dir``, or
+to the ``--checkpoint`` directory it resumes unless ``--new-checkpoint``);
+``eval`` alone evaluates and writes nothing; ``embed`` opens an interactive
+shell with ``experiment`` and ``cfg``.  ``--checkpoint`` also takes the JAX
+package's ``ckpt-N.msgpack`` files and directories.  The run is on ``cuda``
+and raises without a GPU unless ``--cpu`` is given.  ``--profile DIR``
+writes a ``torch.profiler`` trace of the train phase into DIR.
+
+Not ported yet, each raising ``NotImplementedError``: ``--bf16``,
+``--int8``, ``--tensorboard``, the ``test`` phase with ``--video``, the
+``export`` phase, the distributed flags, ``--matmul-precision`` other than
+``highest`` or ``float32``, and ``--compilation-cache`` other than ``off``
+(the port has no XLA cache; its kernels are built once into
+``kernels/build/``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+from typing import Optional, Sequence
+
+# flag -> where ROADMAP.md's Queue 1 lists it
+_UNPORTED_FLAGS = (
+    ('bf16', '--bf16', 'item 9 (bf16 and TF32 compute)'),
+    ('int8', '--int8', 'item 9 (int8 serving)'),
+    ('tensorboard', '--tensorboard', 'item 8 (left raising)'),
+    ('video', '--video', 'item 13 (the video viewer of the test phase)'),
+    ('coordinator_address', '--coordinator-address', 'item 14 (multi-GPU)'),
+    ('num_processes', '--num-processes', 'item 14 (multi-GPU)'),
+    ('process_id', '--process-id', 'item 14 (multi-GPU)'),
+)
+_UNPORTED_PHASES = {'test': 'item 13 (the video viewer of the test phase)',
+                    'export': 'item 9 (export)'}
+
+
+def get_argparser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog='python -m single_shot_detection_tpu_torch')
+    parser.add_argument('--config', default='./config.py',
+                        help='Path to a config file')
+    parser.add_argument('--save-dir', type=str, default='./experiments',
+                        help='Folder where checkpoints are saved')
+    parser.add_argument('--checkpoint', type=str,
+                        help='Checkpoint file/dir to restore from (.pt, or '
+                             'the JAX package\'s .msgpack)')
+    parser.add_argument('--debug', default=False, action='store_true',
+                        help='Disable checkpoint/log writing, verbose logs')
+    parser.add_argument('--new-checkpoint', default=False, action='store_true',
+                        help='Save to a fresh directory even when resuming')
+    parser.add_argument('--load-weights', default=False, action='store_true',
+                        help='Restore weights only (fresh optimizer state)')
+    parser.add_argument('--cpu', default=False, action='store_true',
+                        help='Run on the CPU (default: the CUDA card)')
+    parser.add_argument('--bf16', default=False, action='store_true',
+                        help='bfloat16 compute (not ported yet)')
+    parser.add_argument('--int8', default=False, action='store_true',
+                        help='int8 serving (not ported yet)')
+    parser.add_argument('--matmul-precision', type=str, default=None,
+                        choices=['default', 'high', 'highest',
+                                 'bfloat16', 'tensorfloat32', 'float32'],
+                        help='Matmul/conv precision; the port runs true f32 '
+                             '(TF32 off): only highest/float32')
+    parser.add_argument('--phases', nargs='+', default=['train', 'eval'],
+                        choices=['train', 'eval', 'test', 'export', 'embed'],
+                        help='One or multiple runtime phases')
+    parser.add_argument('--video', type=str,
+                        help='Video file or image folder for the test phase '
+                             '(not ported yet)')
+    parser.add_argument('--tensorboard', default=False, action='store_true',
+                        help='Log to tensorboard (not ported yet)')
+    parser.add_argument('--profile', type=str, default=None, metavar='DIR',
+                        help='Write a torch.profiler trace of the train '
+                             'phase into DIR')
+    parser.add_argument('--compilation-cache', type=str, default=None,
+                        metavar='DIR|off',
+                        help='The JAX package\'s XLA cache; the port has '
+                             'none: only "off"')
+
+    dist = parser.add_argument_group('distributed (multi-host, not ported yet)')
+    dist.add_argument('--coordinator-address', type=str, default=None)
+    dist.add_argument('--num-processes', type=int, default=None)
+    dist.add_argument('--process-id', type=int, default=None)
+    return parser
+
+
+def check_ported(args: argparse.Namespace) -> None:
+    """Raise ``NotImplementedError`` for a flag or phase not ported yet."""
+    for attr, flag, item in _UNPORTED_FLAGS:
+        value = getattr(args, attr)
+        if value is not None and value is not False:
+            raise NotImplementedError(
+                f'{flag} is not ported yet (ROADMAP.md Queue 1 {item})')
+    for phase, item in _UNPORTED_PHASES.items():
+        if phase in args.phases:
+            raise NotImplementedError(f'the {phase} phase is not ported yet '
+                                      f'(ROADMAP.md Queue 1 {item})')
+    if args.matmul_precision not in (None, 'highest', 'float32'):
+        raise NotImplementedError(
+            f'--matmul-precision {args.matmul_precision} is not ported yet: '
+            'the port runs true f32 with TF32 off (ROADMAP.md Queue 1 item 9, '
+            'bf16 and TF32 compute)')
+    if args.compilation_cache not in (None, 'off'):
+        raise NotImplementedError(
+            '--compilation-cache: the port has no XLA compilation cache; its '
+            'CUDA kernels are built once into '
+            'single_shot_detection_tpu_torch/kernels/build/')
+
+
+def _profiled(directory: str, device, run):
+    """``run()`` under ``torch.profiler``, its trace written into
+    ``directory`` (TensorBoard's PyTorch profiler plugin reads it)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if device.type == 'cuda':
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(directory)):
+        return run()
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Run ``main.py``'s phases; returns ``(experiment, result)``, the
+    result being the train phase's epoch rows, the eval phase's metrics
+    when it runs alone, or None."""
+    args = get_argparser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.debug else logging.INFO,
+        format='%(message)s', stream=sys.stdout, force=True)
+    check_ported(args)
+
+    from single_shot_detection_tpu_torch.train import checkpoint as ckpt_utils
+    from single_shot_detection_tpu_torch.train.engine import Experiment
+    from single_shot_detection_tpu_torch.utils.config import load_config
+
+    cfg = load_config(args.config, phases=args.phases)
+    train = 'train' in args.phases
+    checkpoint_dir = ckpt_utils.prepare_checkpoint_dir(
+        args.save_dir, args.checkpoint, args.config, args.debug, train,
+        args.new_checkpoint)
+
+    handler = None
+    if not args.debug and train:  # the file logger next to the checkpoints
+        handler = logging.FileHandler(os.path.join(checkpoint_dir, 'train.log'))
+        handler.setFormatter(logging.Formatter('%(asctime)s %(message)s'))
+        logging.getLogger().addHandler(handler)
+    try:
+        experiment = Experiment(cfg, phases=args.phases,
+                                device='cpu' if args.cpu else 'cuda',
+                                checkpoint_dir=checkpoint_dir,
+                                resume_from=args.checkpoint,
+                                load_weights=args.load_weights,
+                                debug=args.debug)
+        result = None
+        if 'embed' in args.phases:
+            import code
+            code.interact(local={'experiment': experiment, 'cfg': cfg})
+        elif train:
+            if args.profile:
+                result = _profiled(args.profile, experiment.device,
+                                   experiment.train)
+            else:
+                result = experiment.train()
+        elif 'eval' in args.phases:
+            result = experiment.evaluate()
+        return experiment, result
+    finally:
+        if handler is not None:
+            logging.getLogger().removeHandler(handler)
+            handler.close()

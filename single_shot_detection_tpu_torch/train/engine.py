@@ -1,26 +1,37 @@
 """``Experiment``: a config's datasets, loaders, model and steps, run as the
 ``train`` and ``eval`` phases on one device.
 
-Port of the part of the JAX package's ``train/engine.py::Experiment`` that
-the flagship's ``--phases train eval`` needs on one card: datasets and
-loaders from the config, the train ``Trainer`` (augmentation ``Pipeline``,
-model, loss, optimizer and schedule, with milestones counted in epochs of
-the train loader), the eval pipeline and the config-exact postprocessor,
-the epoch loop with an evaluation every ``eval_every`` epochs, and
-``evaluate`` with the loss, VOC mAP and, for other datasets, the COCO sweep.
+Port of the JAX package's ``train/engine.py::Experiment`` for one card:
+datasets and loaders from the config, the train ``Trainer`` (augmentation
+``Pipeline``, model, loss, optimizer and schedule, with milestones counted
+in epochs of the train loader), the eval pipeline and the config-exact
+postprocessor, and the training loop: weights at start (``model.base.weight``
+for a MobileNetV2 backbone, ``model.detector.weight``, a resumed
+checkpoint), the epochs with an evaluation every ``eval_every`` and a
+checkpoint every ``save_every`` (default ``eval_every``), ``log.csv``
+rewritten each epoch, ``ReduceLROnPlateau`` fed after each evaluation, and
+an emergency checkpoint on ``KeyboardInterrupt`` or SIGTERM.  ``evaluate``
+gives the loss, VOC mAP and, for other datasets, the COCO sweep.
 
-Not ported yet, each raising ``NotImplementedError`` when asked for:
-checkpoint save and resume (``checkpoint_dir``, ``resume_from``, and with
-them ``log.csv``), weight files named in the config, ``ReduceLROnPlateau``,
-the device-resident dataset and the eval replay cache, int8, pruning, EMA,
-tensorboard and multi-host runs.  A failed step raises; nothing retries.
+Unlike the JAX engine, a resumed run keeps the earlier epochs' rows of the
+``log.csv`` it resumes in.  Left out: the JAX engine's retry of an epoch
+after a transient device failure; a failed step raises.
+
+Not ported yet, each raising ``NotImplementedError`` when asked for: the
+asynchronous checkpoint writer, the device-resident dataset and the eval
+replay cache, weight files of other backbones and of the reference's whole
+detector (``detector.torch_weight``), int8, pruning, EMA, tensorboard and
+multi-host runs.
 
 Runs on ``cuda`` unless the caller passes ``device='cpu'``.
 """
 
 from __future__ import annotations
 
+import csv
 import logging
+import os
+import signal
 import time
 from typing import Dict, List, Mapping, Optional, Union
 
@@ -34,9 +45,11 @@ from single_shot_detection_tpu_torch.device import resolve_device
 from single_shot_detection_tpu_torch.ops import metrics as metrics_ops
 from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
 from single_shot_detection_tpu_torch.ops.postprocess import Postprocessor
+from single_shot_detection_tpu_torch.train import checkpoint as ckpt
 from single_shot_detection_tpu_torch.train.step import make_eval_step
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.config import ConfigWrapper, load_config
+from single_shot_detection_tpu_torch.utils import torch_import
 from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
 
 METRIC_KEYS = ('loss', 'class_loss', 'loc_loss')
@@ -68,15 +81,15 @@ def check_experiment_ported(cfg) -> None:
     if dict(cfg.eval or {}).get('device_cache'):
         raise NotImplementedError('eval.device_cache is not ported yet')
     model = dict(cfg.model or {})
-    detector = dict(model.get('detector', {}))
-    for key in ('weight', 'torch_weight'):
-        if detector.get(key):
-            raise NotImplementedError(
-                f'model.detector.{key} is not ported yet; pass variables=')
-    if dict(model.get('base', {})).get('weight'):
-        raise NotImplementedError('model.base.weight is not ported yet')
-    if str(dict(model.get('base', {})).get('name', '')).startswith('torchhub://'):
+    if dict(model.get('detector', {})).get('torch_weight'):
+        raise NotImplementedError('model.detector.torch_weight is not ported '
+                                  'yet')
+    base = dict(model.get('base', {}))
+    if str(base.get('name', '')).startswith('torchhub://'):
         raise NotImplementedError('torchhub:// backbones are not ported yet')
+    if str(base.get('weight') or '').endswith(('.h5', '.hdf5')):
+        raise NotImplementedError('keras .h5 backbone weights are not ported '
+                                  'yet')
 
 
 class Experiment:
@@ -84,9 +97,14 @@ class Experiment:
 
     ``cfg`` is a ``samples/*.py`` path or a loaded ``ConfigWrapper``;
     ``variables`` a JAX ``{'params', 'batch_stats'}`` tree of numpy arrays
-    (e.g. a restored checkpoint); ``seed`` seeds the weights, the loader
-    order and the augmentation (default: the config's); ``overrides`` as in
-    ``Trainer.from_config``.
+    to start from; ``seed`` seeds the weights, the loader order and the
+    augmentation (default: the config's); ``overrides`` as in
+    ``Trainer.from_config``.  ``checkpoint_dir`` receives the checkpoints
+    and ``log.csv`` (nothing is written without it or with ``debug``);
+    ``resume_from`` is a checkpoint file or directory (its latest
+    checkpoint, ``.pt`` or the JAX package's ``.msgpack``) to resume from
+    at the epoch after the one it was saved in, or, with ``load_weights``,
+    to take the weights of only.
     """
 
     def __init__(self, cfg: Union[str, ConfigWrapper],
@@ -97,12 +115,12 @@ class Experiment:
                  overrides: Optional[Mapping] = None,
                  checkpoint_dir: Optional[str] = None,
                  resume_from: Optional[str] = None,
+                 load_weights: bool = False,
+                 debug: bool = False,
                  int8: bool = False,
                  tensorboard: bool = False,
                  process_count: int = 1):
-        for name, value in (('checkpoint_dir', checkpoint_dir),
-                            ('resume_from', resume_from), ('int8', int8),
-                            ('tensorboard', tensorboard),
+        for name, value in (('int8', int8), ('tensorboard', tensorboard),
                             ('process_count > 1', process_count != 1)):
             if value:
                 raise NotImplementedError(f'Experiment {name} is not ported yet')
@@ -143,6 +161,7 @@ class Experiment:
         # --- train side: pipeline, model, loss, optimizer, schedule ------
         self.epochs = int(train_cfg.get('epochs', 1))
         self.eval_every = int(train_cfg.get('eval_every', 1))
+        self.save_every = int(train_cfg.get('save_every', self.eval_every))
         self.num_batches_per_epoch = train_cfg.get('num_batches_per_epoch')
         steps_per_epoch = None
         if 'train' in self.loaders:
@@ -163,6 +182,43 @@ class Experiment:
                                         self.trainer.assigner, self.anchors,
                                         self.postprocessor)
 
+        # --- checkpoints and the weights to start from ---------------------
+        self.checkpoint_dir = checkpoint_dir
+        self.debug = bool(debug)
+        self.start_epoch = 0
+        self._load_weights(dict(cfg.model or {}), resume_from, load_weights)
+        self._current_epoch = self.start_epoch  # the emergency save's epoch
+
+    def _load_weights(self, model_cfg: dict, resume_from: Optional[str],
+                      load_weights: bool) -> None:
+        """``model.base.weight`` (a torchvision backbone ``state_dict``),
+        then ``model.detector.weight`` (weights only), then ``resume_from``,
+        each over the one before."""
+        state = self.trainer.state
+        base_cfg = dict(model_cfg.get('base', {}))
+        if base_cfg.get('weight'):
+            state.model.load_state_dict(torch_import.import_backbone(
+                torch_import.load_torch_state_dict(base_cfg['weight']),
+                state.model.state_dict(), base_cfg['name']))
+        elif base_cfg.get('pretrained'):
+            logging.warning(
+                'WW base.pretrained=True cannot download torchvision weights; '
+                'set base.weight=<path to a torch state_dict> to load '
+                'pretrained weights (utils/torch_import.py) — training from '
+                'scratch')
+        weight_file = dict(model_cfg.get('detector', {})).get('weight')
+        if weight_file:
+            ckpt.restore_weights_only(weight_file, state)
+        if resume_from:
+            path = ckpt.find_latest(resume_from)
+            if path is None:
+                logging.warning(f'WW no checkpoint found under {resume_from}')
+            elif load_weights:
+                ckpt.restore_weights_only(path, state)
+            else:
+                _, meta = ckpt.restore(path, state)
+                self.start_epoch = meta['epoch'] + 1
+
     @property
     def model(self) -> torch.nn.Module:
         return self.trainer.model
@@ -175,14 +231,64 @@ class Experiment:
 
     # ------------------------------------------------------------------ train
     def train(self) -> List[Dict[str, float]]:
-        """Run the epochs; returns one row per epoch (``train_*`` epoch means
-        and, after an evaluation, ``eval_*``)."""
+        """Run the epochs from ``start_epoch``; returns this run's rows, one
+        per epoch (``train_*`` epoch means and, after an evaluation,
+        ``eval_*``).
+
+        A ``KeyboardInterrupt`` saves an emergency checkpoint of the current
+        epoch before it is re-raised (a resume from it starts at the next
+        epoch); SIGTERM is turned into one while the epochs run, and the
+        previous handler is put back afterwards.  An interrupt that lands
+        inside the optimizer's update can leave that one step half
+        applied."""
+        def _sigterm(signum, frame):
+            raise KeyboardInterrupt('SIGTERM')
+
+        prev_handler, installed = None, False
+        try:  # only the main thread may set handlers
+            prev_handler = signal.signal(signal.SIGTERM, _sigterm)
+            installed = True
+        except ValueError:
+            pass
+        try:
+            return self._train_epochs()
+        except KeyboardInterrupt:
+            if self.checkpoint_dir and not self.debug:
+                path = ckpt.save(self.checkpoint_dir, self.trainer.state,
+                                 self._current_epoch)
+                logging.warning(f'WW interrupted — emergency checkpoint '
+                                f'saved to {path}')
+            raise
+        finally:
+            if installed:
+                # None: the previous handler was not installed from Python
+                signal.signal(signal.SIGTERM, prev_handler
+                              if prev_handler is not None else signal.SIG_DFL)
+
+    def _train_epochs(self) -> List[Dict[str, float]]:
+        writes = self.checkpoint_dir and not self.debug
+        csv_path = None
+        if writes:
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+            csv_path = os.path.join(self.checkpoint_dir, 'log.csv')
+        earlier = _read_csv(csv_path, self.start_epoch) if csv_path else []
+        trainer = self.trainer
         rows = []
-        for epoch in range(self.epochs):
+        for epoch in range(self.start_epoch, self.epochs):
+            self._current_epoch = epoch
+            logging.info(f'Epoch: {epoch}/{self.epochs - 1}')
             row = self.train_epoch(epoch)
             if 'eval' in self.phases and (epoch + 1) % self.eval_every == 0:
                 row.update({f'eval_{k}': v for k, v in self.evaluate().items()})
+                if trainer.plateau is not None:
+                    value = row.get(trainer.scheduler_metric)
+                    if value is not None:
+                        trainer.state.lr_scale = trainer.plateau.update(value)
             rows.append(row)
+            if csv_path:
+                _write_csv(csv_path, earlier + rows)
+            if writes and (epoch + 1) % self.save_every == 0:
+                ckpt.save(self.checkpoint_dir, trainer.state, epoch)
         return rows
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
@@ -267,3 +373,25 @@ class Experiment:
         logging.info(f'[eval] {count} batches in {time.perf_counter() - start:.2f} s: '
                      + ' '.join(f'{k}={v:.4f}' for k, v in result.items()))
         return result
+
+
+def _read_csv(path: str, before_epoch: int) -> List[Dict[str, str]]:
+    """The rows of an existing ``log.csv`` for epochs before
+    ``before_epoch``, values as written."""
+    if not os.path.exists(path):
+        return []
+    with open(path, newline='') as f:
+        return [{k: v for k, v in row.items() if v != ''}
+                for row in csv.DictReader(f) if int(row['epoch']) < before_epoch]
+
+
+def _write_csv(path: str, rows) -> None:
+    """``log.csv`` rewritten with the union of the rows' keys, ``epoch``
+    first."""
+    keys = sorted({k for row in rows for k in row},
+                  key=lambda k: (k != 'epoch', k))
+    with open(path, 'w', newline='') as f:
+        writer = csv.DictWriter(f, fieldnames=keys)
+        writer.writeheader()
+        for row in rows:
+            writer.writerow(row)

@@ -3,9 +3,10 @@
 Port of ``single_shot_detection_tpu/train/state.py::TrainState``.  The JAX
 state is one immutable pytree; here the model (parameters and BN running
 statistics) and the optimizer (momentum buffers) hold their tensors and are
-updated in place, and the state adds the step counter and ``lr_scale``
-(the ``ReduceLROnPlateau`` multiplier, 1 until that scheduler is ported).
-``ema_params`` stays empty: the EMA is not ported yet.
+updated in place, and the state adds the step counter (the optimizer's
+step count, which the schedule ticks on) and ``lr_scale`` (the
+``ReduceLROnPlateau`` multiplier: the step's rate is ``schedule(step) *
+lr_scale``).  ``ema_params`` stays empty: the EMA is not ported yet.
 """
 
 from __future__ import annotations

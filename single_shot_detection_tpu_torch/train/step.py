@@ -15,6 +15,17 @@ from torch import nn
 from single_shot_detection_tpu_torch.train.state import TrainState
 
 
+def apply_gradients(state: TrainState, schedule: Callable[[int], float]) -> None:
+    """The optimizer step on the gradients in ``state.model``'s parameters
+    at ``schedule(state.step) * state.lr_scale`` (the JAX step scales its
+    updates by ``lr_scale``, the same for SGD), then ``state.step += 1``."""
+    lr = schedule(state.step) * state.lr_scale
+    for group in state.optimizer.param_groups:
+        group['lr'] = lr
+    state.optimizer.step()
+    state.step += 1
+
+
 def make_update_step(criterion, assigner, anchors: torch.Tensor,
                      schedule: Callable[[int], float]) -> Callable:
     """Build ``update(state, x, boxes, box_mask) -> metrics`` on model input
@@ -37,11 +48,7 @@ def make_update_step(criterion, assigner, anchors: torch.Tensor,
                                                anchors, target)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        lr = schedule(state.step) * state.lr_scale
-        for group in state.optimizer.param_groups:
-            group['lr'] = lr
-        state.optimizer.step()
-        state.step += 1
+        apply_gradients(state, schedule)
         return {'loss': loss.detach(), 'class_loss': class_loss.detach(),
                 'loc_loss': loc_loss.detach()}
 

@@ -74,11 +74,17 @@ class Trainer:
 
     def __init__(self, bundle: builder.DetectorBundle, state: TrainState,
                  pipeline: Pipeline, schedule, criterion: MultiboxLoss,
-                 assigner: TargetAssigner, device: torch.device, seed: int):
+                 assigner: TargetAssigner, device: torch.device, seed: int,
+                 plateau: Optional[schedulers.ReduceLROnPlateau] = None,
+                 scheduler_metric: Optional[str] = None):
         self.bundle = bundle
         self.state = state
         self.pipeline = pipeline
         self.schedule = schedule  # optimizer step -> learning rate
+        # ReduceLROnPlateau: the engine feeds it ``scheduler_metric`` after
+        # each evaluation and writes its scale into ``state.lr_scale``
+        self.plateau = plateau
+        self.scheduler_metric = scheduler_metric
         self.criterion = criterion
         self.assigner = assigner
         self.device = device
@@ -144,13 +150,13 @@ class Trainer:
                     'total_train_steps': steps_per_epoch * epochs // accumulation})
         train_cfg = dict(cfg.train)  # re-read after interpolation
         opt_cfg = dict(train_cfg.get('optimizer', {'name': 'SGD', 'lr': 1e-3}))
-        schedule = schedulers.create_lr_schedule(
+        schedule, plateau, metric = schedulers.create_lr_schedule(
             train_cfg.get('scheduler'), opt_cfg.get('lr', 1e-3), steps_per_epoch)
         optimizer = optimizers.create_optimizer(
             opt_cfg, model.parameters(), accumulation_steps=accumulation,
             clip_grad_norm=train_cfg.get('clip_grad_norm'))
         return cls(bundle, TrainState(model, optimizer), pipeline, schedule,
-                   criterion, assigner, device, seed)
+                   criterion, assigner, device, seed, plateau, metric)
 
     def draws(self, step: int, batch: int) -> list:
         """The augmentation draws of global step ``step`` (on the CPU)."""

@@ -32,6 +32,17 @@ CKPT_DIR = 'experiments/2026-08-16-225820'
 FLAGSHIP = 'samples/ssd_mb2_voc.py'
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """One intra-op thread: the suite runs test files in parallel
+    processes, and torch's default of one thread per core makes them
+    contend for the CPU, tens of times slower than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def build_both(config_path):
     """(JAX bundle, port bundle) for one config."""
     cfg = load_config(config_path)

@@ -41,6 +41,17 @@ PREPROCESSING = [
 ]
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """One intra-op thread: the suite runs test files in parallel
+    processes, and torch's default of one thread per core makes them
+    contend for the CPU, tens of times slower than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def jax_eval_pipeline(images, input_size):
     pipe = Pipeline((), PREPROCESSING, input_size, train=False)
     b = len(images)
@@ -227,7 +238,7 @@ def port_sources():
 
 
 def test_port_sources_import_no_jax():
-    banned = re.compile(r'^\s*(import|from)\s+(jax|flax)\b'
+    banned = re.compile(r'^\s*(import|from)\s+(jax|flax|optax|msgpack)\b'
                         r'|\bsingle_shot_detection_tpu\.', re.M)
     for path in port_sources():
         hits = banned.findall(path.read_text())
@@ -235,13 +246,22 @@ def test_port_sources_import_no_jax():
 
 
 def test_package_imports_with_jax_blocked():
+    """Every module of the port, ``__main__`` included, imports with
+    jax, flax, optax, msgpack and the JAX package blocked; then it serves,
+    and restores the committed JAX checkpoint."""
     modules = sorted(
         'single_shot_detection_tpu_torch.' + '.'.join(
             p.relative_to(PORT).with_suffix('').parts)
         for p in PORT.rglob('*.py') if p.name != '__init__.py')
+    assert {'single_shot_detection_tpu_torch.__main__',
+            'single_shot_detection_tpu_torch.cli',
+            'single_shot_detection_tpu_torch.train.checkpoint',
+            'single_shot_detection_tpu_torch.utils.flax_msgpack',
+            'single_shot_detection_tpu_torch.utils.torch_import'} <= set(modules)
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'single_shot_detection_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack',\n"
+        "             'single_shot_detection_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {modules!r}:\n"
@@ -251,6 +271,12 @@ def test_package_imports_with_jax_blocked():
         "import numpy as np\n"
         "d, v = p.predict_batch(np.zeros((1, 128, 128, 3), np.uint8))\n"
         "assert d.shape == (1, 50, 6)\n"
+        "from single_shot_detection_tpu_torch.train import checkpoint\n"
+        "from single_shot_detection_tpu_torch.trainer import Trainer\n"
+        "run = 'experiments/2026-08-16-225820'\n"
+        "t = Trainer.from_config(run + '/config.py', device='cpu')\n"
+        "_, meta = checkpoint.restore(checkpoint.find_latest(run), t.state)\n"
+        "assert t.state.step == 1800 and meta['epoch'] == 149\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,

@@ -221,7 +221,7 @@ def test_sgd_multistep_matches_optax_chain():
 
     p_t = {k: torch.nn.Parameter(t(v)) for k, v in params.items()}
     opt = pt_optimizers.create_optimizer(dict(opt_cfg), p_t.values())
-    schedule_p = pt_schedulers.create_lr_schedule(dict(sched_cfg), 0.1, 1)
+    schedule_p = pt_schedulers.create_lr_schedule(dict(sched_cfg), 0.1, 1)[0]
     for step, g in enumerate(grads):
         updates, opt_state = tx.update(g, opt_state, p_j)
         p_j = optax.apply_updates(p_j, updates)
@@ -240,12 +240,20 @@ def test_sgd_multistep_matches_optax_chain():
 
 @pytest.mark.parametrize('name', ['Adam', 'CosineAnnealingLR'])
 def test_unported_optimizers_and_schedules_raise(name):
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        if name == 'Adam':
+    """Adam is not ported yet and raises.  Every schedule of the JAX
+    package is ported (CosineAnnealingLR among them); an unknown name
+    raises."""
+    if name == 'Adam':
+        with pytest.raises(NotImplementedError, match='not ported yet'):
             pt_optimizers.create_optimizer({'name': 'Adam', 'lr': 1e-3},
                                            [torch.nn.Parameter(torch.zeros(1))])
-        else:
-            pt_schedulers.create_lr_schedule({'name': name, 'T_max': 3}, 0.1, 1)
+        return
+    schedule, plateau, _ = pt_schedulers.create_lr_schedule(
+        {'name': name, 'T_max': 3}, 0.1, 1)
+    assert plateau is None
+    assert [schedule(s) for s in (0, 3, 5)] == pytest.approx([0.1, 0.0, 0.0])
+    with pytest.raises(KeyError, match='unknown scheduler'):
+        pt_schedulers.create_lr_schedule({'name': 'OneCycleLR'}, 0.1, 1)
 
 
 # ------------------------------------------------------ preprocessing
@@ -405,8 +413,11 @@ def test_trainer_raises_on_what_is_not_ported():
         with pytest.raises(NotImplementedError, match=key):
             Trainer.from_config(SMOKE, device='cpu', overrides={
                 'augmentations': [], 'train': {key: value}})
-    with pytest.raises(NotImplementedError, match='CosineAnnealingWithWarmupLR'):
-        Trainer.from_config(SMOKE, device='cpu')
+    with pytest.raises(NotImplementedError, match='accumulation'):
+        Trainer.from_config(SMOKE, device='cpu', overrides={
+            'train': {'accumulation_steps': 2}})
+    # the config's own CosineAnnealingWithWarmupLR is ported
+    assert Trainer.from_config(SMOKE, device='cpu').schedule(0) == pytest.approx(1e-4)
     with pytest.raises(NotImplementedError, match='staging_colorspace'):
         Trainer.from_config(SMOKE, device='cpu', overrides={
             'train': {'staging_colorspace': 'yuv420'}})

@@ -40,6 +40,17 @@ STD = np.array([0.229, 0.224, 0.225], np.float32)
 STAGED, OUT = 64, 48
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """One intra-op thread: the suite runs test files in parallel
+    processes, and torch's default of one thread per core makes them
+    contend for the CPU, tens of times slower than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ------------------------------------------------- draws from JAX keys
 
 def stage_draws(kind, kw, key):
