@@ -63,7 +63,28 @@ beside this one in phase 5, in turns.  Phases, each fatal:
    train loader alone (staging on the card and on the CPU) and an epoch
    with CPU staging, the augmentation ``Pipeline``'s device and host ms per
    b32 batch and its share of the augmented step, and a profiler table of
-   one augmented train step.
+   one augmented train step;
+10. the CLI in process (``cli.main``) on the flagship with ``fused_bn`` and
+    synthetic 500 px data, 2 epochs with checkpoints, then a resume of its
+    run directory in a fresh ``python -m single_shot_detection_tpu_torch``
+    process, a save -> restore bit-equal on the card and their times;
+11. the JAX package's committed checkpoint evaluated through the CLI on the
+    card and on the CPU (loss within 1e-4 relative, mAP within 0.005), and
+    NMS timed at that trained input;
+12. the model zoo at the configs' b16 with seeded random weights:
+    ``samples/retina_rn50_500_voc.py`` (500 px, 98 train-mode BNs, sigmoid
+    over 20 classes) and ``samples/ssd_300_vgg16_voc.py`` (300 px, 21 BNs):
+    3 ``predict_batch`` calls with the NMS count read around them, the
+    forward at b2 against the CPU (heads and sources, ``ZOO_FORWARD_RTOL``)
+    and the kernel postprocessor against the plain one; 3 ``fused_bn``
+    train steps with the BN counts read around them (98 and 21 per step),
+    one step against PyTorch's batch norm, the step in turns with and
+    without the kernels, K1-K4 against their plain versions on every
+    distinct BN shape of the step, each BN kernel's device time summed over
+    a step beside the step's bound and the PyTorch pairs over the same
+    shapes; RetinaNet through ``cli.main`` (one epoch on synthetic 500 px
+    data, an evaluation and a checkpoint); and the NMS kernel at both
+    serving inputs.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -447,12 +468,14 @@ def bn_err(got, want, kind: str) -> float:
     return err
 
 
-def check_bn_kernels() -> dict:
+def check_bn_kernels(cases=BN_CASES, quiet: bool = False) -> dict:
     """K1-K4 against their plain versions on the same inputs; K2 and K4 are
-    given the plain K1 and K3 outputs, so each check isolates one kernel."""
+    given the plain K1 and K3 outputs, so each check isolates one kernel.
+    ``cases``: ``(name, shape, dtype)``; ``quiet`` logs only the worst
+    errors."""
     gen = torch.Generator().manual_seed(SEED + 2)
     worst = {name: 0.0 for name in BN_KERNELS}
-    for name, shape, dtype in BN_CASES:
+    for name, shape, dtype in cases:
         x, dz, scale, bias = bn_inputs(shape, dtype, gen)
         elementwise = ('elementwise_bf16' if dtype == torch.bfloat16
                        else 'elementwise')
@@ -475,7 +498,8 @@ def check_bn_kernels() -> dict:
             bn_kernel.bn_dx(dz, x, mean, rstd, coef),
             bn_kernel.bn_dx_plain(dz, x, mean, rstd, coef), elementwise))
         torch.cuda.synchronize()
-        log(f'  bn {name}: {list(shape)} {str(dtype)[6:]} within tolerance')
+        if not quiet:
+            log(f'  bn {name}: {list(shape)} {str(dtype)[6:]} within tolerance')
         del x, dz
     log('  bn max abs err: ' + ', '.join(f'{k} {v:.3g}' for k, v in worst.items()))
     return worst
@@ -770,19 +794,21 @@ def profile_b32(pred: Predictor, rng) -> None:
 TRAIN_STEPS = 5
 
 
-def train_batch(rng: np.random.RandomState, b: int = 32, g: int = 8):
-    """Seeded uint8 images at 300x300 and 1..g synthetic GT boxes each."""
-    images = rng.randint(0, 256, (b, 300, 300, 3), dtype=np.uint8)
-    xy = rng.rand(b, g, 2) * 200
-    wh = rng.rand(b, g, 2) * 90 + 10
+def train_batch(rng: np.random.RandomState, b: int = 32, g: int = 8,
+                size: int = 300):
+    """Seeded uint8 images at ``size`` square and 1..g synthetic GT boxes
+    each, classes 1..20."""
+    images = rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8)
+    xy = rng.rand(b, g, 2) * size * 2 / 3
+    wh = rng.rand(b, g, 2) * size * 0.3 + size / 30
     cls = rng.randint(1, 21, (b, g, 1))
     boxes = np.concatenate([xy, xy + wh, cls, np.ones((b, g, 1))], -1)
     mask = np.arange(g)[None, :] < rng.randint(1, g + 1, (b, 1))
     return images, boxes.astype(np.float32), mask
 
 
-def build_trainer(fused_bn: bool) -> Trainer:
-    return Trainer.from_config(FLAGSHIP, device='cuda', seed=SEED, overrides={
+def build_trainer(fused_bn: bool, config: str = FLAGSHIP) -> Trainer:
+    return Trainer.from_config(config, device='cuda', seed=SEED, overrides={
         'augmentations': [], 'train': {'fused_bn': fused_bn}})
 
 
@@ -801,16 +827,17 @@ def check_training_path(metrics, launches, n_bn: int) -> None:
         if not all(np.isfinite(v) for v in m.values()):
             fail(f'train step {step}: non-finite metrics {m}')
     for name, count in launches.items():
-        if count != n_bn * TRAIN_STEPS:
-            fail(f'{name} launched {count} times in {TRAIN_STEPS} steps, '
-                 f'expected {n_bn} train-mode BNs x {TRAIN_STEPS}')
+        if count != n_bn * len(metrics):
+            fail(f'{name} launched {count} times in {len(metrics)} steps, '
+                 f'expected {n_bn} train-mode BNs x {len(metrics)}')
 
 
-def check_against_library_bn(trainer: Trainer, batch) -> dict:
+def check_against_library_bn(trainer: Trainer, batch,
+                             config: str = FLAGSHIP) -> dict:
     """One step from the same state with the kernels (``fused_bn`` on) and
     with PyTorch's batch norm (off): loss within 1e-4 relative, BN running
     statistics within 1e-4 of max(1, |value|)."""
-    library = build_trainer(False)
+    library = build_trainer(False, config)
     library.model.load_state_dict(trainer.model.state_dict())
     library.state.optimizer.load_state_dict(trainer.state.optimizer.state_dict())
     library.state.step = trainer.state.step
@@ -836,27 +863,30 @@ def check_against_library_bn(trainer: Trainer, batch) -> dict:
 
 # ---------------------------------------------------------------- phase 7
 
-def time_train_steps(kernels: Trainer, library: Trainer, batch) -> dict:
-    """b32 train step, BN kernels vs PyTorch BN, in turns (on, off, off,
-    on; 8 steps each), median per side."""
+def time_train_steps(kernels: Trainer, library: Trainer, batch,
+                     iters: int = 8) -> dict:
+    """The train step, BN kernels vs PyTorch BN, in turns (on, off, off,
+    on; ``iters`` steps each after 2 warm-up steps), median per side."""
     times = {'on': [], 'off': []}
     for side in ('on', 'off', 'off', 'on'):
         trainer = kernels if side == 'on' else library
-        times[side] += host_times_ms(lambda: trainer.train_step(*batch), iters=8,
-                                     warmup=2)
+        times[side] += host_times_ms(lambda: trainer.train_step(*batch),
+                                     iters=iters, warmup=2)
+    b = len(batch[0])
     out = {}
     for side, key in (('on', 'fused_bn'), ('off', 'library_bn')):
         ms = statistics.median(times[side])
-        out[f'train_step_b32_{key}_ms'] = ms
-        out[f'train_step_b32_{key}_img_per_s'] = 32 * 1e3 / ms
-        out[f'train_step_b32_{key}_all_ms'] = times[side]
+        out[f'train_step_b{b}_{key}_ms'] = ms
+        out[f'train_step_b{b}_{key}_img_per_s'] = b * 1e3 / ms
+        out[f'train_step_b{b}_{key}_all_ms'] = times[side]
     return out
 
 
-def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str) -> dict:
-    """One profiled b32 train step: each BN kernel's device time in the step
-    beside its bound for the step's shapes, the card's busy time, and the
-    table of device time by operator."""
+def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str,
+                       table: bool = True) -> dict:
+    """One profiled train step: each BN kernel's device time in the step
+    beside its bound for the step's shapes, the card's busy time, and (with
+    ``table``) the table of device time by operator."""
     shapes = []
     hooks = [m.register_forward_pre_hook(
         lambda mod, args: shapes.append(tuple(args[0].shape)))
@@ -889,11 +919,12 @@ def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str) -> dict:
     out['profiled_step_wall_ms'] = wall_ms
     out['bn_elements_per_step'] = sum(math.prod(s) for s in shapes)
     out['bn_shapes'] = shapes
-    log(f'  profile of one train_step(32) with the BN kernels '
+    log(f'  profile of one train_step({len(batch[0])}) with the BN kernels '
         f'({busy_ms:.3f} ms of device time in {wall_ms:.3f} ms of wall '
-        f'time under the profiler):')
-    log(prof.key_averages().table(sort_by='self_cuda_time_total', row_limit=30,
-                       max_name_column_width=60))
+        f'time under the profiler)' + (':' if table else ''))
+    if table:
+        log(prof.key_averages().table(sort_by='self_cuda_time_total',
+                                      row_limit=30, max_name_column_width=60))
     return out
 
 
@@ -1375,6 +1406,234 @@ def eval_nms_inputs(exp):
     return captured['boxes'], captured['scores']
 
 
+# --------------------------------------------------------------- phase 12
+
+# The model zoo on the card: the slice's main path, RetinaNet-ResNet50, and
+# SSD300-VGG16, each at full width and its input size, at the configs' b16,
+# with seeded random weights.  Each maps to its train-mode BN count.
+RETINA = 'samples/retina_rn50_500_voc.py'
+VGG = 'samples/ssd_300_vgg16_voc.py'
+ZOO = {'retina': (RETINA, 500, 98), 'vgg': (VGG, 300, 21)}
+ZOO_BATCH = 16
+ZOO_STEPS = 3
+# phase 12's results by path -> the kernels line's ``launches_by_path`` names
+ZOO_PATHS = (('serving', 'serving'), ('training', 'train'))
+# Forward on the card against the CPU, each output (heads and the loc
+# heads' sources) as a fraction of its largest CPU value: f32 with TF32 off
+# on both, convolutions summed in other orders over up to 4608 terms.
+ZOO_FORWARD_RTOL = 1e-4
+# RetinaNet's CLI run: phase 8's synthetic 500 px data cut to 4 b16 train
+# steps and 32 eval images; ``num_classes`` 21 draws classes 1-20, the
+# config's 20 sigmoid classes.
+RETINA_CLI_DATA = {
+    'train': {**FLAGSHIP_DATA['train'], 'num_images': 64},
+    'eval': {**FLAGSHIP_DATA['eval'], 'num_images': 32},
+}
+
+
+def zoo_serving(config: str, size: int, rng) -> dict:
+    """``Predictor`` on ``config``: 3 ``predict_batch`` calls of
+    ``ZOO_BATCH`` with the NMS count read around them; the forward at b2
+    against the CPU (heads and sources); the kernel postprocessor against
+    the plain one at b16; the NMS kernel's inputs; ``predict_batch`` img/s
+    (median of 10 calls after 3 warm-up calls)."""
+    pred = Predictor.from_config(config, device='cuda', seed=SEED)
+    perturb_bn(pred.model, torch.Generator().manual_seed(SEED + 1))
+    batches = [rng.randint(0, 256, (ZOO_BATCH, size, size, 3), dtype=np.uint8)
+               for _ in range(3)]
+    zero_launches()
+    outs = [pred.predict_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    all_launches = read_launches()
+    launches = all_launches['nms_keep_batched']
+    if launches == 0:
+        fail(f'{config}: the serving path launched no NMS kernel')
+    max_total = pred.postprocessor.max_total
+    for dets, valid in outs:
+        if (tuple(dets.shape) != (ZOO_BATCH, max_total, 6)
+                or tuple(valid.shape) != (ZOO_BATCH, max_total)):
+            fail(f'{config}: predict_batch shapes {tuple(dets.shape)} '
+                 f'{tuple(valid.shape)}')
+        if not torch.isfinite(dets).all():
+            fail(f'{config}: non-finite detections')
+
+    x = pred.preprocess(torch.from_numpy(batches[0]).cuda())
+    cpu_model = copy.deepcopy(pred.model).cpu()
+    with torch.inference_mode():
+        card = pred.model(x, return_sources=True)
+        ref = cpu_model(x[:2].cpu(), return_sources=True)
+    del cpu_model
+    named = [('scores', card[0], ref[0]), ('locs', card[1], ref[1])] + [
+        (f'source{i}', a, b) for i, (a, b) in enumerate(zip(card[2], ref[2]))]
+    forward_err = 0.0
+    for name, got, want in named:
+        rel = ((got[:2].cpu() - want).abs().max().item()
+               / max(want.abs().max().item(), 1e-30))
+        if not rel <= ZOO_FORWARD_RTOL:
+            fail(f'{config}: {name} on the card differs from the CPU by '
+                 f'{rel} of its largest value')
+        forward_err = max(forward_err, rel)
+    plain = copy.copy(pred.postprocessor)
+    plain.nms_keep = lambda boxes, scores: nms_ops.nms_keep_sorted(
+        boxes, scores, plain.overlap_threshold)
+    d_k, v_k = pred.postprocessor(card[0].float(), card[1].float(), pred.anchors)
+    d_p, v_p = plain(card[0].float(), card[1].float(), pred.anchors)
+    if not torch.equal(v_k, v_p) or not torch.equal(d_k[v_k], d_p[v_p]):
+        fail(f'{config}: the kernel postprocessor differs from the plain one')
+    nms_in = nms_inputs(pred, batches[0])
+    times = host_times_ms(lambda: pred.predict_batch(batches[1]), iters=10)
+    ms = statistics.median(times)
+    out = {'anchors': len(pred.anchors), 'launches': all_launches,
+           'forward_vs_cpu_max_rel_err': forward_err,
+           'valid_per_image': v_k.sum(dim=1).tolist(),
+           f'predict_batch_b{ZOO_BATCH}_ms': ms,
+           f'predict_batch_b{ZOO_BATCH}_img_per_s': ZOO_BATCH * 1e3 / ms,
+           f'predict_batch_b{ZOO_BATCH}_all_ms': times,
+           'nms_inputs': nms_in,
+           'nms_threshold': pred.postprocessor.overlap_threshold}
+    log(f'  {config} serving: {len(pred.anchors)} anchors, 3 x '
+        f'predict_batch({ZOO_BATCH}) at {size} px, {launches} NMS launches; '
+        f'forward card vs CPU (b2, heads and {len(card[2])} sources) max rel '
+        f'err {forward_err:.3g} (tol {ZOO_FORWARD_RTOL}); kernel postprocess '
+        f'== plain, valid per image {out["valid_per_image"]}; '
+        f'{ms:.2f} ms = {ZOO_BATCH * 1e3 / ms:.1f} img/s')
+    del pred, card, outs
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_training(config: str, size: int, n_bn_expected: int, card: str) -> dict:
+    """``Trainer`` on ``config`` with ``fused_bn``: ``ZOO_STEPS`` b16 steps
+    with the BN counts read around them, one step against PyTorch's batch
+    norm, the step in turns with and without the kernels, the kernels
+    against their plain versions on every distinct BN shape of the step,
+    and each kernel's device time summed over a step beside the step's
+    bound and the PyTorch pairs over the same shapes."""
+    trainer = build_trainer(True, config)
+    n_bn = sum(isinstance(m, BatchNorm) for m in trainer.model.modules())
+    if n_bn != n_bn_expected:
+        fail(f'{config}: {n_bn} train-mode BNs, expected {n_bn_expected}')
+    rng = np.random.RandomState(SEED + 6)
+    batches = [train_batch(rng, ZOO_BATCH, size=size) for _ in range(ZOO_STEPS)]
+    zero_launches()
+    metrics, launches = run_training_path(trainer, batches)
+    launches['nms_keep_batched'] = nms_kernel.nms_keep_batched.launches
+    check_training_path(metrics, {k: v for k, v in launches.items()
+                                  if k != 'nms_keep_batched'}, n_bn)
+    log(f'  {config} training: {ZOO_STEPS} x train_step({ZOO_BATCH}) at '
+        f'{size} px, losses ' + ', '.join(f'{m["loss"]:.4f}' for m in metrics)
+        + '; BN kernel launches ' + json.dumps(launches))
+    library = check_against_library_bn(trainer, batches[0], config)
+    timing = time_train_steps(trainer, library['library'], batches[0], iters=3)
+    del library['library']
+    torch.cuda.empty_cache()
+    # the operator table for the slice's main path only
+    step = profile_train_step(trainer, batches[0], n_bn, card,
+                              table=config == RETINA)
+    step_shapes = step.pop('bn_shapes')
+    del trainer
+    torch.cuda.empty_cache()
+    shapes = sorted(set(step_shapes), key=math.prod, reverse=True)
+    bn_check = check_bn_kernels(
+        [(str(list(s)), s, torch.float32) for s in shapes], quiet=True)
+    log(f'  K1-K4 vs plain on the {len(shapes)} distinct BN shapes of the '
+        f'step, from {list(shapes[0])} to {list(shapes[-1])}: within BN_TOL')
+    library_step = library_bn_step_ms(step_shapes)
+    for name in BN_KERNELS:
+        log(f'  {name}: {step[name]["step_ms"]:.3f} ms per step over {n_bn} '
+            f'launches (bound {step[name]["step_bound_ms"]:.3f} ms)')
+    pairs = {'K1+K2': step['bn_stats']['step_ms'] + step['bn_apply']['step_ms'],
+             'K3+K4': step['bn_grad_sums']['step_ms'] + step['bn_dx']['step_ms']}
+    for pair, ms in library_step.items():
+        log(f'  per step over the {n_bn} BN shapes: kernels {pair} '
+            f'{pairs[pair]:.3f} ms, PyTorch pair {ms:.3f} ms')
+    return {'n_bn': n_bn, 'losses': [m['loss'] for m in metrics],
+            'launches': launches, 'loss_rel_err': library['loss_rel_err'],
+            'stats_max_abs_err': library['stats_max_abs_err'], **timing,
+            'bn_step': step, 'library_step_ms': library_step,
+            'bn_shapes': [list(s) for s in shapes], 'bn_max_abs_err': bn_check}
+
+
+def write_zoo_cli_config(path: Path) -> str:
+    """RetinaNet's config with ``RETINA_CLI_DATA``, one epoch, an
+    evaluation and a checkpoint, and ``train.fused_bn``."""
+    path.write_text(
+        (REPO / RETINA).read_text()
+        + '\n# chip_smoke.py phase 12: synthetic 500 px data, fused BN\n'
+        + f'dataset = {RETINA_CLI_DATA!r}\n'
+        + 'train = dict(train, epochs=1, eval_every=1, save_every=1, '
+        'fused_bn=True)\n')
+    return str(path)
+
+
+def zoo_cli(work: str, n_bn: int) -> dict:
+    """``python -m single_shot_detection_tpu_torch`` (in process) on
+    RetinaNet: one epoch of augmented b16 steps, an evaluation and a
+    checkpoint; losses finite, mAP in [0, 1], every kernel's launches as
+    the loaders' lengths say."""
+    config = write_zoo_cli_config(Path(work) / 'retina_cli.py')
+    exp, rows, launches, seconds, epoch_s = run_cli(
+        ['--config', config, '--phases', 'train', 'eval', '--save-dir',
+         os.path.join(work, 'runs')])
+    steps = len(exp.loaders['train'])
+    eval_batches = len(exp.loaders['eval'])
+    if [r['epoch'] for r in rows] != [0]:
+        fail(f'retina CLI epochs {[r["epoch"] for r in rows]}, expected [0]')
+    row = rows[0]
+    if not all(np.isfinite(v) for v in row.values()):
+        fail(f'retina CLI: non-finite epoch row {row}')
+    if not 0.0 <= row.get('eval_mAP', -1.0) <= 1.0:
+        fail(f'retina CLI: eval mAP {row.get("eval_mAP")} outside [0, 1]')
+    want = {fn.__name__: n_bn * steps for fn in bn_kernel.KERNELS}
+    want['nms_keep_batched'] = eval_batches
+    if launches != want:
+        fail(f'retina CLI kernel launches {launches}, expected {want}')
+    if f'ckpt-{steps}.pt' not in os.listdir(exp.checkpoint_dir):
+        fail(f'retina CLI wrote {os.listdir(exp.checkpoint_dir)}')
+    images = steps * exp.loaders['train'].batch_size
+    log(f'  {RETINA} through python -m single_shot_detection_tpu_torch (in '
+        f'this process), fused_bn, synthetic 500 px data: {steps} b'
+        f'{exp.loaders["train"].batch_size} steps, {eval_batches} eval '
+        f'batches, a checkpoint, in {seconds:.2f} s; epoch {epoch_s[0]:.3f} s '
+        f'= {images / epoch_s[0]:.1f} img/s; ' + json.dumps(row)
+        + '; kernel launches ' + json.dumps(launches))
+    del exp
+    torch.cuda.empty_cache()
+    return {'seconds': seconds, 'epoch_s': epoch_s[0],
+            'epoch_img_per_s': images / epoch_s[0], 'row': row,
+            'launches': launches, 'steps': steps, 'eval_batches': eval_batches}
+
+
+def run_zoo(card: str, smi: str) -> dict:
+    """Phase 12: serving, training and (RetinaNet) the CLI for each zoo
+    config, then the NMS kernel at the RetinaNet serving input."""
+    rng = np.random.RandomState(SEED + 8)
+    out = {}
+    for key, (config, size, n_bn) in ZOO.items():
+        t = time.perf_counter()
+        serving = zoo_serving(config, size, rng)
+        training = zoo_training(config, size, n_bn, card)
+        out[key] = {'serving': serving, 'training': training}
+        log(f'  {config}: {time.perf_counter() - t:.1f} s; {smi}: '
+            f'predict_batch b{ZOO_BATCH} '
+            f'{serving[f"predict_batch_b{ZOO_BATCH}_img_per_s"]:.1f} img/s; '
+            f'train step b{ZOO_BATCH} with the BN kernels '
+            f'{training[f"train_step_b{ZOO_BATCH}_fused_bn_ms"]:.2f} ms, with '
+            f'PyTorch BN {training[f"train_step_b{ZOO_BATCH}_library_bn_ms"]:.2f} ms')
+    work = tempfile.mkdtemp(prefix='chip_smoke_zoo_')
+    try:
+        out['retina']['cli'] = zoo_cli(work, ZOO['retina'][2])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out['nms'] = {}
+    for key, label in (('retina', 'sigmoid'), ('vgg', 'softmax')):
+        serving = out[key]['serving']
+        out['nms'].update(time_nms(serving.pop('nms_threshold'), {
+            f'{key} b{ZOO_BATCH} serving ({label}, 20 classes)':
+                serving.pop('nms_inputs')}, card))
+    return out
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
@@ -1568,6 +1827,13 @@ def main(argv=None) -> int:
         fail('experiments/ changed')
     log('  experiments/ unchanged')
 
+    # 12. the model zoo: RetinaNet-ResNet50 and SSD300-VGG16
+    t = time.perf_counter()
+    log(f'[12] {smi}: the model zoo at b{ZOO_BATCH}, seeded random weights, '
+        'fused_bn')
+    zoo = run_zoo(card, smi)
+    log(f'  phase 12 in {time.perf_counter() - t:.1f} s')
+
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
         **train_timing,
@@ -1584,7 +1850,8 @@ def main(argv=None) -> int:
                 'rows': cli_rows, 'launches': cli_launches, **round_trip,
                 **ckpt_timing, **resumed},
         'jax_checkpoint': {'card': card_metrics, 'cpu': cpu_metrics,
-                           **jax_check, 'launches': jax_launches}}}))
+                           **jax_check, 'launches': jax_launches},
+        'zoo': {key: value for key, value in zoo.items() if key != 'nms'}}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -1597,7 +1864,12 @@ def main(argv=None) -> int:
                              exp_launches['nms_keep_batched'],
                              'cli': cli_launches['nms_keep_batched'],
                              'cli_jax_checkpoint':
-                                 jax_launches['nms_keep_batched']},
+                                 jax_launches['nms_keep_batched'],
+                             **{f'{key}_{label}': zoo[key][path]['launches'][
+                                 'nms_keep_batched'] for key in ZOO
+                                 for path, label in ZOO_PATHS},
+                             'retina_cli': zoo['retina']['cli']['launches'][
+                                 'nms_keep_batched']},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
             'shape', 'ms', 'call_ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -1605,7 +1877,8 @@ def main(argv=None) -> int:
         'library_ms': None,
         'by_input': {name: {key: value for key, value in row.items()
                             if key not in ('bytes', 'turns_ms')}
-                     for name, row in {**nms_time, **trained}.items()},
+                     for name, row in {**nms_time, **trained,
+                                       **zoo['nms']}.items()},
     }]
     for name, (_, _, replaces) in BN_KERNELS.items():
         kernels.append({
@@ -1616,12 +1889,24 @@ def main(argv=None) -> int:
             'launches': cli_launches[name],
             'launches_by_path': {'train_step': bn_launches[name],
                                  'experiment': exp_launches[name],
-                                 'cli': cli_launches[name]},
-            'max_abs_err': bn_check[name],
+                                 'cli': cli_launches[name],
+                                 **{f'{key}_{label}': zoo[key][path]['launches'][
+                                     name] for key in ZOO
+                                     for path, label in ZOO_PATHS},
+                                 'retina_cli': zoo['retina']['cli']['launches'][name]},
+            'max_abs_err': max(bn_check[name], *(
+                zoo[key]['training']['bn_max_abs_err'][name] for key in ZOO)),
             'shape': list(BN_TIMED_SHAPE),
             **bn_time[name],
             **step_profile[name],
             'library_step_ms': library_step[bn_time[name]['library_pair']],
+            'by_step': {key: {
+                **zoo[key]['training']['bn_step'][name],
+                'launches': zoo[key]['training']['n_bn'],
+                'library_step_ms': zoo[key]['training']['library_step_ms'][
+                    bn_time[name]['library_pair']],
+                'max_abs_err': zoo[key]['training']['bn_max_abs_err'][name]}
+                for key in ZOO},
         })
     log(json.dumps({'kernels': kernels}))
     log(smi)

@@ -1,9 +1,11 @@
 """Backbone registry: ``name -> factory``.
 
-Port of ``single_shot_detection_tpu/models/backbones.py``, holding the
-MobileNetV2 names only (the rest of the model zoo is a later slice).  Every
-backbone's ``forward(x)`` returns ``(stages, aux)`` with the
-JAX package's stage indexing, so sample configs carry over unchanged.
+Port of ``single_shot_detection_tpu/models/backbones.py``: the MobileNetV2,
+VGG, ResNet, ResNeXt and SE-ResNet(Xt) names (MobileNet v1 and ShuffleNetV2
+belong to a later slice).  Every backbone's ``forward(x, max_stage=None)``
+returns ``(stages, aux)`` with the JAX package's stage indexing, so sample
+configs carry over unchanged.  A factory drops the config's keyword
+arguments that the JAX package's factory drops.
 """
 
 from __future__ import annotations
@@ -12,10 +14,27 @@ import functools
 from typing import Callable, Dict
 
 from single_shot_detection_tpu_torch.models.mobilenet_v2 import MobileNetV2
+from single_shot_detection_tpu_torch.models.resnet import (RESNET_CONFIGS,
+                                                           ResNet, SEResNet)
+from single_shot_detection_tpu_torch.models.vgg import VGG, VGG_CONFIGS
 
 
 def _mbv2(depth_multiplier: float = 1.0, min_depth: int = 4, **_):
     return MobileNetV2(depth_multiplier=depth_multiplier, min_depth=min_depth)
+
+
+def _vgg(depth: int, bn: bool, packed_stem: bool = False, **_):
+    return VGG(VGG_CONFIGS[depth], use_bn=bn, packed_stem=packed_stem)
+
+
+def _resnet(depth: int, groups: int, width_per_group: int, **_):
+    return ResNet(**RESNET_CONFIGS[depth], groups=groups,
+                  width_per_group=width_per_group)
+
+
+def _se_resnet(layers, groups: int, width_per_group: int, **_):
+    return SEResNet(layers=layers, groups=groups,
+                    width_per_group=width_per_group)
 
 
 _REGISTRY: Dict[str, Callable] = {
@@ -25,6 +44,22 @@ _REGISTRY: Dict[str, Callable] = {
     **{f'mobilenet_v2_{suffix}': functools.partial(_mbv2, depth_multiplier=mult)
        for mult, suffix in [(1.0, '10'), (0.75, '075'), (0.5, '050'),
                             (0.5, '05'), (0.35, '035')]},
+    **{f'torchvision_vgg{depth}' + ('_bn' if bn else ''):
+       functools.partial(_vgg, depth, bn)
+       for depth in (11, 13, 16, 19) for bn in (False, True)},
+    **{f'torchvision_resnet{depth}': functools.partial(_resnet, depth, 1, 64)
+       for depth in (18, 34, 50, 101, 152)},
+    **{f'torchvision_resnext{depth}_{groups}x{width}d': functools.partial(
+        _resnet, depth, groups, width)
+       for depth, groups, width in [(50, 32, 4), (101, 32, 8)]},
+    **{f'pretrainedmodels_{name}': functools.partial(
+        _se_resnet, layers, groups, width)
+       for name, layers, groups, width in [
+           ('se_resnet50', (3, 4, 6, 3), 1, 64),
+           ('se_resnet101', (3, 4, 23, 3), 1, 64),
+           ('se_resnet152', (3, 8, 36, 3), 1, 64),
+           ('se_resnext50_32x4d', (3, 4, 6, 3), 32, 4),
+           ('se_resnext101_32x4d', (3, 4, 23, 3), 32, 4)]},
 }
 
 

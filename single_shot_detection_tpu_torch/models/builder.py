@@ -9,6 +9,7 @@ model on the ``meta`` device (shapes only, no arithmetic, no memory).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -51,10 +52,17 @@ def feature_map_sizes(make_module: Callable[[], Detector],
 
 def create_base(name: str, **kwargs):
     """Instantiate a backbone by registry name.  ``pretrained``/``weight``
-    are not read here: weights come in through ``utils/weights.py``."""
+    are not read here: weights come in through ``utils/torch_import.py``."""
     kwargs = {k: v for k, v in kwargs.items()
               if k not in ('pretrained', 'weight', 'hub_dir')}
     return backbones.get(name)(**kwargs)
+
+
+# ``model.detector`` keys the builder reads; ``weight`` is read by
+# ``train/engine.py``; any other raises
+_DETECTOR_KEYS = ('num_classes', 'use_depthwise', 'features', 'extras',
+                  'predictor', 'heads')
+_ENGINE_KEYS = ('weight',)
 
 
 def build(base: dict,
@@ -63,17 +71,34 @@ def build(base: dict,
           features: dict,
           use_depthwise: bool = False,
           extras: Optional[dict] = None,
+          predictor: Optional[dict] = None,
           heads: Optional[dict] = None,
           input_size: Tuple[int, int] = (300, 300)) -> DetectorBundle:
-    """Assemble backbone -> Features -> extras -> heads -> Detector."""
+    """Assemble backbone -> neck -> extras -> predictor -> heads ->
+    Detector.  Neck keyword arguments are filtered by the neck's signature,
+    as the JAX builder filters them by the flax module's fields."""
     extras = extras or {}
     heads = heads or {}
     extra_layers = tuple(tuple(l) for l in extras.get('layers', ()))
+    if heads.get('dtype') not in (None, 'float32'):
+        raise NotImplementedError(f'model.detector.heads.dtype '
+                                  f'{heads["dtype"]!r} is not ported yet '
+                                  '(ported: float32)')
 
     features_cfg = dict(features)
     neck_name = features_cfg.pop('name')
     if neck_name not in NECKS:
         raise NotImplementedError(f'neck {neck_name!r} is not ported yet')
+    if features_cfg.get('width_overrides'):
+        raise NotImplementedError('features.width_overrides (pruning) is not '
+                                  'ported yet')
+    Neck = NECKS[neck_name]
+    accepted = inspect.signature(Neck).parameters
+    neck_kwargs = {k: v for k, v in features_cfg.items() if k in accepted}
+    if 'use_depthwise' in accepted:
+        neck_kwargs.setdefault('use_depthwise', use_depthwise)
+    # the neck's output count (``channels``) against the generators is
+    # checked by ``Detector``
     generators = anchor_ops.build_anchor_generators(**anchor_generator)
     num_boxes = tuple(g.num_boxes for g in generators)
 
@@ -81,11 +106,14 @@ def build(base: dict,
         base_module = create_base(base['name'],
                                   **{k: v for k, v in base.items()
                                      if k != 'name'})
-        neck = NECKS[neck_name](base_module, features_cfg['out_layers'])
-        return Detector(neck, num_classes=num_classes, extras=extra_layers,
-                        num_boxes=num_boxes, use_depthwise=use_depthwise,
-                        score_head_bias_init=heads.get('score_head_bias_init',
-                                                       0.0))
+        return Detector(
+            NECKS[neck_name](base_module, **neck_kwargs),
+            num_classes=num_classes, extras=extra_layers,
+            num_boxes=num_boxes, use_depthwise=use_depthwise,
+            predictor=predictor,
+            score_head_bias_init=heads.get('score_head_bias_init', 0.0),
+            extras_initializer=extras.get('initializer'),
+            head_initializer=heads.get('initializer'))
 
     fms = feature_map_sizes(make_module, tuple(input_size))
     return DetectorBundle(
@@ -104,19 +132,24 @@ def from_config(cfg, variables: Optional[Mapping] = None,
     ``variables``: a JAX ``{'params', 'batch_stats'}`` tree (e.g. a restored
     checkpoint) loaded with ``strict=True``; without it the weights are the
     JAX package's initializers drawn from a ``torch.Generator`` seeded with
-    ``seed`` (default: the config's).
+    ``seed`` (default: the config's).  A ``model.detector`` key the port
+    does not read raises ``NotImplementedError``.
     """
     model_cfg = dict(cfg.model)
     detector_cfg = dict(model_cfg.get('detector', {}))
     if 'num_classes' not in detector_cfg:
         raise ValueError('model.detector.num_classes is required')
+    unread = sorted(k for k, v in detector_cfg.items()
+                    if k not in _DETECTOR_KEYS + _ENGINE_KEYS
+                    and v is not None)
+    if unread:
+        raise NotImplementedError(f'model.detector.{", ".join(unread)}: not '
+                                  'ported yet')
     bundle = build(
         base=model_cfg['base'],
         anchor_generator=model_cfg['anchor_generator'],
         input_size=tuple(cfg.input_size),
-        **{k: v for k, v in detector_cfg.items()
-           if k in ('num_classes', 'use_depthwise', 'features', 'extras',
-                    'heads')})
+        **{k: v for k, v in detector_cfg.items() if k in _DETECTOR_KEYS})
     if variables is not None:
         bundle.module.load_state_dict(from_jax_variables(variables),
                                       strict=True)

@@ -1,24 +1,37 @@
-"""Detector assembly: SSD extras and per-scale heads (NCHW).
+"""Detector assembly: SSD extras, the shared-conv predictor, per-scale heads
+(NCHW).
 
 Port of ``single_shot_detection_tpu/models/detector.py`` (``ExtraLayer``,
-``Detector``), without the shared-conv predictor towers and the
-pipeline-parallel stage seam.
+``SharedConvPredictor``, ``Detector``), without the pipeline-parallel stage
+seam.
 
 Anchor order: the JAX heads are NHWC, and ``[B, H, W, nb*C]`` reshapes to
 ``[B, H*W*nb, C]``, the anchors' ``(H, W, box)`` order.  Here the heads are
 NCHW, so each output is permuted to NHWC before that reshape.
+
+Initializers: every conv carries its own (``layers.conv2d``), as the JAX
+package gives each flax module its ``kernel_init``; ``reset_parameters``
+draws them in module order from one generator.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from single_shot_detection_tpu_torch.models.layers import (ConvBn,
+from single_shot_detection_tpu_torch.models.layers import (ACTIVATIONS,
+                                                           ConvBn,
                                                            DepthwiseConvBn,
-                                                           xavier_)
+                                                           batch_norm, conv2d,
+                                                           get_initializer,
+                                                           normal, reset_conv,
+                                                           xavier_normal)
+
+# the JAX package's defaults: normal(0.01) towers and heads, xavier-normal
+# extras
+head_kernel_init = normal(0.01)
 
 
 class ExtraLayer(nn.Module):
@@ -27,10 +40,12 @@ class ExtraLayer(nn.Module):
     type 'm': 3x3/2 maxpool (channels preserved);
     type 's': 1x1 reduce to out//2, then 3x3/2 conv to out (padding 1);
     type '':  1x1 reduce to out//2, then 3x3 valid conv to out.
+    Convs take the config's ``initializer``, xavier-normal by default.
     """
 
     def __init__(self, type: str, in_channels: int, out_channels: int,
-                 use_depthwise: bool = False):
+                 use_depthwise: bool = False,
+                 initializer: Optional[Mapping] = None):
         super().__init__()
         if type not in ('m', 's', ''):
             raise ValueError(f'Unknown layer type: {type}')
@@ -39,12 +54,15 @@ class ExtraLayer(nn.Module):
         if type == 'm':
             self.pool = nn.MaxPool2d(3, stride=2, padding=1)
             return
+        init = get_initializer(initializer, xavier_normal)
         reduce_f = out_channels // 2
-        self.reduce = ConvBn(in_channels, reduce_f, kernel_size=1)
+        self.reduce = ConvBn(in_channels, reduce_f, kernel_size=1,
+                             kernel_init=init)
         conv_op = DepthwiseConvBn if use_depthwise else ConvBn
         self.expand = conv_op(reduce_f, out_channels, kernel_size=3,
                               stride=2 if type == 's' else 1,
-                              padding=1 if type == 's' else 0)
+                              padding=1 if type == 's' else 0,
+                              kernel_init=init)
 
     def forward(self, x):
         if self.type == 'm':
@@ -52,70 +70,136 @@ class ExtraLayer(nn.Module):
         return self.expand(self.reduce(x))
 
 
+class SharedConvPredictor(nn.Module):
+    """RetinaNet-style towers: per head (``score``, ``loc``) ``num_layers``
+    convs, each one module applied to every pyramid level (so its gradient
+    sums over them), each followed by the activation and then a BatchNorm of
+    its own per level.
+
+    Children: ``{head}_conv{l}`` (a bias-carrying ``ConvBn`` without BN, or
+    ``DepthwiseConvBn``) and ``{head}_norm{l}_{level}``.  Convs take the
+    config's ``initializer``, normal(0.01) by default.
+    """
+
+    def __init__(self, in_channels: int, num_levels: int, num_layers: int = 0,
+                 num_channels: int = 256, kernel_size: int = 3,
+                 use_depthwise: bool = False, activation='ReLU',
+                 initializer: Optional[Mapping] = None):
+        super().__init__()
+        if isinstance(activation, Mapping):  # the configs' {'name': ...}
+            activation = activation['name']
+        self.activation = activation
+        self.num_layers = num_layers
+        self.num_channels = num_channels
+        init = get_initializer(initializer, head_kernel_init)
+        for head in ('score', 'loc'):
+            c = in_channels
+            for layer in range(num_layers):
+                conv_op = DepthwiseConvBn if use_depthwise else ConvBn
+                self.add_module(f'{head}_conv{layer}', conv_op(
+                    c, num_channels, kernel_size=kernel_size, padding=1,
+                    use_bias=True, use_bn=False, activation=None,
+                    kernel_init=init))
+                for level in range(num_levels):
+                    self.add_module(f'{head}_norm{layer}_{level}',
+                                    batch_norm(num_channels))
+                c = num_channels
+
+    def forward(self, sources):
+        act = ACTIVATIONS[self.activation]
+        outputs = []
+        for head in ('score', 'loc'):
+            feats = list(sources)
+            for layer in range(self.num_layers):
+                conv = getattr(self, f'{head}_conv{layer}')
+                feats = [getattr(self, f'{head}_norm{layer}_{level}')(act(conv(f)))
+                         for level, f in enumerate(feats)]
+            outputs.append(feats)
+        return outputs[0], outputs[1]
+
+
 class Detector(nn.Module):
-    """features -> extras -> per-scale heads -> concatenated
-    ``(scores [B, A, C], locs [B, A, 4])``.
+    """features -> extras -> [predictor towers] -> per-scale heads ->
+    concatenated ``(scores [B, A, C], locs [B, A, 4])``.
 
     Children carry the flax names: ``features``, ``extra{i}``,
-    ``score_head{i}``, ``loc_head{i}``.
+    ``predictor``, ``score_head{i}``, ``loc_head{i}``.  ``predictor`` is the
+    config's block (``num_layers``, ``num_channels``, ``kernel_size``,
+    ``activation``, ``initializer``); heads take ``head_initializer``
+    (normal(0.01) by default) and the score heads' bias
+    ``score_head_bias_init``.
     """
 
     def __init__(self, features: nn.Module, num_classes: int,
                  extras: Sequence[Tuple[str, int]] = (),
                  num_boxes: Sequence[int] = (), use_depthwise: bool = False,
-                 score_head_bias_init: float = 0.0):
+                 predictor: Optional[Mapping] = None,
+                 score_head_bias_init: float = 0.0,
+                 extras_initializer: Optional[Mapping] = None,
+                 head_initializer: Optional[Mapping] = None):
         super().__init__()
         self.features = features
         self.num_classes = num_classes
         self.num_extras = len(extras)
-        self.score_head_bias_init = score_head_bias_init
         channels = list(features.channels)
         c = features.out_channels
         for i, (type_, out_channels) in enumerate(extras):
-            extra = ExtraLayer(type_, c, out_channels, use_depthwise)
+            extra = ExtraLayer(type_, c, out_channels, use_depthwise,
+                               extras_initializer)
             self.add_module(f'extra{i}', extra)
             c = extra.out_channels
             channels.append(c)
         if len(channels) != len(num_boxes):
             raise ValueError(f'{len(channels)} scales vs {len(num_boxes)} '
                              f'anchor generators')
+        self.predictor = None
+        if predictor is not None:
+            kwargs = {k: v for k, v in dict(predictor).items()
+                      if k in ('num_layers', 'num_channels', 'kernel_size',
+                               'activation', 'initializer')}
+            self.predictor = SharedConvPredictor(
+                channels[0], len(channels), use_depthwise=use_depthwise,
+                **kwargs)
+            if self.predictor.num_layers:
+                if len(set(channels)) != 1:
+                    raise ValueError(f'the shared predictor needs one width '
+                                     f'on every level, got {channels}')
+                channels = [self.predictor.num_channels] * len(channels)
+        init = get_initializer(head_initializer, head_kernel_init)
         for i, (nb, ch) in enumerate(zip(num_boxes, channels)):
-            self.add_module(f'score_head{i}',
-                            nn.Conv2d(ch, nb * num_classes, 3, padding=1))
-            self.add_module(f'loc_head{i}', nn.Conv2d(ch, nb * 4, 3, padding=1))
+            self.add_module(f'score_head{i}', conv2d(
+                ch, nb * num_classes, 3, padding=1, bias=True,
+                kernel_init=init, bias_init=score_head_bias_init))
+            self.add_module(f'loc_head{i}', conv2d(
+                ch, nb * 4, 3, padding=1, bias=True, kernel_init=init))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """The JAX package's initializers, drawn from ``generator``:
-        xavier-uniform backbone convs, xavier-normal extras convs,
-        normal(0.01) heads, zero biases, identity BatchNorms."""
-        for name, module in self.named_modules():
+        """Every conv from its own initializer, drawn from ``generator`` in
+        module order; identity BatchNorms."""
+        for module in self.modules():
             if isinstance(module, nn.Conv2d):
-                if name.startswith('features.'):
-                    xavier_(module.weight, generator, uniform=True)
-                elif name.startswith('extra'):
-                    xavier_(module.weight, generator, uniform=False)
-                else:
-                    with torch.no_grad():
-                        module.weight.copy_(torch.randn(
-                            module.weight.shape, generator=generator) * 0.01)
-                if module.bias is not None:
-                    nn.init.constant_(module.bias, self.score_head_bias_init
-                                      if name.startswith('score_head') else 0.0)
+                reset_conv(module, generator)
             elif isinstance(module, nn.BatchNorm2d):
                 module.reset_parameters()
 
     def forward(self, x, return_sources: bool = False):
+        """``return_sources`` also returns the maps the loc heads read (the
+        predictor's loc towers, or the neck's and extras' maps)."""
         sources, x = self.features(x)
         sources = list(sources)
         for i in range(self.num_extras):
             x = getattr(self, f'extra{i}')(x)
             sources.append(x)
+        if self.predictor is not None:
+            score_sources, loc_sources = self.predictor(sources)
+        else:
+            score_sources = loc_sources = sources
 
         batch = x.shape[0]
         scores, locs = [], []
-        for i, src in enumerate(sources):
-            s = getattr(self, f'score_head{i}')(src)
-            l = getattr(self, f'loc_head{i}')(src)
+        for i, (ss, ls) in enumerate(zip(score_sources, loc_sources)):
+            s = getattr(self, f'score_head{i}')(ss)
+            l = getattr(self, f'loc_head{i}')(ls)
             # NCHW -> NHWC, then [B, H*W*nb, C]: the anchors' order
             scores.append(s.permute(0, 2, 3, 1).reshape(batch, -1,
                                                         self.num_classes))
@@ -123,5 +207,5 @@ class Detector(nn.Module):
         out_scores = torch.cat(scores, dim=1)
         out_locs = torch.cat(locs, dim=1)
         if return_sources:
-            return out_scores, out_locs, sources
+            return out_scores, out_locs, loc_sources
         return out_scores, out_locs

@@ -9,12 +9,17 @@ BatchNorm (:class:`BatchNorm`): flax's ``momentum=0.9`` is torch's
 ``momentum=0.1``, and both use ``eps=1e-5``.  Eval mode normalizes with the
 running statistics; train mode follows flax ``nn.BatchNorm`` (batch
 statistics, running statistics updated with the *biased* batch variance).
+
+Initializers: :func:`conv2d` builds an ``nn.Conv2d`` that carries its own
+``kernel_init`` (flax's ``lecun_normal`` by default, or a config's
+``{'name': ..., 'args': ...}`` through :func:`get_initializer`), drawn from
+an explicit ``torch.Generator`` by :func:`reset_conv`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -94,57 +99,184 @@ def set_fused_bn(model: nn.Module, fused: bool) -> int:
     return len(layers)
 
 
-def xavier_(weight: torch.Tensor, generator: torch.Generator,
-            uniform: bool) -> None:
-    """Glorot init of a conv weight ``[O, I/groups, kh, kw]`` with an
-    explicit generator (fans as flax and torch count them)."""
+Init = Callable[[torch.Tensor, torch.Generator], None]
+
+
+def _fans(weight: torch.Tensor) -> Tuple[int, int]:
+    """``(fan_in, fan_out)`` of a conv weight ``[O, I/groups, kh, kw]``, as
+    flax and torch count them."""
     receptive = weight[0, 0].numel()
-    fan_in, fan_out = weight.shape[1] * receptive, weight.shape[0] * receptive
-    std = math.sqrt(2.0 / (fan_in + fan_out))
-    with torch.no_grad():
-        if uniform:
-            bound = math.sqrt(3.0) * std
-            weight.copy_((torch.rand(weight.shape, generator=generator) * 2 - 1)
-                         * bound)
+    return weight.shape[1] * receptive, weight.shape[0] * receptive
+
+
+def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard normal samples truncated to ``[-2, 2]`` (inverse CDF of a
+    uniform draw, in f64)."""
+    lo = 0.5 * (1 + math.erf(-2 / math.sqrt(2)))
+    u = lo + (1 - 2 * lo) * torch.rand(shape, generator=generator,
+                                       dtype=torch.float64)
+    return math.sqrt(2) * torch.erfinv(2 * u - 1)
+
+
+def variance_scaling(scale: float, mode: str, distribution: str) -> Init:
+    """flax's ``variance_scaling`` initializer: variance ``scale / fan``.
+    A ``truncated_normal`` is cut at two standard deviations and widened so
+    that the variance holds; ``normal`` is a plain normal and ``uniform``
+    a uniform of that variance, both drawn in f32."""
+    def init(weight: torch.Tensor, generator: torch.Generator) -> None:
+        fan_in, fan_out = _fans(weight)
+        fan = {'fan_in': fan_in, 'fan_out': fan_out,
+               'fan_avg': (fan_in + fan_out) / 2}[mode]
+        std = math.sqrt(scale / fan)
+        if distribution == 'truncated_normal':
+            # the std of a unit normal truncated to [-2, 2]
+            values = (_truncated_normal(weight.shape, generator)
+                      * std / 0.87962566103423978)
+        elif distribution == 'normal':
+            values = torch.randn(weight.shape, generator=generator) * std
         else:
+            values = ((torch.rand(weight.shape, generator=generator) * 2 - 1)
+                      * (math.sqrt(3.0) * std))
+        with torch.no_grad():
+            weight.copy_(values)
+    return init
+
+
+def normal(std: float) -> Init:
+    def init(weight: torch.Tensor, generator: torch.Generator) -> None:
+        with torch.no_grad():
             weight.copy_(torch.randn(weight.shape, generator=generator) * std)
+    return init
+
+
+def constant(value: float) -> Init:
+    def init(weight: torch.Tensor, generator: torch.Generator) -> None:
+        nn.init.constant_(weight, value)
+    return init
+
+
+# flax's defaults and the named initializers of the JAX package.  One
+# deviation: ``xavier_normal`` is a plain normal, as the port has always
+# drawn the flagship's extras (seeded runs keep their weights),
+# where flax's ``glorot_normal`` truncates at two standard deviations; the
+# variance is the same.
+lecun_normal = variance_scaling(1.0, 'fan_in', 'truncated_normal')
+xavier_normal = variance_scaling(1.0, 'fan_avg', 'normal')
+xavier_uniform = variance_scaling(1.0, 'fan_avg', 'uniform')
+_NAMED = {
+    'xavier_normal_': xavier_normal,
+    'xavier_uniform_': xavier_uniform,
+    # torch's defaults (leaky_relu, a=0): gain sqrt(2), He init
+    'kaiming_normal_': variance_scaling(2.0, 'fan_in', 'truncated_normal'),
+    'kaiming_uniform_': variance_scaling(2.0, 'fan_in', 'uniform'),
+    'zeros_': constant(0.0),
+    'ones_': constant(1.0),
+}
+
+
+def get_initializer(params: Optional[Mapping],
+                    default: Optional[Init] = None) -> Optional[Init]:
+    """A config's ``{'name': <torch nn.init name>, 'args': {...}}`` as an
+    ``init(weight, generator)`` function (port of the JAX package's
+    ``get_initializer``); ``default`` without one."""
+    if params is None:
+        return default
+    name = params['name']
+    args = dict(params.get('args', {}))
+    if name == 'normal_':
+        if args.pop('mean', 0) != 0:
+            raise ValueError('normal_ initializer: only mean=0 is supported')
+        return normal(args.pop('std', 1.0))
+    if name == 'constant_':
+        return constant(args.pop('val'))
+    if name not in _NAMED:
+        raise ValueError(f'Unsupported initializer {name!r} '
+                         f'(supported: normal_, constant_, {", ".join(_NAMED)})')
+    if args:
+        raise ValueError(f'{name}: unsupported args {sorted(args)}')
+    return _NAMED[name]
+
+
+def conv2d(in_channels: int, out_channels: int, kernel_size: int,
+           stride: int = 1, padding: int = 0, groups: int = 1,
+           bias: bool = False, kernel_init: Optional[Init] = None,
+           bias_init: float = 0.0) -> nn.Conv2d:
+    """``nn.Conv2d`` that carries its own initializer: ``kernel_init``
+    (default: flax's ``lecun_normal``) and a constant ``bias_init``, which
+    ``reset_conv`` applies."""
+    conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                     padding=padding, groups=groups, bias=bias)
+    conv.kernel_init = kernel_init or lecun_normal
+    conv.bias_init = bias_init
+    return conv
+
+
+def reset_conv(conv: nn.Conv2d, generator: torch.Generator) -> None:
+    """Draw ``conv``'s weight with its own ``kernel_init``; its bias is
+    ``bias_init``."""
+    if not hasattr(conv, 'kernel_init'):
+        raise TypeError(f'{conv} carries no initializer: build it with '
+                        'layers.conv2d')
+    conv.kernel_init(conv.weight, generator)
+    if conv.bias is not None:
+        nn.init.constant_(conv.bias, conv.bias_init)
+
+
+def _act(activation: Optional[str]):
+    return ACTIVATIONS['Identity' if activation is None else activation]
 
 
 class ConvBn(nn.Module):
-    """conv + BN + activation; ``padding`` is symmetric."""
+    """conv [+ BN] [+ activation]; ``padding`` is symmetric.
+    ``kernel_init`` None is flax's default, ``lecun_normal``."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 0,
-                 activation: str = 'ReLU'):
+                 groups: int = 1, use_bias: bool = False, use_bn: bool = True,
+                 activation: Optional[str] = 'ReLU',
+                 kernel_init: Optional[Init] = None):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              stride=stride, padding=padding, bias=False)
-        self.bn = batch_norm(out_channels)
+        self.conv = conv2d(in_channels, out_channels, kernel_size,
+                           stride=stride, padding=padding, groups=groups,
+                           bias=use_bias, kernel_init=kernel_init)
+        self.bn = batch_norm(out_channels) if use_bn else None
         self.activation = activation
 
     def forward(self, x):
-        return ACTIVATIONS[self.activation](self.bn(self.conv(x)))
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return _act(self.activation)(x)
 
 
 class DepthwiseConvBn(nn.Module):
-    """depthwise conv + BN + activation, then pointwise conv + BN +
-    activation.  ``padding`` is symmetric (the SSD extras pad their stride-2
-    depthwise conv by 1 on every side, unlike the backbone)."""
+    """depthwise conv [+ BN] [+ activation], then pointwise conv [+ BN]
+    [+ activation].  ``padding`` is symmetric (the SSD extras pad their
+    stride-2 depthwise conv by 1 on every side, unlike the backbone);
+    ``kernel_init`` applies to both convs."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 0,
-                 activation: str = 'ReLU'):
+                 use_bias: bool = False, use_bn: bool = True,
+                 activation: Optional[str] = 'ReLU',
+                 kernel_init: Optional[Init] = None):
         super().__init__()
-        self.depthwise_conv = nn.Conv2d(in_channels, in_channels, kernel_size,
-                                        stride=stride, padding=padding,
-                                        groups=in_channels, bias=False)
-        self.depthwise_bn = batch_norm(in_channels)
-        self.pointwise_conv = nn.Conv2d(in_channels, out_channels, 1,
-                                        bias=False)
-        self.pointwise_bn = batch_norm(out_channels)
+        self.depthwise_conv = conv2d(in_channels, in_channels, kernel_size,
+                                     stride=stride, padding=padding,
+                                     groups=in_channels, bias=use_bias,
+                                     kernel_init=kernel_init)
+        self.depthwise_bn = batch_norm(in_channels) if use_bn else None
+        self.pointwise_conv = conv2d(in_channels, out_channels, 1,
+                                     bias=use_bias, kernel_init=kernel_init)
+        self.pointwise_bn = batch_norm(out_channels) if use_bn else None
         self.activation = activation
 
     def forward(self, x):
-        act = ACTIVATIONS[self.activation]
-        x = act(self.depthwise_bn(self.depthwise_conv(x)))
-        return act(self.pointwise_bn(self.pointwise_conv(x)))
+        act = _act(self.activation)
+        x = self.depthwise_conv(x)
+        if self.depthwise_bn is not None:
+            x = self.depthwise_bn(x)
+        x = self.pointwise_conv(act(x))
+        if self.pointwise_bn is not None:
+            x = self.pointwise_bn(x)
+        return act(x)

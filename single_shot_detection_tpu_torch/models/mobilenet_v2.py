@@ -11,13 +11,15 @@ returned in ``aux``.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from single_shot_detection_tpu_torch.models.layers import batch_norm, tf_same_pad
+from single_shot_detection_tpu_torch.models.layers import (batch_norm, conv2d,
+                                                           tf_same_pad,
+                                                           xavier_uniform)
 
 
 def _relu6(x):
@@ -31,8 +33,8 @@ class _ConvBn(nn.Module):
                  stride: int = 1):
         super().__init__()
         self.pad = tf_same_pad(kernel_size, stride)
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              stride=stride, bias=False)
+        self.conv = conv2d(in_channels, out_channels, kernel_size,
+                           stride=stride, kernel_init=xavier_uniform)
         self.bn = batch_norm(out_channels)
 
     def forward(self, x):
@@ -50,13 +52,15 @@ class InvertedResidual(nn.Module):
         self.residual = in_channels == out_channels and stride == 1
         self.expand = expansion_ratio > 1
         if self.expand:
-            self.expand_conv = nn.Conv2d(in_channels, inner, 1, bias=False)
+            self.expand_conv = conv2d(in_channels, inner, 1,
+                                      kernel_init=xavier_uniform)
             self.expand_bn = batch_norm(inner)
         self.pad = tf_same_pad(3, stride)
-        self.depthwise_conv = nn.Conv2d(inner, inner, 3, stride=stride,
-                                        groups=inner, bias=False)
+        self.depthwise_conv = conv2d(inner, inner, 3, stride=stride,
+                                     groups=inner, kernel_init=xavier_uniform)
         self.depthwise_bn = batch_norm(inner)
-        self.project_conv = nn.Conv2d(inner, out_channels, 1, bias=False)
+        self.project_conv = conv2d(inner, out_channels, 1,
+                                   kernel_init=xavier_uniform)
         self.project_bn = batch_norm(out_channels)
         self.aux_channels = {'expand_relu': inner} if self.expand else {}
 
@@ -86,8 +90,10 @@ _MBV2_STAGES = [
 class MobileNetV2(nn.Module):
     """19-stage MobileNetV2 feature extractor.
 
-    ``forward(x)`` returns ``(stages, aux)``: ``stages[i]`` is the output of
-    stage ``i`` (0..18), ``aux[(i, name)]`` holds inner taps.
+    ``forward(x, max_stage=None)`` returns ``(stages, aux)``: ``stages[i]``
+    is the output of stage ``i`` (0..18, or up to ``max_stage``),
+    ``aux[(i, name)]`` holds inner taps.  Every conv is xavier-uniform, as
+    in the JAX package.
     ``stage_channels[i]`` and ``aux_channels[(i, name)]`` give their widths.
     """
 
@@ -112,13 +118,15 @@ class MobileNetV2(nn.Module):
     def depth(self, d: int) -> int:
         return max(int(d * self.depth_multiplier), self.min_depth)
 
-    def forward(self, x):
+    def forward(self, x, max_stage: Optional[int] = None):
+        last = 18 if max_stage is None else max_stage
         x = self.stage0(x)
         stages, aux = [x], {}
-        for i in range(1, 18):
+        for i in range(1, min(last, 17) + 1):
             x, block_aux = getattr(self, f'stage{i}')(x)
             stages.append(x)
             for k, v in block_aux.items():
                 aux[(i, k)] = v
-        stages.append(self.stage18(x))
+        if last >= 18:
+            stages.append(self.stage18(x))
         return stages, aux

@@ -1,0 +1,196 @@
+"""ResNet, ResNeXt and SE-ResNet backbones (NCHW).
+
+Port of ``single_shot_detection_tpu/models/resnet.py``, with its stage
+indexing: ``ResNet`` has 8 stages ``[conv1, bn1, relu, maxpool, layer1,
+layer2, layer3, layer4]`` (so ``retina_rn50``'s ``out_layers (5, 6, 7)`` tap
+C3, C4 and C5), ``SEResNet`` 5 ``[layer0 (the stem), layer1..layer4]``.
+Blocks are children ``layer{i}_{j}`` with the flax names (``conv1``,
+``bn1``, ..., ``downsample_conv``, ``downsample_bn``, ``se.fc1``).  Every
+conv takes flax's default initializer (``lecun_normal``, zero bias).
+
+``width_overrides`` (pruning) is not ported and raises.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from single_shot_detection_tpu_torch.models.layers import batch_norm, conv2d
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = conv2d(in_channels, features, 3, stride=stride, padding=1)
+        self.bn1 = batch_norm(features)
+        self.conv2 = conv2d(features, features, 3, padding=1)
+        self.bn2 = batch_norm(features)
+        self.downsample = downsample
+        if downsample:
+            self.downsample_conv = conv2d(in_channels, features, 1,
+                                          stride=stride)
+            self.downsample_bn = batch_norm(features)
+
+    def residual(self, x):
+        return self.bn2(self.conv2(F.relu(self.bn1(self.conv1(x)))))
+
+    def forward(self, x):
+        identity = (self.downsample_bn(self.downsample_conv(x))
+                    if self.downsample else x)
+        return F.relu(self.residual(x) + identity)
+
+
+class Bottleneck(BasicBlock):
+    """1x1 -> 3x3 (``groups``, ``base_width``: ResNeXt) -> 1x1 to
+    ``features * 4``."""
+
+    expansion = 4
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1,
+                 downsample: bool = False, groups: int = 1,
+                 base_width: int = 64):
+        nn.Module.__init__(self)
+        width = int(features * (base_width / 64.0)) * groups
+        out = features * self.expansion
+        self.conv1 = conv2d(in_channels, width, 1)
+        self.bn1 = batch_norm(width)
+        self.conv2 = conv2d(width, width, 3, stride=stride, padding=1,
+                            groups=groups)
+        self.bn2 = batch_norm(width)
+        self.conv3 = conv2d(width, out, 1)
+        self.bn3 = batch_norm(out)
+        self.downsample = downsample
+        if downsample:
+            self.downsample_conv = conv2d(in_channels, out, 1, stride=stride)
+            self.downsample_bn = batch_norm(out)
+
+    def residual(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        return self.bn3(self.conv3(out))
+
+
+class SEBlock(nn.Module):
+    """Squeeze-and-excitation gate: global mean, 1x1 ``fc1`` to
+    ``channels // reduction``, ReLU, 1x1 ``fc2``, sigmoid, scale."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.fc1 = conv2d(channels, channels // reduction, 1, bias=True)
+        self.fc2 = conv2d(channels // reduction, channels, 1, bias=True)
+
+    def forward(self, x):
+        g = x.mean(dim=(2, 3), keepdim=True)
+        return x * torch.sigmoid(self.fc2(F.relu(self.fc1(g))))
+
+
+class SEBottleneck(Bottleneck):
+    """Bottleneck with an SE gate before the residual add."""
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1,
+                 downsample: bool = False, groups: int = 1,
+                 base_width: int = 64, reduction: int = 16):
+        super().__init__(in_channels, features, stride, downsample, groups,
+                         base_width)
+        self.se = SEBlock(features * self.expansion, reduction)
+
+    def residual(self, x):
+        return self.se(super().residual(x))
+
+
+def _make_layers(module: nn.Module, block_cls, layers: Sequence[int],
+                 groups: int = 1, width_per_group: int = 64) -> List[int]:
+    """Add ``layer{i}_{j}`` blocks to ``module``; returns each layer's
+    output width."""
+    in_channels, widths = 64, []
+    for i, (features, count) in enumerate(zip((64, 128, 256, 512), layers)):
+        stride = 1 if i == 0 else 2
+        out = features * block_cls.expansion
+        for j in range(count):
+            kwargs = {} if block_cls is BasicBlock else dict(
+                groups=groups, base_width=width_per_group)
+            module.add_module(f'layer{i + 1}_{j}', block_cls(
+                in_channels, features, stride=stride if j == 0 else 1,
+                downsample=j == 0 and (stride != 1 or in_channels != out),
+                **kwargs))
+            in_channels = out
+        widths.append(out)
+    return widths
+
+
+def _run_layer(module: nn.Module, i: int, x):
+    j = 0
+    while hasattr(module, f'layer{i + 1}_{j}'):
+        x = getattr(module, f'layer{i + 1}_{j}')(x)
+        j += 1
+    return x
+
+
+class ResNet(nn.Module):
+    """8-stage feature extractor (the reference wrapper's indexing)."""
+
+    num_stages = 8
+
+    def __init__(self, block: str = 'bottleneck',
+                 layers: Sequence[int] = (3, 4, 6, 3), groups: int = 1,
+                 width_per_group: int = 64, width_overrides=None):
+        super().__init__()
+        if width_overrides:
+            raise NotImplementedError('ResNet width_overrides (pruning) are '
+                                      'not ported yet')
+        self.conv1 = conv2d(3, 64, 7, stride=2, padding=3)
+        self.bn1 = batch_norm(64)
+        block_cls = Bottleneck if block == 'bottleneck' else BasicBlock
+        self.stage_channels = [64] * 4 + _make_layers(
+            self, block_cls, layers, groups, width_per_group)
+        self.aux_channels = {}
+
+    def forward(self, x, max_stage: Optional[int] = None):
+        last = self.num_stages - 1 if max_stage is None else max_stage
+        stem = (self.conv1, self.bn1, F.relu,
+                lambda h: F.max_pool2d(h, 3, 2, padding=1))
+        stages = []
+        for i in range(last + 1):
+            x = stem[i](x) if i < 4 else _run_layer(self, i - 4, x)
+            stages.append(x)
+        return stages, {}
+
+
+RESNET_CONFIGS = {
+    18: dict(block='basic', layers=(2, 2, 2, 2)),
+    34: dict(block='basic', layers=(3, 4, 6, 3)),
+    50: dict(block='bottleneck', layers=(3, 4, 6, 3)),
+    101: dict(block='bottleneck', layers=(3, 4, 23, 3)),
+    152: dict(block='bottleneck', layers=(3, 8, 36, 3)),
+}
+
+
+class SEResNet(nn.Module):
+    """SE-ResNet(Xt) with 5 stages: ``[layer0 (stem), layer1..layer4]``."""
+
+    num_stages = 5
+
+    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), groups: int = 1,
+                 width_per_group: int = 64):
+        super().__init__()
+        self.conv1 = conv2d(3, 64, 7, stride=2, padding=3)
+        self.bn1 = batch_norm(64)
+        self.stage_channels = [64] + _make_layers(
+            self, SEBottleneck, layers, groups, width_per_group)
+        self.aux_channels = {}
+
+    def forward(self, x, max_stage: Optional[int] = None):
+        last = self.num_stages - 1 if max_stage is None else max_stage
+        x = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, 2, padding=1)
+        stages = [x]
+        for i in range(last):
+            x = _run_layer(self, i, x)
+            stages.append(x)
+        return stages, {}

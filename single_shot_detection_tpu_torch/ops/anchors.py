@@ -1,7 +1,7 @@
 """Anchor (prior box) generation for SSD heads (numpy).
 
-A copy of ``single_shot_detection_tpu/ops/anchors.py`` (SSD generators; the
-RetinaNet generator belongs to a later slice).  Anchors are pure functions of
+A copy of ``single_shot_detection_tpu/ops/anchors.py`` (the SSD and
+RetinaNet generators).  Anchors are pure functions of
 ``(img_size, feature_map_size)``, computed once in numpy when the model is
 built and moved to the device as a constant tensor.
 
@@ -115,6 +115,41 @@ class SsdAnchorGenerator:
         return boxes
 
 
+class RetinaAnchorGenerator:
+    """Per-FPN-level RetinaNet anchors (parity: retina_net.py:18-54):
+    ``scales_per_level`` sizes ``scale * 2 ** (level + x / scales_per_level)``
+    times each aspect ratio, centred on the level's grid."""
+
+    def __init__(self, aspect_ratios, level, scale, scales_per_level=1):
+        self.aspect_ratios = list(aspect_ratios)
+        self.num_boxes = len(self.aspect_ratios) * scales_per_level
+        self.sizes = [scale * (2 ** (level + x / scales_per_level))
+                      for x in range(scales_per_level)]
+
+    def __call__(self, img_size, feature_map_size) -> np.ndarray:
+        img_w, img_h = img_size
+        layer_w, layer_h = feature_map_size
+        step_w = img_w / layer_w
+        step_h = img_h / layer_h
+
+        hws = np.empty((self.num_boxes, 2), dtype=np.float32)
+        for j, size in enumerate(self.sizes):
+            for i, ar in enumerate(self.aspect_ratios):
+                hws[j * len(self.aspect_ratios) + i, 0] = size * math.sqrt(ar)
+                hws[j * len(self.aspect_ratios) + i, 1] = size / math.sqrt(ar)
+
+        xs = np.linspace(0.5 * step_w, (0.5 + layer_w - 1) * step_w, layer_w)
+        ys = np.linspace(0.5 * step_h, (0.5 + layer_h - 1) * step_h, layer_h)
+        x_grid, y_grid = np.meshgrid(xs, ys)
+
+        boxes = np.empty((layer_h, layer_w, self.num_boxes, 4), dtype=np.float32)
+        boxes[..., 0] = x_grid[..., None]
+        boxes[..., 1] = y_grid[..., None]
+        boxes[..., 2] = hws[:, 0]
+        boxes[..., 3] = hws[:, 1]
+        return boxes
+
+
 def build_ssd_anchor_generators(num_scales: int = 6,
                                 sizes: Optional[Sequence[float]] = None,
                                 min_scale: Optional[float] = None,
@@ -152,8 +187,16 @@ def build_ssd_anchor_generators(num_scales: int = 6,
     return generators
 
 
+def build_retina_anchor_generators(aspect_ratios, min_level, max_level, scale,
+                                   scales_per_level=1):
+    """One RetinaAnchorGenerator per pyramid level (parity: retina_net.py:10-16)."""
+    return [RetinaAnchorGenerator(aspect_ratios, level, scale, scales_per_level)
+            for level in range(min_level, max_level + 1)]
+
+
 _BUILDERS = {
     'ssd': build_ssd_anchor_generators,
+    'retina_net': build_retina_anchor_generators,
 }
 
 

@@ -1,10 +1,11 @@
 """Losses and ``MultiboxLoss``.
 
 Port of ``single_shot_detection_tpu/ops/losses.py``: the masked reduction,
-``CrossEntropyLoss``, ``SmoothL1Loss``, ``build_loss`` and ``MultiboxLoss``.
-Every loss takes a ``mask`` and reduces over fixed shapes instead of
-gathering a variable-length subset.  The JAX package's other 14 named losses
-are not ported yet: ``build_loss`` raises on them with the supported list.
+``CrossEntropyLoss``, ``SmoothL1Loss``, ``SigmoidFocalLoss``, ``build_loss``
+and ``MultiboxLoss`` (with its multiclass branch for the focal loss).  Every
+loss takes a ``mask`` and reduces over fixed shapes instead of gathering a
+variable-length subset.  The JAX package's other 13 named losses are not
+ported yet: ``build_loss`` raises on them with the supported list.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from single_shot_detection_tpu_torch.ops import boxes as box_ops
 from single_shot_detection_tpu_torch.ops.matching import (CLASS_INDEX, IGNORE_CLASS,
                                                           LOC_INDEX_END,
                                                           LOC_INDEX_START,
-                                                          NEGATIVE_CLASS)
+                                                          NEGATIVE_CLASS,
+                                                          SCORE_INDEX)
 from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
 
 
@@ -33,7 +35,10 @@ def _masked_reduce(values: torch.Tensor, mask: torch.Tensor,
 
 
 class _Loss:
-    """Base: the reduction."""
+    """Base: the reduction.  ``MULTICLASS`` losses take a multi-hot
+    ``[..., C]`` target plane instead of class indices."""
+
+    MULTICLASS = False
 
     def __init__(self, reduction: str = 'mean', **_):
         if reduction not in ('mean', 'sum', 'none'):
@@ -79,9 +84,36 @@ class SmoothL1Loss(_Loss):
         return _masked_reduce(per_row, mask, self.reduction)
 
 
+class SigmoidFocalLoss(_Loss):
+    """Multi-hot sigmoid focal loss (parity: losses.py:34-54), summed over
+    the classes per row."""
+
+    MULTICLASS = True
+
+    def __init__(self, gamma: float = 2.0, alpha: float = 0.25, **kwargs):
+        super().__init__(**kwargs)
+        self.gamma = gamma
+        self.alpha = alpha
+
+    def __call__(self, logits: torch.Tensor, target: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # logits/target [..., C]; target is a {0, score} multi-hot plane
+        alpha_weight = target * self.alpha + (1.0 - target) * (1.0 - self.alpha)
+        pb = torch.sigmoid(logits)
+        pt = pb * target + (1.0 - pb) * (1.0 - target)
+        ce = (torch.clamp(logits, min=0) - logits * target
+              + torch.log1p(torch.exp(-torch.abs(logits))))
+        per_row = (alpha_weight * (1.0 - pt) ** self.gamma * ce).sum(dim=-1)
+        if mask is None:
+            mask = torch.ones(per_row.shape, dtype=torch.bool,
+                              device=per_row.device)
+        return _masked_reduce(per_row, mask, self.reduction)
+
+
 LOSSES = {
     'CrossEntropyLoss': CrossEntropyLoss,
     'SmoothL1Loss': SmoothL1Loss,
+    'SigmoidFocalLoss': SigmoidFocalLoss,
 }
 
 
@@ -115,6 +147,7 @@ class MultiboxLoss:
             classification_loss['name'], reduction='sum',
             ignore_index=IGNORE_CLASS,
             **{k: v for k, v in classification_loss.items() if k != 'name'})
+        self.multiclass = self.classification_loss.MULTICLASS
         self.localization_loss = build_loss(
             localization_loss['name'], reduction='sum',
             **{k: v for k, v in localization_loss.items() if k != 'name'})
@@ -134,8 +167,18 @@ class MultiboxLoss:
         if image_mask is not None:
             positive_mask = positive_mask & image_mask[:, None]
             sampled_mask = sampled_mask & image_mask[:, None]
-        class_loss = self.classification_loss(scores, target_classes,
-                                              sampled_mask)
+        if self.multiclass:
+            # a row at (class - 1) carrying the GT score; background (0)
+            # and ignored (-1) anchors get a zero row, as jax.nn.one_hot
+            # gives for a negative index
+            classes = torch.arange(scores.shape[-1], device=scores.device)
+            onehot = ((target_classes - 1)[..., None] == classes).to(scores.dtype)
+            score = torch.where(positive_mask, target[..., SCORE_INDEX], 0.0)
+            class_loss = self.classification_loss(
+                scores, onehot * score[..., None], sampled_mask)
+        else:
+            class_loss = self.classification_loss(scores, target_classes,
+                                                  sampled_mask)
         encoded_target = self.box_coder.encode(
             box_ops.to_centroids(target_locs), anchors)
         loc_loss = self.localization_loss(locs, encoded_target, positive_mask)

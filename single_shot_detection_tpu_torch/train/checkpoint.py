@@ -152,6 +152,33 @@ def _install_momentum(state: TrainState,
             device=p.device, dtype=torch.float32).clone()
 
 
+# SGD hyperparameters that come from the config, never from a ``.pt``: the
+# JAX package rebuilds its optax chain from the config on a resume and
+# restores only the chain's state
+_CONFIG_HYPERPARAMETERS = ('weight_decay', 'momentum', 'nesterov', 'dampening')
+
+
+def _load_optimizer(state: TrainState, saved: dict, step: int) -> None:
+    """The optimizer's state from a ``.pt``, its hyperparameters other
+    than the rate from the config.  Momentum buffers that cannot apply (a
+    config without momentum, or one with momentum after a step saved
+    without buffers) raise, as the ``.msgpack`` path does."""
+    config = [{k: g[k] for k in _CONFIG_HYPERPARAMETERS if k in g}
+              for g in state.optimizer.param_groups]
+    has_buffers = any('momentum_buffer' in s for s in saved['state'].values())
+    uses_momentum = any(g.get('momentum', 0) for g in config)
+    # a momentum SGD has its buffers from its first step on
+    if has_buffers != uses_momentum and (has_buffers or step > 0):
+        raise ValueError(
+            'the checkpoint and this optimizer disagree on momentum: the '
+            f'checkpoint {"has" if has_buffers else "has no"} momentum '
+            f'buffers, the optimizer {"uses" if uses_momentum else "does not use"} '
+            'momentum')
+    state.optimizer.load_state_dict(saved)
+    for group, hyper in zip(state.optimizer.param_groups, config):
+        group.update(hyper)
+
+
 def _read_meta(path: str, step: int) -> dict:
     meta = {'epoch': 0, 'global_step': step}
     if os.path.exists(path + '.meta.json'):
@@ -173,7 +200,7 @@ def restore(path: str, state: TrainState, rules=None) -> Tuple[TrainState, dict]
     else:
         restored = torch.load(path, map_location='cpu', weights_only=True)
         _load_model(state, restored['model'], rules)
-        state.optimizer.load_state_dict(restored['optimizer'])
+        _load_optimizer(state, restored['optimizer'], int(restored['step']))
     state.step = int(restored['step'])
     state.lr_scale = float(restored['lr_scale'])
     meta = _read_meta(path, state.step)

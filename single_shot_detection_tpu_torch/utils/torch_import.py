@@ -1,12 +1,13 @@
 """A torchvision backbone's pretrained weights into the port (``model.base.weight``).
 
-Port of the MobileNetV2 part of ``single_shot_detection_tpu/utils/
-torch_import.py``: :func:`load_torch_state_dict` reads a torch
-``state_dict`` file, :func:`mobilenet_v2_mapping` names torchvision's
-MobileNetV2 modules after the port's, and :func:`import_backbone` fills the
-backbone of a detector's ``state_dict`` from it.  The port's layout is
-torch's (OIHW kernels, ``running_mean``/``running_var``), so the import is a
-renaming with shape checks.
+Port of the MobileNetV2, VGG, ResNet and SE-ResNet parts of
+``single_shot_detection_tpu/utils/torch_import.py``:
+:func:`load_torch_state_dict` reads a torch ``state_dict`` file, the
+``*_mapping`` functions name torchvision's (and pretrainedmodels') modules
+after the port's, and :func:`import_backbone` fills the backbone of a
+detector's ``state_dict`` from it.  The port's layout is torch's (OIHW
+kernels, ``running_mean``/``running_var``), so the import is a renaming
+with shape checks.
 
 The other backbones' mappings, keras ``.h5`` files and the full-detector
 ``detector.torch_weight`` import raise ``NotImplementedError`` until their
@@ -15,10 +16,14 @@ models are ported.
 
 from __future__ import annotations
 
+import functools
 import logging
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from single_shot_detection_tpu_torch.models.resnet import RESNET_CONFIGS
+from single_shot_detection_tpu_torch.models.vgg import VGG_CONFIGS
 
 # the port's MobileNetV2 backbone names (models/backbones.py)
 _MOBILENET_V2 = ('mobilenet_v2', 'torchvision_mobilenet_v2', 'mobilenet_v2_10',
@@ -66,12 +71,100 @@ def mobilenet_v2_mapping() -> Dict[str, Tuple[str, ...]]:
     return m
 
 
+def vgg_mapping(config, bn: bool = True) -> Dict[str, Tuple[str, ...]]:
+    """torchvision vggN[_bn] ``features.K`` -> the port's ``conv{i}``
+    [``bn{i}``].
+
+    With BN each conv block is (conv, bn, relu), stride 3 in the
+    ``features`` Sequential; without BN it is (conv, relu), stride 2.
+    """
+    m: Dict[str, Tuple[str, ...]] = {}
+    idx = 0
+    conv = 0
+    for item in config:
+        if item == 'M':
+            idx += 1
+            continue
+        m[f'features.{idx}'] = (f'conv{conv}',)
+        if bn:
+            m[f'features.{idx + 1}'] = (f'bn{conv}',)
+        idx += 3 if bn else 2
+        conv += 1
+    return m
+
+
+def vgg_bn_mapping(config) -> Dict[str, Tuple[str, ...]]:
+    return vgg_mapping(config, bn=True)
+
+
+def resnet_mapping(layers: Sequence[int]) -> Dict[str, Tuple[str, ...]]:
+    """torchvision resnet/resnext ``layer{L}.{b}.*`` -> the port's
+    ``layer{L}_{b}.*`` (BasicBlocks have no ``conv3``/``bn3``; those entries
+    find no target)."""
+    m: Dict[str, Tuple[str, ...]] = {
+        'conv1': ('conv1',), 'bn1': ('bn1',),
+    }
+    for li, count in enumerate(layers, start=1):
+        for b in range(count):
+            base = f'layer{li}.{b}'
+            ours = f'layer{li}_{b}'
+            for name in ('conv1', 'bn1', 'conv2', 'bn2', 'conv3', 'bn3'):
+                m[f'{base}.{name}'] = (ours, name)
+            m[f'{base}.downsample.0'] = (ours, 'downsample_conv')
+            m[f'{base}.downsample.1'] = (ours, 'downsample_bn')
+    return m
+
+
+def se_resnet_mapping(layers: Sequence[int]) -> Dict[str, Tuple[str, ...]]:
+    """pretrainedmodels se_resnet/se_resnext (``layer0.{conv1,bn1}``;
+    ``layer{L}.{b}.{conv,bn}{1..3}``, ``.se_module.{fc1,fc2}`` 1x1 convs,
+    ``.downsample.{0,1}``) -> the port's ``SEResNet`` names."""
+    m: Dict[str, Tuple[str, ...]] = {
+        'layer0.conv1': ('conv1',), 'layer0.bn1': ('bn1',),
+    }
+    for li, count in enumerate(layers, start=1):
+        for b in range(count):
+            base = f'layer{li}.{b}'
+            ours = f'layer{li}_{b}'
+            for name in ('conv1', 'bn1', 'conv2', 'bn2', 'conv3', 'bn3'):
+                m[f'{base}.{name}'] = (ours, name)
+            m[f'{base}.se_module.fc1'] = (ours, 'se', 'fc1')
+            m[f'{base}.se_module.fc2'] = (ours, 'se', 'fc2')
+            m[f'{base}.downsample.0'] = (ours, 'downsample_conv')
+            m[f'{base}.downsample.1'] = (ours, 'downsample_bn')
+    return m
+
+
+SE_LAYERS = {
+    'se_resnet50': (3, 4, 6, 3),
+    'se_resnet101': (3, 4, 23, 3),
+    'se_resnet152': (3, 8, 36, 3),
+    'se_resnext50_32x4d': (3, 4, 6, 3),
+    'se_resnext101_32x4d': (3, 4, 23, 3),
+}
+
+MAPPINGS = {name: mobilenet_v2_mapping for name in _MOBILENET_V2}
+for _name, _layers in SE_LAYERS.items():
+    MAPPINGS[f'pretrainedmodels_{_name}'] = functools.partial(
+        se_resnet_mapping, _layers)
+
+
 def resolve_mapping(backbone_name: str) -> Dict[str, Tuple[str, ...]]:
-    if backbone_name in _MOBILENET_V2:
-        return mobilenet_v2_mapping()
+    """torch ``state_dict`` prefix -> the port's module path, for a
+    registry backbone."""
+    if backbone_name.startswith('torchvision_vgg'):
+        depth = int(''.join(ch for ch in backbone_name if ch.isdigit()))
+        return vgg_mapping(VGG_CONFIGS[depth],
+                           bn=backbone_name.endswith('_bn'))
+    if backbone_name.startswith(('torchvision_resnet', 'torchvision_resnext')):
+        depth = int(''.join(ch for ch in backbone_name.split('_')[1]
+                            if ch.isdigit()))
+        return resnet_mapping(RESNET_CONFIGS[depth]['layers'])
+    if backbone_name in MAPPINGS:
+        return MAPPINGS[backbone_name]()
     raise NotImplementedError(
         f'importing torch weights for backbone {backbone_name!r} is not '
-        'ported yet (ported: MobileNetV2)')
+        'ported yet (ported: MobileNetV2, VGG, ResNet, ResNeXt, SE-ResNet)')
 
 
 _BN_LEAVES = ('weight', 'bias', 'running_mean', 'running_var')

@@ -315,6 +315,54 @@ def test_restored_weight_decay_chain_matches_optax(tmp_path):
     assert_port_matches(trainer, params, opt_state[1].trace)
 
 
+def test_pt_resume_takes_hyperparameters_from_the_config(tmp_path):
+    """A ``.pt`` saved one step into a run with weight decay 5e-4, resumed
+    by a config with 1e-3: the next step equals JAX's resume, which builds
+    its optax chain from the config and restores only the chain's state
+    (the trace and the count).  A config without momentum refuses the
+    file's momentum buffers, as the ``.msgpack`` path does."""
+    opt_cfg = {'name': 'SGD', 'lr': 1e-3, 'momentum': 0.9, 'weight_decay': 5e-4}
+    sched = {'name': 'MultiStepLR', 'milestones': [1, 3], 'gamma': 0.5,
+             'run_each_step': True}
+    trainer = Trainer.from_config(SMOKE, device='cpu', overrides={
+        'train': {'optimizer': opt_cfg, 'scheduler': sched}})
+    params = to_jax_variables(trainer.model.state_dict())['params']
+    grads = from_jax_variables({'params': seeded_grads(params, 1)})
+    for name, p in trainer.model.named_parameters():
+        p.grad = grads[name].clone()
+    apply_gradients(trainer.state, trainer.schedule)
+    path = ckpt.save(str(tmp_path), trainer.state, epoch=0)
+
+    edited = {**opt_cfg, 'weight_decay': 1e-3}
+    resumed = Trainer.from_config(SMOKE, device='cpu', overrides={
+        'train': {'optimizer': edited, 'scheduler': sched}})
+    ckpt.restore(path, resumed.state)
+    assert [g['weight_decay'] for g in resumed.state.optimizer.param_groups] == [1e-3]
+
+    schedule = jax_schedulers.create_lr_schedule(dict(sched), 1e-3, 1)[0]
+    tx = jax_optimizers.create_optimizer(dict(edited), lr_schedule=schedule)
+    params = to_jax_variables(resumed.model.state_dict())['params']
+    opt = resumed.state.optimizer
+    trace = to_jax_variables({name: opt.state[p]['momentum_buffer'] for name, p
+                              in resumed.model.named_parameters()})['params']
+    opt_state = tx.init(params)
+    opt_state = (opt_state[0], opt_state[1]._replace(trace=trace),
+                 opt_state[2]._replace(count=jnp.int32(1)))
+    grads = seeded_grads(params, 2)
+    new_params, new_state = jax_update(tx)(params, opt_state, grads,
+                                           jnp.float32(1.0))
+    port_grads = from_jax_variables({'params': grads})
+    for name, p in resumed.model.named_parameters():
+        p.grad = port_grads[name].clone()
+    apply_gradients(resumed.state, resumed.schedule)
+    assert_port_matches(resumed, new_params, new_state[1].trace)
+
+    no_momentum = Trainer.from_config(SMOKE, device='cpu', overrides={
+        'train': {'optimizer': {**opt_cfg, 'momentum': 0.0}, 'scheduler': sched}})
+    with pytest.raises(ValueError, match='momentum'):
+        ckpt.restore(path, no_momentum.state)
+
+
 def test_pt_round_trip_is_exact(tmp_path):
     """``save`` then ``restore`` into a fresh trainer: every tensor and
     momentum buffer equal, step, ``lr_scale`` and the sidecar as saved; the
@@ -567,7 +615,7 @@ def test_base_weight_import_matches_jax(tmp_path, caplog):
 
 def test_weight_files_not_ported_raise():
     with pytest.raises(NotImplementedError, match='backbone'):
-        torch_import.resolve_mapping('torchvision_vgg16_bn')
+        torch_import.resolve_mapping('torchvision_shufflenet_v2_x1_0')
     for model, match in (({'base': {'name': 'mobilenet_v2', 'weight': 'w.h5'}},
                           'h5'),
                          ({'detector': {'num_classes': 5,

@@ -11,7 +11,11 @@ summed in another order); the train step's loss rtol 1e-4, each parameter
 tensor's update (after - before) within 1e-3 of that tensor's largest
 update or of 1 % of the step's largest update, whichever is larger (a
 tensor whose update is far below the rest carries the f32 noise of the
-whole backward in absolute terms), and the BN running statistics atol
+whole backward in absolute terms), each BN bias's within 2e-4 of the
+step's largest update (its gradient is a sum of dz over every position, so
+its rounding noise is of the step's scale, not its own: at one torch thread
+``stage9.expand_bn.bias`` lands 9.4e-5 of the step from JAX's, 1.6e-3 of
+its own update), and the BN running statistics atol
 1e-5 with rtol 1e-6 (the trained variances reach 157, where one f32 step
 is 1.5e-5).  The step's inputs leave a loss gap above 1e-4 at every image's
 hard-negative boundary, which the test checks, so a rounding difference
@@ -62,6 +66,17 @@ SCHEDULER = {'name': 'MultiStepLR', 'milestones': [1], 'gamma': 0.1}
 OVERRIDES = {'augmentations': [],
              'train': {'fused_bn': True, 'optimizer': OPTIMIZER,
                        'scheduler': SCHEDULER}}
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """One intra-op thread: the suite runs test files in parallel
+    processes, and torch's default of one thread per core makes them
+    contend for the CPU, tens of times slower than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def t(a) -> torch.Tensor:
@@ -198,8 +213,9 @@ def test_multibox_loss_and_gradients_match_jax():
 
 
 def test_build_loss_raises_on_unported_names():
-    with pytest.raises(KeyError, match='CrossEntropyLoss, SmoothL1Loss'):
-        pt_losses.build_loss('SigmoidFocalLoss')
+    with pytest.raises(KeyError,
+                       match='CrossEntropyLoss, SigmoidFocalLoss, SmoothL1Loss'):
+        pt_losses.build_loss('SoftmaxFocalLoss')
 
 
 # -------------------------------------------------------- optimizer, lr
@@ -393,9 +409,11 @@ def test_train_step_matches_jax_make_train_step(mining_gaps):
     largest = max(np.abs(u).max() for u in updates.values())
     for name, want in updates.items():
         got = (after_p[name] - before_p[name]).numpy()
-        scale = max(np.abs(want).max(), 1e-2 * largest)
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * scale,
-                                   err_msg=name)
+        if name.endswith('bn.bias'):  # a sum of dz: noise of the step's scale
+            atol = 2e-4 * largest
+        else:
+            atol = 1e-3 * max(np.abs(want).max(), 1e-2 * largest)
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol, err_msg=name)
     stats = [k for k in after_j if k.endswith(('running_mean', 'running_var'))]
     assert len(stats) == 2 * 55  # 52 backbone BNs + 3 in the one extra
     for name in stats:
