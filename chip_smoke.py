@@ -84,7 +84,22 @@ beside this one in phase 5, in turns.  Phases, each fatal:
     a step beside the step's bound and the PyTorch pairs over the same
     shapes; RetinaNet through ``cli.main`` (one epoch on synthetic 500 px
     data, an evaluation and a checkpoint); and the NMS kernel at both
-    serving inputs.
+    serving inputs;
+13. the rest of the zoo with seeded random weights, each at its config's
+    input size and batch: ``samples/m2det_512_vgg16_voc.py`` (512 px, b8,
+    150 train-mode BNs) and ``samples/ssd_sh2_voc.py`` (300 px, b32, 68),
+    served and trained as in phase 12 (the BN counts 150 and 68 per step,
+    K1-K4 against their plain versions on every distinct BN shape of both
+    steps, the peak of ``torch.cuda.max_memory_allocated``; M2Det's running
+    statistics against PyTorch's BN at ``LIBRARY_BN_STATS_TOL``, beside
+    K1's batch variance on its 150 BN inputs against float64), M2Det through
+    ``cli.main`` (one epoch of 4 b8 steps on synthetic 512 px data, an
+    evaluation and a checkpoint); MobileNet v1 under the depthwise FPN with
+    ``train.group_norm`` (``MBV1_DFPN_MODEL`` in the flagship's config):
+    one b32 ``predict_batch`` and 2 b32 train steps with every BN kernel
+    at 0 launches, the running statistics unwritten and the forward
+    against the CPU; and the NMS kernel at both serving inputs, its keep
+    masks equal to its plain version's (as at every input it is timed at).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -96,6 +111,7 @@ import argparse
 import copy
 import csv
 import ctypes
+import functools
 import json
 import math
 import os
@@ -726,17 +742,22 @@ def parent_launcher(lib: ctypes.CDLL, boxes: torch.Tensor,
 
 
 def time_nms(thr: float, inputs: dict, card: str, parent=None) -> dict:
-    """The NMS kernel's device time per launch at each input, beside the
-    launch floor (an empty kernel on the same grid), the plain version and
-    the bound; with ``parent`` (another build of ``nms.cu``, from
-    :func:`load_parent_nms`) that kernel too, in turns (parent, this, this,
-    parent), after checking that it gives the same keep mask."""
+    """The NMS kernel's keep mask at each input, exactly equal to its plain
+    version's, and its device time per launch beside the launch floor (an
+    empty kernel on the same grid), the plain version and the bound; with
+    ``parent`` (another build of ``nms.cu``, from :func:`load_parent_nms`)
+    that kernel too, in turns (parent, this, this, parent), after checking
+    that it gives the same keep mask."""
     out = {}
     for name, (boxes, scores) in inputs.items():
         n, k = scores.shape
 
         def launch():
             return nms_kernel.nms_keep_batched(boxes, scores, thr)
+
+        if not torch.equal(launch(), nms_ops.nms_keep_sorted(boxes, scores,
+                                                             thr)):
+            fail(f'the NMS kernel differs from its plain version on {name}')
 
         def device_ms(fn, kernel='nms_keep_kernel'):
             return kernels_device_ms(fn, (kernel,), iters=100)
@@ -833,10 +854,11 @@ def check_training_path(metrics, launches, n_bn: int) -> None:
 
 
 def check_against_library_bn(trainer: Trainer, batch,
-                             config: str = FLAGSHIP) -> dict:
+                             config: str = FLAGSHIP,
+                             stats_tol: float = 1e-4) -> dict:
     """One step from the same state with the kernels (``fused_bn`` on) and
     with PyTorch's batch norm (off): loss within 1e-4 relative, BN running
-    statistics within 1e-4 of max(1, |value|)."""
+    statistics within ``stats_tol`` of max(1, |value|)."""
     library = build_trainer(False, config)
     library.model.load_state_dict(trainer.model.state_dict())
     library.state.optimizer.load_state_dict(trainer.state.optimizer.state_dict())
@@ -851,12 +873,12 @@ def check_against_library_bn(trainer: Trainer, batch,
     for name in want:
         if name.endswith(('running_mean', 'running_var')):
             err = (got[name] - want[name]).abs().max().item()
-            if not err <= 1e-4 * max(1.0, want[name].abs().max().item()):
+            if not err <= stats_tol * max(1.0, want[name].abs().max().item()):
                 fail(f'{name}: BN kernels vs PyTorch BN differ by {err}')
             stats_err = max(stats_err, err)
     log(f'  one step, BN kernels vs PyTorch BN: loss {on:.6f} vs {off:.6f} '
         f'(rel {loss_rel:.3g}, tol 1e-4); running statistics max abs err '
-        f'{stats_err:.3g}')
+        f'{stats_err:.3g} (tol {stats_tol} of max(1, |value|))')
     return {'library': library, 'loss_rel_err': loss_rel,
             'stats_max_abs_err': stats_err}
 
@@ -1431,15 +1453,36 @@ RETINA_CLI_DATA = {
 }
 
 
-def zoo_serving(config: str, size: int, rng) -> dict:
-    """``Predictor`` on ``config``: 3 ``predict_batch`` calls of
-    ``ZOO_BATCH`` with the NMS count read around them; the forward at b2
+def forward_vs_cpu(model: torch.nn.Module, x: torch.Tensor, label: str) -> float:
+    """The eval forward of ``x[:2]`` on the card against a CPU copy of
+    ``model``, heads and sources, each as a fraction of its largest CPU
+    value; fails above ``ZOO_FORWARD_RTOL``."""
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        card = model(x[:2], return_sources=True)
+        ref = cpu_model(x[:2].cpu(), return_sources=True)
+    named = [('scores', card[0], ref[0]), ('locs', card[1], ref[1])] + [
+        (f'source{i}', a, b) for i, (a, b) in enumerate(zip(card[2], ref[2]))]
+    err = 0.0
+    for name, got, want in named:
+        rel = ((got.cpu() - want).abs().max().item()
+               / max(want.abs().max().item(), 1e-30))
+        if not rel <= ZOO_FORWARD_RTOL:
+            fail(f'{label}: {name} on the card differs from the CPU by {rel} '
+                 'of its largest value')
+        err = max(err, rel)
+    return err
+
+
+def zoo_serving(config: str, size: int, rng, batch: int = ZOO_BATCH) -> dict:
+    """``Predictor`` on ``config``: 3 ``predict_batch`` calls of ``batch``
+    with the NMS count (and no BN launch) read around them; the forward at b2
     against the CPU (heads and sources); the kernel postprocessor against
-    the plain one at b16; the NMS kernel's inputs; ``predict_batch`` img/s
-    (median of 10 calls after 3 warm-up calls)."""
+    the plain one at ``batch``; the NMS kernel's inputs; ``predict_batch``
+    img/s (median of 10 calls after 3 warm-up calls)."""
     pred = Predictor.from_config(config, device='cuda', seed=SEED)
     perturb_bn(pred.model, torch.Generator().manual_seed(SEED + 1))
-    batches = [rng.randint(0, 256, (ZOO_BATCH, size, size, 3), dtype=np.uint8)
+    batches = [rng.randint(0, 256, (batch, size, size, 3), dtype=np.uint8)
                for _ in range(3)]
     zero_launches()
     outs = [pred.predict_batch(b) for b in batches]
@@ -1448,31 +1491,23 @@ def zoo_serving(config: str, size: int, rng) -> dict:
     launches = all_launches['nms_keep_batched']
     if launches == 0:
         fail(f'{config}: the serving path launched no NMS kernel')
+    bn_launches = {k: v for k, v in all_launches.items()
+                   if k != 'nms_keep_batched' and v}
+    if bn_launches:
+        fail(f'{config}: the serving path launched BN kernels {bn_launches}')
     max_total = pred.postprocessor.max_total
     for dets, valid in outs:
-        if (tuple(dets.shape) != (ZOO_BATCH, max_total, 6)
-                or tuple(valid.shape) != (ZOO_BATCH, max_total)):
+        if (tuple(dets.shape) != (batch, max_total, 6)
+                or tuple(valid.shape) != (batch, max_total)):
             fail(f'{config}: predict_batch shapes {tuple(dets.shape)} '
                  f'{tuple(valid.shape)}')
         if not torch.isfinite(dets).all():
             fail(f'{config}: non-finite detections')
 
     x = pred.preprocess(torch.from_numpy(batches[0]).cuda())
-    cpu_model = copy.deepcopy(pred.model).cpu()
+    forward_err = forward_vs_cpu(pred.model, x, config)
     with torch.inference_mode():
         card = pred.model(x, return_sources=True)
-        ref = cpu_model(x[:2].cpu(), return_sources=True)
-    del cpu_model
-    named = [('scores', card[0], ref[0]), ('locs', card[1], ref[1])] + [
-        (f'source{i}', a, b) for i, (a, b) in enumerate(zip(card[2], ref[2]))]
-    forward_err = 0.0
-    for name, got, want in named:
-        rel = ((got[:2].cpu() - want).abs().max().item()
-               / max(want.abs().max().item(), 1e-30))
-        if not rel <= ZOO_FORWARD_RTOL:
-            fail(f'{config}: {name} on the card differs from the CPU by '
-                 f'{rel} of its largest value')
-        forward_err = max(forward_err, rel)
     plain = copy.copy(pred.postprocessor)
     plain.nms_keep = lambda boxes, scores: nms_ops.nms_keep_sorted(
         boxes, scores, plain.overlap_threshold)
@@ -1486,50 +1521,59 @@ def zoo_serving(config: str, size: int, rng) -> dict:
     out = {'anchors': len(pred.anchors), 'launches': all_launches,
            'forward_vs_cpu_max_rel_err': forward_err,
            'valid_per_image': v_k.sum(dim=1).tolist(),
-           f'predict_batch_b{ZOO_BATCH}_ms': ms,
-           f'predict_batch_b{ZOO_BATCH}_img_per_s': ZOO_BATCH * 1e3 / ms,
-           f'predict_batch_b{ZOO_BATCH}_all_ms': times,
+           f'predict_batch_b{batch}_ms': ms,
+           f'predict_batch_b{batch}_img_per_s': batch * 1e3 / ms,
+           f'predict_batch_b{batch}_all_ms': times,
            'nms_inputs': nms_in,
            'nms_threshold': pred.postprocessor.overlap_threshold}
     log(f'  {config} serving: {len(pred.anchors)} anchors, 3 x '
-        f'predict_batch({ZOO_BATCH}) at {size} px, {launches} NMS launches; '
+        f'predict_batch({batch}) at {size} px, {launches} NMS launches; '
         f'forward card vs CPU (b2, heads and {len(card[2])} sources) max rel '
         f'err {forward_err:.3g} (tol {ZOO_FORWARD_RTOL}); kernel postprocess '
         f'== plain, valid per image {out["valid_per_image"]}; '
-        f'{ms:.2f} ms = {ZOO_BATCH * 1e3 / ms:.1f} img/s')
+        f'{ms:.2f} ms = {batch * 1e3 / ms:.1f} img/s')
     del pred, card, outs
     torch.cuda.empty_cache()
     return out
 
 
-def zoo_training(config: str, size: int, n_bn_expected: int, card: str) -> dict:
-    """``Trainer`` on ``config`` with ``fused_bn``: ``ZOO_STEPS`` b16 steps
-    with the BN counts read around them, one step against PyTorch's batch
-    norm, the step in turns with and without the kernels, the kernels
+def zoo_training(config: str, size: int, n_bn_expected: int, card: str,
+                 batch: int = ZOO_BATCH, table: bool = False) -> dict:
+    """``Trainer`` on ``config`` with ``fused_bn``: ``ZOO_STEPS`` steps of
+    ``batch`` with the BN counts read around them, one step against
+    PyTorch's batch norm, the step in turns with and without the kernels, the kernels
     against their plain versions on every distinct BN shape of the step,
     and each kernel's device time summed over a step beside the step's
-    bound and the PyTorch pairs over the same shapes."""
+    bound and the PyTorch pairs over the same shapes (with ``table``, the
+    step's table of device time by operator); the peak of
+    ``torch.cuda.max_memory_allocated`` over the steps."""
+    torch.cuda.reset_peak_memory_stats()
     trainer = build_trainer(True, config)
     n_bn = sum(isinstance(m, BatchNorm) for m in trainer.model.modules())
     if n_bn != n_bn_expected:
         fail(f'{config}: {n_bn} train-mode BNs, expected {n_bn_expected}')
     rng = np.random.RandomState(SEED + 6)
-    batches = [train_batch(rng, ZOO_BATCH, size=size) for _ in range(ZOO_STEPS)]
+    batches = [train_batch(rng, batch, size=size) for _ in range(ZOO_STEPS)]
     zero_launches()
     metrics, launches = run_training_path(trainer, batches)
     launches['nms_keep_batched'] = nms_kernel.nms_keep_batched.launches
+    peak = torch.cuda.max_memory_allocated()
     check_training_path(metrics, {k: v for k, v in launches.items()
                                   if k != 'nms_keep_batched'}, n_bn)
-    log(f'  {config} training: {ZOO_STEPS} x train_step({ZOO_BATCH}) at '
+    log(f'  {config} training: {ZOO_STEPS} x train_step({batch}) at '
         f'{size} px, losses ' + ', '.join(f'{m["loss"]:.4f}' for m in metrics)
-        + '; BN kernel launches ' + json.dumps(launches))
-    library = check_against_library_bn(trainer, batches[0], config)
+        + '; BN kernel launches ' + json.dumps(launches)
+        + f'; peak memory {peak / 2**30:.2f} GiB')
+    library = check_against_library_bn(trainer, batches[0], config,
+                                       LIBRARY_BN_STATS_TOL.get(config, 1e-4))
+    if config in LIBRARY_BN_STATS_TOL:
+        library.update(bn_variance_vs_float64(trainer, library['library'],
+                                              batches[0]))
     timing = time_train_steps(trainer, library['library'], batches[0], iters=3)
     del library['library']
     torch.cuda.empty_cache()
     # the operator table for the slice's main path only
-    step = profile_train_step(trainer, batches[0], n_bn, card,
-                              table=config == RETINA)
+    step = profile_train_step(trainer, batches[0], n_bn, card, table=table)
     step_shapes = step.pop('bn_shapes')
     del trainer
     torch.cuda.empty_cache()
@@ -1548,51 +1592,54 @@ def zoo_training(config: str, size: int, n_bn_expected: int, card: str) -> dict:
         log(f'  per step over the {n_bn} BN shapes: kernels {pair} '
             f'{pairs[pair]:.3f} ms, PyTorch pair {ms:.3f} ms')
     return {'n_bn': n_bn, 'losses': [m['loss'] for m in metrics],
-            'launches': launches, 'loss_rel_err': library['loss_rel_err'],
-            'stats_max_abs_err': library['stats_max_abs_err'], **timing,
+            'launches': launches, 'peak_memory_bytes': peak,
+            **library, **timing,
             'bn_step': step, 'library_step_ms': library_step,
             'bn_shapes': [list(s) for s in shapes], 'bn_max_abs_err': bn_check}
 
 
-def write_zoo_cli_config(path: Path) -> str:
-    """RetinaNet's config with ``RETINA_CLI_DATA``, one epoch, an
-    evaluation and a checkpoint, and ``train.fused_bn``."""
+def write_zoo_cli_config(path: Path, config: str, data: dict) -> str:
+    """``config`` with the synthetic ``data``, one epoch, an evaluation and
+    a checkpoint, and ``train.fused_bn``."""
     path.write_text(
-        (REPO / RETINA).read_text()
-        + '\n# chip_smoke.py phase 12: synthetic 500 px data, fused BN\n'
-        + f'dataset = {RETINA_CLI_DATA!r}\n'
+        (REPO / config).read_text()
+        + '\n# chip_smoke.py: synthetic data, fused BN\n'
+        + f'dataset = {data!r}\n'
         + 'train = dict(train, epochs=1, eval_every=1, save_every=1, '
         'fused_bn=True)\n')
     return str(path)
 
 
-def zoo_cli(work: str, n_bn: int) -> dict:
+def zoo_cli(work: str, n_bn: int, config: str = RETINA,
+            data: dict = RETINA_CLI_DATA) -> dict:
     """``python -m single_shot_detection_tpu_torch`` (in process) on
-    RetinaNet: one epoch of augmented b16 steps, an evaluation and a
-    checkpoint; losses finite, mAP in [0, 1], every kernel's launches as
-    the loaders' lengths say."""
-    config = write_zoo_cli_config(Path(work) / 'retina_cli.py')
+    ``config`` with the synthetic ``data``: one epoch of augmented steps,
+    an evaluation and a checkpoint; losses finite, mAP in [0, 1], every
+    kernel's launches as the loaders' lengths say."""
+    name = Path(config).stem
+    config = write_zoo_cli_config(Path(work) / f'{name}_cli.py', config, data)
     exp, rows, launches, seconds, epoch_s = run_cli(
         ['--config', config, '--phases', 'train', 'eval', '--save-dir',
          os.path.join(work, 'runs')])
     steps = len(exp.loaders['train'])
     eval_batches = len(exp.loaders['eval'])
     if [r['epoch'] for r in rows] != [0]:
-        fail(f'retina CLI epochs {[r["epoch"] for r in rows]}, expected [0]')
+        fail(f'{name} CLI epochs {[r["epoch"] for r in rows]}, expected [0]')
     row = rows[0]
     if not all(np.isfinite(v) for v in row.values()):
-        fail(f'retina CLI: non-finite epoch row {row}')
+        fail(f'{name} CLI: non-finite epoch row {row}')
     if not 0.0 <= row.get('eval_mAP', -1.0) <= 1.0:
-        fail(f'retina CLI: eval mAP {row.get("eval_mAP")} outside [0, 1]')
+        fail(f'{name} CLI: eval mAP {row.get("eval_mAP")} outside [0, 1]')
     want = {fn.__name__: n_bn * steps for fn in bn_kernel.KERNELS}
     want['nms_keep_batched'] = eval_batches
     if launches != want:
-        fail(f'retina CLI kernel launches {launches}, expected {want}')
+        fail(f'{name} CLI kernel launches {launches}, expected {want}')
     if f'ckpt-{steps}.pt' not in os.listdir(exp.checkpoint_dir):
-        fail(f'retina CLI wrote {os.listdir(exp.checkpoint_dir)}')
+        fail(f'{name} CLI wrote {os.listdir(exp.checkpoint_dir)}')
     images = steps * exp.loaders['train'].batch_size
-    log(f'  {RETINA} through python -m single_shot_detection_tpu_torch (in '
-        f'this process), fused_bn, synthetic 500 px data: {steps} b'
+    log(f'  {name} through python -m single_shot_detection_tpu_torch (in '
+        f'this process), fused_bn, synthetic {data["train"]["image_size"]} '
+        f'px data: {steps} b'
         f'{exp.loaders["train"].batch_size} steps, {eval_batches} eval '
         f'batches, a checkpoint, in {seconds:.2f} s; epoch {epoch_s[0]:.3f} s '
         f'= {images / epoch_s[0]:.1f} img/s; ' + json.dumps(row)
@@ -1612,7 +1659,8 @@ def run_zoo(card: str, smi: str) -> dict:
     for key, (config, size, n_bn) in ZOO.items():
         t = time.perf_counter()
         serving = zoo_serving(config, size, rng)
-        training = zoo_training(config, size, n_bn, card)
+        training = zoo_training(config, size, n_bn, card,
+                                table=config == RETINA)
         out[key] = {'serving': serving, 'training': training}
         log(f'  {config}: {time.perf_counter() - t:.1f} s; {smi}: '
             f'predict_batch b{ZOO_BATCH} '
@@ -1630,6 +1678,186 @@ def run_zoo(card: str, smi: str) -> dict:
         serving = out[key]['serving']
         out['nms'].update(time_nms(serving.pop('nms_threshold'), {
             f'{key} b{ZOO_BATCH} serving ({label}, 20 classes)':
+                serving.pop('nms_inputs')}, card))
+    return out
+
+
+# --------------------------------------------------------------- phase 13
+
+# The rest of the model zoo on the card, each config at full width, its
+# input size and its own batch, with seeded random weights: the slice's main
+# path M2Det-512-VGG16 (150 train-mode BNs per step, from [8, 64, 512, 512]
+# down to the TUMs' [8, 128, 2, 2]) and SSD300-ShuffleNetV2 (68 narrow BNs,
+# 24 to 1024 channels, many depthwise); then MobileNet v1 under the
+# depthwise FPN with ``train.group_norm``, which runs no BN kernel.
+M2DET = 'samples/m2det_512_vgg16_voc.py'
+SH2 = 'samples/ssd_sh2_voc.py'
+# BN running statistics after one step with the kernels against one with
+# PyTorch's batch norm, from the same state, as a fraction of max(1,
+# |value|) (1e-4 elsewhere).  On M2Det's 150 BNs in series the two paths'
+# inputs drift apart, by up to 1.7e-3 of the variance at the last TUMs' 4x4
+# and 2x2 levels, while K1's batch variance of its own input stays within
+# 3e-6 of float64 (``bn_variance_vs_float64``); the running
+# variances there differed by 1.00e-4, 1.29e-4 and 1.40e-4 in three runs on
+# the H100
+LIBRARY_BN_STATS_TOL = {M2DET: 1e-3}
+# Where that tolerance is looser, ``bn_variance_vs_float64`` holds K1's batch
+# variance on every BN input of the step against float64, as a fraction of
+# max(variance, eps): flax's f32 ``E[x^2] - E[x]^2`` read within 2.83e-6 on
+# M2Det's step
+BN_VAR_RTOL = 1e-4
+
+
+def bn_variance_vs_float64(trainer: Trainer, library: Trainer, batch) -> dict:
+    """From one state, a step of each trainer with a hook on every BN: K1's
+    batch variance of the kernels' input against its float64 variance
+    (fails above ``BN_VAR_RTOL``), and the float64 variances of the two
+    paths' inputs against each other (the drift that the BNs in series
+    build up between the two paths, reported)."""
+    library.model.load_state_dict(trainer.model.state_dict())
+    library.state.optimizer.load_state_dict(trainer.state.optimizer.state_dict())
+    library.state.step = trainer.state.step
+    var64 = {}
+    k1_err = 0.0
+
+    def hook(module, args, key):
+        nonlocal k1_err
+        x = args[0].detach()
+        v64 = x.double().var(dim=(0, 2, 3), unbiased=False)
+        var64[key] = v64
+        if key[0] == 'kernels':
+            _, var, _ = bn_kernel.bn_stats(x.contiguous(), module.eps)
+            k1_err = max(k1_err, ((var.double() - v64).abs()
+                                  / v64.clamp_min(module.eps)).max().item())
+
+    for side, tr in (('kernels', trainer), ('library', library)):
+        hooks = [m.register_forward_pre_hook(functools.partial(
+            hook, key=(side, name)))
+            for name, m in tr.model.named_modules() if isinstance(m, BatchNorm)]
+        tr.train_step(*batch)
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+    names = [name for side, name in var64 if side == 'kernels']
+    drift = max(((var64['kernels', n] - var64['library', n]).abs()
+                 / var64['library', n].clamp_min(BN_EPS)).max().item()
+                for n in names)
+    if not k1_err <= BN_VAR_RTOL:
+        fail(f'K1\'s batch variance on the step\'s BN inputs differs from '
+             f'float64 by {k1_err} of max(variance, eps)')
+    log(f'  K1\'s batch variance on the {len(names)} BN inputs of a step vs '
+        f'float64: max rel err {k1_err:.3g} (tol {BN_VAR_RTOL}); the two '
+        f'paths\' inputs drift apart by up to {drift:.3g} of the variance')
+    return {'k1_variance_max_rel_err': k1_err, 'input_variance_drift': drift}
+ZOO_REST = {'m2det': (M2DET, 512, 8, 150), 'sh2': (SH2, 300, 32, 68)}
+# M2Det's CLI run: phase 8's synthetic data at 512 px, cut to 4 b8 train
+# steps and 16 eval images
+M2DET_CLI_DATA = {
+    'train': {**FLAGSHIP_DATA['train'], 'num_images': 32, 'image_size': 512},
+    'eval': {**FLAGSHIP_DATA['eval'], 'num_images': 16, 'image_size': 512},
+}
+# No shipped config uses MobileNet v1 or the depthwise FPN: this ``model``
+# goes into the flagship's config (300 px: taps 18 and 9 px, extra levels
+# 5, 3, 2, 1), with ``train.group_norm: True``
+MBV1_DFPN_MODEL = {
+    'base': {'name': 'mobilenet_v1'},
+    'detector': {
+        'num_classes': 21,
+        'features': {'name': 'DepthwiseFeaturePyramid', 'out_layers': (11, 13),
+                     'pyramid_layers': 6, 'pyramid_channels': 128},
+    },
+    'anchor_generator': {
+        'type': 'ssd', 'num_scales': 6, 'min_scale': 0.1, 'max_scale': 1.05,
+        'aspect_ratios': [[1.0, 2.0]] + [[1.0, 2.0, 3.0]] * 3 + [[1.0, 2.0]] * 2,
+    },
+}
+MBV1_GN_STEPS = 2
+
+
+def mbv1_group_norm(work: str) -> dict:
+    """MobileNet v1 + the depthwise FPN with ``train.group_norm`` (8
+    groups): one ``predict_batch`` of 32 and ``MBV1_GN_STEPS`` b32 train
+    steps with every kernel's count read around them (the BN kernels must
+    read 0: every BatchNorm is a GroupNorm), the serving forward against
+    the CPU, the running statistics unwritten."""
+    path = Path(work) / 'mbv1_dfpn_gn.py'
+    path.write_text((REPO / FLAGSHIP).read_text()
+                    + '\n# chip_smoke.py phase 13: MobileNet v1, the '
+                    'depthwise FPN, GroupNorm\n'
+                    + f'model = {MBV1_DFPN_MODEL!r}\n'
+                    + 'train = dict(train, group_norm=True)\n')
+    rng = np.random.RandomState(SEED + 9)
+    pred = Predictor.from_config(str(path), device='cuda', seed=SEED)
+    perturb_bn(pred.model, torch.Generator().manual_seed(SEED + 1))
+    trainer = Trainer.from_config(str(path), device='cuda', seed=SEED,
+                                  overrides={'augmentations': []})
+    groups = {m.group_norm for model in (pred.model, trainer.model)
+              for m in model.modules() if isinstance(m, BatchNorm)}
+    if groups != {8}:
+        fail(f'group_norm config: BatchNorm group counts {groups}, expected {{8}}')
+    stats = {k: v.clone() for k, v in trainer.model.state_dict().items()
+             if k.endswith(('running_mean', 'running_var'))}
+    images = rng.randint(0, 256, (32, 300, 300, 3), dtype=np.uint8)
+    batches = [train_batch(rng) for _ in range(MBV1_GN_STEPS)]
+    zero_launches()
+    dets, valid = pred.predict_batch(images)
+    metrics = [trainer.train_step(*b) for b in batches]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    losses = [m['loss'].item() for m in metrics]
+    if any(launches[fn.__name__] for fn in bn_kernel.KERNELS):
+        fail(f'group_norm path launched BN kernels: {launches}')
+    if launches['nms_keep_batched'] == 0:
+        fail('group_norm serving launched no NMS kernel')
+    if not (torch.isfinite(dets).all() and np.isfinite(losses).all()):
+        fail(f'group_norm path: non-finite detections or losses {losses}')
+    after = trainer.model.state_dict()
+    if not all(torch.equal(after[k], v) for k, v in stats.items()):
+        fail('group_norm train steps wrote BN running statistics')
+    err = forward_vs_cpu(pred.model, pred.preprocess(torch.from_numpy(
+        images).cuda()), 'group_norm')
+    log(f'  MobileNet v1 + DepthwiseFeaturePyramid, train.group_norm (8 '
+        f'groups): predict_batch(32) valid per image {valid.sum(1).tolist()[:4]}'
+        f'...; {MBV1_GN_STEPS} x train_step(32) losses '
+        + ', '.join(f'{v:.4f}' for v in losses) + '; kernel launches '
+        + json.dumps(launches) + f'; forward card vs CPU max rel err {err:.3g}'
+        '; running statistics unwritten')
+    del pred, trainer
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'losses': losses,
+            'forward_vs_cpu_max_rel_err': err}
+
+
+def run_zoo_rest(card: str, smi: str) -> dict:
+    """Phase 13: serving and training for M2Det-512 (at b8, and its CLI
+    run) and SSD300-ShuffleNetV2 (at b32), the group_norm path, then the
+    NMS kernel at both serving inputs."""
+    rng = np.random.RandomState(SEED + 10)
+    out = {}
+    for key, (config, size, batch, n_bn) in ZOO_REST.items():
+        t = time.perf_counter()
+        serving = zoo_serving(config, size, rng, batch=batch)
+        training = zoo_training(config, size, n_bn, card, batch=batch,
+                                table=config == M2DET)
+        out[key] = {'serving': serving, 'training': training}
+        log(f'  {config}: {time.perf_counter() - t:.1f} s; {smi}: '
+            f'predict_batch b{batch} '
+            f'{serving[f"predict_batch_b{batch}_img_per_s"]:.1f} img/s; '
+            f'train step b{batch} with the BN kernels '
+            f'{training[f"train_step_b{batch}_fused_bn_ms"]:.2f} ms, with '
+            f'PyTorch BN {training[f"train_step_b{batch}_library_bn_ms"]:.2f} ms')
+    work = tempfile.mkdtemp(prefix='chip_smoke_zoo_rest_')
+    try:
+        out['m2det']['cli'] = zoo_cli(work, ZOO_REST['m2det'][3], M2DET,
+                                      M2DET_CLI_DATA)
+        out['mbv1_gn'] = mbv1_group_norm(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out['nms'] = {}
+    for key, label in (('m2det', 'M2Det b8'), ('sh2', 'ShuffleNetV2 b32')):
+        serving = out[key]['serving']
+        out['nms'].update(time_nms(serving.pop('nms_threshold'), {
+            f'{key} {label} serving (softmax, 20 classes)':
                 serving.pop('nms_inputs')}, card))
     return out
 
@@ -1834,6 +2062,14 @@ def main(argv=None) -> int:
     zoo = run_zoo(card, smi)
     log(f'  phase 12 in {time.perf_counter() - t:.1f} s')
 
+    # 13. the rest of the zoo: M2Det-512, SSD300-ShuffleNetV2, GroupNorm
+    t = time.perf_counter()
+    log(f'[13] {smi}: M2Det-512 at b8 and SSD300-ShuffleNetV2 at b32, '
+        'seeded random weights, fused_bn; MobileNet v1 + the depthwise FPN '
+        'with train.group_norm')
+    zoo_rest = run_zoo_rest(card, smi)
+    log(f'  phase 13 in {time.perf_counter() - t:.1f} s')
+
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
         **train_timing,
@@ -1851,7 +2087,9 @@ def main(argv=None) -> int:
                 **ckpt_timing, **resumed},
         'jax_checkpoint': {'card': card_metrics, 'cpu': cpu_metrics,
                            **jax_check, 'launches': jax_launches},
-        'zoo': {key: value for key, value in zoo.items() if key != 'nms'}}}))
+        'zoo': {key: value for key, value in zoo.items() if key != 'nms'},
+        'zoo_rest': {key: value for key, value in zoo_rest.items()
+                     if key != 'nms'}}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -1869,6 +2107,14 @@ def main(argv=None) -> int:
                                  'nms_keep_batched'] for key in ZOO
                                  for path, label in ZOO_PATHS},
                              'retina_cli': zoo['retina']['cli']['launches'][
+                                 'nms_keep_batched'],
+                             **{f'{key}_{label}': zoo_rest[key][path][
+                                 'launches']['nms_keep_batched']
+                                 for key in ZOO_REST
+                                 for path, label in ZOO_PATHS},
+                             'm2det_cli': zoo_rest['m2det']['cli']['launches'][
+                                 'nms_keep_batched'],
+                             'mbv1_gn': zoo_rest['mbv1_gn']['launches'][
                                  'nms_keep_batched']},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
@@ -1878,8 +2124,11 @@ def main(argv=None) -> int:
         'by_input': {name: {key: value for key, value in row.items()
                             if key not in ('bytes', 'turns_ms')}
                      for name, row in {**nms_time, **trained,
-                                       **zoo['nms']}.items()},
+                                       **zoo['nms'], **zoo_rest['nms']}.items()},
     }]
+    # each zoo path's train step, phases 12 and 13
+    zoo_steps = {key: paths[key]['training'] for paths, keys in
+                 ((zoo, ZOO), (zoo_rest, ZOO_REST)) for key in keys}
     for name, (_, _, replaces) in BN_KERNELS.items():
         kernels.append({
             'name': name,
@@ -1893,20 +2142,25 @@ def main(argv=None) -> int:
                                  **{f'{key}_{label}': zoo[key][path]['launches'][
                                      name] for key in ZOO
                                      for path, label in ZOO_PATHS},
-                                 'retina_cli': zoo['retina']['cli']['launches'][name]},
+                                 'retina_cli': zoo['retina']['cli']['launches'][name],
+                                 **{f'{key}_{label}': zoo_rest[key][path][
+                                     'launches'][name] for key in ZOO_REST
+                                     for path, label in ZOO_PATHS},
+                                 'm2det_cli': zoo_rest['m2det']['cli'][
+                                     'launches'][name],
+                                 'mbv1_gn': zoo_rest['mbv1_gn']['launches'][name]},
             'max_abs_err': max(bn_check[name], *(
-                zoo[key]['training']['bn_max_abs_err'][name] for key in ZOO)),
+                t['bn_max_abs_err'][name] for t in zoo_steps.values())),
             'shape': list(BN_TIMED_SHAPE),
             **bn_time[name],
             **step_profile[name],
             'library_step_ms': library_step[bn_time[name]['library_pair']],
             'by_step': {key: {
-                **zoo[key]['training']['bn_step'][name],
-                'launches': zoo[key]['training']['n_bn'],
-                'library_step_ms': zoo[key]['training']['library_step_ms'][
+                **t['bn_step'][name], 'launches': t['n_bn'],
+                'library_step_ms': t['library_step_ms'][
                     bn_time[name]['library_pair']],
-                'max_abs_err': zoo[key]['training']['bn_max_abs_err'][name]}
-                for key in ZOO},
+                'max_abs_err': t['bn_max_abs_err'][name]}
+                for key, t in zoo_steps.items()},
         })
     log(json.dumps({'kernels': kernels}))
     log(smi)

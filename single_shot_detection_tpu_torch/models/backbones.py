@@ -1,8 +1,8 @@
 """Backbone registry: ``name -> factory``.
 
-Port of ``single_shot_detection_tpu/models/backbones.py``: the MobileNetV2,
-VGG, ResNet, ResNeXt and SE-ResNet(Xt) names (MobileNet v1 and ShuffleNetV2
-belong to a later slice).  Every backbone's ``forward(x, max_stage=None)``
+Port of ``single_shot_detection_tpu/models/backbones.py``, every name of it:
+MobileNetV2, MobileNet v1, VGG, ResNet, ResNeXt, SE-ResNet(Xt) and
+ShuffleNetV2.  Every backbone's ``forward(x, max_stage=None)``
 returns ``(stages, aux)`` with the JAX package's stage indexing, so sample
 configs carry over unchanged.  A factory drops the config's keyword
 arguments that the JAX package's factory drops.
@@ -13,14 +13,25 @@ from __future__ import annotations
 import functools
 from typing import Callable, Dict
 
+from single_shot_detection_tpu_torch.models.mobilenet import MobileNet
 from single_shot_detection_tpu_torch.models.mobilenet_v2 import MobileNetV2
 from single_shot_detection_tpu_torch.models.resnet import (RESNET_CONFIGS,
                                                            ResNet, SEResNet)
+from single_shot_detection_tpu_torch.models.shufflenet_v2 import (
+    SHUFFLENET_WIDTHS, ShuffleNetV2)
 from single_shot_detection_tpu_torch.models.vgg import VGG, VGG_CONFIGS
 
 
 def _mbv2(depth_multiplier: float = 1.0, min_depth: int = 4, **_):
     return MobileNetV2(depth_multiplier=depth_multiplier, min_depth=min_depth)
+
+
+def _mbv1(depth_multiplier: float = 1.0, min_depth: int = 4, **_):
+    return MobileNet(depth_multiplier=depth_multiplier, min_depth=min_depth)
+
+
+def _shufflenet_v2(mult: float, **_):
+    return ShuffleNetV2(SHUFFLENET_WIDTHS[mult])
 
 
 def _vgg(depth: int, bn: bool, packed_stem: bool = False, **_):
@@ -44,6 +55,10 @@ _REGISTRY: Dict[str, Callable] = {
     **{f'mobilenet_v2_{suffix}': functools.partial(_mbv2, depth_multiplier=mult)
        for mult, suffix in [(1.0, '10'), (0.75, '075'), (0.5, '050'),
                             (0.5, '05'), (0.35, '035')]},
+    'mobilenet_v1': _mbv1,
+    **{f'mobilenet_{suffix}': functools.partial(_mbv1, depth_multiplier=mult)
+       for mult, suffix in [(1.0, '10'), (0.75, '075'), (0.5, '050'),
+                            (0.5, '05'), (0.25, '025')]},
     **{f'torchvision_vgg{depth}' + ('_bn' if bn else ''):
        functools.partial(_vgg, depth, bn)
        for depth in (11, 13, 16, 19) for bn in (False, True)},
@@ -60,6 +75,10 @@ _REGISTRY: Dict[str, Callable] = {
            ('se_resnet152', (3, 8, 36, 3), 1, 64),
            ('se_resnext50_32x4d', (3, 4, 6, 3), 32, 4),
            ('se_resnext101_32x4d', (3, 4, 23, 3), 32, 4)]},
+    **{f'torchvision_shufflenet_v2_{suffix}': functools.partial(
+        _shufflenet_v2, mult)
+       for mult, suffix in [(0.5, 'x0_5'), (1.0, 'x1_0'), (1.5, 'x1_5'),
+                            (2.0, 'x2_0')]},
 }
 
 

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from single_shot_detection_tpu_torch.models import norm
 from single_shot_detection_tpu_torch.ops.bn_fused import fused_bn_train
 
 ACTIVATIONS = {
@@ -63,13 +64,22 @@ class BatchNorm(nn.BatchNorm2d):
     the card); off, PyTorch's own ``torch.native_batch_norm``, the
     counterpart of flax's XLA-lowered BN.  It is a configuration: neither
     path stands in for the other when one fails.
+
+    ``group_norm`` (the config's ``train.group_norm``, a group count or
+    ``None``) makes it a GroupNorm over the same ``weight`` and ``bias``
+    in train and eval mode (``models/norm.py``); the running statistics
+    are then never written.
     """
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
         self.fused = False
+        self.group_norm: Optional[int] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group_norm is not None:
+            return norm.group_norm(x, self.weight, self.bias,
+                                   self.group_norm, self.eps)
         if not self.training:
             return super().forward(x)
         if self.fused:
@@ -96,6 +106,15 @@ def set_fused_bn(model: nn.Module, fused: bool) -> int:
     layers = [m for m in model.modules() if isinstance(m, BatchNorm)]
     for m in layers:
         m.fused = fused
+    return len(layers)
+
+
+def set_group_norm(model: nn.Module, groups: Optional[int]) -> int:
+    """Make every :class:`BatchNorm` a GroupNorm of ``groups`` groups
+    (``None``: BatchNorm again); returns their count."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in layers:
+        m.group_norm = groups
     return len(layers)
 
 

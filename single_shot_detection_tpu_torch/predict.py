@@ -3,8 +3,9 @@
 Port of the JAX package's serving path: ``Experiment.predict``
 (``train/engine.py``), built from ``make_predict_step`` and the serving
 postprocessor.  Staged uint8 images go through preprocessing, the eval-mode
-forward and the postprocessor (hard NMS on the CUDA kernel on a GPU) to
-``[B, max_total, 6]`` detections and a ``valid`` mask.
+forward (every BatchNorm a GroupNorm under ``train.group_norm``, as the JAX
+engine serves such a model) and the postprocessor (hard NMS on the CUDA
+kernel on a GPU) to ``[B, max_total, 6]`` detections and a ``valid`` mask.
 
 Runs on ``cuda`` unless the caller passes ``device='cpu'``.
 """
@@ -18,7 +19,8 @@ import torch
 
 from single_shot_detection_tpu_torch.data.preprocess import Preprocess
 from single_shot_detection_tpu_torch.device import resolve_device
-from single_shot_detection_tpu_torch.models import builder
+from single_shot_detection_tpu_torch.models import builder, norm
+from single_shot_detection_tpu_torch.models.layers import set_group_norm
 from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
 from single_shot_detection_tpu_torch.ops.postprocess import Postprocessor
 from single_shot_detection_tpu_torch.train.step import make_predict_step
@@ -61,6 +63,8 @@ class Predictor:
         device = resolve_device(device)
         cfg = load_config(path, phases=('eval',))
         bundle = builder.from_config(cfg, variables, seed)
+        set_group_norm(bundle.module, norm.groups_from_config(
+            dict(cfg.train or {}).get('group_norm')))
         box_coder = filter_kwargs(BoxCoder)(**(cfg.box_coder or {}))
         pp_cfg = Postprocessor.serving_preset(
             cfg.postprocess, len(bundle.anchors))

@@ -6,8 +6,10 @@ datasets and loaders from the config, the train ``Trainer`` (augmentation
 ``Pipeline``, model, loss, optimizer and schedule, with milestones counted
 in epochs of the train loader), the eval pipeline and the config-exact
 postprocessor, and the training loop: weights at start (``model.base.weight``
-for a MobileNetV2 backbone, ``model.detector.weight``, a resumed
-checkpoint), the epochs with an evaluation every ``eval_every`` and a
+for any registry backbone, ``model.detector.weight``, a resumed checkpoint;
+a warning when a restored checkpoint's BN statistics all sit at 0/1, the
+mark of a ``train.group_norm`` run, and the config does not set it), the
+epochs with an evaluation every ``eval_every`` and a
 checkpoint every ``save_every`` (default ``eval_every``), ``log.csv``
 rewritten each epoch, ``ReduceLROnPlateau`` fed after each evaluation, and
 an emergency checkpoint on ``KeyboardInterrupt`` or SIGTERM.  ``evaluate``
@@ -19,7 +21,7 @@ after a transient device failure; a failed step raises.
 
 Not ported yet, each raising ``NotImplementedError`` when asked for: the
 asynchronous checkpoint writer, the device-resident dataset and the eval
-replay cache, weight files of other backbones and of the reference's whole
+replay cache, keras ``.h5`` and torch-hub backbones, the reference's whole
 detector (``detector.torch_weight``), int8, pruning, EMA, tensorboard and
 multi-host runs.
 
@@ -42,6 +44,7 @@ from single_shot_detection_tpu_torch.data.datasets import DATASETS
 from single_shot_detection_tpu_torch.data.loader import create_loaders
 from single_shot_detection_tpu_torch.data.transforms import Pipeline
 from single_shot_detection_tpu_torch.device import resolve_device
+from single_shot_detection_tpu_torch.models import norm
 from single_shot_detection_tpu_torch.ops import metrics as metrics_ops
 from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
 from single_shot_detection_tpu_torch.ops.postprocess import Postprocessor
@@ -53,6 +56,20 @@ from single_shot_detection_tpu_torch.utils import torch_import
 from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
 
 METRIC_KEYS = ('loss', 'class_loss', 'loc_loss')
+
+
+def bn_stats_look_untouched(model: torch.nn.Module) -> bool:
+    """True when the model has BatchNorms and every running mean is exactly
+    0 and every running variance exactly 1: the mark of a checkpoint trained
+    with ``train.group_norm``, which never writes them."""
+    found = False
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            found = True
+            if not (torch.all(m.running_mean == 0)
+                    and torch.all(m.running_var == 1)):
+                return False
+    return found
 
 
 def create_datasets(dataset_cfg: dict, phases) -> dict:
@@ -207,17 +224,31 @@ class Experiment:
                 'pretrained weights (utils/torch_import.py) — training from '
                 'scratch')
         weight_file = dict(model_cfg.get('detector', {})).get('weight')
+        restored_any = False
         if weight_file:
             ckpt.restore_weights_only(weight_file, state)
+            restored_any = True
         if resume_from:
             path = ckpt.find_latest(resume_from)
             if path is None:
                 logging.warning(f'WW no checkpoint found under {resume_from}')
             elif load_weights:
                 ckpt.restore_weights_only(path, state)
+                restored_any = True
             else:
                 _, meta = ckpt.restore(path, state)
                 self.start_epoch = meta['epoch'] + 1
+                restored_any = True
+        group_norm = norm.groups_from_config(
+            dict(self.cfg.train or {}).get('group_norm'))
+        if (restored_any and group_norm is None
+                and bn_stats_look_untouched(state.model)):
+            # a GroupNorm run never writes the BN running statistics
+            logging.warning(
+                'WW restored checkpoint has every BN running statistic at '
+                'its 0/1 init — if it was trained with train.group_norm, '
+                'set it here too or eval will silently use identity '
+                'normalization')
 
     @property
     def model(self) -> torch.nn.Module:

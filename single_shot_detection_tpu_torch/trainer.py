@@ -6,7 +6,11 @@ assigner, sampler, multibox loss, optimizer and learning-rate schedule built
 from a ``samples/*.py`` config, and ``make_train_step`` over them.  With
 ``train.fused_bn`` every train-mode BatchNorm runs on the four hand-written
 CUDA kernels of ``kernels/bn.cu`` (the JAX package's ``ops/bn_pallas.py``
-path); without it, on PyTorch's own batch norm.
+path); without it, on PyTorch's own batch norm.  ``train.group_norm``
+(``True`` for 8 groups, a count, or ``{'groups': g}``) makes every
+BatchNorm a GroupNorm over its own parameters (``models/norm.py``), in the
+train step and the evaluation alike; it does not compose with
+``fused_bn``.
 
 Each step draws its augmentation from a generator seeded from ``(seed,
 step)``, as the JAX engine folds the global step index into its key, so a
@@ -30,8 +34,9 @@ import torch
 
 from single_shot_detection_tpu_torch.data.transforms import Pipeline, draws_to
 from single_shot_detection_tpu_torch.device import resolve_device
-from single_shot_detection_tpu_torch.models import builder
-from single_shot_detection_tpu_torch.models.layers import set_fused_bn
+from single_shot_detection_tpu_torch.models import builder, norm
+from single_shot_detection_tpu_torch.models.layers import (set_fused_bn,
+                                                           set_group_norm)
 from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
 from single_shot_detection_tpu_torch.ops.losses import MultiboxLoss
 from single_shot_detection_tpu_torch.ops.matching import TargetAssigner
@@ -44,7 +49,7 @@ from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
 
 # train options of the JAX engine not ported yet: each raises when set
 _UNPORTED_TRAIN_OPTIONS = ('mixup', 'frozen_bn', 'ema', 'qat', 'pruner',
-                           'group_norm', 'clip_grad_norm', 'tensor_sharding',
+                           'clip_grad_norm', 'tensor_sharding',
                            'spatial_sharding', 'pipeline_sharding',
                            'zero_sharding')
 
@@ -128,10 +133,16 @@ class Trainer:
         check_ported(cfg)
         seed = int(seed if seed is not None else (cfg.seed or 23))
 
+        train_cfg = dict(cfg.train or {})
+        groups = norm.groups_from_config(train_cfg.get('group_norm'))
+        if groups is not None and train_cfg.get('fused_bn'):
+            raise ValueError('train.fused_bn does not compose with '
+                             'train.group_norm (both replace the BatchNorm '
+                             'forward)')
         bundle = builder.from_config(cfg, variables, seed)
         model = bundle.module.to(device)
-        train_cfg = dict(cfg.train or {})
         set_fused_bn(model, bool(train_cfg.get('fused_bn', False)))
+        set_group_norm(model, groups)
         pipeline = Pipeline(cfg.augmentations or (), cfg.preprocessing,
                             bundle.input_size, train=True)
 

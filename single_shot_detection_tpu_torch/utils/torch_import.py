@@ -1,7 +1,8 @@
 """A torchvision backbone's pretrained weights into the port (``model.base.weight``).
 
-Port of the MobileNetV2, VGG, ResNet and SE-ResNet parts of
-``single_shot_detection_tpu/utils/torch_import.py``:
+Port of the backbone part of
+``single_shot_detection_tpu/utils/torch_import.py`` (MobileNetV2, MobileNet
+v1, VGG, ResNet, ResNeXt, SE-ResNet(Xt), ShuffleNetV2):
 :func:`load_torch_state_dict` reads a torch ``state_dict`` file, the
 ``*_mapping`` functions name torchvision's (and pretrainedmodels') modules
 after the port's, and :func:`import_backbone` fills the backbone of a
@@ -9,9 +10,8 @@ detector's ``state_dict`` from it.  The port's layout is torch's (OIHW
 kernels, ``running_mean``/``running_var``), so the import is a renaming
 with shape checks.
 
-The other backbones' mappings, keras ``.h5`` files and the full-detector
-``detector.torch_weight`` import raise ``NotImplementedError`` until their
-models are ported.
+Keras ``.h5`` files and the full-detector ``detector.torch_weight`` import
+are not ported yet (``train/engine.py`` raises on them).
 """
 
 from __future__ import annotations
@@ -115,6 +115,51 @@ def resnet_mapping(layers: Sequence[int]) -> Dict[str, Tuple[str, ...]]:
     return m
 
 
+def shufflenet_v2_mapping(stage_repeats: Sequence[int] = (4, 8, 4)
+                          ) -> Dict[str, Tuple[str, ...]]:
+    """torchvision shufflenet_v2 -> the port's ``ShuffleNetV2`` names.
+
+    torchvision: ``conv1.{0 conv, 1 bn}``; ``stage{2,3,4}.{i}.branch1.{0 dw,
+    1 bn, 2 pw, 3 bn}`` (stride units only) and ``.branch2.{0 pw, 1 bn,
+    3 dw, 4 bn, 5 pw, 6 bn}``; ``conv5.{0 conv, 1 bn}``.
+    """
+    m: Dict[str, Tuple[str, ...]] = {
+        'conv1.0': ('conv1',), 'conv1.1': ('conv1_bn',),
+        'conv5.0': ('conv5',), 'conv5.1': ('conv5_bn',),
+    }
+    for si, repeats in enumerate(stage_repeats, start=2):
+        for i in range(repeats):
+            base = f'stage{si}.{i}'
+            ours = f'stage{si}_{i}'
+            if i == 0:  # the stride unit has branch1
+                m[f'{base}.branch1.0'] = (ours, 'branch1_dw')
+                m[f'{base}.branch1.1'] = (ours, 'branch1_dw_bn')
+                m[f'{base}.branch1.2'] = (ours, 'branch1_pw')
+                m[f'{base}.branch1.3'] = (ours, 'branch1_pw_bn')
+            m[f'{base}.branch2.0'] = (ours, 'branch2_pw1')
+            m[f'{base}.branch2.1'] = (ours, 'branch2_pw1_bn')
+            m[f'{base}.branch2.3'] = (ours, 'branch2_dw')
+            m[f'{base}.branch2.4'] = (ours, 'branch2_dw_bn')
+            m[f'{base}.branch2.5'] = (ours, 'branch2_pw2')
+            m[f'{base}.branch2.6'] = (ours, 'branch2_pw2_bn')
+    return m
+
+
+def mobilenet_v1_mapping() -> Dict[str, Tuple[str, ...]]:
+    """The reference's custom MobileNet v1 (``features.0.{conv,bn}``, then 13
+    ``features.{i}.{depthwise,pointwise}_{conv,bn}`` blocks) -> the port's
+    ``stage0_{conv,bn}`` and ``stage{1..13}`` names."""
+    m: Dict[str, Tuple[str, ...]] = {
+        'features.0.conv': ('stage0_conv',),
+        'features.0.bn': ('stage0_bn',),
+    }
+    for i in range(1, 14):
+        for name in ('depthwise_conv', 'depthwise_bn',
+                     'pointwise_conv', 'pointwise_bn'):
+            m[f'features.{i}.{name}'] = (f'stage{i}', name)
+    return m
+
+
 def se_resnet_mapping(layers: Sequence[int]) -> Dict[str, Tuple[str, ...]]:
     """pretrainedmodels se_resnet/se_resnext (``layer0.{conv1,bn1}``;
     ``layer{L}.{b}.{conv,bn}{1..3}``, ``.se_module.{fc1,fc2}`` 1x1 convs,
@@ -144,6 +189,11 @@ SE_LAYERS = {
 }
 
 MAPPINGS = {name: mobilenet_v2_mapping for name in _MOBILENET_V2}
+MAPPINGS['mobilenet_v1'] = mobilenet_v1_mapping
+for _suffix in ('10', '075', '050', '05', '025'):
+    MAPPINGS[f'mobilenet_{_suffix}'] = mobilenet_v1_mapping
+for _suffix in ('x0_5', 'x1_0', 'x1_5', 'x2_0'):
+    MAPPINGS[f'torchvision_shufflenet_v2_{_suffix}'] = shufflenet_v2_mapping
 for _name, _layers in SE_LAYERS.items():
     MAPPINGS[f'pretrainedmodels_{_name}'] = functools.partial(
         se_resnet_mapping, _layers)
@@ -162,9 +212,7 @@ def resolve_mapping(backbone_name: str) -> Dict[str, Tuple[str, ...]]:
         return resnet_mapping(RESNET_CONFIGS[depth]['layers'])
     if backbone_name in MAPPINGS:
         return MAPPINGS[backbone_name]()
-    raise NotImplementedError(
-        f'importing torch weights for backbone {backbone_name!r} is not '
-        'ported yet (ported: MobileNetV2, VGG, ResNet, ResNeXt, SE-ResNet)')
+    raise KeyError(f'No torch mapping for backbone {backbone_name!r}')
 
 
 _BN_LEAVES = ('weight', 'bias', 'running_mean', 'running_var')

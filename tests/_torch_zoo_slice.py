@@ -1,7 +1,8 @@
-"""Shared parts of the model zoo's slice tests (``test_torch_port_zoo_*.py``):
+"""Shared parts of the model zoo's tests (``test_torch_port_zoo*.py``):
 the JAX side of one config at a reduced input size (its detector, its
 initializer run as one jit, its eval forward, its train step with flax's
-own BatchNorm), seeded batches, and the comparisons the two files make.
+own BatchNorm or another forward such as ``group_norm_apply``), seeded
+batches and variables, layout helpers, and the comparisons the files make.
 """
 
 import jax
@@ -29,31 +30,109 @@ from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
 
 OPTIMIZER = {'name': 'SGD', 'lr': 0.01, 'momentum': 0.9, 'weight_decay': 1e-4}
 SCHEDULER = {'name': 'MultiStepLR', 'milestones': [10], 'gamma': 0.1}
+# MobileNet v1 under the depthwise FPN, on the flagship's anchors: no shipped
+# config uses either, so the tests put this ``model`` into
+# ``samples/ssd_mb2_voc.py`` (300 px: taps 18 and 9 px, extra levels 5, 3,
+# 2, 1, the (0, 1) pad on the odd 9, 5 and 3)
+MBV1_DFPN_MODEL = {
+    'base': {'name': 'mobilenet_v1'},
+    'detector': {
+        'num_classes': 21,
+        'features': {'name': 'DepthwiseFeaturePyramid', 'out_layers': (11, 13),
+                     'pyramid_layers': 6, 'pyramid_channels': 128},
+    },
+    'anchor_generator': {
+        'type': 'ssd', 'num_scales': 6, 'min_scale': 0.1, 'max_scale': 1.05,
+        'aspect_ratios': [[1.0, 2.0]] + [[1.0, 2.0, 3.0]] * 3 + [[1.0, 2.0]] * 2,
+    },
+}
+
+
+def nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x).transpose(0, 3, 1, 2)))
+
+
+def as_nchw(x):
+    return np.asarray(x).transpose(0, 3, 1, 2)
+
+
+def assert_close(got, want, atol=1e-5, rtol=1e-5):
+    """rtol, and atol scaled by max(1, the largest reference value)."""
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol * scale)
+
+
+def random_variables(module, *inputs, rng):
+    """A seeded JAX variable tree of ``module`` (shapes from
+    ``jax.eval_shape`` of its init, so only the apply compiles): He-scaled
+    kernels, non-trivial BN statistics and affine parameters."""
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *inputs))
+
+    def fill(path, leaf):
+        key, shape = path[-1].key, leaf.shape
+        if key == 'kernel':
+            value = rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[:-1]))
+        elif key == 'scale':
+            value = 1 + rng.randn(*shape) * 0.1
+        elif key == 'var':
+            value = rng.rand(*shape) + 0.5
+        else:  # bias, mean
+            value = rng.randn(*shape) * 0.1
+        return value.astype(np.float32)
+    return jax.tree_util.tree_map_with_path(fill, dict(shapes))
+
+
+def to_jax_variables(state_dict) -> dict:
+    """A port ``state_dict`` as a JAX ``{'params', 'batch_stats'}`` tree of
+    numpy arrays (OIHW -> HWIO): the inverse of ``from_jax_variables``."""
+    variables = {'params': {}, 'batch_stats': {}}
+    for name, value in state_dict.items():
+        *module, leaf = name.split('.')
+        if leaf == 'num_batches_tracked':
+            continue
+        arr = value.detach().numpy()
+        coll, key = {'running_mean': ('batch_stats', 'mean'),
+                     'running_var': ('batch_stats', 'var'),
+                     'bias': ('params', 'bias')}.get(
+            leaf, ('params', 'kernel' if arr.ndim == 4 else 'scale'))
+        node = variables[coll]
+        for part in module:
+            node = node.setdefault(part, {})
+        node[key] = arr.transpose(2, 3, 1, 0) if key == 'kernel' else arr
+    return variables
 
 
 class JaxSide:
-    """One config's JAX detector at ``size`` px, with variables from its
-    own initializer (one jit)."""
+    """One config's JAX detector at ``size`` px, with ``variables`` or,
+    without them, variables from its own initializer (one jit).  ``model``
+    replaces the config's ``model`` (say, fewer TUMs)."""
 
-    def __init__(self, config: str, size: int):
+    def __init__(self, config: str, size: int, model=None, variables=None):
         self.config, self.size = config, size
         self.cfg = jax_load_config(config)
+        if model is not None:
+            self.cfg.config.model = model
         model = dict(self.cfg.model)
         self.bundle = jax_builder.build(
             base=model['base'], anchor_generator=model['anchor_generator'],
             input_size=(size, size), **dict(model['detector']))
-        self.variables = jax.jit(lambda key: self.bundle.module.init(
-            key, jnp.zeros((1, size, size, 3)), train=False))(
-                jax.random.PRNGKey(0))
+        self.variables = variables or jax.jit(
+            lambda key: self.bundle.module.init(
+                key, jnp.zeros((1, size, size, 3)), train=False))(
+                    jax.random.PRNGKey(0))
 
-    def forward(self, variables, x):
-        """Eval-mode ``(scores, locs, loc sources)`` of NHWC ``x``."""
-        return jax.jit(lambda v: self.bundle.module.apply(
+    def forward(self, variables, x, apply_fn=None):
+        """Eval-mode ``(scores, locs, loc sources)`` of NHWC ``x``, through
+        ``apply_fn`` (default: the module's ``apply``)."""
+        apply_fn = apply_fn or self.bundle.module.apply
+        return jax.jit(lambda v: apply_fn(
             v, jnp.asarray(x), return_sources=True))(variables)
 
-    def train_step(self):
-        """The JAX engine's train step (preprocessing only, flax's BN) and
-        a train state of ``self.variables`` with ``OPTIMIZER``."""
+    def train_step(self, apply_fn=None):
+        """The JAX engine's train step (preprocessing only; flax's BN, or
+        ``apply_fn``'s forward) and a train state of ``self.variables``
+        with ``OPTIMIZER``."""
         cfg = self.cfg
         sampler_cfg = dict(cfg.sampler)
         sampler = jax_sampling.build_sampler(sampler_cfg.pop('name'),
@@ -70,22 +149,31 @@ class JaxSide:
                             train=True)
         step = make_train_step(self.bundle.module, criterion, assigner,
                                self.bundle.anchors(), tx, pipeline=pipeline,
-                               donate=False)
+                               donate=False, apply_fn=apply_fn)
         return step, create_train_state(self.variables, tx)
 
 
-def port_overrides(size: int, fused_bn: bool = True) -> dict:
-    return {'input_size': (size, size), 'augmentations': [],
-            'train': {'fused_bn': fused_bn, 'optimizer': OPTIMIZER,
-                      'scheduler': SCHEDULER}}
+def port_overrides(size: int, fused_bn: bool = True, model=None,
+                   **train) -> dict:
+    """``Trainer.from_config`` overrides: ``size`` px, no augmentation,
+    ``OPTIMIZER``, and ``model`` in place of the config's."""
+    out = {'input_size': (size, size), 'augmentations': [],
+           'train': {'fused_bn': fused_bn, 'optimizer': OPTIMIZER,
+                     'scheduler': SCHEDULER, **train}}
+    if model is not None:
+        out['model'] = model
+    return out
 
 
-def port_bundle(config: str, size: int, seed: int = 0, variables=None):
-    """The port's detector of ``config`` at ``size`` px: a JAX variable
-    tree loaded with ``strict=True``, or its initializers drawn with
-    ``seed``."""
+def port_bundle(config: str, size: int, seed: int = 0, variables=None,
+                model=None):
+    """The port's detector of ``config`` at ``size`` px (``model`` in place
+    of the config's): a JAX variable tree loaded with ``strict=True``, or
+    its initializers drawn with ``seed``."""
     cfg = load_config(config)
     cfg.override({'input_size': (size, size)})
+    if model is not None:
+        cfg.override({'model': model})
     return pt_builder.from_config(cfg, variables=variables, seed=seed)
 
 
@@ -156,7 +244,9 @@ def assert_init_follows_jax(port_model, jax_variables) -> int:
 
 
 def assert_step_matches(trainer: Trainer, before, state_j, before_j,
-                        head_rel: float, step_rel: float) -> None:
+                        head_rel: float, step_rel: float,
+                        ulp_floor: bool = False,
+                        stats_rel: float = 1e-4) -> None:
     """Each head's update (after - before) within ``head_rel`` of its own
     largest update; every other parameter's within ``step_rel`` of the
     step's largest update.  The heads' gradients are one conv's backward
@@ -164,8 +254,10 @@ def assert_step_matches(trainer: Trainer, before, state_j, before_j,
     backward subtracts nearly equal terms at random init, so two correct
     f32 steps differ there by percents of the step (the port's own two BN
     paths do).  BN running statistics (the forward's batch statistics)
-    within 1e-4 of max(1, each tensor's largest value), as the forward is
-    held."""
+    within ``stats_rel`` of max(1, each tensor's largest value).  ``ulp_floor``: no tolerance below one f32 step of the
+    parameter's largest value, where both updates round (a head of a level
+    where no anchor was sampled moves by weight decay alone, below that).
+    """
     after_p = trainer.model.state_dict()
     after_j = from_jax_variables({'params': state_j.params,
                                   'batch_stats': state_j.batch_stats})
@@ -176,10 +268,12 @@ def assert_step_matches(trainer: Trainer, before, state_j, before_j,
         got = (after_p[name] - before[name]).numpy()
         head = name.startswith(('score_head', 'loc_head'))
         atol = (head_rel * np.abs(want).max() if head else step_rel * largest)
+        if ulp_floor:
+            atol = max(atol, float(np.spacing(np.abs(after_j[name].numpy()).max())))
         np.testing.assert_allclose(got, want, rtol=0, atol=atol, err_msg=name)
     for name in after_j:
         if name.endswith(('running_mean', 'running_var')):
             want = after_j[name].numpy()
             np.testing.assert_allclose(
                 after_p[name].numpy(), want, rtol=0,
-                atol=1e-4 * max(1.0, np.abs(want).max()), err_msg=name)
+                atol=stats_rel * max(1.0, np.abs(want).max()), err_msg=name)

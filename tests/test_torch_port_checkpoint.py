@@ -614,9 +614,15 @@ def test_base_weight_import_matches_jax(tmp_path, caplog):
 
 
 def test_weight_files_not_ported_raise():
-    with pytest.raises(NotImplementedError, match='backbone'):
-        torch_import.resolve_mapping('torchvision_shufflenet_v2_x1_0')
-    for model, match in (({'base': {'name': 'mobilenet_v2', 'weight': 'w.h5'}},
+    """Every registry backbone has its mapping now; a name outside the
+    registry has none, as in the JAX package.  torch-hub backbones, keras
+    ``.h5`` files and the reference's whole-detector checkpoints are not
+    ported yet."""
+    with pytest.raises(KeyError, match='No torch mapping'):
+        torch_import.resolve_mapping('torchvision_mobilenet_v3_large')
+    for model, match in (({'base': {'name': 'torchhub://pytorch/vision:'
+                                            'mobilenet_v2'}}, 'torchhub'),
+                         ({'base': {'name': 'mobilenet_v2', 'weight': 'w.h5'}},
                           'h5'),
                          ({'detector': {'num_classes': 5,
                                         'torch_weight': 'ckpt.pt'}},

@@ -1,6 +1,7 @@
 """Port parity for the model zoo's layers: VGG, ResNet, ResNeXt, SE-ResNet,
 the FPN neck, the shared-conv predictor, RetinaNet anchors, the focal loss,
-the torchvision weight mappings and the builder's checks.
+the torchvision weight mappings and the builder's checks; and the geometry
+of every shipped config but ``ssd_mb2_coco_pruning``.
 
 The JAX modules (flax, NHWC, on the CPU) and the port's (NCHW) run the same
 seeded numpy inputs with the same weights, carried over by
@@ -22,6 +23,8 @@ import pytest
 import torch
 
 from _torch_helpers import fill_synthetic_state_dict
+from _torch_zoo_slice import (MBV1_DFPN_MODEL, as_nchw, assert_close, nchw,
+                              random_variables, to_jax_variables)
 from single_shot_detection_tpu.models import builder as jax_builder
 from single_shot_detection_tpu.models import detector as jax_detector
 from single_shot_detection_tpu.models import features as jax_features
@@ -57,6 +60,12 @@ ZOO = {
     'samples/ssd_vgg16_coco.py': (None, 21, None, None),
     'samples/retina_rn50_500_voc.py': (34608504, 98, [63, 32, 16, 8, 4], 47961),
     'samples/retina_rn50_500_coco.py': (None, 98, [63, 32, 16, 8, 4], 47961),
+    'samples/m2det_512_vgg16_voc.py': (52731310, 150, [64, 32, 16, 8, 4, 2],
+                                       24528),
+    'samples/m2det_512_vgg16_coco.py': (69321910, 150, [64, 32, 16, 8, 4, 2],
+                                        24528),
+    'samples/ssd_sh2_voc.py': (4209458, 68, [19, 10, 5, 3, 2, 1], 2268),
+    'samples/ssd_mb2_coco.py': (15221302, 64, [18, 9, 5, 3, 2, 1], 2006),
 }
 
 
@@ -69,40 +78,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-def nchw(x):
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x).transpose(0, 3, 1, 2)))
-
-
-def random_variables(module, *inputs, rng):
-    """A seeded JAX variable tree of ``module`` (shapes from
-    ``jax.eval_shape`` of its init, so only the apply compiles): He-scaled
-    kernels, non-trivial BN statistics and affine parameters."""
-    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *inputs))
-
-    def fill(path, leaf):
-        key, shape = path[-1].key, leaf.shape
-        if key == 'kernel':
-            value = rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[:-1]))
-        elif key == 'scale':
-            value = 1 + rng.randn(*shape) * 0.1
-        elif key == 'var':
-            value = rng.rand(*shape) + 0.5
-        else:  # bias, mean
-            value = rng.randn(*shape) * 0.1
-        return value.astype(np.float32)
-    return jax.tree_util.tree_map_with_path(fill, dict(shapes))
-
-
-def assert_close(got, want, atol=1e-5, rtol=1e-5):
-    want = np.asarray(want)
-    scale = max(1.0, float(np.abs(want).max()))
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol * scale)
-
-
-def as_nchw(x):
-    return np.asarray(x).transpose(0, 3, 1, 2)
 
 
 # ---------------------------------------------------------------- geometry
@@ -358,29 +333,24 @@ def test_sigmoid_focal_loss_and_multiclass_multibox_loss_match_jax():
 
 # ------------------------------------------------------- weights, builder
 
-@pytest.mark.parametrize('config,backbone,n_convs,n_bns', [
-    ('samples/ssd_300_vgg16_voc.py', 'torchvision_vgg16_bn', 13, 13),
-    ('samples/retina_rn50_500_voc.py', 'torchvision_resnet50', 53, 53),
-])
-def test_base_weight_import_matches_jax(config, backbone, n_convs, n_bns):
+@pytest.mark.parametrize('config,model,backbone,n_convs,n_bns', [
+    pytest.param(config, model, backbone, n, n, id=f'{config}-{backbone}-{n}-{n}')
+    for config, model, backbone, n in [
+        ('samples/ssd_300_vgg16_voc.py', None, 'torchvision_vgg16_bn', 13),
+        ('samples/retina_rn50_500_voc.py', None, 'torchvision_resnet50', 53),
+        ('samples/ssd_sh2_voc.py', None, 'torchvision_shufflenet_v2_x1_0', 56),
+        ('samples/ssd_mb2_voc.py', MBV1_DFPN_MODEL, 'mobilenet_v1', 27)]])
+def test_base_weight_import_matches_jax(config, model, backbone, n_convs,
+                                        n_bns):
     """A seeded torchvision-layout ``state_dict`` (names and shapes from the
     JAX mapping) into the port's backbone equals JAX ``import_backbone``
-    then ``from_jax_variables``."""
-    model_state = pt_builder.from_config(load_config(config)).module.state_dict()
-    variables = {'params': {}, 'batch_stats': {}}
-    for name, value in model_state.items():
-        *module, leaf = name.split('.')
-        if leaf == 'num_batches_tracked':
-            continue
-        arr = value.numpy()
-        coll, key = {'running_mean': ('batch_stats', 'mean'),
-                     'running_var': ('batch_stats', 'var'),
-                     'bias': ('params', 'bias')}.get(
-            leaf, ('params', 'kernel' if arr.ndim == 4 else 'scale'))
-        node = variables[coll]
-        for part in module:
-            node = node.setdefault(part, {})
-        node[key] = arr.transpose(2, 3, 1, 0) if key == 'kernel' else arr
+    then ``from_jax_variables`` (MobileNet v1: the reference's own layout,
+    under ``MBV1_DFPN_MODEL``)."""
+    cfg = load_config(config)
+    if model is not None:
+        cfg.override({'model': model})
+    model_state = pt_builder.from_config(cfg).module.state_dict()
+    variables = to_jax_variables(model_state)
     mapping = jax_torch_import.resolve_mapping(backbone)
     assert torch_import.resolve_mapping(backbone) == mapping
     sd = fill_synthetic_state_dict(variables['params']['features']['base'],
@@ -398,12 +368,13 @@ def test_base_weight_import_matches_jax(config, backbone, n_convs, n_bns):
 
 
 def test_every_jax_backbone_name_of_the_slice_is_registered():
+    """Every backbone of the JAX registry (MobileNetV2 7, MobileNet v1 6,
+    VGG 8, ResNet 5, ResNeXt 2, SE-ResNet(Xt) 5, ShuffleNetV2 4) is the
+    port's, with JAX's weight mapping."""
     from single_shot_detection_tpu.models import backbones as jax_backbones
     from single_shot_detection_tpu_torch.models import backbones as pt_backbones
-    names = [n for n in jax_backbones.available()
-             if n.startswith(('torchvision_vgg', 'torchvision_resnet',
-                              'torchvision_resnext', 'pretrainedmodels_se_'))]
-    assert len(names) == 8 + 5 + 2 + 5
+    names = jax_backbones.available()
+    assert len(names) == 7 + 6 + 8 + 5 + 2 + 5 + 4
     for name in names:
         pt_backbones.get(name)  # a KeyError if it is not registered
         assert (torch_import.resolve_mapping(name)
@@ -412,8 +383,8 @@ def test_every_jax_backbone_name_of_the_slice_is_registered():
 
 def test_builder_raises_on_what_it_does_not_read():
     """A MobileNetV2 config with an unknown ``model.detector`` key, bf16
-    heads, VGG's ``packed_stem`` or a neck's ``width_overrides`` raises
-    rather than building another model."""
+    heads, VGG's ``packed_stem``, a neck's ``width_overrides`` or a
+    bilinear MLFPN raises rather than building another model."""
     cfg = load_config('samples/synthetic_smoke.py')
     cfg.config.model['detector']['frobnicate'] = 3
     with pytest.raises(NotImplementedError, match='frobnicate'):
@@ -429,6 +400,10 @@ def test_builder_raises_on_what_it_does_not_read():
     cfg = load_config('samples/retina_rn50_500_voc.py')
     cfg.config.model['detector']['features']['width_overrides'] = {'lateral': 8}
     with pytest.raises(NotImplementedError, match='width_overrides'):
+        pt_builder.from_config(cfg)
+    cfg = load_config('samples/m2det_512_vgg16_voc.py')
+    cfg.config.model['detector']['features']['interpolation_mode'] = 'bilinear'
+    with pytest.raises(NotImplementedError, match='bilinear'):
         pt_builder.from_config(cfg)
     cfg = load_config('samples/synthetic_smoke.py')
     cfg.config.model['detector']['heads'] = {'dtype': 'float32'}
