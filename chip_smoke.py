@@ -2,11 +2,15 @@
 """GPU smoke run of the PyTorch/CUDA port (``single_shot_detection_tpu_torch``).
 
     python3 chip_smoke.py [--parent-nms OTHER/kernels/nms.cu]
+                          [--parent-bn OTHER/kernels/bn.cu]
 
 Needs one CUDA card; exits non-zero without one.  ``--parent-nms`` builds
 another version of the NMS kernel (say, from a ``git archive`` of an
 earlier commit), calls its ``nms_keep_launch`` directly, and times it
-beside this one in phase 5, in turns.  Phases, each fatal:
+beside this one in phase 5, in turns.  ``--parent-bn`` does the same for
+the BN reductions K1 and K3 of a ``bn.cu`` whose launchers take a scratch
+buffer of partials (``bn_partial_floats``; the parent of the one-launch
+design), in phase 14.  Phases, each fatal:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
@@ -17,10 +21,11 @@ beside this one in phase 5, in turns.  Phases, each fatal:
    rows, identical boxes, IoU exactly at the threshold and within 3 float
    steps of it, nothing suppressed, ``-inf`` scores in the middle, NaN and
    infinite coordinates, overflowing, tiny and zero areas, K = 1, 63, 64,
-   65, 1500 and 2048); the four train-mode BatchNorm kernels K1-K4 on the
-   flagship's shapes at b32 from ``[32, 96, 150, 150]`` to
-   ``[32, 128, 1, 1]``, a ragged ``[3, 24, 75, 75]`` and a bf16 case, at
-   the tolerances stated at ``BN_TOL``;
+   65, 1500 and 2048); the four train-mode BatchNorm kernels K1-K4 on
+   every distinct BN shape of the flagship's b32 step and on edge shapes
+   (b = 1, C = 1, 1x1 planes, ``[64, 16, 300, 300]``, ragged, bf16 at odd
+   S, inputs off a 16-byte boundary), at the tolerances stated at
+   ``BN_TOL``, K1 and K3 launched twice and bit-equal;
 4. the serving path: ``Predictor`` on ``samples/ssd_mb2_voc.py`` at full
    width with seeded random weights, answering 3 batches of 32 and 4 single
    requests, with launch counts read around that run; outputs checked for
@@ -99,7 +104,14 @@ beside this one in phase 5, in turns.  Phases, each fatal:
     one b32 ``predict_batch`` and 2 b32 train steps with every BN kernel
     at 0 launches, the running statistics unwritten and the forward
     against the CPU; and the NMS kernel at both serving inputs, its keep
-    masks equal to its plain version's (as at every input it is timed at).
+    masks equal to its plain version's (as at every input it is timed at);
+14. K1 and K3 at every distinct BN shape of the five steps (f32, each
+    window repeating its inputs, so those that fit the L2 are warm): the
+    grid each launches, device µs per launch (with ``--parent-bn`` the
+    parent's partial and combine passes in turns: parent, this, this,
+    parent), the bound and the launch floor (an empty kernel on the same
+    grid, block and cluster); each step's sums (count x µs); and the split
+    and scalar paths side by side at S = 361 and S = 5625.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -108,6 +120,8 @@ last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import copy
 import csv
 import ctypes
@@ -202,14 +216,24 @@ def profile_window(run):
     return prof
 
 
-def profile_counted(run, kernel_names, expected: int, missed: int = 0):
+def group_us(prof, names):
+    """(summed device µs, launches) of the kernels whose name contains any
+    of ``names`` (one group: a wrapper's CUDA kernels) in a finished
+    profile."""
+    times = [device_us(prof, name) for name in names]
+    return sum(t for t, _ in times), sum(n for _, n in times)
+
+
+def profile_counted(run, groups, expected: int, missed: int = 0):
     """``profile_window(run)`` whose trace holds from ``expected - missed``
-    to ``expected`` launches of each kernel in ``kernel_names``.  A window
-    outside that range is printed and profiled again, ``PROFILER_TRIES``
-    windows at most; a count short of ``expected`` is printed."""
+    to ``expected`` launches of each group of kernel names in ``groups``
+    (a wrapper launches one of its group's kernels per call, which one by
+    shape).  A window outside that range is printed and profiled again,
+    ``PROFILER_TRIES`` windows at most; a count short of ``expected`` is
+    printed."""
     for _ in range(PROFILER_TRIES):
         prof = profile_window(run)
-        counts = {name: device_us(prof, name)[1] for name in kernel_names}
+        counts = {'/'.join(g): group_us(prof, g)[1] for g in groups}
         if all(expected - missed <= c <= expected for c in counts.values()):
             if any(c != expected for c in counts.values()):
                 log(f'  profiler saw {counts} of {expected} launches')
@@ -218,11 +242,11 @@ def profile_counted(run, kernel_names, expected: int, missed: int = 0):
     fail(f'profiler saw {counts} launches, expected {expected} of each')
 
 
-def kernels_device_ms(fn, kernel_names, iters: int) -> float:
-    """Device time per call of ``fn``, summed over the CUDA kernels it
-    launches (``kernel_names``, each once per call), from the profiler's
+def groups_device_ms(fn, groups, iters: int):
+    """Device time per call of ``fn`` for each group of CUDA kernel names
+    in ``groups`` (each group launched once per call), from the profiler's
     CUPTI trace (events around back-to-back launches would time the host's
-    enqueue instead when the host is the slower of the two).  Each kernel's
+    enqueue instead when the host is the slower of the two).  Each group's
     time is averaged over the launches the trace holds, which may fall
     short of ``iters`` by ``PROFILER_MISSED_LAUNCHES``."""
     def run():
@@ -230,9 +254,14 @@ def kernels_device_ms(fn, kernel_names, iters: int) -> float:
             fn()
         torch.cuda.synchronize()
 
-    prof = profile_counted(run, kernel_names, iters, PROFILER_MISSED_LAUNCHES)
-    return sum(us / count for us, count in
-               (device_us(prof, name) for name in kernel_names)) / 1e3
+    prof = profile_counted(run, groups, iters, PROFILER_MISSED_LAUNCHES)
+    return [us / count / 1e3 for us, count in
+            (group_us(prof, g) for g in groups)]
+
+
+def kernels_device_ms(fn, groups, iters: int) -> float:
+    """``groups_device_ms`` summed over the groups."""
+    return sum(groups_device_ms(fn, groups, iters))
 
 
 def device_us(prof, kernel_name: str):
@@ -429,13 +458,72 @@ def check_nms_kernel(device: torch.device) -> dict:
     return {'max_abs_err': float(worst)}
 
 
-BN_CASES = [  # (name, shape, dtype): the flagship's range at b32, ragged, bf16
-    ('stage2 expand_bn', (32, 96, 150, 150), torch.float32),
-    ('stage13 expand_bn', (32, 576, 19, 19), torch.float32),
-    ('stage18 bn', (32, 1280, 10, 10), torch.float32),
-    ('extra3 tail', (32, 128, 1, 1), torch.float32),
+# The distinct BN input shapes [C, H, W] of each path's train step with
+# their counts per step, and the step's batch; each profiled step's shapes
+# are held against these (phases 7, 12 and 13), and phase 3 and phase 14
+# run the kernels on them.
+STEP_BN_SHAPES = {
+    'flagship': (32, {
+        (96, 150, 150): 1, (144, 75, 75): 3, (32, 150, 150): 2,
+        (96, 75, 75): 1, (16, 150, 150): 1, (192, 37, 37): 5,
+        (144, 37, 37): 1, (576, 18, 18): 5, (24, 75, 75): 2, (384, 18, 18): 8,
+        (1280, 9, 9): 1, (960, 9, 9): 6, (192, 18, 18): 1, (576, 9, 9): 1,
+        (32, 37, 37): 3, (96, 18, 18): 3, (320, 9, 9): 1, (64, 18, 18): 4,
+        (256, 9, 9): 1, (160, 9, 9): 3, (512, 5, 5): 1, (256, 5, 5): 1,
+        (128, 5, 5): 1, (256, 3, 3): 1, (128, 3, 3): 2, (256, 2, 2): 1,
+        (128, 2, 2): 1, (64, 2, 2): 1, (128, 1, 1): 1, (64, 1, 1): 1}),
+    'sh2': (32, {
+        (24, 150, 150): 1, (58, 75, 75): 1, (116, 38, 38): 1,
+        (1024, 10, 10): 1, (58, 38, 38): 12, (232, 19, 19): 1,
+        (116, 19, 19): 25, (24, 38, 38): 1, (232, 10, 10): 13,
+        (128, 10, 10): 1, (256, 5, 5): 1, (128, 5, 5): 2, (256, 3, 3): 1,
+        (128, 3, 3): 2, (256, 2, 2): 1, (128, 2, 2): 1, (64, 2, 2): 1,
+        (128, 1, 1): 1, (64, 1, 1): 1}),
+    'retina': (16, {
+        (64, 250, 250): 1, (256, 125, 125): 4, (512, 63, 63): 5,
+        (128, 125, 125): 1, (1024, 32, 32): 7, (256, 63, 63): 10,
+        (64, 125, 125): 6, (512, 32, 32): 1, (2048, 16, 16): 4,
+        (128, 63, 63): 7, (256, 32, 32): 20, (512, 16, 16): 5,
+        (256, 16, 16): 9, (256, 8, 8): 9, (256, 4, 4): 9}),
+    'vgg': (16, {
+        (64, 300, 300): 2, (128, 150, 150): 2, (256, 75, 75): 3,
+        (512, 37, 37): 3, (512, 18, 18): 3, (256, 18, 18): 1, (512, 9, 9): 1,
+        (128, 9, 9): 1, (256, 5, 5): 1, (128, 5, 5): 1, (256, 3, 3): 1,
+        (128, 3, 3): 1, (256, 2, 2): 1}),
+    'm2det': (8, {
+        (64, 512, 512): 2, (128, 256, 256): 2, (256, 128, 128): 3,
+        (512, 64, 64): 4, (768, 32, 32): 1, (128, 64, 64): 15,
+        (512, 32, 32): 3, (256, 32, 32): 16, (128, 32, 32): 8,
+        (256, 16, 16): 16, (128, 16, 16): 8, (256, 8, 8): 16, (128, 8, 8): 8,
+        (256, 4, 4): 16, (128, 4, 4): 8, (256, 2, 2): 16, (128, 2, 2): 8}),
+}
+
+
+def step_bn_shapes(key: str):
+    """``{(B, C, H, W): count}`` of path ``key``'s train step."""
+    batch, shapes = STEP_BN_SHAPES[key]
+    return {(batch, *shape): n for shape, n in shapes.items()}
+
+
+# (name, shape, dtype[, (x offset, dz offset) in elements]): every distinct
+# BN shape of the flagship's b32 step, then edge shapes: b = 1, C = 1, 1x1
+# planes, a channel of 5.76M elements (704 blocks combined by ticket),
+# ragged, bf16 at odd and even S, and inputs off a 16-byte boundary (alike
+# and unlike, so K3 takes its scalar path)
+BN_CASES = [(f'flagship {list(shape)}', shape, torch.float32)
+            for shape in step_bn_shapes('flagship')] + [
+    ('b = 1', (1, 96, 150, 150), torch.float32),
+    ('C = 1', (32, 1, 150, 150), torch.float32),
+    ('1x1 planes', (32, 1024, 1, 1), torch.float32),
+    ('a channel of 5.76M', (64, 16, 300, 300), torch.float32),
     ('ragged', (3, 24, 75, 75), torch.float32),
     ('bf16', (8, 96, 75, 75), torch.bfloat16),
+    ('bf16 at S = 361', (32, 116, 19, 19), torch.bfloat16),
+    ('bf16 at S = 5625', (8, 58, 75, 75), torch.bfloat16),
+    ('bf16 at S = 25', (32, 256, 5, 5), torch.bfloat16),
+    ('x and dz 1 element off', (32, 58, 38, 38), torch.float32, (1, 1)),
+    ('x 2 elements off, dz not', (32, 116, 19, 19), torch.float32, (2, 0)),
+    ('x 3 elements off at S = 9', (32, 128, 3, 3), torch.float32, (3, 3)),
 ]
 BN_TIMED_SHAPE = (32, 96, 150, 150)
 BN_EPS = 1e-5
@@ -445,31 +533,50 @@ BN_EPS = 1e-5
 # (K2, K4) round each operation as the plain version does, so they differ
 # only where a bf16 output rounds (one bf16 step, 2**-8).
 BN_TOL = {'reduce': 1e-4, 'elementwise': 1e-5, 'elementwise_bf16': 2.0 ** -8}
-# CUDA kernels behind each wrapper (the reductions launch a partial pass and
-# a combine pass) and the bytes each wrapper must move per element of x in
-# f32: x read once (K1), x read and z written (K2), dz and x read (K3), dz
-# and x read and dx written (K4).
+# CUDA kernels behind each wrapper (each call launches one of them: the
+# reductions take their narrow kernel for planes under 32 elements) and the
+# bytes each wrapper must move per element of x in f32: x read once (K1), x
+# read and z written (K2), dz and x read (K3), dz and x read and dx written
+# (K4).
 BN_KERNELS = {
-    'bn_stats': (('bn_stats_partial_kernel', 'bn_stats_combine_kernel'), 4,
+    'bn_stats': (('bn_stats_kernel', 'bn_stats_narrow_kernel'), 4,
                  'single_shot_detection_tpu/ops/bn_pallas.py:78'),
     'bn_apply': (('bn_apply_kernel',), 8,
                  'single_shot_detection_tpu/ops/bn_pallas.py:94'),
-    'bn_grad_sums': (('bn_grad_sums_partial_kernel',
-                      'bn_grad_sums_combine_kernel'), 8,
-                     'single_shot_detection_tpu/ops/bn_pallas.py:101'),
+    'bn_grad_sums': (('bn_grad_sums_kernel', 'bn_grad_sums_narrow_kernel'),
+                     8, 'single_shot_detection_tpu/ops/bn_pallas.py:101'),
     'bn_dx': (('bn_dx_kernel',), 12,
                'single_shot_detection_tpu/ops/bn_pallas.py:118'),
 }
+# The reductions K1 and K3, and the CUDA kernels of a parent commit's
+# kernels/bn.cu behind each (a partial pass and a combine pass per call)
+REDUCTIONS = ('bn_stats', 'bn_grad_sums')
+PARENT_BN_KERNELS = {
+    'bn_stats': ('bn_stats_partial_kernel', 'bn_stats_combine_kernel'),
+    'bn_grad_sums': ('bn_grad_sums_partial_kernel',
+                     'bn_grad_sums_combine_kernel'),
+}
+# the empty kernels on K1's and K3's grids (their launch floors)
+FLOOR_KERNELS = {'bn_stats': ('bn_floor_kernel<0>',),
+                 'bn_grad_sums': ('bn_floor_kernel<1>',)}
 # f32 operations per element: K1 add, mul, add; K2 sub, mul, mul, add;
 # K3 add, sub, mul, mul, add; K4 sub, mul, sub, mul, sub, mul
 BN_OPS_PER_ELEMENT = {'bn_stats': 3, 'bn_apply': 4, 'bn_grad_sums': 5,
                       'bn_dx': 6}
 
 
-def bn_inputs(shape, dtype, generator):
+def on_card(t: torch.Tensor, dtype, offset: int = 0) -> torch.Tensor:
+    """``t`` on the card in ``dtype``, contiguous, its element 0 ``offset``
+    elements past the start of its allocation."""
+    flat = torch.empty(t.numel() + offset, dtype=dtype, device='cuda')
+    return flat[offset:].view(t.shape).copy_(t)
+
+
+def bn_inputs(shape, dtype, generator, offsets=(0, 0)):
     c = shape[1]
-    x = (torch.randn(shape, generator=generator) * 2 + 0.3).cuda().to(dtype)
-    dz = torch.randn(shape, generator=generator).cuda().to(dtype)
+    x = on_card(torch.randn(shape, generator=generator) * 2 + 0.3, dtype,
+                offsets[0])
+    dz = on_card(torch.randn(shape, generator=generator), dtype, offsets[1])
     scale = (torch.rand(c, generator=generator) + 0.5).cuda()
     bias = (torch.randn(c, generator=generator) * 0.1).cuda()
     return x, dz, scale, bias
@@ -484,18 +591,36 @@ def bn_err(got, want, kind: str) -> float:
     return err
 
 
+def plan_text(plan: dict) -> str:
+    """``bn_kernel.reduce_plan``'s grid in a few words."""
+    combine = ({'cluster': f', clusters of {plan["blocks_per_channel"]}',
+                'ticket': f', {plan["blocks_per_channel"]} a channel by '
+                          'ticket'}.get(plan['combine'], ''))
+    return (f'{plan["path"]} {plan["blocks"]}x{plan["threads"]}' + combine)
+
+
+def bit_equal_twice(fn, label: str):
+    """``fn()`` (a tuple of tensors) launched twice on the same inputs:
+    the two results equal bit for bit (no atomics in the sums)."""
+    first, second = fn(), fn()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail(f'{label}: two launches on the same input differ')
+    return first
+
+
 def check_bn_kernels(cases=BN_CASES, quiet: bool = False) -> dict:
     """K1-K4 against their plain versions on the same inputs; K2 and K4 are
-    given the plain K1 and K3 outputs, so each check isolates one kernel.
-    ``cases``: ``(name, shape, dtype)``; ``quiet`` logs only the worst
-    errors."""
+    given the plain K1 and K3 outputs, so each check isolates one kernel;
+    K1 and K3 launched twice, bit-equal.  ``cases``: ``(name, shape,
+    dtype[, offsets])``; ``quiet`` logs only the worst errors."""
     gen = torch.Generator().manual_seed(SEED + 2)
     worst = {name: 0.0 for name in BN_KERNELS}
-    for name, shape, dtype in cases:
-        x, dz, scale, bias = bn_inputs(shape, dtype, gen)
+    for name, shape, dtype, *offsets in cases:
+        x, dz, scale, bias = bn_inputs(shape, dtype, gen, *offsets)
         elementwise = ('elementwise_bf16' if dtype == torch.bfloat16
                        else 'elementwise')
-        got = bn_kernel.bn_stats(x, BN_EPS)
+        got = bit_equal_twice(lambda: bn_kernel.bn_stats(x, BN_EPS),
+                              f'K1 on {name}')
         want = bn_kernel.bn_stats_plain(x, BN_EPS)
         torch.cuda.synchronize()
         worst['bn_stats'] = max(worst['bn_stats'], *(
@@ -505,7 +630,9 @@ def check_bn_kernels(cases=BN_CASES, quiet: bool = False) -> dict:
             bn_kernel.bn_apply(x, mean, rstd, scale, bias),
             bn_kernel.bn_apply_plain(x, mean, rstd, scale, bias, dtype),
             elementwise))
-        got = bn_kernel.bn_grad_sums(dz, x, mean, rstd, scale)
+        got = bit_equal_twice(
+            lambda: bn_kernel.bn_grad_sums(dz, x, mean, rstd, scale),
+            f'K3 on {name}')
         want = bn_kernel.bn_grad_sums_plain(dz, x, mean, rstd, scale)
         worst['bn_grad_sums'] = max(worst['bn_grad_sums'], *(
             bn_err(g, w, 'reduce') for g, w in zip(got, want)))
@@ -515,7 +642,9 @@ def check_bn_kernels(cases=BN_CASES, quiet: bool = False) -> dict:
             bn_kernel.bn_dx_plain(dz, x, mean, rstd, coef), elementwise))
         torch.cuda.synchronize()
         if not quiet:
-            log(f'  bn {name}: {list(shape)} {str(dtype)[6:]} within tolerance')
+            plan = bn_kernel.reduce_plan('bn_grad_sums', x, dz)
+            log(f'  bn {name}: {list(shape)} {str(dtype)[6:]} within '
+                f'tolerance, K1 and K3 bit-equal twice (K3 {plan_text(plan)})')
         del x, dz
     log('  bn max abs err: ' + ', '.join(f'{k} {v:.3g}' for k, v in worst.items()))
     return worst
@@ -556,7 +685,7 @@ def time_bn_kernels(card: str) -> dict:
     out = {}
     for name, (kernel, plain) in calls.items():
         bound, bound_by = bn_bound_ms(name, elements, channels, card)
-        out[name] = {'ms': kernels_device_ms(kernel, BN_KERNELS[name][0], 20),
+        out[name] = {'ms': kernels_device_ms(kernel, [BN_KERNELS[name][0]], 20),
                      'plain_ms': cuda_ms(plain, iters=5),
                      'bound_ms': bound, 'bound_by': bound_by}
     # the library pairs: native batch norm forward (K1 + K2) and backward
@@ -760,7 +889,7 @@ def time_nms(thr: float, inputs: dict, card: str, parent=None) -> dict:
             fail(f'the NMS kernel differs from its plain version on {name}')
 
         def device_ms(fn, kernel='nms_keep_kernel'):
-            return kernels_device_ms(fn, (kernel,), iters=100)
+            return kernels_device_ms(fn, [(kernel,)], iters=100)
 
         row = {'shape': [n, k], **nms_bound(scores, card),
                'kept_mean': launch().sum(dim=1).double().mean().item()}
@@ -905,10 +1034,12 @@ def time_train_steps(kernels: Trainer, library: Trainer, batch,
 
 
 def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str,
-                       table: bool = True) -> dict:
-    """One profiled train step: each BN kernel's device time in the step
-    beside its bound for the step's shapes, the card's busy time, and (with
-    ``table``) the table of device time by operator."""
+                       key: str, table: bool = True, parent_bn=None) -> dict:
+    """One profiled train step of path ``key``: its BN shapes held against
+    ``STEP_BN_SHAPES``, each BN kernel's device time in the step beside its
+    bound for the step's shapes, the card's busy time, (with ``table``) the
+    table of device time by operator, and (with ``parent_bn``) K1 and K3 in
+    the step in turns against the parent build (``bn_step_turns``)."""
     shapes = []
     hooks = [m.register_forward_pre_hook(
         lambda mod, args: shapes.append(tuple(args[0].shape)))
@@ -919,6 +1050,9 @@ def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str,
         h.remove()
     if len(shapes) != n_bn:
         fail(f'{len(shapes)} BN calls in a step, expected {n_bn}')
+    if collections.Counter(shapes) != step_bn_shapes(key):
+        fail(f'the {key} step\'s BN shapes {collections.Counter(shapes)} differ '
+             f'from STEP_BN_SHAPES')
     walls = []
 
     def step():
@@ -927,18 +1061,23 @@ def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str,
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
 
-    prof = profile_counted(step, [cuda_name for cuda_names, _, _ in
-                                  BN_KERNELS.values() for cuda_name in cuda_names],
-                           n_bn)
+    prof = profile_counted(step, [cuda_names for cuda_names, _, _ in
+                                  BN_KERNELS.values()], n_bn)
     wall_ms = walls[-1]
     out = {}
     for name, (cuda_names, _, _) in BN_KERNELS.items():
-        total = sum(device_us(prof, cuda_name)[0] for cuda_name in cuda_names)
+        total = group_us(prof, cuda_names)[0]
         out[name] = {'step_ms': total / 1e3, 'step_bound_ms': sum(
             bn_bound_ms(name, math.prod(s), s[1], card)[0] for s in shapes)}
     busy_ms = busy_us(prof) / 1e3
     out['device_busy_ms'] = busy_ms
     out['profiled_step_wall_ms'] = wall_ms
+    if parent_bn is not None:
+        for name, turns in bn_step_turns(step, parent_bn, n_bn).items():
+            out[name]['turns'] = turns
+            log(f'  {name} in the step, in turns: {turns["step_ms"]:.4f} ms, '
+                f'parent {turns["step_parent_ms"]:.4f} ms '
+                + json.dumps(turns['turns_ms']))
     out['bn_elements_per_step'] = sum(math.prod(s) for s in shapes)
     out['bn_shapes'] = shapes
     log(f'  profile of one train_step({len(batch[0])}) with the BN kernels '
@@ -952,13 +1091,20 @@ def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str,
 
 def device_busy_ms(fn, iters: int = 3) -> float:
     """Device time per call of ``fn``, summed over every CUDA kernel it
-    launches, from the profiler's trace."""
+    launches, from the profiler's trace; a window that holds no device time
+    (the trace dropped all of it) is profiled again, ``PROFILER_TRIES``
+    windows at most."""
     def run():
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
 
-    return busy_us(profile_window(run)) / iters / 1e3
+    for _ in range(PROFILER_TRIES):
+        busy = busy_us(profile_window(run))
+        if busy > 0:
+            return busy / iters / 1e3
+        log('  profiler saw no device time; profiling again')
+    fail('profiler saw no device time in any window')
 
 
 def library_bn_step_ms(shapes) -> dict:
@@ -1537,8 +1683,9 @@ def zoo_serving(config: str, size: int, rng, batch: int = ZOO_BATCH) -> dict:
     return out
 
 
-def zoo_training(config: str, size: int, n_bn_expected: int, card: str,
-                 batch: int = ZOO_BATCH, table: bool = False) -> dict:
+def zoo_training(config: str, key: str, size: int, n_bn_expected: int,
+                 card: str, batch: int = ZOO_BATCH, table: bool = False,
+                 parent_bn=None) -> dict:
     """``Trainer`` on ``config`` with ``fused_bn``: ``ZOO_STEPS`` steps of
     ``batch`` with the BN counts read around them, one step against
     PyTorch's batch norm, the step in turns with and without the kernels, the kernels
@@ -1573,7 +1720,8 @@ def zoo_training(config: str, size: int, n_bn_expected: int, card: str,
     del library['library']
     torch.cuda.empty_cache()
     # the operator table for the slice's main path only
-    step = profile_train_step(trainer, batches[0], n_bn, card, table=table)
+    step = profile_train_step(trainer, batches[0], n_bn, card, key,
+                              table=table, parent_bn=parent_bn)
     step_shapes = step.pop('bn_shapes')
     del trainer
     torch.cuda.empty_cache()
@@ -1651,7 +1799,7 @@ def zoo_cli(work: str, n_bn: int, config: str = RETINA,
             'launches': launches, 'steps': steps, 'eval_batches': eval_batches}
 
 
-def run_zoo(card: str, smi: str) -> dict:
+def run_zoo(card: str, smi: str, parent_bn=None) -> dict:
     """Phase 12: serving, training and (RetinaNet) the CLI for each zoo
     config, then the NMS kernel at the RetinaNet serving input."""
     rng = np.random.RandomState(SEED + 8)
@@ -1659,8 +1807,8 @@ def run_zoo(card: str, smi: str) -> dict:
     for key, (config, size, n_bn) in ZOO.items():
         t = time.perf_counter()
         serving = zoo_serving(config, size, rng)
-        training = zoo_training(config, size, n_bn, card,
-                                table=config == RETINA)
+        training = zoo_training(config, key, size, n_bn, card,
+                                table=config == RETINA, parent_bn=parent_bn)
         out[key] = {'serving': serving, 'training': training}
         log(f'  {config}: {time.perf_counter() - t:.1f} s; {smi}: '
             f'predict_batch b{ZOO_BATCH} '
@@ -1828,7 +1976,7 @@ def mbv1_group_norm(work: str) -> dict:
             'forward_vs_cpu_max_rel_err': err}
 
 
-def run_zoo_rest(card: str, smi: str) -> dict:
+def run_zoo_rest(card: str, smi: str, parent_bn=None) -> dict:
     """Phase 13: serving and training for M2Det-512 (at b8, and its CLI
     run) and SSD300-ShuffleNetV2 (at b32), the group_norm path, then the
     NMS kernel at both serving inputs."""
@@ -1837,8 +1985,8 @@ def run_zoo_rest(card: str, smi: str) -> dict:
     for key, (config, size, batch, n_bn) in ZOO_REST.items():
         t = time.perf_counter()
         serving = zoo_serving(config, size, rng, batch=batch)
-        training = zoo_training(config, size, n_bn, card, batch=batch,
-                                table=config == M2DET)
+        training = zoo_training(config, key, size, n_bn, card, batch=batch,
+                                table=config == M2DET, parent_bn=parent_bn)
         out[key] = {'serving': serving, 'training': training}
         log(f'  {config}: {time.perf_counter() - t:.1f} s; {smi}: '
             f'predict_batch b{batch} '
@@ -1862,12 +2010,267 @@ def run_zoo_rest(card: str, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 14
+
+# Launches of each kernel in a timed window of phase 14
+SHAPE_ITERS = 20
+# Planes of S % 4 != 0 (S = 361 and 5625) at which the split and scalar
+# paths are timed side by side
+ODD_PLANE_SHAPES = ((32, 116, 19, 19), (32, 58, 75, 75))
+
+
+def load_parent_bn(source: str) -> ctypes.CDLL:
+    """Build another version of ``bn.cu`` whose reductions take a scratch
+    buffer of partials (``bn_partial_floats``) and declare that C interface
+    of its K1 and K3."""
+    lib = ctypes.CDLL(str(_build.build_source(Path(source))))
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.bn_partial_floats.argtypes = [ll, ll, ll]
+    lib.bn_partial_floats.restype = ll
+    lib.bn_stats_launch.argtypes = [p, i, p, p, p, p, ll, ll, ll, f, i, p]
+    lib.bn_grad_sums_launch.argtypes = [p, i, p, i, p, p, p, p, p, p, p,
+                                        ll, ll, ll, i, p]
+    lib.bn_stats_launch.restype = lib.bn_grad_sums_launch.restype = i
+    return lib
+
+
+def parent_bn_launchers(lib: ctypes.CDLL, x, dz, mean, rstd, scale,
+                        eps: float = BN_EPS) -> dict:
+    """Calls that launch the other build's K1 and K3 on these inputs into
+    outputs and a scratch buffer allocated once (the wrappers' launch
+    counts are untouched)."""
+    b, c, s = x.shape[0], x.shape[1], math.prod(x.shape[2:])
+    partial = torch.empty(lib.bn_partial_floats(b, c, s), device=x.device)
+    stats = [torch.empty(c, device=x.device) for _ in range(3)]
+    sums = [torch.empty(c, device=x.device), torch.empty(c, device=x.device),
+            torch.empty((3, c), device=x.device)]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = {torch.float32: 0, torch.bfloat16: 1}
+
+    def launched(err, outs):
+        if err:
+            fail(f'parent BN kernel launch failed ({err})')
+        return outs
+
+    def k1():
+        return launched(lib.bn_stats_launch(
+            x.data_ptr(), code[x.dtype], partial.data_ptr(),
+            *(t.data_ptr() for t in stats), b, c, s, eps, x.device.index,
+            stream), stats)
+
+    def k3():
+        return launched(lib.bn_grad_sums_launch(
+            dz.data_ptr(), code[dz.dtype], x.data_ptr(), code[x.dtype],
+            mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
+            partial.data_ptr(), *(t.data_ptr() for t in sums), b, c, s,
+            x.device.index, stream), sums)
+    return {'bn_stats': k1, 'bn_grad_sums': k3}
+
+
+@contextlib.contextmanager
+def parent_reductions(lib: ctypes.CDLL):
+    """``bn_kernel``'s K1 and K3 wrappers replaced, for the block, by calls
+    of another build's kernels (``load_parent_bn``) that allocate their
+    outputs and scratch on each call, as that build's wrappers did."""
+    def bn_stats(x, eps):
+        return tuple(parent_bn_launchers(lib, x, None, None, None, None,
+                                         eps)['bn_stats']())
+
+    def bn_grad_sums(dz, x, mean, rstd, scale):
+        return tuple(parent_bn_launchers(lib, x, dz, mean, rstd,
+                                         scale)['bn_grad_sums']())
+
+    saved = bn_kernel.bn_stats, bn_kernel.bn_grad_sums
+    bn_kernel.bn_stats, bn_kernel.bn_grad_sums = bn_stats, bn_grad_sums
+    try:
+        yield
+    finally:
+        bn_kernel.bn_stats, bn_kernel.bn_grad_sums = saved
+
+
+def bn_step_turns(step, parent, n_bn: int) -> dict:
+    """K1's and K3's device ms in one profiled call of ``step`` (a train
+    step) with this build's kernels and with the parent build's
+    (``parent_reductions``), in turns: parent, this, this, parent."""
+    groups = {'this': [BN_KERNELS[name][0] for name in REDUCTIONS],
+              'parent': [(n,) for name in REDUCTIONS
+                         for n in PARENT_BN_KERNELS[name]]}
+    turns = {'parent': [], 'this': []}
+    for side in ('parent', 'this', 'this', 'parent'):
+        with (parent_reductions(parent) if side == 'parent'
+              else contextlib.nullcontext()):
+            prof = profile_counted(step, groups[side], n_bn)
+        ms = [group_us(prof, g)[0] / 1e3 for g in groups[side]]
+        turns[side].append(ms if side == 'this' else [ms[0] + ms[1],
+                                                      ms[2] + ms[3]])
+    return {name: {'step_ms': statistics.mean(t[i] for t in turns['this']),
+                   'step_parent_ms': statistics.mean(
+                       t[i] for t in turns['parent']),
+                   'turns_ms': {side: [t[i] for t in ts]
+                                for side, ts in turns.items()}}
+            for i, name in enumerate(REDUCTIONS)}
+
+
+def both(calls: dict):
+    """One call of K1 then K3 from ``calls`` (by wrapper name)."""
+    return lambda: [calls[name]() for name in REDUCTIONS]
+
+
+def time_bn_shape(shape, card: str, parent=None) -> dict:
+    """K1 and K3 at one f32 ``shape``: the grid each launches, device µs
+    per launch (with ``parent``, the parent build's partial and combine
+    passes too, after checking them against the plain versions, in turns:
+    parent, this, this, parent), the bound and the launch floor (an empty
+    kernel on the same grid, block and cluster).  Each window launches the
+    same inputs ``SHAPE_ITERS`` times, so inputs that fit the L2 are warm."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 11)
+    x = torch.randn(shape, device='cuda', generator=gen) * 2 + 0.3
+    dz = torch.randn(shape, device='cuda', generator=gen)
+    scale = torch.rand(shape[1], device='cuda', generator=gen) + 0.5
+    mean, _, rstd = bn_kernel.bn_stats_plain(x, BN_EPS)
+    this = {'bn_stats': lambda: bn_kernel.bn_stats(x, BN_EPS),
+            'bn_grad_sums': lambda: bn_kernel.bn_grad_sums(dz, x, mean, rstd,
+                                                           scale)}
+    groups = [BN_KERNELS[name][0] for name in REDUCTIONS]
+    row = {'shape': list(shape)}
+    for name in REDUCTIONS:
+        row[name] = {'plan': bn_kernel.reduce_plan(
+            name, x, dz if name == 'bn_grad_sums' else None),
+            'bound_ms': bn_bound_ms(name, x.numel(), shape[1], card)[0]}
+    if parent is not None:
+        old = parent_bn_launchers(parent, x, dz, mean, rstd, scale)
+        want = {'bn_stats': bn_kernel.bn_stats_plain(x, BN_EPS),
+                'bn_grad_sums': bn_kernel.bn_grad_sums_plain(dz, x, mean, rstd,
+                                                             scale)}
+        for name in REDUCTIONS:
+            for got, ref in zip(old[name](), want[name]):
+                bn_err(got, ref, 'reduce')
+        old_groups = [(n,) for name in REDUCTIONS for n in PARENT_BN_KERNELS[name]]
+        turns = {'parent': [], 'this': []}
+        for side in ('parent', 'this', 'this', 'parent'):
+            if side == 'this':
+                turns[side].append(groups_device_ms(both(this), groups,
+                                                    SHAPE_ITERS))
+            else:
+                ms = groups_device_ms(both(old), old_groups, SHAPE_ITERS)
+                turns[side].append([ms[0] + ms[1], ms[2] + ms[3]])
+        for i, name in enumerate(REDUCTIONS):
+            row[name].update(
+                ms=statistics.mean(t[i] for t in turns['this']),
+                parent_ms=statistics.mean(t[i] for t in turns['parent']),
+                turns_ms={side: [t[i] for t in ts] for side, ts in turns.items()})
+    else:
+        for name, ms in zip(REDUCTIONS, groups_device_ms(both(this), groups,
+                                                         SHAPE_ITERS)):
+            row[name]['ms'] = ms
+    floors = {name: bn_kernel.reduce_launcher(name, x, dz, mean, rstd, scale,
+                                              floor=True) for name in REDUCTIONS}
+    for name, ms in zip(REDUCTIONS, groups_device_ms(
+            both(floors), [FLOOR_KERNELS[name] for name in REDUCTIONS],
+            SHAPE_ITERS)):
+        row[name]['floor_ms'] = ms
+    del x, dz
+    return row
+
+
+def log_bn_shape(row: dict) -> None:
+    parts = []
+    for name, label in zip(REDUCTIONS, ('K1', 'K3')):
+        k, plan = row[name], row[name]['plan']
+        parent = (f' (parent {k["parent_ms"] * 1e3:.2f})' if 'parent_ms' in k
+                  else '')
+        parts.append(
+            f'{label} {plan_text(plan)}: {k["ms"] * 1e3:.2f} us{parent}, bound '
+            f'{k["bound_ms"] * 1e3:.2f}, floor {k["floor_ms"] * 1e3:.2f}')
+    log(f'  {row["shape"]}: ' + '; '.join(parts))
+
+
+def compare_odd_plane_paths(card: str) -> dict:
+    """K1 and K3 on the split path (4-element loads between scalar edges)
+    and the scalar path at ``ODD_PLANE_SHAPES``, each checked against its
+    plain version, device µs per launch in turns (split, scalar, scalar,
+    split)."""
+    out = {}
+    groups = [BN_KERNELS[name][0] for name in REDUCTIONS]
+    for shape in ODD_PLANE_SHAPES:
+        x, dz, scale, _ = bn_inputs(shape, torch.float32,
+                                    torch.Generator().manual_seed(SEED + 12))
+        mean, _, rstd = bn_kernel.bn_stats_plain(x, BN_EPS)
+        want = {'bn_stats': bn_kernel.bn_stats_plain(x, BN_EPS),
+                'bn_grad_sums': bn_kernel.bn_grad_sums_plain(dz, x, mean, rstd,
+                                                             scale)}
+        calls = {path: {name: bn_kernel.reduce_launcher(
+            name, x, dz, mean, rstd, scale, path=path) for name in REDUCTIONS}
+            for path in ('split', 'scalar')}
+        for path, launchers in calls.items():
+            for name in REDUCTIONS:
+                for got, ref in zip(launchers[name](), want[name]):
+                    bn_err(got, ref, 'reduce')
+        turns = {'split': [], 'scalar': []}
+        for path in ('split', 'scalar', 'scalar', 'split'):
+            turns[path].append(groups_device_ms(both(calls[path]), groups,
+                                                SHAPE_ITERS))
+        row = {'auto': bn_kernel.reduce_plan('bn_stats', x)['path']}
+        for path, ts in turns.items():
+            row[path] = {name: statistics.mean(t[i] for t in ts)
+                         for i, name in enumerate(REDUCTIONS)}
+        out[str(list(shape))] = row
+        log(f'  S = {shape[2] * shape[3]} {list(shape)}: ' + '; '.join(
+            f'{label} split {row["split"][name] * 1e3:.2f} us, scalar '
+            f'{row["scalar"][name] * 1e3:.2f} us'
+            for name, label in zip(REDUCTIONS, ('K1', 'K3')))
+            + f' (the shape takes {row["auto"]})')
+        del x, dz
+    return out
+
+
+def time_bn_shapes(card: str, parent=None) -> dict:
+    """Phase 14: K1 and K3 at every distinct BN shape of the five steps
+    (``time_bn_shape``, with ``parent`` in turns against the parent build),
+    each step's sums (count x µs per launch over its shapes) beside its
+    bound and launch floors, and the odd-plane paths side by side."""
+    rows = {}
+    for key in STEP_BN_SHAPES:
+        log(f'  {key} step (b{STEP_BN_SHAPES[key][0]}):')
+        for shape in step_bn_shapes(key):
+            if shape not in rows:
+                rows[shape] = time_bn_shape(shape, card, parent)
+                torch.cuda.empty_cache()
+            log_bn_shape(rows[shape])
+    steps = {}
+    for key in STEP_BN_SHAPES:
+        counts = step_bn_shapes(key)
+        steps[key] = {}
+        for name in REDUCTIONS:
+            fields = ('ms', 'bound_ms', 'floor_ms') + (
+                ('parent_ms',) if parent is not None else ())
+            steps[key][name] = {f'step_{f}': sum(
+                n * rows[shape][name][f] for shape, n in counts.items())
+                for f in fields}
+        log(f'  {key} step sums over {sum(counts.values())} BNs: ' + '; '.join(
+            f'{label} {t["step_ms"]:.4f} ms'
+            + (f' (parent {t["step_parent_ms"]:.4f})' if parent is not None else '')
+            + f', bound {t["step_bound_ms"]:.4f} '
+            f'({100 * t["step_bound_ms"] / t["step_ms"]:.0f} %), floors '
+            f'{t["step_floor_ms"]:.4f}'
+            for (name, t), label in zip(steps[key].items(), ('K1', 'K3'))))
+    log('  the odd-plane paths side by side:')
+    odd = compare_odd_plane_paths(card)
+    return {'shapes': [rows[s] for s in rows], 'steps': steps,
+            'odd_plane_paths': odd}
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
         '--parent-nms', metavar='NMS_CU',
         help='another version of kernels/nms.cu (e.g. from a git archive '
              'of an earlier commit) to build and time beside this one')
+    parser.add_argument(
+        '--parent-bn', metavar='BN_CU',
+        help='another version of kernels/bn.cu whose K1 and K3 take a '
+             'scratch buffer of partials (e.g. from a git archive of an '
+             'earlier commit) to build and time beside this one in phase 14')
     return parser.parse_args(argv)
 
 
@@ -1892,11 +2295,15 @@ def main(argv=None) -> int:
         builds = [pool.submit(m.build) for m in (nms_kernel, bn_kernel)]
         parent = (pool.submit(load_parent_nms, args.parent_nms)
                   if args.parent_nms else None)
+        parent_bn = (pool.submit(load_parent_bn, args.parent_bn)
+                     if args.parent_bn else None)
         for b in builds:
             b.result()
         parent_nms = parent.result() if parent else None
+        parent_bn = parent_bn.result() if parent_bn else None
+    others = [a for a in (args.parent_nms, args.parent_bn) if a]
     log(f'[2] built the nms and bn kernels in {time.perf_counter() - t:.2f} s'
-        + (f' (and {args.parent_nms})' if args.parent_nms else ''))
+        + (f' (and {", ".join(others)})' if others else ''))
 
     # 3. kernels against their plain versions
     log('[3] kernels vs plain versions on the card')
@@ -1961,7 +2368,8 @@ def main(argv=None) -> int:
     train_timing = time_train_steps(trainer, library_check['library'],
                                     train_batches[0])
     bn_time = time_bn_kernels(card)
-    step_profile = profile_train_step(trainer, train_batches[0], n_bn, card)
+    step_profile = profile_train_step(trainer, train_batches[0], n_bn, card,
+                                      'flagship', parent_bn=parent_bn)
     library_step = library_bn_step_ms(step_profile.pop('bn_shapes'))
     log(f'[7] {smi}: train_step b32 with the BN kernels '
         f'{train_timing["train_step_b32_fused_bn_ms"]:.3f} ms = '
@@ -2059,7 +2467,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     log(f'[12] {smi}: the model zoo at b{ZOO_BATCH}, seeded random weights, '
         'fused_bn')
-    zoo = run_zoo(card, smi)
+    zoo = run_zoo(card, smi, parent_bn)
     log(f'  phase 12 in {time.perf_counter() - t:.1f} s')
 
     # 13. the rest of the zoo: M2Det-512, SSD300-ShuffleNetV2, GroupNorm
@@ -2067,8 +2475,16 @@ def main(argv=None) -> int:
     log(f'[13] {smi}: M2Det-512 at b8 and SSD300-ShuffleNetV2 at b32, '
         'seeded random weights, fused_bn; MobileNet v1 + the depthwise FPN '
         'with train.group_norm')
-    zoo_rest = run_zoo_rest(card, smi)
+    zoo_rest = run_zoo_rest(card, smi, parent_bn)
     log(f'  phase 13 in {time.perf_counter() - t:.1f} s')
+
+    # 14. K1 and K3 shape by shape over the five steps
+    t = time.perf_counter()
+    log(f'[14] {smi}: K1 and K3 per launch at every BN shape of the five '
+        'steps (f32, warm: each window repeats its inputs)'
+        + (f', in turns against {args.parent_bn}' if parent_bn else ''))
+    bn_shapes = time_bn_shapes(card, parent_bn)
+    log(f'  phase 14 in {time.perf_counter() - t:.1f} s')
 
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
@@ -2089,7 +2505,8 @@ def main(argv=None) -> int:
                            **jax_check, 'launches': jax_launches},
         'zoo': {key: value for key, value in zoo.items() if key != 'nms'},
         'zoo_rest': {key: value for key, value in zoo_rest.items()
-                     if key != 'nms'}}}))
+                     if key != 'nms'},
+        'bn_shapes': bn_shapes}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -2161,6 +2578,9 @@ def main(argv=None) -> int:
                     bn_time[name]['library_pair']],
                 'max_abs_err': t['bn_max_abs_err'][name]}
                 for key, t in zoo_steps.items()},
+            **({'by_step_per_shape': {key: step[name] for key, step in
+                                      bn_shapes['steps'].items()}}
+               if name in REDUCTIONS else {}),
         })
     log(json.dumps({'kernels': kernels}))
     log(smi)

@@ -14,32 +14,45 @@
 // C*S apart.  The kernels read that layout as it is: converting to
 // channels-last or [N*H*W, C] around every BN would cost a full read and
 // write of the activation each way, which is what made the Pallas version a
-// loss on the TPU.  Where S % 4 == 0 and every pointer is aligned, a thread
-// moves 4 elements per load (16 bytes in f32); otherwise one.
+// loss on the TPU.
 //
 // Bound.  All four are bound by bytes: K1 reads x (4E bytes in f32 for E
 // elements), K2 reads x and writes z (8E), K3 reads dz and x (8E), K4 reads
 // dz and x and writes dx (12E).  Each does a few flops per element, far
-// below the card's rate, so the design goal is to keep enough 16-byte loads
-// in flight and to spend few instructions per element on addressing.
+// below the card's rate, so the design goal is to keep enough loads in
+// flight and to spend few instructions per element on addressing.
 //
-// Reductions (K1, K3).  Blocks run in no order on Hopper, so the Pallas
-// kernels' sequential-grid accumulator becomes a deterministic two-stage
-// sum: block (c, g) reduces chunk g of channel c's B*S elements into one
-// partial (thread registers, then warp shuffles, then shared memory in a
-// fixed order) and writes it to a scratch buffer the wrapper allocates; a
-// combine kernel then sums channel c's G partials with one warp in a fixed
-// order and derives the per-channel values (mean, var, rstd for K1; d_beta,
-// d_gamma and K4's coefficients for K3).  No atomics, so a result does not
-// change from run to run.  G grows with B*S (one chunk per 8192 elements, at
-// most 1024), so both a channel of 720,000 elements ([32, 96, 150, 150]) and
-// one of 32 ([32, 128, 1, 1]) fill the card with blocks of useful size.
-// Within a chunk a thread walks the channel's elements with a cursor that
-// advances by whole planes and offsets (no division per element).
-//
-// Elementwise passes (K2, K4).  A grid-stride loop over the flat tensor;
-// each thread carries the channel index of its position forward by adding
-// the stride's plane and channel steps, so no division per element either.
+// Reductions (K1, K3): one launch per call.  Blocks run in no order on
+// Hopper, so the Pallas kernels' sequential-grid accumulator becomes a sum
+// in a fixed order, taken by one of four paths chosen from the shape
+// (make_plan):
+//   vector  S % 4 == 0 and aligned: 4 elements per load;
+//   split   S % 4 != 0 (or a pointer off 16 bytes): per plane, 4-element
+//           loads on the aligned body, the few elements at its two edges
+//           as scalars;
+//   scalar  one element per load (the inputs of K3 aligned differently);
+//   narrow  S < 32: a block takes a tile of channels, neighbouring threads
+//           take neighbouring [c, s] addresses and loop over b, so a warp
+//           reads whole runs of C*S instead of runs of S; one warp per
+//           channel then sums its partials.
+// On the first three each thread keeps 4 (8 for scalars) loads in flight in
+// independent accumulators, summed in a fixed tree, and warp shuffles and
+// shared memory in a fixed order give each block's partial.  A channel's G
+// blocks (size_wide) then combine: G == 1 needs no step; up to 16 blocks
+// form a thread-block cluster (cudaLaunchKernelEx with a cluster
+// dimension), whose rank 0 reads the partials through distributed shared
+// memory after cluster.sync(); a longer channel (the largest layers, which
+// need many short blocks for the card to balance them) takes blocks of
+// 8192 elements whose last to finish, by an atomic ticket, sums the
+// partials from a scratch buffer the library keeps per stream.  Atomics
+// count tickets only and never sum, so a result does not change from run
+// to run.
+
+// Elementwise passes (K2, K4).  Where S % 4 == 0 and every pointer is
+// aligned, a thread moves 4 elements per load (16 bytes in f32); otherwise
+// one.  A grid-stride loop over the flat tensor; each thread carries the
+// channel index of its position forward by adding the stride's plane and
+// channel steps, so no division per element.
 //
 // Numerics.  Statistics, sums and coefficients are f32; x, dz, z and dx may
 // be f32 or bf16 (z in the output type, dx in x's type).  The file is built
@@ -47,20 +60,24 @@
 // rounded as the plain PyTorch version rounds it; only the order of the
 // reductions differs.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <initializer_list>
+#include <mutex>
+#include <type_traits>
 #include <utility>
+#include <vector>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr long long kChunkElements = 8192;
-constexpr long long kMaxChunks = 1024;
 constexpr long long kMaxElementwiseBlocks = 4096;
 
 // dtype codes shared with ops/bn_kernel.py
@@ -110,51 +127,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum of (a, b) over the block, in a fixed order; the result is valid in
-// thread 0.
-__device__ __forceinline__ void block_sum2(float& a, float& b) {
-  __shared__ float sa[kWarps], sb[kWarps];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  a = warp_sum(a);
-  b = warp_sum(b);
-  if (lane == 0) {
-    sa[warp] = a;
-    sb[warp] = b;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    a = lane < kWarps ? sa[lane] : 0.0f;
-    b = lane < kWarps ? sb[lane] : 0.0f;
-    a = warp_sum(a);
-    b = warp_sum(b);
-  }
-}
-
-// Walks channel c's vectors j = start, start + blockDim.x, ... in the
-// [B, C, Sv] vector view: `addr` is the vector index of (b, c, s).
-struct ChannelCursor {
-  long long s, addr, r, jump, wrap, sv;
-  __device__ ChannelCursor(long long j, long long c, long long C,
-                           long long Sv) {
-    const long long b = j / Sv;
-    sv = Sv;
-    s = j - b * Sv;
-    addr = (b * C + c) * Sv + s;
-    const long long q = blockDim.x / Sv;
-    r = blockDim.x - q * Sv;
-    jump = q * C * Sv + r;
-    wrap = (C - 1) * Sv;  // from the end of plane b to the start of plane b+1
-  }
-  __device__ __forceinline__ void advance() {
-    s += r;
-    addr += jump;
-    if (s >= sv) {
-      s -= sv;
-      addr += wrap;
-    }
-  }
-};
-
 // Walks the flat vector index i = global thread id, += grid stride, carrying
 // the channel of i in the [B, C, Sv] view.
 struct FlatCursor {
@@ -181,68 +153,370 @@ struct FlatCursor {
   }
 };
 
-// ------------------------------------------------------------------ K1
+// ------------------------------------------------------------- K1, K3
 
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-bn_stats_partial_kernel(const T* __restrict__ x, float* __restrict__ partial,
-                        long long C, long long Sv, long long nv, long long Lv,
-                        int G) {
-  const long long c = blockIdx.x;
-  const int g = blockIdx.y;
-  long long j = g * Lv + threadIdx.x;
-  const long long end = min((g + 1) * Lv, nv);
-  ChannelCursor cur(j, c, C, Sv);
-  float sum = 0.0f, sq = 0.0f;
-  for (; j < end; j += blockDim.x) {
-    float v[V];
-    load<T, V>(x, cur.addr, v);
+// Paths of the reductions (codes shared with ops/bn_kernel.py).
+constexpr int kPathAuto = -1;
+constexpr int kPathVector = 0;
+constexpr int kPathSplit = 1;
+constexpr int kPathScalar = 2;
+constexpr int kPathNarrow = 3;
+
+constexpr int kMaxThreads = 1024;       // narrow blocks
+constexpr int kMaxWideThreads = 512;    // wide blocks (at 1024 the compiler
+                                        // gives K1 a quarter more registers)
+constexpr int kMaxCluster = 16;         // 8 is portable; 16 needs the opt-in
+constexpr int kNarrowPlane = 32;        // S below this takes the narrow path
+constexpr int kNarrowThreads = 256;     // a narrow block's target size
+constexpr int kNarrowRowsPerThread = 4;
+
+// One load's values: N inputs of V elements each.
+template <int N, int V>
+struct Item {
+  float v[N][V];
+};
+
+// Sums v in a fixed tree, ((v0 + v1) + (v2 + v3)) + ...
+template <int N>
+__device__ __forceinline__ float tree_sum(float (&v)[N]) {
 #pragma unroll
-    for (int k = 0; k < V; ++k) {
-      sum += v[k];
-      sq += v[k] * v[k];
-    }
-    cur.advance();
-  }
-  block_sum2(sum, sq);
-  if (threadIdx.x == 0) {
-    partial[c * G + g] = sum;
-    partial[(C + c) * G + g] = sq;
-  }
+  for (int w = 1; w < N; w *= 2)
+#pragma unroll
+    for (int i = 0; i + w < N; i += 2 * w) v[i] += v[i + w];
+  return v[0];
 }
 
-// One warp per channel: sums the G partials of channel c in a fixed order.
-__device__ __forceinline__ bool combine(const float* __restrict__ partial,
-                                        long long C, int G, long long& c,
-                                        float& a, float& b) {
-  const int lane = threadIdx.x & 31;
-  c = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (c >= C) return false;
-  a = 0.0f;
-  b = 0.0f;
-  for (int g = lane; g < G; g += 32) {
-    a += partial[c * G + g];
-    b += partial[(C + c) * G + g];
-  }
+// Sum of (a, b) over the block (blockDim.x a multiple of 32), in a fixed
+// order; the result is valid in thread 0.
+__device__ __forceinline__ void block_sum2(float& a, float& b) {
+  __shared__ float sa[32], sb[32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   a = warp_sum(a);
   b = warp_sum(b);
-  return lane == 0;
+  if (lane == 0) {
+    sa[warp] = a;
+    sb[warp] = b;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int warps = blockDim.x >> 5;
+    a = lane < warps ? sa[lane] : 0.0f;
+    b = lane < warps ? sb[lane] : 0.0f;
+    a = warp_sum(a);
+    b = warp_sum(b);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-bn_stats_combine_kernel(const float* __restrict__ partial,
-                        float* __restrict__ mean, float* __restrict__ var,
-                        float* __restrict__ rstd, long long C, int G, float n,
-                        float eps) {
-  long long c;
-  float sum, sq;
-  if (!combine(partial, C, G, c, sum, sq)) return;
-  const float m = sum / n;
-  const float v = fmaxf(0.0f, sq / n - m * m);
-  mean[c] = m;
-  var[c] = v;
-  rstd[c] = 1.0f / sqrtf(v + eps);
+// Walks one channel's units j = start, start + step, ... in [B, C, S],
+// plane b holding units k = 0 .. K-1: `e` is the element offset of plane b's
+// start and `k` the unit within it (no division per unit).
+struct PlaneCursor {
+  long long e, k, per_plane, r, jump, plane;
+  __device__ PlaneCursor(long long j, long long c, long long C, long long S,
+                         long long K, long long step) {
+    const long long b = j / K;
+    per_plane = K;
+    k = j - b * K;
+    plane = C * S;
+    e = (b * C + c) * S;
+    const long long q = step / K;
+    r = step - q * K;
+    jump = q * plane;
+  }
+  __device__ __forceinline__ void advance() {
+    k += r;
+    e += jump;
+    if (k >= per_plane) {
+      k -= per_plane;
+      e += plane;
+    }
+  }
+};
+
+// Elements from plane start e to the first 4-element boundary, for inputs
+// whose element 0 lies `phase` elements past a boundary.
+__device__ __forceinline__ long long head(long long e, int phase) {
+  return (-(e + phase)) & 3;
 }
+
+// K1's work: the sums of x and x * x; mean, var and rstd from them.
+template <typename T>
+struct StatsOp {
+  static constexpr int kInputs = 1;
+  const T* x;
+  float* mean;
+  float* var;
+  float* rstd;
+  float n, eps;
+
+  struct Channel {
+    const T* __restrict__ x;
+    template <int V>
+    __device__ __forceinline__ void read(long long e, Item<1, V>& it) const {
+      load<T, V>(x + e, 0, it.v[0]);
+    }
+    template <int V>
+    __device__ __forceinline__ void add(const Item<1, V>& it, float& a,
+                                        float& b) const {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        a += it.v[0][k];
+        b += it.v[0][k] * it.v[0][k];
+      }
+    }
+  };
+  __device__ __forceinline__ Channel channel(long long) const { return {x}; }
+  __device__ __forceinline__ void finish(long long c, float sum,
+                                         float sq) const {
+    const float m = sum / n;
+    const float v = fmaxf(0.0f, sq / n - m * m);
+    mean[c] = m;
+    var[c] = v;
+    rstd[c] = 1.0f / sqrtf(v + eps);
+  }
+};
+
+// K3's work: the sums of dz and dz * xhat; d_gamma, d_beta and K4's coef
+// rows (0 = rstd * scale, 1 = d_beta / n, 2 = d_gamma / n) from them.
+template <typename TG, typename TX>
+struct GradSumsOp {
+  static constexpr int kInputs = 2;
+  const TG* dz;
+  const TX* x;
+  const float* mean;
+  const float* rstd;
+  const float* scale;
+  float* d_gamma;
+  float* d_beta;
+  float* coef;
+  long long C;
+  float n;
+
+  struct Channel {
+    const TG* __restrict__ dz;
+    const TX* __restrict__ x;
+    float m, r;
+    template <int V>
+    __device__ __forceinline__ void read(long long e, Item<2, V>& it) const {
+      load<TG, V>(dz + e, 0, it.v[0]);
+      load<TX, V>(x + e, 0, it.v[1]);
+    }
+    template <int V>
+    __device__ __forceinline__ void add(const Item<2, V>& it, float& a,
+                                        float& b) const {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        a += it.v[0][k];
+        b += it.v[0][k] * ((it.v[1][k] - m) * r);
+      }
+    }
+  };
+  __device__ __forceinline__ Channel channel(long long c) const {
+    return {dz, x, mean[c], rstd[c]};
+  }
+  __device__ __forceinline__ void finish(long long c, float sum_g,
+                                         float sum_gx) const {
+    d_beta[c] = sum_g;
+    d_gamma[c] = sum_gx;
+    coef[c] = rstd[c] * scale[c];
+    coef[C + c] = sum_g / n;
+    coef[2 * C + c] = sum_gx / n;
+  }
+};
+
+// The ticket combine's scratch (done == nullptr: no ticket): per channel
+// the count of its blocks done, 0 between launches, and each block's
+// partial.
+struct Tickets {
+  unsigned int* done;
+  float2* partials;
+};
+
+// The vector, split and scalar paths: the G consecutive blocks from
+// blockIdx.x / G * G reduce channel blockIdx.x / G; thread t of rank g
+// takes the channel's units g * blockDim.x + t, += G * blockDim.x, U at a
+// time.  The G partials are combined by one block (G == 1), in the
+// cluster of the G blocks (after cluster.sync() rank 0 reads them through
+// distributed shared memory and sums them in rank order) or, with Ticket,
+// by the block that finishes last (it sums the G partials in a fixed
+// order: lane l the partials l, l + 32, ..., then the warp's tree; and
+// clears the count).  The ticket is a separate kernel, so that the others
+// keep its registers free.
+template <int Mode, bool Ticket, class Op>
+__device__ __forceinline__ void reduce_wide(const Op& op, long long B,
+                                            long long C, long long S, int G,
+                                            int phase, Tickets tickets) {
+  constexpr int V = Mode == kPathScalar ? 1 : 4;
+  constexpr int U = Mode == kPathScalar ? 8 : 4;
+  const long long c = blockIdx.x / G;
+  const int rank = static_cast<int>(blockIdx.x - c * G);
+  const auto ch = op.channel(c);
+  // units per plane; the split path's body leaves S - 4K edge elements
+  const long long K = Mode == kPathVector ? S / 4
+                      : Mode == kPathSplit ? S / 4 - 1
+                                           : S;
+  const long long units = B * K;
+  const long long step = static_cast<long long>(G) * blockDim.x;
+  const long long first = static_cast<long long>(rank) * blockDim.x + threadIdx.x;
+  float a[U], b[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) a[u] = b[u] = 0.0f;
+  PlaneCursor cur(first, c, C, S, K, step);
+  for (long long j = first; j < units; j += U * step) {
+    Item<Op::kInputs, V> it[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (j + u * step < units) {
+        const long long e = cur.e + V * cur.k;
+        ch.template read<V>(Mode == kPathSplit ? e + head(cur.e, phase) : e,
+                            it[u]);
+        cur.advance();
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (j + u * step < units) ch.add(it[u], a[u], b[u]);
+  }
+  if constexpr (Mode == kPathSplit) {
+    // the edges: element i of a plane's L is i before the body, else after it
+    const long long L = S - 4 * K;
+    for (long long l = first; l < B * L; l += step) {
+      const long long plane = l / L, i = l - plane * L;
+      const long long e = (plane * C + c) * S;
+      Item<Op::kInputs, 1> it;
+      ch.template read<1>(e + (i < head(e, phase) ? i : i + 4 * K), it);
+      ch.add(it, a[0], b[0]);
+    }
+  }
+  float sa = tree_sum(a), sb = tree_sum(b);
+  block_sum2(sa, sb);
+  if constexpr (Ticket) {
+    __shared__ bool last;
+    float2* partials = tickets.partials + c * G;
+    if (threadIdx.x == 0) {
+      partials[rank] = make_float2(sa, sb);
+      __threadfence();
+      last = atomicAdd(tickets.done + c, 1u) == static_cast<unsigned int>(G - 1);
+    }
+    __syncthreads();
+    if (!last || threadIdx.x >= 32) return;
+    __threadfence();
+    float s0 = 0.0f, s1 = 0.0f;
+    for (int g = threadIdx.x; g < G; g += 32) {
+      const float2 p = __ldcg(partials + g);
+      s0 += p.x;
+      s1 += p.y;
+    }
+    s0 = warp_sum(s0);
+    s1 = warp_sum(s1);
+    if (threadIdx.x == 0) {
+      op.finish(c, s0, s1);
+      tickets.done[c] = 0;
+    }
+  } else {
+    if (G == 1) {
+      if (threadIdx.x == 0) op.finish(c, sa, sb);
+      return;
+    }
+    __shared__ float2 part;
+    cg::cluster_group cluster = cg::this_cluster();
+    if (threadIdx.x == 0) part = make_float2(sa, sb);
+    cluster.sync();
+    if (rank == 0 && threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const float2 p = lane < G ? *cluster.map_shared_rank(&part, lane)
+                                : make_float2(0.0f, 0.0f);
+      float s0 = 0.0f, s1 = 0.0f;
+      for (int g = 0; g < G; ++g) {
+        s0 += __shfl_sync(0xffffffffu, p.x, g);
+        s1 += __shfl_sync(0xffffffffu, p.y, g);
+      }
+      if (lane == 0) op.finish(c, s0, s1);
+    }
+    cluster.sync();  // the other ranks' shared memory stays until it is read
+  }
+}
+
+// The narrow path: block i takes channels [i * tile, (i + 1) * tile);
+// thread (row, p) of its R x (tile * S) threads takes element p of the
+// tile's run in planes b = row, row + R, ...; then warp w sums the R * S
+// partials of channels w, w + warps, ... in a fixed order.
+template <class Op>
+__device__ __forceinline__ void reduce_narrow(const Op& op, long long B,
+                                              long long C, int S, int tile,
+                                              int R) {
+  constexpr int U = 4;
+  __shared__ float sa[kMaxThreads], sb[kMaxThreads];
+  const long long c0 = static_cast<long long>(blockIdx.x) * tile;
+  const int channels = static_cast<int>(min(static_cast<long long>(tile), C - c0));
+  const int P = tile * S;
+  const int t = threadIdx.x, row = t / P, p = t - row * P;
+  float a[U], b[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) a[u] = b[u] = 0.0f;
+  if (row < R && p < channels * S) {
+    const auto ch = op.channel(c0 + p / S);
+    const long long step = static_cast<long long>(R) * C * S;
+    long long e = (row * C + c0) * S + p;
+    for (long long plane = row; plane < B; plane += U * R, e += U * step) {
+      Item<Op::kInputs, 1> it[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (plane + u * R < B) ch.template read<1>(e + u * step, it[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (plane + u * R < B) ch.add(it[u], a[u], b[u]);
+    }
+  }
+  sa[t] = tree_sum(a);
+  sb[t] = tree_sum(b);
+  __syncthreads();
+  const int warp = t >> 5, lane = t & 31, warps = blockDim.x >> 5;
+  for (int cl = warp; cl < channels; cl += warps) {
+    float x = 0.0f, y = 0.0f;
+    for (int i = lane; i < R * S; i += 32) {
+      const int r = i / S, at = r * P + cl * S + (i - r * S);
+      x += sa[at];
+      y += sb[at];
+    }
+    x = warp_sum(x);
+    y = warp_sum(y);
+    if (lane == 0) op.finish(c0 + cl, x, y);
+  }
+}
+
+template <typename T, int Mode, bool Ticket>
+__global__ void __launch_bounds__(kMaxWideThreads)
+bn_stats_kernel(StatsOp<T> op, long long B, long long C, long long S, int G,
+                int phase, Tickets tickets) {
+  reduce_wide<Mode, Ticket>(op, B, C, S, G, phase, tickets);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+bn_stats_narrow_kernel(StatsOp<T> op, long long B, long long C, int S,
+                       int tile, int R) {
+  reduce_narrow(op, B, C, S, tile, R);
+}
+
+template <typename TG, typename TX, int Mode, bool Ticket>
+__global__ void __launch_bounds__(kMaxWideThreads)
+bn_grad_sums_kernel(GradSumsOp<TG, TX> op, long long B, long long C,
+                    long long S, int G, int phase, Tickets tickets) {
+  reduce_wide<Mode, Ticket>(op, B, C, S, G, phase, tickets);
+}
+
+template <typename TG, typename TX>
+__global__ void __launch_bounds__(kMaxThreads)
+bn_grad_sums_narrow_kernel(GradSumsOp<TG, TX> op, long long B, long long C,
+                           int S, int tile, int R) {
+  reduce_narrow(op, B, C, S, tile, R);
+}
+
+// The launch floor of K1 (Kernel 0) and K3 (1): the same grid, block and
+// cluster, no work.
+template <int Kernel>
+__global__ void bn_floor_kernel(int) {}
 
 // ------------------------------------------------------------------ K2
 
@@ -261,61 +535,6 @@ bn_apply_kernel(const TX* __restrict__ x, const float* __restrict__ mean,
     for (int k = 0; k < V; ++k) v[k] = (v[k] - m) * r * a + b;
     store<TZ, V>(z, cur.i, v);
   }
-}
-
-// ------------------------------------------------------------------ K3
-
-template <typename TG, typename TX, int V>
-__global__ void __launch_bounds__(kThreads)
-bn_grad_sums_partial_kernel(const TG* __restrict__ dz,
-                            const TX* __restrict__ x,
-                            const float* __restrict__ mean,
-                            const float* __restrict__ rstd,
-                            float* __restrict__ partial, long long C,
-                            long long Sv, long long nv, long long Lv, int G) {
-  const long long c = blockIdx.x;
-  const int g = blockIdx.y;
-  const float m = mean[c], r = rstd[c];
-  long long j = g * Lv + threadIdx.x;
-  const long long end = min((g + 1) * Lv, nv);
-  ChannelCursor cur(j, c, C, Sv);
-  float sum_g = 0.0f, sum_gx = 0.0f;
-  for (; j < end; j += blockDim.x) {
-    float gv[V], xv[V];
-    load<TG, V>(dz, cur.addr, gv);
-    load<TX, V>(x, cur.addr, xv);
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      sum_g += gv[k];
-      sum_gx += gv[k] * ((xv[k] - m) * r);
-    }
-    cur.advance();
-  }
-  block_sum2(sum_g, sum_gx);
-  if (threadIdx.x == 0) {
-    partial[c * G + g] = sum_g;
-    partial[(C + c) * G + g] = sum_gx;
-  }
-}
-
-// coef rows, as the Pallas K4 takes them: 0 = rstd * scale,
-// 1 = d_beta / n, 2 = d_gamma / n.
-__global__ void __launch_bounds__(kThreads)
-bn_grad_sums_combine_kernel(const float* __restrict__ partial,
-                            const float* __restrict__ rstd,
-                            const float* __restrict__ scale,
-                            float* __restrict__ d_gamma,
-                            float* __restrict__ d_beta,
-                            float* __restrict__ coef, long long C, int G,
-                            float n) {
-  long long c;
-  float sum_g, sum_gx;
-  if (!combine(partial, C, G, c, sum_g, sum_gx)) return;
-  d_beta[c] = sum_g;
-  d_gamma[c] = sum_gx;
-  coef[c] = rstd[c] * scale[c];
-  coef[C + c] = sum_g / n;
-  coef[2 * C + c] = sum_gx / n;
 }
 
 // ------------------------------------------------------------------ K4
@@ -349,11 +568,6 @@ struct Shape {
   long long elements_per_channel() const { return b * s; }
 };
 
-long long chunks(long long per_channel) {
-  const long long g = (per_channel + kChunkElements - 1) / kChunkElements;
-  return g < 1 ? 1 : (g > kMaxChunks ? kMaxChunks : g);
-}
-
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -377,10 +591,6 @@ unsigned int elementwise_blocks(long long nv) {
       blocks > kMaxElementwiseBlocks ? kMaxElementwiseBlocks : blocks);
 }
 
-unsigned int combine_blocks(long long c) {
-  return static_cast<unsigned int>((c + kWarps - 1) / kWarps);
-}
-
 int start(int device, const Shape& shape) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -396,14 +606,308 @@ void with_type(int dtype, F&& f) {
     f(float{});
 }
 
-template <typename T, int V>
-void stats_partial(const void* x, float* partial, const Shape& sh, int G,
-                   cudaStream_t stream) {
-  const long long sv = sh.s / V, nv = sh.b * sv;
-  const long long lv = (nv + G - 1) / G;
-  bn_stats_partial_kernel<T, V>
-      <<<dim3(static_cast<unsigned int>(sh.c), G), kThreads, 0, stream>>>(
-          static_cast<const T*>(x), partial, sh.c, sv, nv, lv, G);
+// How a wide path combines a channel's blocks (codes shared with
+// ops/bn_kernel.py).
+enum Combine { kOneBlock = 0, kCluster = 1, kTicket = 2 };
+
+// The grid a reduction launches: its path, block size, blocks per channel
+// and how they combine (wide paths) or channels per block and rows (narrow
+// path).
+struct Plan {
+  int path, threads, per_channel, combine, tile, rows, phase;
+  unsigned int blocks;
+};
+
+long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+
+long long clamp(long long v, long long lo, long long hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// Elements from the last 4-element boundary to p's element 0.
+int element_phase(const void* p, size_t item) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) / item) % 4);
+}
+
+// The path for `path` (kPathAuto: the shape's own) over inputs whose
+// element 0 lies `phase` elements past a 4-element boundary (`same_phase`:
+// every input alike), and for the narrow path its grid; a wide path's grid
+// is sized at launch (size_wide).  cudaErrorInvalidValue for a path the
+// inputs do not take.
+int make_plan(int path, const Shape& sh, int phase, bool same_phase,
+              Plan& plan) {
+  const long long B = sh.b, C = sh.c, S = sh.s;
+  // split before scalar wherever the inputs are aligned alike: chip_smoke.py
+  // phase 14 times the two side by side at S = 361 and 5625
+  if (path == kPathAuto)
+    path = S < kNarrowPlane              ? kPathNarrow
+           : !same_phase                 ? kPathScalar
+           : S % 4 == 0 && phase == 0    ? kPathVector
+                                         : kPathSplit;
+  const bool ok = path == kPathScalar
+                  || (path == kPathVector && S % 4 == 0 && phase == 0 && same_phase)
+                  || (path == kPathSplit && S >= 8 && same_phase)
+                  || (path == kPathNarrow && S <= kMaxThreads);
+  if (!ok) return cudaErrorInvalidValue;
+  plan = Plan{path, 0, 1, kOneBlock, 1, 1, phase, 0};
+  if (path != kPathNarrow) return 0;
+  // rows: about kNarrowRowsPerThread planes a thread, and at least 32
+  // partials a channel where B allows, so that each warp of the final sum
+  // takes one channel; tile: channels enough for about kNarrowThreads
+  const long long rows = clamp(
+      std::max(ceil_div(B, kNarrowRowsPerThread), ceil_div(32, S)), 1,
+      std::min(B, kMaxThreads / S));
+  const long long tile = clamp(kNarrowThreads / (rows * S), 1, C);
+  plan.rows = static_cast<int>(rows);
+  plan.tile = static_cast<int>(tile);
+  plan.threads = static_cast<int>(ceil_div(rows * tile * S, 32) * 32);
+  const long long blocks = ceil_div(C, tile);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  plan.blocks = static_cast<unsigned int>(blocks);
+  return 0;
+}
+
+// Blocks of `threads` threads of `kernel` that the device holds at once
+// (its SMs times the blocks one SM holds), cached per kernel, block size
+// and device; 0 if the runtime cannot say.
+long long resident_blocks(const void* kernel, int threads, int device) {
+  struct Entry {
+    const void* kernel;
+    int threads, device;
+    long long blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  const std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache)
+    if (e.kernel == kernel && e.threads == threads && e.device == device)
+      return e.blocks;
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)
+          != cudaSuccess
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                       threads, 0)
+             != cudaSuccess)
+    return 0;
+  const long long blocks = static_cast<long long>(sms) * per_sm;
+  cache.push_back({kernel, threads, device, blocks});
+  return blocks;
+}
+
+// A wide path's grid for `kernel`, each thread taking batches of U loads:
+//  - one block a channel, of 256 or 512 threads, the first that takes the
+//    channel in two batches a thread, where the card holds the C blocks at
+//    once (no step across blocks);
+//  - else a cluster of G <= 16 blocks of 256 a channel: G for two batches
+//    a thread where the card holds the C * G blocks at once with a quarter
+//    to spare (clusters must each fit in one GPC; the layer is bound by the
+//    latency of a few loads), else for four (it is bound by bytes, and
+//    larger blocks cost less of their own);
+//  - else, for a channel longer than 16 blocks take so, blocks of 256 of
+//    two batches each, as many as the channel needs (like chunks of 8192
+//    elements), combined by ticket: clusters cap a channel at 16 blocks,
+//    too few for the card to balance the largest layers.
+int size_wide(Plan& plan, const Shape& sh, const void* kernel, int device) {
+  const long long B = sh.b, C = sh.c, S = sh.s;
+  const long long units = plan.path == kPathVector ? B * (S / 4)
+                          : plan.path == kPathSplit ? B * (S / 4 - 1)
+                                                    : B * S;
+  const long long unroll = plan.path == kPathScalar ? 8 : 4;
+  const long long need = ceil_div(units, unroll);  // threads of one batch
+  const long long slots = resident_blocks(kernel, 256, device);
+  if (slots == 0) return cudaErrorInvalidConfiguration;
+  long long T = 256, G = 0;
+  if (need <= 2 * T) {
+    G = C <= slots ? 1 : 0;
+  } else if (need <= 2 * kMaxWideThreads) {
+    const long long wide_slots = resident_blocks(kernel, kMaxWideThreads, device);
+    if (wide_slots == 0) return cudaErrorInvalidConfiguration;
+    if (C <= wide_slots) {
+      T = kMaxWideThreads;
+      G = 1;
+    }
+  }
+  plan.combine = kOneBlock;
+  if (G == 0) {
+    G = ceil_div(need, 2 * T);
+    if (4 * C * G > 3 * slots) G = ceil_div(need, 4 * T);
+    if (G > kMaxCluster) {
+      G = ceil_div(need, 2 * T);
+      plan.combine = kTicket;
+    } else if (G > 1) {
+      plan.combine = kCluster;
+    }
+  }
+  if (G * C > 0x7fffffffLL || G > 0x7fffffffLL / 2) return cudaErrorInvalidValue;
+  plan.threads = static_cast<int>(T);
+  plan.per_channel = static_cast<int>(G);
+  plan.blocks = static_cast<unsigned int>(G * C);
+  return 0;
+}
+
+// The ticket combine's scratch for launches on `stream` of device: the
+// counts (zeroed when allocated; the last block of a channel clears its
+// count) and the partials.  Allocated in stream order, grown as needed and
+// kept for the library's lifetime, one per stream, so launches on other
+// streams never share counts.
+int ticket_scratch(cudaStream_t stream, int device, long long channels,
+                   long long partials, Tickets& tickets) {
+  struct Entry {
+    cudaStream_t stream;
+    int device;
+    char* base;
+    long long channels, partials;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> pool;
+  const std::lock_guard<std::mutex> lock(mu);
+  Entry* entry = nullptr;
+  for (Entry& e : pool)
+    if (e.stream == stream && e.device == device) entry = &e;
+  if (entry == nullptr) {
+    pool.push_back({stream, device, nullptr, 0, 0});
+    entry = &pool.back();
+  }
+  if (channels > entry->channels || partials > entry->partials) {
+    const long long c = std::max(channels, entry->channels);
+    const long long p = std::max(partials, entry->partials);
+    const size_t counts = ceil_div(c * sizeof(unsigned int), 16) * 16;
+    cudaError_t err = cudaSuccess;
+    if (entry->base != nullptr) err = cudaFreeAsync(entry->base, stream);
+    entry->base = nullptr;
+    entry->channels = entry->partials = 0;
+    void* base = nullptr;
+    if (err == cudaSuccess)
+      err = cudaMallocAsync(&base, counts + p * sizeof(float2), stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(base, 0, counts, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *entry = {stream, device, static_cast<char*>(base), c, p};
+  }
+  const size_t counts = ceil_div(entry->channels * sizeof(unsigned int), 16) * 16;
+  tickets.done = reinterpret_cast<unsigned int*>(entry->base);
+  tickets.partials = reinterpret_cast<float2*>(entry->base + counts);
+  return 0;
+}
+
+// Launches kernel on plan's grid, block and cluster, with no fallback: a
+// refused launch returns its error.
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), const Plan& plan, cudaStream_t stream,
+           Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(plan.blocks);
+  cfg.blockDim = dim3(static_cast<unsigned int>(plan.threads));
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  if (plan.combine == kCluster) {
+    if (plan.per_channel > 8) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          reinterpret_cast<const void*>(kernel),
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned int>(plan.per_channel);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// What reduce() does with its plan.
+enum Action { kRun, kFloor, kPlanOnly };
+
+// Sizes plan and, by `action`, launches the reduction of op (a StatsOp or
+// GradSumsOp) through Kernels' wide<Mode> or narrow kernel, or the launch
+// floor of K1 (which 0) or K3 (1) on the same grid, or nothing.
+template <class Kernels, class Op>
+int launch_reduce(Plan& plan, const Op& op, const Shape& sh, int device,
+                  cudaStream_t stream, Action action, int which) {
+  const auto kernel = [&plan](auto ticket) {
+    constexpr bool T = decltype(ticket)::value;
+    return plan.path == kPathVector ? Kernels::template wide<kPathVector, T>()
+           : plan.path == kPathSplit ? Kernels::template wide<kPathSplit, T>()
+                                     : Kernels::template wide<kPathScalar, T>();
+  };
+  if (plan.path != kPathNarrow) {
+    const int err = size_wide(
+        plan, sh, reinterpret_cast<const void*>(kernel(std::false_type{})), device);
+    if (err) return err;
+  }
+  if (action == kPlanOnly) return 0;
+  if (action == kFloor)
+    return which == 0 ? launch(bn_floor_kernel<0>, plan, stream, 0)
+                      : launch(bn_floor_kernel<1>, plan, stream, 0);
+  if (plan.path == kPathNarrow)
+    return launch(Kernels::narrow(), plan, stream, op, sh.b, sh.c,
+                  static_cast<int>(sh.s), plan.tile, plan.rows);
+  Tickets tickets{nullptr, nullptr};
+  if (plan.combine != kTicket)
+    return launch(kernel(std::false_type{}), plan, stream, op, sh.b, sh.c,
+                  sh.s, plan.per_channel, plan.phase, tickets);
+  const int err = ticket_scratch(stream, device, sh.c,
+                                 sh.c * plan.per_channel, tickets);
+  if (err) return err;
+  return launch(kernel(std::true_type{}), plan, stream, op, sh.b, sh.c, sh.s,
+                plan.per_channel, plan.phase, tickets);
+}
+
+template <typename T>
+struct StatsKernels {
+  template <int Mode, bool Ticket>
+  static auto wide() { return bn_stats_kernel<T, Mode, Ticket>; }
+  static auto narrow() { return bn_stats_narrow_kernel<T>; }
+};
+
+template <typename TG, typename TX>
+struct GradSumsKernels {
+  template <int Mode, bool Ticket>
+  static auto wide() { return bn_grad_sums_kernel<TG, TX, Mode, Ticket>; }
+  static auto narrow() { return bn_grad_sums_narrow_kernel<TG, TX>; }
+};
+
+// K1 (kernel 0) or K3 (1) on these inputs with `path`, by `action`: run
+// it, launch the empty kernel on its grid, or only fill `plan`.  dz is
+// unused by K1; outputs: mean, var, rstd (K1) or d_gamma, d_beta, coef
+// (K3).
+int reduce(int kernel, int path, Action action, const void* dz, int dz_dtype,
+           const void* x, int x_dtype, const float* mean, const float* rstd,
+           const float* scale, float* out0, float* out1, float* out2,
+           const Shape& sh, float eps, int device, cudaStream_t stream,
+           Plan& plan) {
+  if ((kernel != 0 && kernel != 1) || !valid_dtype(x_dtype)
+      || (kernel == 1 && !valid_dtype(dz_dtype)))
+    return cudaErrorInvalidValue;
+  const int phase = element_phase(x, itemsize(x_dtype));
+  const bool same = kernel == 0 || element_phase(dz, itemsize(dz_dtype)) == phase;
+  int result = make_plan(path, sh, phase, same, plan);
+  if (result) return result;
+  const float n = static_cast<float>(sh.b * sh.s);
+  if (kernel == 0) {
+    with_type(x_dtype, [&](auto t) {
+      using T = decltype(t);
+      const StatsOp<T> op{static_cast<const T*>(x), out0, out1, out2, n, eps};
+      result = launch_reduce<StatsKernels<T>>(plan, op, sh, device, stream,
+                                              action, kernel);
+    });
+  } else {
+    with_type(dz_dtype, [&](auto tg) {
+      with_type(x_dtype, [&](auto tx) {
+        using TG = decltype(tg);
+        using TX = decltype(tx);
+        const GradSumsOp<TG, TX> op{static_cast<const TG*>(dz),
+                                    static_cast<const TX*>(x), mean, rstd,
+                                    scale, out0, out1, out2, sh.c, n};
+        result = launch_reduce<GradSumsKernels<TG, TX>>(
+            plan, op, sh, device, stream, action, kernel);
+      });
+    });
+  }
+  return result;
 }
 
 template <typename TX, typename TZ, int V>
@@ -417,18 +921,6 @@ void apply(const void* x, const float* mean, const float* rstd,
 }
 
 template <typename TG, typename TX, int V>
-void grad_partial(const void* dz, const void* x, const float* mean,
-                  const float* rstd, float* partial, const Shape& sh, int G,
-                  cudaStream_t stream) {
-  const long long sv = sh.s / V, nv = sh.b * sv;
-  const long long lv = (nv + G - 1) / G;
-  bn_grad_sums_partial_kernel<TG, TX, V>
-      <<<dim3(static_cast<unsigned int>(sh.c), G), kThreads, 0, stream>>>(
-          static_cast<const TG*>(dz), static_cast<const TX*>(x), mean, rstd,
-          partial, sh.c, sv, nv, lv, G);
-}
-
-template <typename TG, typename TX, int V>
 void dx(const void* dz, const void* x, const float* mean, const float* rstd,
         const float* coef, void* out, const Shape& sh, cudaStream_t stream) {
   const long long sv = sh.s / V, nv = sh.b * sh.c * sv;
@@ -439,38 +931,86 @@ void dx(const void* dz, const void* x, const float* mean, const float* rstd,
 
 }  // namespace
 
-// Floats of scratch the reductions (K1, K3) need: 2 * C * chunks.
-extern "C" long long bn_partial_floats(long long b, long long c, long long s) {
-  return 2 * c * chunks(b * s);
-}
-
 // K1.  x [b, c, s] (dtype code x_dtype) -> mean, var, rstd [c] f32.
-// partial: bn_partial_floats(b, c, s) floats.
-extern "C" int bn_stats_launch(const void* x, int x_dtype, void* partial,
-                               void* mean, void* var, void* rstd, long long b,
+extern "C" int bn_stats_launch(const void* x, int x_dtype, void* mean,
+                               void* var, void* rstd, long long b,
                                long long c, long long s, float eps, int device,
                                void* stream_ptr) {
   const Shape sh{b, c, s};
-  int err = start(device, sh);
+  const int err = start(device, sh);
   if (err) return err;
-  if (!valid_dtype(x_dtype)) return cudaErrorInvalidValue;
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int G = static_cast<int>(chunks(sh.elements_per_channel()));
-  const int vec = vector_width(s, {{x, itemsize(x_dtype)}});
-  with_type(x_dtype, [&](auto t) {
-    using T = decltype(t);
-    if (vec == 4)
-      stats_partial<T, 4>(x, static_cast<float*>(partial), sh, G, stream);
-    else
-      stats_partial<T, 1>(x, static_cast<float*>(partial), sh, G, stream);
-  });
-  err = static_cast<int>(cudaGetLastError());
+  Plan plan;
+  return reduce(0, kPathAuto, kRun, nullptr, 0, x, x_dtype, nullptr, nullptr,
+                nullptr, static_cast<float*>(mean), static_cast<float*>(var),
+                static_cast<float*>(rstd), sh, eps, device,
+                static_cast<cudaStream_t>(stream_ptr), plan);
+}
+
+// K3.  dz (dz_dtype) and x (x_dtype) [b, c, s] -> d_gamma, d_beta [c] and
+// coef [3, c] f32.
+extern "C" int bn_grad_sums_launch(const void* dz, int dz_dtype, const void* x,
+                                   int x_dtype, const void* mean,
+                                   const void* rstd, const void* scale,
+                                   void* d_gamma, void* d_beta, void* coef,
+                                   long long b, long long c, long long s,
+                                   int device, void* stream_ptr) {
+  const Shape sh{b, c, s};
+  const int err = start(device, sh);
   if (err) return err;
-  bn_stats_combine_kernel<<<combine_blocks(c), kThreads, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(mean),
-      static_cast<float*>(var), static_cast<float*>(rstd), c, G,
-      static_cast<float>(b * s), eps);
-  return static_cast<int>(cudaGetLastError());
+  Plan plan;
+  return reduce(1, kPathAuto, kRun, dz, dz_dtype, x, x_dtype,
+                static_cast<const float*>(mean),
+                static_cast<const float*>(rstd),
+                static_cast<const float*>(scale), static_cast<float*>(d_gamma),
+                static_cast<float*>(d_beta), static_cast<float*>(coef), sh,
+                0.0f, device, static_cast<cudaStream_t>(stream_ptr), plan);
+}
+
+// K1 (kernel 0; dz unused) or K3 (1) as above, on a given path (0 vector,
+// 1 split, 2 scalar, 3 narrow, -1 the shape's own), or with `floor` the
+// empty kernel on the same grid, block and cluster (the launch floor).
+// out0-2: mean, var, rstd (K1) or d_gamma, d_beta, coef (K3).
+extern "C" int bn_reduce_launch(int kernel, int path, int floor,
+                                const void* dz, int dz_dtype, const void* x,
+                                int x_dtype, const void* mean,
+                                const void* rstd, const void* scale,
+                                void* out0, void* out1, void* out2,
+                                long long b, long long c, long long s,
+                                float eps, int device, void* stream_ptr) {
+  const Shape sh{b, c, s};
+  const int err = start(device, sh);
+  if (err) return err;
+  Plan plan;
+  return reduce(kernel, path, floor ? kFloor : kRun, dz, dz_dtype, x, x_dtype,
+                static_cast<const float*>(mean),
+                static_cast<const float*>(rstd),
+                static_cast<const float*>(scale), static_cast<float*>(out0),
+                static_cast<float*>(out1), static_cast<float*>(out2), sh, eps,
+                device, static_cast<cudaStream_t>(stream_ptr), plan);
+}
+
+// The grid that bn_reduce_launch(kernel, path, ...) takes on these inputs
+// on device: out[0..5] = path, threads per block, blocks per channel,
+// blocks, channels per block, combine (0 one block, 1 cluster, 2 ticket).
+extern "C" int bn_reduce_plan(int kernel, int path, const void* dz,
+                              int dz_dtype, const void* x, int x_dtype,
+                              long long b, long long c, long long s,
+                              int device, int* out) {
+  const Shape sh{b, c, s};
+  const int err = start(device, sh);
+  if (err) return err;
+  Plan plan;
+  const int result = reduce(kernel, path, kPlanOnly, dz, dz_dtype, x, x_dtype,
+                            nullptr, nullptr, nullptr, nullptr, nullptr,
+                            nullptr, sh, 0.0f, device, nullptr, plan);
+  if (result) return result;
+  out[0] = plan.path;
+  out[1] = plan.threads;
+  out[2] = plan.per_channel;
+  out[3] = static_cast<int>(plan.blocks);
+  out[4] = plan.tile;
+  out[5] = plan.combine;
+  return 0;
 }
 
 // K2.  z = (x - mean) * rstd * scale + bias, z in dtype code z_dtype.
@@ -499,43 +1039,6 @@ extern "C" int bn_apply_launch(const void* x, int x_dtype, const void* mean,
         apply<TX, TZ, 1>(x, m, r, a, bb, z, sh, stream);
     });
   });
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K3.  dz (dz_dtype) and x (x_dtype) [b, c, s] -> d_gamma, d_beta [c] and
-// coef [3, c] f32.  partial: bn_partial_floats(b, c, s) floats.
-extern "C" int bn_grad_sums_launch(const void* dz, int dz_dtype, const void* x,
-                                   int x_dtype, const void* mean,
-                                   const void* rstd, const void* scale,
-                                   void* partial, void* d_gamma, void* d_beta,
-                                   void* coef, long long b, long long c,
-                                   long long s, int device, void* stream_ptr) {
-  const Shape sh{b, c, s};
-  int err = start(device, sh);
-  if (err) return err;
-  if (!valid_dtype(dz_dtype) || !valid_dtype(x_dtype)) return cudaErrorInvalidValue;
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int G = static_cast<int>(chunks(sh.elements_per_channel()));
-  const int vec = vector_width(s, {{dz, itemsize(dz_dtype)}, {x, itemsize(x_dtype)}});
-  const float* m = static_cast<const float*>(mean);
-  const float* r = static_cast<const float*>(rstd);
-  float* p = static_cast<float*>(partial);
-  with_type(dz_dtype, [&](auto tg) {
-    with_type(x_dtype, [&](auto tx) {
-      using TG = decltype(tg);
-      using TX = decltype(tx);
-      if (vec == 4)
-        grad_partial<TG, TX, 4>(dz, x, m, r, p, sh, G, stream);
-      else
-        grad_partial<TG, TX, 1>(dz, x, m, r, p, sh, G, stream);
-    });
-  });
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  bn_grad_sums_combine_kernel<<<combine_blocks(c), kThreads, 0, stream>>>(
-      p, r, static_cast<const float*>(scale), static_cast<float*>(d_gamma),
-      static_cast<float*>(d_beta), static_cast<float*>(coef), c, G,
-      static_cast<float>(b * s));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -92,15 +92,17 @@ def bn_dx_plain(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
 def _library() -> ctypes.CDLL:
     lib = _build.load('bn')
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.bn_partial_floats.argtypes = [ll, ll, ll]
-    lib.bn_partial_floats.restype = ll
-    lib.bn_stats_launch.argtypes = [p, i, p, p, p, p, ll, ll, ll, f, i, p]
+    lib.bn_stats_launch.argtypes = [p, i, p, p, p, ll, ll, ll, f, i, p]
     lib.bn_apply_launch.argtypes = [p, i, p, p, p, p, p, i, ll, ll, ll, i, p]
-    lib.bn_grad_sums_launch.argtypes = [p, i, p, i, p, p, p, p, p, p, p,
+    lib.bn_grad_sums_launch.argtypes = [p, i, p, i, p, p, p, p, p, p,
                                         ll, ll, ll, i, p]
     lib.bn_dx_launch.argtypes = [p, i, p, i, p, p, p, p, ll, ll, ll, i, p]
+    lib.bn_reduce_launch.argtypes = [i, i, i, p, i, p, i, p, p, p, p, p, p,
+                                     ll, ll, ll, f, i, p]
+    lib.bn_reduce_plan.argtypes = [i, i, p, i, p, i, ll, ll, ll, i, p]
     for fn in (lib.bn_stats_launch, lib.bn_apply_launch,
-               lib.bn_grad_sums_launch, lib.bn_dx_launch):
+               lib.bn_grad_sums_launch, lib.bn_dx_launch,
+               lib.bn_reduce_launch, lib.bn_reduce_plan):
         fn.restype = i
     lib.bn_error_string.argtypes = [i]
     lib.bn_error_string.restype = ctypes.c_char_p
@@ -163,13 +165,11 @@ def bn_stats(x: Tensor, eps: float) -> Tuple[Tensor, Tensor, Tensor]:
     if not _on_cuda(x):
         return bn_stats_plain(x, eps)
     _check_activation('x', x)
-    lib = _library()
     b, c, s = _geometry(x)
-    partial = _empty_f32(lib.bn_partial_floats(b, c, s), x.device)
     mean, var, rstd = (_empty_f32(c, x.device) for _ in range(3))
-    _launch(lib.bn_stats_launch, x.data_ptr(), _DTYPES[x.dtype],
-            partial.data_ptr(), mean.data_ptr(), var.data_ptr(),
-            rstd.data_ptr(), b, c, s, eps, device=x.device)
+    _launch(_library().bn_stats_launch, x.data_ptr(), _DTYPES[x.dtype],
+            mean.data_ptr(), var.data_ptr(), rstd.data_ptr(), b, c, s, eps,
+            device=x.device)
     bn_stats.launches += 1
     return mean, var, rstd
 
@@ -206,15 +206,13 @@ def bn_grad_sums(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
     _check_activation('dz', dz, like=x)
     for name, t in (('mean', mean), ('rstd', rstd), ('scale', scale)):
         _check_channel(name, t, x)
-    lib = _library()
     b, c, s = _geometry(x)
-    partial = _empty_f32(lib.bn_partial_floats(b, c, s), x.device)
     d_gamma, d_beta = _empty_f32(c, x.device), _empty_f32(c, x.device)
     coef = _empty_f32((3, c), x.device)
-    _launch(lib.bn_grad_sums_launch, dz.data_ptr(), _DTYPES[dz.dtype],
+    _launch(_library().bn_grad_sums_launch, dz.data_ptr(), _DTYPES[dz.dtype],
             x.data_ptr(), _DTYPES[x.dtype], mean.data_ptr(), rstd.data_ptr(),
-            scale.data_ptr(), partial.data_ptr(), d_gamma.data_ptr(),
-            d_beta.data_ptr(), coef.data_ptr(), b, c, s, device=x.device)
+            scale.data_ptr(), d_gamma.data_ptr(), d_beta.data_ptr(),
+            coef.data_ptr(), b, c, s, device=x.device)
     bn_grad_sums.launches += 1
     return d_gamma, d_beta, coef
 
@@ -240,5 +238,60 @@ def bn_dx(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
 
 # Kernel launches since each count was last set to 0.
 KERNELS = (bn_stats, bn_apply, bn_grad_sums, bn_dx)
+
+
+# ------------------------------------------------ the reductions' grids
+
+# K1's and K3's paths and how a channel's blocks combine (codes of
+# kernels/bn.cu): 'auto' is the shape's own path
+REDUCE_PATHS = {'auto': -1, 'vector': 0, 'split': 1, 'scalar': 2,
+                'narrow': 3}
+_COMBINES = ('one block', 'cluster', 'ticket')
+_REDUCE_KERNELS = {'bn_stats': 0, 'bn_grad_sums': 1}
+
+
+def reduce_plan(kernel: str, x: Tensor, dz: Optional[Tensor] = None,
+                path: str = 'auto') -> dict:
+    """The grid that K1 (``kernel='bn_stats'``) or K3 (``'bn_grad_sums'``,
+    with ``dz``) launches on these CUDA tensors on ``path``: the path, the
+    threads per block, the blocks per channel and how they combine, the
+    blocks and the channels per block."""
+    b, c, s = _geometry(x)
+    out = (ctypes.c_int * 6)()
+    err = _library().bn_reduce_plan(
+        _REDUCE_KERNELS[kernel], REDUCE_PATHS[path],
+        dz.data_ptr() if dz is not None else None,
+        _DTYPES[dz.dtype] if dz is not None else 0, x.data_ptr(),
+        _DTYPES[x.dtype], b, c, s, x.device.index, out)
+    if err:
+        raise ValueError(f'{kernel} takes no path {path!r} on {tuple(x.shape)}')
+    names = {v: k for k, v in REDUCE_PATHS.items()}
+    return {'path': names[out[0]], 'threads': out[1],
+            'blocks_per_channel': out[2], 'combine': _COMBINES[out[5]],
+            'blocks': out[3], 'channels_per_block': out[4]}
+
+
+def reduce_launcher(kernel: str, x: Tensor, dz: Optional[Tensor] = None,
+                    mean: Optional[Tensor] = None, rstd: Optional[Tensor] = None,
+                    scale: Optional[Tensor] = None, path: str = 'auto',
+                    floor: bool = False, eps: float = 1e-5):
+    """A call that launches K1 (``kernel='bn_stats'``) or K3
+    (``'bn_grad_sums'``, with ``dz``, ``mean``, ``rstd`` and ``scale``) on
+    ``path`` into outputs allocated once, or with ``floor`` an empty kernel
+    on the same grid, block and cluster (the launch floor); the wrappers'
+    launch counts are untouched.  For timing."""
+    b, c, s = _geometry(x)
+    outs = [_empty_f32(c, x.device), _empty_f32(c, x.device),
+            _empty_f32((3, c) if kernel == 'bn_grad_sums' else c, x.device)]
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    args = (_REDUCE_KERNELS[kernel], REDUCE_PATHS[path], int(floor), ptr(dz),
+            _DTYPES[dz.dtype] if dz is not None else 0, x.data_ptr(),
+            _DTYPES[x.dtype], ptr(mean), ptr(rstd), ptr(scale),
+            *(t.data_ptr() for t in outs), b, c, s, eps)
+
+    def launch():
+        _launch(_library().bn_reduce_launch, *args, device=x.device)
+        return outs
+    return launch
 for _fn in KERNELS:
     _fn.launches = 0

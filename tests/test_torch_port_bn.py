@@ -17,6 +17,10 @@ flax atol 1e-5 (flax multiplies by ``scale * rsqrt`` first, the Pallas and
 port order is ``rsqrt`` then ``scale``: a 1-ulp difference).
 """
 
+import ast
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -225,3 +229,56 @@ def test_layer_eval_mode_uses_running_statistics():
                                ((x - 0.5) / np.sqrt(4.0 + 1e-5)).numpy(),
                                rtol=0, atol=1e-6)
     assert float(layer.running_mean[0]) == 0.5
+
+
+# ------------------------------------------- the CUDA source and its callers
+
+REPO = Path(__file__).resolve().parents[1]
+BN_CU = REPO / 'single_shot_detection_tpu_torch' / 'kernels' / 'bn.cu'
+
+
+def _assigned(path: Path, name: str):
+    """The value of the module-level assignment ``name = <literal>``."""
+    for node in ast.parse(path.read_text()).body:
+        if (isinstance(node, ast.Assign)
+                and any(getattr(t, 'id', None) == name for t in node.targets)):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f'no {name} in {path}')
+
+
+def test_every_bn_kernel_is_counted_under_its_wrapper():
+    """Each ``__global__`` kernel of bn.cu is one of its wrapper's kernels in
+    chip_smoke.py's ``BN_KERNELS`` (the profiled steps sum device time by
+    those names), or the launch floor of ``FLOOR_KERNELS``; no name matches
+    another wrapper's kernel by substring."""
+    kernels = set(re.findall(
+        r'__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(',
+        BN_CU.read_text()))
+    by_wrapper = {name: names for name, (names, _, _)
+                  in _assigned(REPO / 'chip_smoke.py', 'BN_KERNELS').items()}
+    floors = {n.split('<')[0] for names in _assigned(
+        REPO / 'chip_smoke.py', 'FLOOR_KERNELS').values() for n in names}
+    listed = [n for names in by_wrapper.values() for n in names]
+    assert len(listed) == len(set(listed))
+    assert kernels == set(listed) | floors
+    assert set(by_wrapper) == {fn.__name__ for fn in bn_kernel.KERNELS}
+    for wrapper, names in by_wrapper.items():
+        for name in names:
+            for kernel in kernels - set(names):
+                assert name not in kernel, (wrapper, name, kernel)
+
+
+def test_bn_launchers_match_their_argtypes():
+    """Each ``extern "C"`` function of bn.cu takes as many parameters as
+    ``ops/bn_kernel.py::_library`` declares in its ``argtypes``."""
+    declared = {}
+    for node in ast.walk(ast.parse(Path(bn_kernel.__file__).read_text())):
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Attribute)
+                and node.targets[0].attr == 'argtypes'):
+            declared[node.targets[0].value.attr] = len(node.value.elts)
+    source = BN_CU.read_text()
+    defined = {name: len([p for p in params.split(',') if p.strip()])
+               for name, params in re.findall(
+                   r'extern "C" [\w\s\*]*?\b(\w+)\(([^)]*)\)\s*\{', source)}
+    assert defined and defined == declared
