@@ -111,7 +111,27 @@ design), in phase 14.  Phases, each fatal:
     parent's partial and combine passes in turns: parent, this, this,
     parent), the bound and the launch floor (an empty kernel on the same
     grid, block and cluster); each step's sums (count x µs); and the split
-    and scalar paths side by side at S = 361 and S = 5625.
+    and scalar paths side by side at S = 361 and S = 5625;
+15. bf16 and the precision options (``POLICIES``: f32 with TF32 off, f32
+    with TF32, bf16 activations): the flagship's ``Predictor(bf16=True)``
+    answering b32 and b128 batches (NMS launched twice, no BN), its heads
+    on the card against the port's bf16 forward on the CPU (within twice
+    the CPU's bf16-to-f32 distance), the NMS kernel exact on its inputs,
+    ``predict_batch`` ms of the three policies in turns at b32 and b128;
+    a profiler table of the bf16 b32 call; one soft-NMS b32 call (no NMS
+    kernel launch; its pick mask on the card equal to the CPU's on the
+    same inputs; the share of detection rows equal end to end) and its ms; the flagship's b32 train step with ``bf16`` and
+    ``fused_bn`` (3 steps, each BN kernel launched 64 times a step; one
+    step against PyTorch's BN at bf16, the loss within
+    ``BF16_LIBRARY_LOSS_RTOL`` and the running statistics within
+    ``BF16_STATS_FACTOR`` times their distance to the f32 step; K1-K4 at bf16 on the step's 30 distinct BN
+    shapes within ``BN_TOL``, K1 and K3 bit-equal twice; each BN kernel's
+    device time over the step beside its bf16 bound and the PyTorch pairs
+    at bf16; each kernel per launch at ``BN_TIMED_SHAPE`` in bf16); that
+    step and RetinaNet-ResNet50-500's b16 step at the three policies in
+    turns, ms and device ms; and ``python -m single_shot_detection_tpu_torch
+    --bf16`` (in process) for one synthetic epoch with an evaluation and a
+    checkpoint (f32 on disk).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -650,22 +670,26 @@ def check_bn_kernels(cases=BN_CASES, quiet: bool = False) -> dict:
     return worst
 
 
-def bn_bound_ms(name: str, elements: int, channels: int, card: str) -> Tuple[float, str]:
-    """Least time for one launch of BN kernel ``name`` on ``elements`` f32
-    values in ``channels`` channels, and what bounds it."""
+def bn_bound_ms(name: str, elements: int, channels: int, card: str,
+                itemsize: int = 4) -> Tuple[float, str]:
+    """Least time for one launch of BN kernel ``name`` on ``elements``
+    values of ``itemsize`` bytes (4: f32, 2: bf16; statistics f32) in
+    ``channels`` channels, and what bounds it."""
     per_channel_bytes = {'bn_stats': 12, 'bn_apply': 16, 'bn_grad_sums': 32,
                          'bn_dx': 20}[name]
-    nbytes = BN_KERNELS[name][1] * elements + per_channel_bytes * channels
+    nbytes = (BN_KERNELS[name][1] * itemsize // 4 * elements
+              + per_channel_bytes * channels)
     bytes_ms = nbytes / hbm_rate(card) * 1e3
     ops_ms = BN_OPS_PER_ELEMENT[name] * elements / FP32_RATE * 1e3
     return max(bytes_ms, ops_ms), 'bytes' if bytes_ms >= ops_ms else 'operations'
 
 
-def time_bn_kernels(card: str) -> dict:
-    """Each BN kernel at ``BN_TIMED_SHAPE`` (f32): device time per launch,
-    the plain version's time, the bound, and the PyTorch pair that computes
-    the same function (``torch.native_batch_norm`` and its backward)."""
-    x, dz, scale, bias = bn_inputs(BN_TIMED_SHAPE, torch.float32,
+def time_bn_kernels(card: str, dtype=torch.float32) -> dict:
+    """Each BN kernel at ``BN_TIMED_SHAPE`` with activations in ``dtype``:
+    device time per launch, the plain version's time, the bound, and the
+    PyTorch pair that computes the same function (``torch.native_batch_norm``
+    and its backward)."""
+    x, dz, scale, bias = bn_inputs(BN_TIMED_SHAPE, dtype,
                                    torch.Generator().manual_seed(SEED + 3))
     mean, _, rstd = bn_kernel.bn_stats(x, BN_EPS)
     _, _, coef = bn_kernel.bn_grad_sums(dz, x, mean, rstd, scale)
@@ -674,7 +698,7 @@ def time_bn_kernels(card: str) -> dict:
                      lambda: bn_kernel.bn_stats_plain(x, BN_EPS)),
         'bn_apply': (lambda: bn_kernel.bn_apply(x, mean, rstd, scale, bias),
                      lambda: bn_kernel.bn_apply_plain(x, mean, rstd, scale,
-                                                      bias, torch.float32)),
+                                                      bias, dtype)),
         'bn_grad_sums': (lambda: bn_kernel.bn_grad_sums(dz, x, mean, rstd, scale),
                          lambda: bn_kernel.bn_grad_sums_plain(dz, x, mean, rstd,
                                                               scale)),
@@ -684,7 +708,8 @@ def time_bn_kernels(card: str) -> dict:
     elements, channels = x.numel(), x.shape[1]
     out = {}
     for name, (kernel, plain) in calls.items():
-        bound, bound_by = bn_bound_ms(name, elements, channels, card)
+        bound, bound_by = bn_bound_ms(name, elements, channels, card,
+                                      x.element_size())
         out[name] = {'ms': kernels_device_ms(kernel, [BN_KERNELS[name][0]], 20),
                      'plain_ms': cuda_ms(plain, iters=5),
                      'bound_ms': bound, 'bound_by': bound_by}
@@ -957,9 +982,11 @@ def train_batch(rng: np.random.RandomState, b: int = 32, g: int = 8,
     return images, boxes.astype(np.float32), mask
 
 
-def build_trainer(fused_bn: bool, config: str = FLAGSHIP) -> Trainer:
+def build_trainer(fused_bn: bool, config: str = FLAGSHIP, **policy) -> Trainer:
+    """``policy``: ``bf16`` and ``matmul_precision`` as ``Trainer`` takes
+    them."""
     return Trainer.from_config(config, device='cuda', seed=SEED, overrides={
-        'augmentations': [], 'train': {'fused_bn': fused_bn}})
+        'augmentations': [], 'train': {'fused_bn': fused_bn}}, **policy)
 
 
 def run_training_path(trainer: Trainer, batches):
@@ -1034,7 +1061,8 @@ def time_train_steps(kernels: Trainer, library: Trainer, batch,
 
 
 def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str,
-                       key: str, table: bool = True, parent_bn=None) -> dict:
+                       key: str, table: bool = True, parent_bn=None,
+                       itemsize: int = 4) -> dict:
     """One profiled train step of path ``key``: its BN shapes held against
     ``STEP_BN_SHAPES``, each BN kernel's device time in the step beside its
     bound for the step's shapes, the card's busy time, (with ``table``) the
@@ -1068,7 +1096,8 @@ def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str,
     for name, (cuda_names, _, _) in BN_KERNELS.items():
         total = group_us(prof, cuda_names)[0]
         out[name] = {'step_ms': total / 1e3, 'step_bound_ms': sum(
-            bn_bound_ms(name, math.prod(s), s[1], card)[0] for s in shapes)}
+            bn_bound_ms(name, math.prod(s), s[1], card, itemsize)[0]
+            for s in shapes)}
     busy_ms = busy_us(prof) / 1e3
     out['device_busy_ms'] = busy_ms
     out['profiled_step_wall_ms'] = wall_ms
@@ -1107,17 +1136,17 @@ def device_busy_ms(fn, iters: int = 3) -> float:
     fail('profiler saw no device time in any window')
 
 
-def library_bn_step_ms(shapes) -> dict:
-    """The PyTorch pairs over one train step's BN shapes (f32, one call per
-    shape): ``native_batch_norm`` (K1+K2) and
-    ``native_batch_norm_backward`` (K3+K4), device time summed over all of
-    their kernels."""
+def library_bn_step_ms(shapes, dtype=torch.float32) -> dict:
+    """The PyTorch pairs over one train step's BN shapes (activations in
+    ``dtype``, parameters f32, one call per shape): ``native_batch_norm``
+    (K1+K2) and ``native_batch_norm_backward`` (K3+K4), device time summed
+    over all of their kernels."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
     data = []
     for shape in shapes:
         c = shape[1]
-        data.append((torch.randn(shape, device='cuda', generator=gen),
-                     torch.randn(shape, device='cuda', generator=gen),
+        data.append((torch.randn(shape, device='cuda', generator=gen).to(dtype),
+                     torch.randn(shape, device='cuda', generator=gen).to(dtype),
                      torch.rand(c, device='cuda', generator=gen) + 0.5,
                      torch.randn(c, device='cuda', generator=gen) * 0.1))
 
@@ -1759,16 +1788,17 @@ def write_zoo_cli_config(path: Path, config: str, data: dict) -> str:
 
 
 def zoo_cli(work: str, n_bn: int, config: str = RETINA,
-            data: dict = RETINA_CLI_DATA) -> dict:
+            data: dict = RETINA_CLI_DATA, flags=()) -> dict:
     """``python -m single_shot_detection_tpu_torch`` (in process) on
-    ``config`` with the synthetic ``data``: one epoch of augmented steps,
-    an evaluation and a checkpoint; losses finite, mAP in [0, 1], every
-    kernel's launches as the loaders' lengths say."""
+    ``config`` with the synthetic ``data`` and the CLI's ``flags``: one
+    epoch of augmented steps, an evaluation and a checkpoint; losses
+    finite, mAP in [0, 1], every kernel's launches as the loaders' lengths
+    say."""
     name = Path(config).stem
     config = write_zoo_cli_config(Path(work) / f'{name}_cli.py', config, data)
     exp, rows, launches, seconds, epoch_s = run_cli(
         ['--config', config, '--phases', 'train', 'eval', '--save-dir',
-         os.path.join(work, 'runs')])
+         os.path.join(work, 'runs'), *flags])
     steps = len(exp.loaders['train'])
     eval_batches = len(exp.loaders['eval'])
     if [r['epoch'] for r in rows] != [0]:
@@ -1784,19 +1814,26 @@ def zoo_cli(work: str, n_bn: int, config: str = RETINA,
         fail(f'{name} CLI kernel launches {launches}, expected {want}')
     if f'ckpt-{steps}.pt' not in os.listdir(exp.checkpoint_dir):
         fail(f'{name} CLI wrote {os.listdir(exp.checkpoint_dir)}')
+    saved = torch.load(os.path.join(exp.checkpoint_dir, f'ckpt-{steps}.pt'),
+                       weights_only=True)['model']
+    if any(v.dtype not in (torch.float32, torch.int64) for v in saved.values()):
+        fail(f'{name} CLI saved a checkpoint that is not f32')
     images = steps * exp.loaders['train'].batch_size
-    log(f'  {name} through python -m single_shot_detection_tpu_torch (in '
-        f'this process), fused_bn, synthetic {data["train"]["image_size"]} '
+    log(f'  {name} through python -m single_shot_detection_tpu_torch '
+        f'{" ".join(flags)} (in this process), {str(exp.model.dtype)[6:]} '
+        f'activations, fused_bn, synthetic {data["train"]["image_size"]} '
         f'px data: {steps} b'
         f'{exp.loaders["train"].batch_size} steps, {eval_batches} eval '
         f'batches, a checkpoint, in {seconds:.2f} s; epoch {epoch_s[0]:.3f} s '
         f'= {images / epoch_s[0]:.1f} img/s; ' + json.dumps(row)
         + '; kernel launches ' + json.dumps(launches))
+    dtype = exp.model.dtype
     del exp
     torch.cuda.empty_cache()
     return {'seconds': seconds, 'epoch_s': epoch_s[0],
             'epoch_img_per_s': images / epoch_s[0], 'row': row,
-            'launches': launches, 'steps': steps, 'eval_batches': eval_batches}
+            'launches': launches, 'steps': steps, 'eval_batches': eval_batches,
+            'dtype': str(dtype)}
 
 
 def run_zoo(card: str, smi: str, parent_bn=None) -> dict:
@@ -2260,6 +2297,317 @@ def time_bn_shapes(card: str, parent=None) -> dict:
             'odd_plane_paths': odd}
 
 
+# --------------------------------------------------------------- phase 15
+
+# The numeric policies phase 15 runs in turns: f32 with TF32 off (the
+# default), f32 with TF32 on (``--matmul-precision high``) and bf16
+# activations (``--bf16``; its default precision has TF32 on)
+POLICIES = {'f32': {}, 'tf32': {'matmul_precision': 'high'},
+            'bf16': {'bf16': True}}
+# The bf16 train step with the BN kernels against the same step with
+# PyTorch's batch norm, both on bf16 activations with f32 statistics: the
+# two round each BN output to bf16 from f32 values computed in another
+# order, so an element may land one bf16 step (2**-8) apart and carry that
+# through the 64 BNs in series (the first run on the H100: loss 1.84e-3
+# apart, running statistics 1.85e-2 of max(1, |value|)).  The loss, which
+# averages such noise over thousands of anchors, relative; the running
+# statistics within ``BF16_STATS_FACTOR`` times the distance from the
+# kernels' bf16 step to their f32 step from the same state (the largest
+# over every statistic, as a fraction of max(1, |value|)).
+BF16_LIBRARY_LOSS_RTOL = 5e-3
+BF16_STATS_FACTOR = 2.0
+# Soft-NMS on the card against the CPU: the pick mask on the same inputs
+# equal; end to end (each device's own softmax and decode) the share of
+# detection rows within these tolerances, reported: a last-bit difference
+# in a probability can reorder two near-equal candidates
+SOFT_NMS_RTOL, SOFT_NMS_ATOL = 1e-6, 1e-5
+
+
+def in_turns(calls: dict, iters: int, warmup: int = 2) -> dict:
+    """Host ms of each call of ``calls`` (name -> fn, each ending in a
+    device synchronize) in turns: the names in order, then reversed;
+    ``iters`` calls a turn after ``warmup``.  Each side's median and all
+    of its times."""
+    order = list(calls) + list(reversed(list(calls)))
+    times = {name: [] for name in calls}
+    for name in order:
+        times[name] += host_times_ms(calls[name], iters=iters, warmup=warmup)
+    return {name: {'ms': statistics.median(t), 'all_ms': t}
+            for name, t in times.items()}
+
+
+def bf16_forward_vs_cpu(pred: Predictor, x: torch.Tensor) -> dict:
+    """The bf16 heads on the card against the port's bf16 forward on the
+    CPU, each within twice the CPU's own bf16-to-f32 distance (the CPU
+    tests' tolerance against JAX)."""
+    with torch.inference_mode(), pred.policy.scope():
+        card = pred.model(x[:2])
+    cpu_bf16 = copy.deepcopy(pred.model).cpu()
+    cpu_f32 = copy.deepcopy(pred.model).cpu()
+    cpu_f32.dtype = cpu_f32.head_dtype = torch.float32
+    with torch.inference_mode():
+        ref = cpu_bf16(x[:2].cpu())
+        f32 = cpu_f32(x[:2].cpu())
+    out = {}
+    for name, got, want, wide in zip(('scores', 'locs'), card, ref, f32):
+        if got.dtype != torch.bfloat16:
+            fail(f'bf16 serving: {name} in {got.dtype}')
+        err = (got.float().cpu() - want.float()).abs().max().item()
+        tol = 2 * (want.float() - wide).abs().max().item()
+        if not err <= tol:
+            fail(f'bf16 serving: {name} on the card differs from the CPU by '
+                 f'{err}, more than twice bf16\'s distance from f32 ({tol})')
+        out[name] = {'max_abs_err': err, 'tol': tol}
+    return out
+
+
+def bf16_serving(card: str, smi: str) -> dict:
+    """The flagship ``Predictor`` at f32, TF32 and bf16: the bf16 one
+    answers b32 and b128 batches with the kernels' counts read around
+    them, its heads against the CPU, the NMS kernel exact on its inputs;
+    ``predict_batch`` ms of the three in turns; one soft-NMS b32 call on
+    the bf16 heads against the CPU, and its ms."""
+    preds = {name: Predictor.from_config(FLAGSHIP, device='cuda', seed=SEED,
+                                         **policy)
+             for name, policy in POLICIES.items()}
+    for pred in preds.values():
+        perturb_bn(pred.model, torch.Generator().manual_seed(SEED + 1))
+    pred = preds['bf16']
+    rng = np.random.RandomState(SEED + 9)
+    batches = {bs: rng.randint(0, 256, (bs, 300, 300, 3), dtype=np.uint8)
+               for bs in (32, 128)}
+    zero_launches()
+    outs = {bs: pred.predict_batch(b) for bs, b in batches.items()}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches['nms_keep_batched'] != 2 or any(
+            launches[fn.__name__] for fn in bn_kernel.KERNELS):
+        fail(f'bf16 serving launched {launches}, expected NMS 2 and no BN')
+    for bs, (dets, valid) in outs.items():
+        if (tuple(dets.shape) != (bs, pred.postprocessor.max_total, 6)
+                or not torch.isfinite(dets).all() or not valid.any(1).all()):
+            fail(f'bf16 predict_batch({bs}): shapes {tuple(dets.shape)}, '
+                 'non-finite or empty detections')
+    x = pred.preprocess(torch.from_numpy(batches[32]).cuda())
+    forward = bf16_forward_vs_cpu(pred, x)
+    nms = time_nms(pred.postprocessor.overlap_threshold, {
+        'bf16 b32 serving': nms_inputs(pred, batches[32])}, card)
+    out = {'launches': launches, 'forward_vs_cpu': forward, 'nms': nms,
+           'valid_per_image_b32': outs[32][1].sum(1).tolist()}
+    for bs, images in batches.items():
+        turns = in_turns({name: (lambda p=p: p.predict_batch(images))
+                          for name, p in preds.items()}, iters=8)
+        out[f'predict_batch_b{bs}'] = turns
+    log(f'  bf16 serving: predict_batch(32) and (128), {launches}; heads card '
+        'vs CPU ' + ', '.join(f'{k} {v["max_abs_err"]:.3g} (tol {v["tol"]:.3g})'
+                              for k, v in forward.items()))
+    for bs in batches:
+        log(f'  {smi}: predict_batch b{bs} in turns: ' + ', '.join(
+            f'{name} {row["ms"]:.3f} ms = {bs * 1e3 / row["ms"]:.1f} img/s'
+            for name, row in out[f'predict_batch_b{bs}'].items()))
+
+    profile_b32(pred, rng)
+
+    # soft-NMS on the bf16 heads (f32, as the postprocessor takes them)
+    with torch.inference_mode(), pred.policy.scope():
+        scores, locs = (t.float() for t in pred.model(x))
+    soft = copy.copy(pred.postprocessor)
+    soft.soft = True
+    captured = {}
+    soft_nms = nms_ops.soft_nms
+
+    def capture(boxes, scores_, threshold, sigma):
+        captured.update(boxes=boxes, scores=scores_)
+        return soft_nms(boxes, scores_, threshold, sigma)
+
+    nms_ops.soft_nms = capture
+    try:
+        zero_launches()
+        dets, valid = soft(scores, locs, pred.anchors)
+        torch.cuda.synchronize()
+    finally:
+        nms_ops.soft_nms = soft_nms
+    if nms_kernel.nms_keep_batched.launches:
+        fail('soft-NMS launched the hard NMS kernel')
+    # the pick mask on the same inputs on the card and on the CPU
+    args = (soft.score_threshold, soft.sigma)
+    picks = soft_nms(captured['boxes'], captured['scores'], *args)
+    cpu_picks = soft_nms(captured['boxes'].cpu(), captured['scores'].cpu(),
+                         *args)
+    if not torch.equal(picks.cpu(), cpu_picks):
+        fail('soft-NMS picks on the card differ from the CPU\'s on the same '
+             f'inputs in {(picks.cpu() != cpu_picks).sum().item()} places')
+    # end to end, the softmax and decode of each device: rows that agree
+    cpu_dets, cpu_valid = soft(scores.cpu(), locs.cpu(), pred.anchors.cpu())
+    close = ((dets.cpu() - cpu_dets).abs()
+             <= SOFT_NMS_ATOL + SOFT_NMS_RTOL * cpu_dets.abs()).all(-1)
+    same_rows = (close & (valid.cpu() == cpu_valid)).double().mean().item()
+    hard_valid = pred.postprocessor(scores, locs, pred.anchors)[1]
+    out['soft_nms'] = {
+        'b32_ms': cuda_ms(lambda: soft(scores, locs, pred.anchors), iters=10),
+        'soft_nms_alone_b32_ms': cuda_ms(
+            lambda: soft_nms(captured['boxes'], captured['scores'], *args),
+            iters=10),
+        'picks': int(picks.sum()), 'rows_equal_to_cpu': same_rows,
+        'valid_mean': valid.sum(1).double().mean().item(),
+        'hard_valid_mean': hard_valid.sum(1).double().mean().item()}
+    log(f'  soft-NMS b32 (sigma {soft.sigma}, K {soft.max_per_class}): '
+        f'{out["soft_nms"]["b32_ms"]:.3f} ms per postprocessor call '
+        f'({out["soft_nms"]["soft_nms_alone_b32_ms"]:.3f} ms in soft_nms), '
+        'no NMS kernel launch; picks on the card == CPU on the same inputs '
+        f'({int(picks.sum())} picks); end to end {same_rows:.2%} of the '
+        'detection rows equal to the CPU\'s; '
+        f'{out["soft_nms"]["valid_mean"]:.1f} detections per image (hard '
+        f'NMS {out["soft_nms"]["hard_valid_mean"]:.1f})')
+    del preds, pred, outs
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_turns(trainers: dict, batch, iters: int) -> dict:
+    """Each trainer's step in turns (``in_turns``) and its device time per
+    step (every kernel, from the profiler)."""
+    out = in_turns({name: (lambda t=t: t.train_step(*batch))
+                    for name, t in trainers.items()}, iters=iters)
+    for name, t in trainers.items():
+        out[name]['device_ms'] = device_busy_ms(lambda: t.train_step(*batch),
+                                                iters=2)
+    return out
+
+
+def stats_distance(a: Trainer, b: Trainer):
+    """The largest difference of the BN running statistics of two
+    trainers, as a fraction of max(1, |value|) of each tensor, and its
+    tensor."""
+    got, want = a.model.state_dict(), b.model.state_dict()
+    return max(((got[k] - want[k]).abs().max().item()
+                / max(1.0, want[k].abs().max().item()), k)
+               for k in want if k.endswith(('running_mean', 'running_var')))
+
+
+def bf16_against_library_bn(trainer: Trainer, f32: Trainer, batch) -> dict:
+    """One step from ``trainer``'s state three ways: bf16 with the BN
+    kernels (``trainer``), bf16 with PyTorch's BN, f32 with the kernels
+    (``f32``): the two bf16 losses within ``BF16_LIBRARY_LOSS_RTOL``, their
+    running statistics within ``BF16_STATS_FACTOR`` times the kernels'
+    bf16-to-f32 distance."""
+    library = build_trainer(False, bf16=True)
+    for other in (library, f32):
+        other.model.load_state_dict(trainer.model.state_dict())
+        other.state.optimizer.load_state_dict(
+            trainer.state.optimizer.state_dict())
+        other.state.step = trainer.state.step
+    on, off, wide = (t.train_step(*batch)['loss'].item()
+                     for t in (trainer, library, f32))
+    loss_rel = abs(on - off) / abs(off)
+    if not loss_rel <= BF16_LIBRARY_LOSS_RTOL:
+        fail(f'bf16 loss with the BN kernels {on} vs PyTorch BN {off}')
+    stats_err, worst = stats_distance(trainer, library)
+    f32_err, f32_worst = stats_distance(trainer, f32)
+    if not stats_err <= BF16_STATS_FACTOR * f32_err:
+        fail(f'bf16 running statistics, BN kernels vs PyTorch BN: {stats_err} '
+             f'({worst}), over {BF16_STATS_FACTOR} x their distance to f32 '
+             f'{f32_err} ({f32_worst})')
+    log(f'  one bf16 step, BN kernels vs PyTorch BN: loss {on:.6f} vs '
+        f'{off:.6f} (rel {loss_rel:.3g}, tol {BF16_LIBRARY_LOSS_RTOL}; f32 '
+        f'{wide:.6f}); running statistics {stats_err:.3g} of max(1, |value|) '
+        f'({worst}) against bf16 vs f32 {f32_err:.3g} ({f32_worst})')
+    del library
+    torch.cuda.empty_cache()
+    return {'loss_rel_err': loss_rel, 'f32_loss': wide,
+            'stats_max_rel_err': stats_err, 'f32_stats_max_rel_err': f32_err}
+
+
+def bf16_training(card: str, smi: str) -> dict:
+    """The flagship's b32 train step with ``bf16`` and ``fused_bn``: 3
+    steps with the BN counts read around them, one step against the same
+    bf16 step with PyTorch's BN, K1-K4 at bf16 on every distinct BN shape
+    of the step, each BN kernel's device time over a step beside its bf16
+    bound and the PyTorch pairs at bf16, each kernel per launch at
+    ``BN_TIMED_SHAPE`` in bf16; the step at f32, TF32 and bf16 in turns."""
+    trainers = {name: build_trainer(True, **policy)
+                for name, policy in POLICIES.items()}
+    trainer = trainers['bf16']
+    n_bn = sum(isinstance(m, BatchNorm) for m in trainer.model.modules())
+    rng = np.random.RandomState(SEED + 10)
+    batches = [train_batch(rng) for _ in range(3)]
+    zero_launches()
+    metrics, launches = run_training_path(trainer, batches)
+    check_training_path(metrics, launches, n_bn)
+    launches['nms_keep_batched'] = nms_kernel.nms_keep_batched.launches
+    log(f'  bf16 train_step(32) x 3 with fused_bn: losses '
+        + ', '.join(f'{m["loss"]:.4f}' for m in metrics)
+        + '; BN kernel launches ' + json.dumps(launches))
+    library = bf16_against_library_bn(trainer, trainers['f32'], batches[0])
+    step = profile_train_step(trainer, batches[0], n_bn, card, 'flagship',
+                              table=False, itemsize=2)
+    shapes = step.pop('bn_shapes')
+    distinct = sorted(set(shapes), key=math.prod, reverse=True)
+    bn_check = check_bn_kernels(
+        [(str(list(s)), s, torch.bfloat16) for s in distinct], quiet=True)
+    log(f'  K1-K4 at bf16 vs plain on the {len(distinct)} distinct BN shapes '
+        'of the bf16 step: within BN_TOL, K1 and K3 bit-equal twice')
+    turns = step_turns(trainers, batches[0], iters=6)
+    del trainers, trainer
+    torch.cuda.empty_cache()
+    library_step = library_bn_step_ms(shapes, torch.bfloat16)
+    per_launch = time_bn_kernels(card, torch.bfloat16)
+    for name in BN_KERNELS:
+        k, s = per_launch[name], step[name]
+        log(f'  {name} bf16: {k["ms"] * 1e3:.2f} us/launch at '
+            f'{list(BN_TIMED_SHAPE)} (bound {k["bound_ms"] * 1e3:.2f} us; '
+            f'PyTorch {k["library_pair"]} pair {k["library_ms"] * 1e3:.2f} '
+            f'us); {s["step_ms"]:.3f} ms per step (bound '
+            f'{s["step_bound_ms"]:.3f} ms, {s["step_bound_ms"] / s["step_ms"]:.0%})')
+    for pair, ms in library_step.items():
+        log(f'  bf16 per step over the {n_bn} BN shapes: PyTorch pair {pair} '
+            f'{ms:.3f} ms')
+    log(f'  {smi}: flagship train_step b32 in turns: ' + ', '.join(
+        f'{name} {row["ms"]:.2f} ms ({row["device_ms"]:.2f} ms device)'
+        for name, row in turns.items()))
+    return {'n_bn': n_bn, 'losses': [m['loss'] for m in metrics],
+            'launches': launches, **library, 'bn_step': step,
+            'library_step_ms': library_step, 'per_launch': per_launch,
+            'bn_max_abs_err': bn_check, 'device_busy_ms': step['device_busy_ms'],
+            'turns': turns}
+
+
+def bf16_retina(smi: str) -> dict:
+    """RetinaNet-ResNet50-500's b16 train step with ``fused_bn`` at f32,
+    TF32 and bf16 in turns: ms and device ms."""
+    trainers = {name: build_trainer(True, RETINA, **policy)
+                for name, policy in POLICIES.items()}
+    batch = train_batch(np.random.RandomState(SEED + 11), ZOO_BATCH, size=500)
+    for name, t in trainers.items():
+        loss = t.train_step(*batch)['loss'].item()
+        if not np.isfinite(loss):
+            fail(f'RetinaNet {name} step: loss {loss}')
+    turns = step_turns(trainers, batch, iters=3)
+    log(f'  {smi}: {RETINA} train_step b{ZOO_BATCH} in turns: ' + ', '.join(
+        f'{name} {row["ms"]:.2f} ms ({row["device_ms"]:.2f} ms device)'
+        for name, row in turns.items()))
+    del trainers
+    torch.cuda.empty_cache()
+    return turns
+
+
+def run_precision(card: str, smi: str) -> dict:
+    """Phase 15: bf16 and the precision options on the main paths."""
+    out = {'serving': bf16_serving(card, smi),
+           'training': bf16_training(card, smi),
+           'retina': bf16_retina(smi)}
+    work = tempfile.mkdtemp(prefix='chip_smoke_bf16_')
+    try:
+        cli_run = zoo_cli(work, out['training']['n_bn'], FLAGSHIP, CLI_DATA,
+                          flags=('--bf16',))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if cli_run['dtype'] != str(torch.bfloat16):
+        fail(f'--bf16 ran the model in {cli_run["dtype"]}')
+    out['cli'] = cli_run
+    return out
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
@@ -2486,6 +2834,13 @@ def main(argv=None) -> int:
     bn_shapes = time_bn_shapes(card, parent_bn)
     log(f'  phase 14 in {time.perf_counter() - t:.1f} s')
 
+    # 15. bf16 and the precision options
+    t = time.perf_counter()
+    log(f'[15] {smi}: bf16 and TF32 against f32 on the flagship\'s serving '
+        'and train step and RetinaNet\'s step, soft-NMS, the CLI with --bf16')
+    precision = run_precision(card, smi)
+    log(f'  phase 15 in {time.perf_counter() - t:.1f} s')
+
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
         **train_timing,
@@ -2506,7 +2861,13 @@ def main(argv=None) -> int:
         'zoo': {key: value for key, value in zoo.items() if key != 'nms'},
         'zoo_rest': {key: value for key, value in zoo_rest.items()
                      if key != 'nms'},
-        'bn_shapes': bn_shapes}}))
+        'bn_shapes': bn_shapes,
+        'precision': {
+            'serving': {k: v for k, v in precision['serving'].items()
+                        if k != 'nms'},
+            'training': {k: v for k, v in precision['training'].items()
+                         if k not in ('bn_step', 'per_launch')},
+            'retina': precision['retina'], 'cli': precision['cli']}}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -2532,6 +2893,12 @@ def main(argv=None) -> int:
                              'm2det_cli': zoo_rest['m2det']['cli']['launches'][
                                  'nms_keep_batched'],
                              'mbv1_gn': zoo_rest['mbv1_gn']['launches'][
+                                 'nms_keep_batched'],
+                             'bf16_serving': precision['serving']['launches'][
+                                 'nms_keep_batched'],
+                             'bf16_train': precision['training']['launches'][
+                                 'nms_keep_batched'],
+                             'bf16_cli': precision['cli']['launches'][
                                  'nms_keep_batched']},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
@@ -2541,11 +2908,13 @@ def main(argv=None) -> int:
         'by_input': {name: {key: value for key, value in row.items()
                             if key not in ('bytes', 'turns_ms')}
                      for name, row in {**nms_time, **trained,
-                                       **zoo['nms'], **zoo_rest['nms']}.items()},
+                                       **zoo['nms'], **zoo_rest['nms'],
+                                       **precision['serving']['nms']}.items()},
     }]
     # each zoo path's train step, phases 12 and 13
     zoo_steps = {key: paths[key]['training'] for paths, keys in
                  ((zoo, ZOO), (zoo_rest, ZOO_REST)) for key in keys}
+    bf16 = precision['training']
     for name, (_, _, replaces) in BN_KERNELS.items():
         kernels.append({
             'name': name,
@@ -2565,7 +2934,11 @@ def main(argv=None) -> int:
                                      for path, label in ZOO_PATHS},
                                  'm2det_cli': zoo_rest['m2det']['cli'][
                                      'launches'][name],
-                                 'mbv1_gn': zoo_rest['mbv1_gn']['launches'][name]},
+                                 'mbv1_gn': zoo_rest['mbv1_gn']['launches'][name],
+                                 'bf16_serving': precision['serving'][
+                                     'launches'][name],
+                                 'bf16_train': bf16['launches'][name],
+                                 'bf16_cli': precision['cli']['launches'][name]},
             'max_abs_err': max(bn_check[name], *(
                 t['bn_max_abs_err'][name] for t in zoo_steps.values())),
             'shape': list(BN_TIMED_SHAPE),
@@ -2581,6 +2954,12 @@ def main(argv=None) -> int:
             **({'by_step_per_shape': {key: step[name] for key, step in
                                       bn_shapes['steps'].items()}}
                if name in REDUCTIONS else {}),
+            # the flagship's bf16 train step (phase 15)
+            'bf16': {**bf16['per_launch'][name], **bf16['bn_step'][name],
+                     'launches': bf16['launches'][name],
+                     'library_step_ms': bf16['library_step_ms'][
+                         bn_time[name]['library_pair']],
+                     'max_abs_err': bf16['bn_max_abs_err'][name]},
         })
     log(json.dumps({'kernels': kernels}))
     log(smi)

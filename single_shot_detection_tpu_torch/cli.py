@@ -5,6 +5,7 @@ Port of the JAX package's ``main.py``, flag for flag::
     python -m single_shot_detection_tpu_torch --config samples/synthetic_smoke.py \\
         --phases train eval [--save-dir DIR] [--checkpoint FILE_OR_DIR]
         [--new-checkpoint] [--load-weights] [--debug] [--cpu] [--profile DIR]
+        [--bf16] [--matmul-precision NAME]
 
 ``train`` runs the epochs (checkpoints, ``log.csv``, ``train.log`` and a
 copy of the config go to a timestamped directory under ``--save-dir``, or
@@ -14,12 +15,16 @@ shell with ``experiment`` and ``cfg``.  ``--checkpoint`` also takes the JAX
 package's ``ckpt-N.msgpack`` files and directories.  The run is on ``cuda``
 and raises without a GPU unless ``--cpu`` is given.  ``--profile DIR``
 writes a ``torch.profiler`` trace of the train phase into DIR.
+``--bf16`` runs the activations in bfloat16 (parameters, BN statistics,
+momentum and losses stay f32; checkpoints are f32) and
+``--matmul-precision`` sets the precision of the convolutions and matmuls
+(unset: ``highest``, TF32 off, for f32 runs; ``default``, TF32 on, for
+bf16 runs; ``device.py``).
 
-Not ported yet, each raising ``NotImplementedError``: ``--bf16``,
-``--int8``, ``--tensorboard``, the ``test`` phase with ``--video``, the
-``export`` phase, the distributed flags, ``--matmul-precision`` other than
-``highest`` or ``float32``, and ``--compilation-cache`` other than ``off``
-(the port has no XLA cache; its kernels are built once into
+Not ported yet, each raising ``NotImplementedError``: ``--int8``,
+``--tensorboard``, the ``test`` phase with ``--video``, the ``export``
+phase, the distributed flags, and ``--compilation-cache`` other than
+``off`` (the port has no XLA cache; its kernels are built once into
 ``kernels/build/``).
 """
 
@@ -33,16 +38,15 @@ from typing import Optional, Sequence
 
 # flag -> where ROADMAP.md's Queue 1 lists it
 _UNPORTED_FLAGS = (
-    ('bf16', '--bf16', 'item 9 (bf16 and TF32 compute)'),
-    ('int8', '--int8', 'item 9 (int8 serving)'),
-    ('tensorboard', '--tensorboard', 'item 8 (left raising)'),
-    ('video', '--video', 'item 13 (the video viewer of the test phase)'),
-    ('coordinator_address', '--coordinator-address', 'item 14 (multi-GPU)'),
-    ('num_processes', '--num-processes', 'item 14 (multi-GPU)'),
-    ('process_id', '--process-id', 'item 14 (multi-GPU)'),
+    ('int8', '--int8', 'item 2 (int8 serving)'),
+    ('tensorboard', '--tensorboard', 'item 6 (tensorboard)'),
+    ('video', '--video', 'item 7 (the video viewer of the test phase)'),
+    ('coordinator_address', '--coordinator-address', 'item 8 (multi-GPU)'),
+    ('num_processes', '--num-processes', 'item 8 (multi-GPU)'),
+    ('process_id', '--process-id', 'item 8 (multi-GPU)'),
 )
-_UNPORTED_PHASES = {'test': 'item 13 (the video viewer of the test phase)',
-                    'export': 'item 9 (export)'}
+_UNPORTED_PHASES = {'test': 'item 7 (the video viewer of the test phase)',
+                    'export': 'item 2 (export)'}
 
 
 def get_argparser() -> argparse.ArgumentParser:
@@ -63,14 +67,16 @@ def get_argparser() -> argparse.ArgumentParser:
     parser.add_argument('--cpu', default=False, action='store_true',
                         help='Run on the CPU (default: the CUDA card)')
     parser.add_argument('--bf16', default=False, action='store_true',
-                        help='bfloat16 compute (not ported yet)')
+                        help='bfloat16 activations (parameters, BN '
+                             'statistics and losses stay f32)')
     parser.add_argument('--int8', default=False, action='store_true',
                         help='int8 serving (not ported yet)')
     parser.add_argument('--matmul-precision', type=str, default=None,
                         choices=['default', 'high', 'highest',
                                  'bfloat16', 'tensorfloat32', 'float32'],
-                        help='Matmul/conv precision; the port runs true f32 '
-                             '(TF32 off): only highest/float32')
+                        help='Matmul/conv precision. Unset: f32 runs use '
+                             '"highest" (TF32 off), bf16 runs "default" '
+                             '(TF32 on)')
     parser.add_argument('--phases', nargs='+', default=['train', 'eval'],
                         choices=['train', 'eval', 'test', 'export', 'embed'],
                         help='One or multiple runtime phases')
@@ -105,11 +111,6 @@ def check_ported(args: argparse.Namespace) -> None:
         if phase in args.phases:
             raise NotImplementedError(f'the {phase} phase is not ported yet '
                                       f'(ROADMAP.md Queue 1 {item})')
-    if args.matmul_precision not in (None, 'highest', 'float32'):
-        raise NotImplementedError(
-            f'--matmul-precision {args.matmul_precision} is not ported yet: '
-            'the port runs true f32 with TF32 off (ROADMAP.md Queue 1 item 9, '
-            'bf16 and TF32 compute)')
     if args.compilation_cache not in (None, 'off'):
         raise NotImplementedError(
             '--compilation-cache: the port has no XLA compilation cache; its '
@@ -161,7 +162,8 @@ def main(argv: Optional[Sequence[str]] = None):
                                 checkpoint_dir=checkpoint_dir,
                                 resume_from=args.checkpoint,
                                 load_weights=args.load_weights,
-                                debug=args.debug)
+                                debug=args.debug, bf16=args.bf16,
+                                matmul_precision=args.matmul_precision)
         result = None
         if 'embed' in args.phases:
             import code

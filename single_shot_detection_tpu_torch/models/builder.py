@@ -4,6 +4,10 @@ Port of ``single_shot_detection_tpu/models/builder.py::build`` and
 ``DetectorBundle``.  Anchors are generated in numpy from the per-scale
 feature-map sizes, which are probed once by a forward pass of a copy of the
 model on the ``meta`` device (shapes only, no arithmetic, no memory).
+
+``dtype`` is the compute dtype (``torch.bfloat16`` under ``--bf16``) and
+``model.detector.heads.dtype`` (``'float32'``, ``'bfloat16'`` or
+``'float16'``) the heads'; parameters are f32 in either.
 """
 
 from __future__ import annotations
@@ -63,6 +67,8 @@ def create_base(name: str, **kwargs):
 _DETECTOR_KEYS = ('num_classes', 'use_depthwise', 'features', 'extras',
                   'predictor', 'heads')
 _ENGINE_KEYS = ('weight',)
+HEAD_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
+               'float16': torch.float16}
 
 
 def build(base: dict,
@@ -73,17 +79,17 @@ def build(base: dict,
           extras: Optional[dict] = None,
           predictor: Optional[dict] = None,
           heads: Optional[dict] = None,
-          input_size: Tuple[int, int] = (300, 300)) -> DetectorBundle:
+          input_size: Tuple[int, int] = (300, 300),
+          dtype: torch.dtype = torch.float32) -> DetectorBundle:
     """Assemble backbone -> neck -> extras -> predictor -> heads ->
     Detector.  Neck keyword arguments are filtered by the neck's signature,
     as the JAX builder filters them by the flax module's fields."""
     extras = extras or {}
     heads = heads or {}
     extra_layers = tuple(tuple(l) for l in extras.get('layers', ()))
-    if heads.get('dtype') not in (None, 'float32'):
-        raise NotImplementedError(f'model.detector.heads.dtype '
-                                  f'{heads["dtype"]!r} is not ported yet '
-                                  '(ported: float32)')
+    head_dtype = heads.get('dtype')
+    if isinstance(head_dtype, str):
+        head_dtype = HEAD_DTYPES[head_dtype]
 
     features_cfg = dict(features)
     neck_name = features_cfg.pop('name')
@@ -113,7 +119,8 @@ def build(base: dict,
             predictor=predictor,
             score_head_bias_init=heads.get('score_head_bias_init', 0.0),
             extras_initializer=extras.get('initializer'),
-            head_initializer=heads.get('initializer'))
+            head_initializer=heads.get('initializer'),
+            dtype=dtype, head_dtype=head_dtype)
 
     fms = feature_map_sizes(make_module, tuple(input_size))
     return DetectorBundle(
@@ -126,14 +133,16 @@ def build(base: dict,
 
 
 def from_config(cfg, variables: Optional[Mapping] = None,
-                seed: Optional[int] = None) -> DetectorBundle:
+                seed: Optional[int] = None,
+                dtype: torch.dtype = torch.float32) -> DetectorBundle:
     """Build the detector of a loaded config, with weights.
 
     ``variables``: a JAX ``{'params', 'batch_stats'}`` tree (e.g. a restored
     checkpoint) loaded with ``strict=True``; without it the weights are the
     JAX package's initializers drawn from a ``torch.Generator`` seeded with
-    ``seed`` (default: the config's).  A ``model.detector`` key the port
-    does not read raises ``NotImplementedError``.
+    ``seed`` (default: the config's).  ``dtype`` is the compute dtype.  A
+    ``model.detector`` key the port does not read raises
+    ``NotImplementedError``.
     """
     model_cfg = dict(cfg.model)
     detector_cfg = dict(model_cfg.get('detector', {}))
@@ -148,7 +157,7 @@ def from_config(cfg, variables: Optional[Mapping] = None,
     bundle = build(
         base=model_cfg['base'],
         anchor_generator=model_cfg['anchor_generator'],
-        input_size=tuple(cfg.input_size),
+        input_size=tuple(cfg.input_size), dtype=dtype,
         **{k: v for k, v in detector_cfg.items() if k in _DETECTOR_KEYS})
     if variables is not None:
         bundle.module.load_state_dict(from_jax_variables(variables),

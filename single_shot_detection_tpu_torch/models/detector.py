@@ -12,6 +12,14 @@ NCHW, so each output is permuted to NHWC before that reshape.
 Initializers: every conv carries its own (``layers.conv2d``), as the JAX
 package gives each flax module its ``kernel_init``; ``reset_parameters``
 draws them in module order from one generator.
+
+Compute dtype: ``Detector(dtype=torch.bfloat16)`` casts the image once at
+its entry and every layer follows its input (``models/layers.py``); the
+score and loc heads run at ``head_dtype`` (None: the body's).  Where the
+JAX modules take a ``dtype`` and are handed a map of another (M2Det's f32
+SFAM outputs under bf16), their convs cast it: the extras (but a max-pool
+extra) and the predictor's towers to ``dtype``, the heads to
+``head_dtype``.
 """
 
 from __future__ import annotations
@@ -127,7 +135,8 @@ class Detector(nn.Module):
     config's block (``num_layers``, ``num_channels``, ``kernel_size``,
     ``activation``, ``initializer``); heads take ``head_initializer``
     (normal(0.01) by default) and the score heads' bias
-    ``score_head_bias_init``.
+    ``score_head_bias_init``.  ``dtype`` is the compute dtype and
+    ``head_dtype`` the heads' (None: ``dtype``); parameters stay f32.
     """
 
     def __init__(self, features: nn.Module, num_classes: int,
@@ -136,8 +145,12 @@ class Detector(nn.Module):
                  predictor: Optional[Mapping] = None,
                  score_head_bias_init: float = 0.0,
                  extras_initializer: Optional[Mapping] = None,
-                 head_initializer: Optional[Mapping] = None):
+                 head_initializer: Optional[Mapping] = None,
+                 dtype: torch.dtype = torch.float32,
+                 head_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
+        self.head_dtype = dtype if head_dtype is None else head_dtype
         self.features = features
         self.num_classes = num_classes
         self.num_extras = len(extras)
@@ -185,21 +198,23 @@ class Detector(nn.Module):
     def forward(self, x, return_sources: bool = False):
         """``return_sources`` also returns the maps the loc heads read (the
         predictor's loc towers, or the neck's and extras' maps)."""
-        sources, x = self.features(x)
+        sources, x = self.features(x.to(self.dtype))
         sources = list(sources)
         for i in range(self.num_extras):
-            x = getattr(self, f'extra{i}')(x)
+            extra = getattr(self, f'extra{i}')
+            x = extra(x if extra.type == 'm' else x.to(self.dtype))
             sources.append(x)
-        if self.predictor is not None:
-            score_sources, loc_sources = self.predictor(sources)
+        if self.predictor is not None and self.predictor.num_layers:
+            score_sources, loc_sources = self.predictor(
+                [s.to(self.dtype) for s in sources])
         else:
             score_sources = loc_sources = sources
 
         batch = x.shape[0]
         scores, locs = [], []
         for i, (ss, ls) in enumerate(zip(score_sources, loc_sources)):
-            s = getattr(self, f'score_head{i}')(ss)
-            l = getattr(self, f'loc_head{i}')(ls)
+            s = getattr(self, f'score_head{i}')(ss.to(self.head_dtype))
+            l = getattr(self, f'loc_head{i}')(ls.to(self.head_dtype))
             # NCHW -> NHWC, then [B, H*W*nb, C]: the anchors' order
             scores.append(s.permute(0, 2, 3, 1).reshape(batch, -1,
                                                         self.num_classes))

@@ -270,7 +270,11 @@ class ScalewiseFeatureAggregationModule(nn.Module):
     mean, the 1x1 ``fc1_{i}`` with bias down to ``C // reduction_ratio``,
     ReLU, the 1x1 ``fc2_{i}`` with bias, a sigmoid) multiplied onto the
     map.  Convs take the neck's ``initializer``, xavier-normal by
-    default."""
+    default.
+
+    JAX's SFAM gives its convs no ``dtype``, so under bf16 flax promotes
+    the bf16 mean with the f32 kernels to f32: the gates and the outputs
+    (``feature * g``) are f32 there, and so they are here."""
 
     def __init__(self, channels: Sequence[int], reduction_ratio: int = 16,
                  initializer: Optional[Mapping] = None):
@@ -289,7 +293,7 @@ class ScalewiseFeatureAggregationModule(nn.Module):
                              'scales')
         result = []
         for i, feature in enumerate(features):
-            g = feature.mean(dim=(2, 3), keepdim=True)
+            g = feature.mean(dim=(2, 3), keepdim=True).float()
             g = F.relu(getattr(self, f'fc1_{i}')(g))
             g = torch.sigmoid(getattr(self, f'fc2_{i}')(g))
             result.append(feature * g)

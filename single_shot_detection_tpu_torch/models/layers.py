@@ -10,7 +10,13 @@ BatchNorm (:class:`BatchNorm`): flax's ``momentum=0.9`` is torch's
 running statistics; train mode follows flax ``nn.BatchNorm`` (batch
 statistics, running statistics updated with the *biased* batch variance).
 
-Initializers: :func:`conv2d` builds an ``nn.Conv2d`` that carries its own
+Compute dtype (docs/DESIGN.md §10): parameters and BN statistics are f32; a
+convolution runs in its input's dtype (:class:`Conv2d`), and a BatchNorm
+computes in f32 and returns its input's dtype, as flax's
+``nn.BatchNorm(dtype=...)`` does.  A bf16 detector casts its image once at
+its entry (``models/detector.py``) and every layer below follows.
+
+Initializers: :func:`conv2d` builds a :class:`Conv2d` that carries its own
 ``kernel_init`` (flax's ``lecun_normal`` by default, or a config's
 ``{'name': ..., 'args': ...}`` through :func:`get_initializer`), drawn from
 an explicit ``torch.Generator`` by :func:`reset_conv`.
@@ -69,6 +75,11 @@ class BatchNorm(nn.BatchNorm2d):
     ``None``) makes it a GroupNorm over the same ``weight`` and ``bias``
     in train and eval mode (``models/norm.py``); the running statistics
     are then never written.
+
+    A bf16 input is normalized in f32 and returned in bf16 on every path
+    (flax's rule): the kernels' ``out_dtype``, and PyTorch's batch norm,
+    which takes bf16 activations with f32 parameters and computes in f32.
+    The running statistics are updated from the f32 batch statistics.
     """
 
     def __init__(self, channels: int):
@@ -216,15 +227,25 @@ def get_initializer(params: Optional[Mapping],
     return _NAMED[name]
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype: an f32 weight and bias are cast
+    to a bf16 input's dtype at use, as flax's ``nn.Conv(dtype=...)`` casts
+    its f32 parameters, so the gradients still reach f32 parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 def conv2d(in_channels: int, out_channels: int, kernel_size: int,
            stride: int = 1, padding: int = 0, groups: int = 1,
            bias: bool = False, kernel_init: Optional[Init] = None,
-           bias_init: float = 0.0) -> nn.Conv2d:
-    """``nn.Conv2d`` that carries its own initializer: ``kernel_init``
+           bias_init: float = 0.0) -> Conv2d:
+    """:class:`Conv2d` that carries its own initializer: ``kernel_init``
     (default: flax's ``lecun_normal``) and a constant ``bias_init``, which
     ``reset_conv`` applies."""
-    conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
-                     padding=padding, groups=groups, bias=bias)
+    conv = Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                  padding=padding, groups=groups, bias=bias)
     conv.kernel_init = kernel_init or lecun_normal
     conv.bias_init = bias_init
     return conv

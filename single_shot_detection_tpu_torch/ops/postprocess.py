@@ -5,7 +5,15 @@ Port of ``single_shot_detection_tpu/ops/postprocess.py``.  The whole batch is
 one fixed-shape pass: scores and boxes of every (image, class) pair are ranked
 and suppressed together, and the result is a padded ``[B, max_total, 6]``
 detection tensor plus a ``valid`` mask.  The hard NMS runs on the CUDA kernel
-(``ops/nms_kernel.py``) for CUDA tensors.
+(``ops/nms_kernel.py``) for CUDA tensors; Gaussian soft-NMS (``nms.soft``)
+is plain PyTorch (``ops/nms.py::soft_nms``), as the JAX package runs it
+outside its Pallas kernel.
+
+The dict form of ``pre_nms_top_k`` (``{'k': n, 'approx': True,
+'recall_target': r}``) asks JAX for ``jax.lax.approx_max_k``, whose TPU
+partial reduction returns at least ``r`` of the true top ``n``; off a TPU
+it is an exact top-k, and here it is always the exact one (which meets any
+recall target).
 
 Every top-k is a stable descending sort: among equal scores the lower index
 comes first, as ``jax.lax.top_k`` orders them (``torch.topk`` on CUDA does not
@@ -17,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from single_shot_detection_tpu_torch.ops import boxes as box_ops
+from single_shot_detection_tpu_torch.ops import nms as nms_ops
 from single_shot_detection_tpu_torch.ops import nms_kernel
 from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
 
@@ -35,9 +44,9 @@ class Postprocessor:
       scores ``[B, A, C_raw]``, locs ``[B, A, 4]``, anchors ``[A, 4]`` centroid
     returns ``detections [B, max_total, 6]`` rows ``[x0, y0, x1, y1, class,
     score]`` (class ids are 1-based) and ``valid [B, max_total]``.
-
-    Soft-NMS and the approximate ``pre_nms_top_k`` are not ported yet and
-    raise.
+    ``nms`` holds ``overlap_threshold``, ``max_per_class``, and ``soft``
+    with its ``sigma`` for Gaussian soft-NMS (picks keep their original
+    scores).
     """
 
     SERVING_TOP_K = 1000          # standard candidate budget
@@ -52,17 +61,16 @@ class Postprocessor:
                  pre_nms_top_k=None):
         if score_converter not in ('SOFTMAX', 'SIGMOID'):
             raise ValueError(f'Wrong value for score_converter: {score_converter}')
-        if nms.get('soft', False):
-            raise NotImplementedError('soft-NMS is not ported yet')
         if isinstance(pre_nms_top_k, dict):
-            if pre_nms_top_k.get('approx', False):
-                raise NotImplementedError(
-                    'approximate pre_nms_top_k is not ported yet')
+            # 'approx' and 'recall_target' ask for at least that recall of
+            # the top k: the exact top-k gives all of it
             pre_nms_top_k = pre_nms_top_k.get('k')
         self.box_coder = box_coder
         self.score_threshold = float(score_threshold)
         self.overlap_threshold = float(nms['overlap_threshold'])
         self.max_per_class = int(nms.get('max_per_class', 100))
+        self.soft = bool(nms.get('soft', False))
+        self.sigma = float(nms.get('sigma', 0.5))
         self.score_converter = score_converter
         self.max_total = int(max_total) if max_total is not None else None
         self.pre_nms_top_k = int(pre_nms_top_k) if pre_nms_top_k else None
@@ -101,7 +109,8 @@ class Postprocessor:
         rows = torch.arange(batch, device=scores.device)
 
         # Optional candidate pre-selection: one exact top-k over anchors by
-        # best-class score.
+        # best-class score (the approximate one too, see the module's
+        # docstring).
         if self.pre_nms_top_k is not None and self.pre_nms_top_k < num_anchors:
             _, cand = stable_top_k(probs.max(dim=-1).values, self.pre_nms_top_k)
             probs = probs[rows[:, None], cand]                 # [B, N, C]
@@ -117,8 +126,15 @@ class Postprocessor:
         top_scores = top_scores.contiguous()
         top_boxes = boxes[rows[:, None, None], top_idx]        # [B, C, K, 4]
 
-        keep = self.nms_keep(top_boxes.reshape(-1, k, 4),
-                             top_scores.reshape(-1, k)).reshape(top_scores.shape)
+        if self.soft:
+            valid_in = top_scores > float('-inf')
+            keep = nms_ops.soft_nms(
+                top_boxes, torch.where(valid_in, top_scores, 0.0),
+                self.score_threshold, self.sigma) & valid_in
+        else:
+            keep = self.nms_keep(top_boxes.reshape(-1, k, 4),
+                                 top_scores.reshape(-1, k)
+                                 ).reshape(top_scores.shape)
         kept_scores = torch.where(keep, top_scores, float('-inf'))
 
         # Flatten classes, attach 1-based class ids, take the global top.

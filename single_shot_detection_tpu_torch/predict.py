@@ -7,6 +7,12 @@ forward (every BatchNorm a GroupNorm under ``train.group_norm``, as the JAX
 engine serves such a model) and the postprocessor (hard NMS on the CUDA
 kernel on a GPU) to ``[B, max_total, 6]`` detections and a ``valid`` mask.
 
+``bf16=True`` serves with bfloat16 activations (the heads at
+``model.detector.heads.dtype`` when the config sets it; the postprocessor
+takes f32 scores and locs) and ``matmul_precision`` sets the precision of
+the convolutions (``device.py::numeric_policy``); each call runs under the
+predictor's own flags.
+
 Runs on ``cuda`` unless the caller passes ``device='cpu'``.
 """
 
@@ -18,7 +24,9 @@ import numpy as np
 import torch
 
 from single_shot_detection_tpu_torch.data.preprocess import Preprocess
-from single_shot_detection_tpu_torch.device import resolve_device
+from single_shot_detection_tpu_torch.device import (NumericPolicy,
+                                                    numeric_policy,
+                                                    resolve_device)
 from single_shot_detection_tpu_torch.models import builder, norm
 from single_shot_detection_tpu_torch.models.layers import set_group_norm
 from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
@@ -38,8 +46,9 @@ class Predictor:
 
     def __init__(self, bundle: builder.DetectorBundle,
                  postprocessor: Postprocessor, preprocess: Preprocess,
-                 device: torch.device):
+                 device: torch.device, policy: NumericPolicy):
         self.bundle = bundle
+        self.policy = policy
         self.device = device
         self.input_size = bundle.input_size
         self.model = bundle.module.to(device).eval()
@@ -52,17 +61,21 @@ class Predictor:
     @classmethod
     def from_config(cls, path: str, variables: Optional[Mapping] = None,
                     device: Optional[Union[str, torch.device]] = None,
-                    seed: Optional[int] = None) -> 'Predictor':
+                    seed: Optional[int] = None, bf16: bool = False,
+                    matmul_precision: Optional[str] = None) -> 'Predictor':
         """Build from a ``samples/*.py`` config.
 
         ``variables``: a JAX ``{'params', 'batch_stats'}`` tree (e.g. a
         restored checkpoint) loaded with ``strict=True``; without it the
         weights are the JAX package's initializers drawn from a
         ``torch.Generator`` seeded with ``seed`` (default: the config's).
+        ``bf16`` and ``matmul_precision`` as ``device.py::numeric_policy``
+        takes them.
         """
         device = resolve_device(device)
         cfg = load_config(path, phases=('eval',))
-        bundle = builder.from_config(cfg, variables, seed)
+        policy = numeric_policy(bf16, matmul_precision, cfg.train)
+        bundle = builder.from_config(cfg, variables, seed, policy.dtype)
         set_group_norm(bundle.module, norm.groups_from_config(
             dict(cfg.train or {}).get('group_norm')))
         box_coder = filter_kwargs(BoxCoder)(**(cfg.box_coder or {}))
@@ -71,7 +84,7 @@ class Predictor:
         postprocessor = filter_kwargs(Postprocessor)(box_coder=box_coder,
                                                      **pp_cfg)
         preprocess = Preprocess(cfg.preprocessing, bundle.input_size)
-        return cls(bundle, postprocessor, preprocess, device)
+        return cls(bundle, postprocessor, preprocess, device, policy)
 
     def predict_batch(self, images: Union[np.ndarray, torch.Tensor]
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -79,7 +92,8 @@ class Predictor:
         valid [B, max_total])`` on the device, in input-size pixels.  Images
         of another size are resized to the input size first."""
         images = torch.as_tensor(images).to(self.device, non_blocking=True)
-        return self.predict_step(self.preprocess(images))
+        with self.policy.scope():
+            return self.predict_step(self.preprocess(images))
 
     def predict(self, image: Union[np.ndarray, torch.Tensor]) -> np.ndarray:
         """One uint8 ``[H, W, 3]`` RGB image of any size -> ``[n, 6]`` valid

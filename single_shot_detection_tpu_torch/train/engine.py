@@ -25,6 +25,12 @@ replay cache, keras ``.h5`` and torch-hub backbones, the reference's whole
 detector (``detector.torch_weight``), int8, pruning, EMA, tensorboard and
 multi-host runs.
 
+``bf16`` runs the activations in bfloat16 (docs/DESIGN.md §10: parameters, BN
+statistics, SGD momentum and losses stay f32, so checkpoints are f32 and a
+bf16 run resumes an f32 one and the reverse) and ``matmul_precision`` sets
+the precision of the convolutions and matmuls, resolved as the JAX engine
+resolves it (``device.py::numeric_policy``).
+
 Runs on ``cuda`` unless the caller passes ``device='cpu'``.
 """
 
@@ -121,7 +127,9 @@ class Experiment:
     ``resume_from`` is a checkpoint file or directory (its latest
     checkpoint, ``.pt`` or the JAX package's ``.msgpack``) to resume from
     at the epoch after the one it was saved in, or, with ``load_weights``,
-    to take the weights of only.
+    to take the weights of only.  ``bf16`` and ``matmul_precision`` as
+    ``device.py::numeric_policy`` takes them; the resolved precision is
+    ``matmul_precision`` (None: the bf16 policy's default).
     """
 
     def __init__(self, cfg: Union[str, ConfigWrapper],
@@ -134,7 +142,9 @@ class Experiment:
                  resume_from: Optional[str] = None,
                  load_weights: bool = False,
                  debug: bool = False,
+                 bf16: bool = False,
                  int8: bool = False,
+                 matmul_precision: Optional[str] = None,
                  tensorboard: bool = False,
                  process_count: int = 1):
         for name, value in (('int8', int8), ('tensorboard', tensorboard),
@@ -185,7 +195,10 @@ class Experiment:
             steps_per_epoch = (self.num_batches_per_epoch
                                or len(self.loaders['train']))
         self.trainer = Trainer.from_cfg(cfg, variables, self.device, self.seed,
-                                        steps_per_epoch)
+                                        steps_per_epoch, bf16,
+                                        matmul_precision)
+        self.policy = self.trainer.policy
+        self.matmul_precision = self.policy.matmul_precision
         self.bundle = self.trainer.bundle
         self.anchors = self.trainer.anchors
 
@@ -360,20 +373,21 @@ class Experiment:
         sums = None
         count = 0
         pending = []
-        for batch in loader:
-            images, boxes, mask = self._to_device(batch)
-            with torch.no_grad():
-                x, full_boxes, mask = self.eval_pipeline.apply([], images, boxes,
-                                                              mask)
-            # padding rows of a partial batch carry id -1 and add no loss
-            image_valid = torch.from_numpy(batch['ids'] >= 0).to(self.device)
-            metrics, dets, valid = self.eval_step(self.model, x,
-                                                  full_boxes[..., :6], mask,
-                                                  image_valid)
-            stacked = torch.stack([metrics[k] for k in METRIC_KEYS])
-            sums = stacked if sums is None else sums + stacked
-            count += 1
-            pending.append((dets, valid, mask, full_boxes, batch['ids']))
+        with self.policy.scope():
+            for batch in loader:
+                images, boxes, mask = self._to_device(batch)
+                with torch.no_grad():
+                    x, full_boxes, mask = self.eval_pipeline.apply(
+                        [], images, boxes, mask)
+                # padding rows of a partial batch carry id -1 and add no loss
+                image_valid = torch.from_numpy(
+                    batch['ids'] >= 0).to(self.device)
+                metrics, dets, valid = self.eval_step(
+                    self.model, x, full_boxes[..., :6], mask, image_valid)
+                stacked = torch.stack([metrics[k] for k in METRIC_KEYS])
+                sums = stacked if sums is None else sums + stacked
+                count += 1
+                pending.append((dets, valid, mask, full_boxes, batch['ids']))
 
         pulled = sums.tolist() if sums is not None else [0.0] * len(METRIC_KEYS)
         all_preds, all_gts = [], []

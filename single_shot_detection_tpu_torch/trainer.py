@@ -22,6 +22,13 @@ clipping, ``lr_groups``, pruning, ``fused_steps``, the YUV420 staging and
 the multi-device options; an augmentation the ``Pipeline`` does not know
 raises as well.
 
+``bf16=True`` runs the activations in bfloat16 under docs/DESIGN.md §10's
+policy (parameters, BN statistics, SGD momentum and the losses stay f32;
+``fused_bn`` then runs the BN kernels on bf16 activations), and
+``matmul_precision`` sets the convolutions' and matmuls' precision
+(``device.py::numeric_policy``); each step runs under the trainer's own
+flags.
+
 Runs on ``cuda`` unless the caller passes ``device='cpu'``.
 """
 
@@ -33,7 +40,9 @@ import numpy as np
 import torch
 
 from single_shot_detection_tpu_torch.data.transforms import Pipeline, draws_to
-from single_shot_detection_tpu_torch.device import resolve_device
+from single_shot_detection_tpu_torch.device import (NumericPolicy,
+                                                    numeric_policy,
+                                                    resolve_device)
 from single_shot_detection_tpu_torch.models import builder, norm
 from single_shot_detection_tpu_torch.models.layers import (set_fused_bn,
                                                            set_group_norm)
@@ -80,9 +89,11 @@ class Trainer:
     def __init__(self, bundle: builder.DetectorBundle, state: TrainState,
                  pipeline: Pipeline, schedule, criterion: MultiboxLoss,
                  assigner: TargetAssigner, device: torch.device, seed: int,
+                 policy: NumericPolicy,
                  plateau: Optional[schedulers.ReduceLROnPlateau] = None,
                  scheduler_metric: Optional[str] = None):
         self.bundle = bundle
+        self.policy = policy
         self.state = state
         self.pipeline = pipeline
         self.schedule = schedule  # optimizer step -> learning rate
@@ -107,7 +118,9 @@ class Trainer:
                     device: Optional[Union[str, torch.device]] = None,
                     seed: Optional[int] = None,
                     overrides: Optional[Mapping] = None,
-                    steps_per_epoch: Optional[int] = None) -> 'Trainer':
+                    steps_per_epoch: Optional[int] = None,
+                    bf16: bool = False,
+                    matmul_precision: Optional[str] = None) -> 'Trainer':
         """Build from a ``samples/*.py`` config.
 
         ``variables`` and ``seed`` as in ``Predictor.from_config``; ``seed``
@@ -116,30 +129,35 @@ class Trainer:
         deep, e.g. ``{'train': {'fused_bn': True}}``.  ``steps_per_epoch``
         (the train loader's length; ``train.num_batches_per_epoch`` wins,
         and without either an epoch is one step) turns per-epoch schedule
-        milestones into steps.
+        milestones into steps.  ``bf16`` and ``matmul_precision`` as
+        ``device.py::numeric_policy`` takes them.
         """
         cfg = load_config(path, phases=('train',))
         if overrides:
             cfg.override(dict(overrides))
-        return cls.from_cfg(cfg, variables, device, seed, steps_per_epoch)
+        return cls.from_cfg(cfg, variables, device, seed, steps_per_epoch,
+                            bf16, matmul_precision)
 
     @classmethod
     def from_cfg(cls, cfg, variables: Optional[Mapping] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  seed: Optional[int] = None,
-                 steps_per_epoch: Optional[int] = None) -> 'Trainer':
+                 steps_per_epoch: Optional[int] = None,
+                 bf16: bool = False,
+                 matmul_precision: Optional[str] = None) -> 'Trainer':
         """Build from a loaded config (``utils/config.py::ConfigWrapper``)."""
         device = resolve_device(device)
         check_ported(cfg)
         seed = int(seed if seed is not None else (cfg.seed or 23))
 
         train_cfg = dict(cfg.train or {})
+        policy = numeric_policy(bf16, matmul_precision, train_cfg)
         groups = norm.groups_from_config(train_cfg.get('group_norm'))
         if groups is not None and train_cfg.get('fused_bn'):
             raise ValueError('train.fused_bn does not compose with '
                              'train.group_norm (both replace the BatchNorm '
                              'forward)')
-        bundle = builder.from_config(cfg, variables, seed)
+        bundle = builder.from_config(cfg, variables, seed, policy.dtype)
         model = bundle.module.to(device)
         set_fused_bn(model, bool(train_cfg.get('fused_bn', False)))
         set_group_norm(model, groups)
@@ -167,7 +185,7 @@ class Trainer:
             opt_cfg, model.parameters(), accumulation_steps=accumulation,
             clip_grad_norm=train_cfg.get('clip_grad_norm'))
         return cls(bundle, TrainState(model, optimizer), pipeline, schedule,
-                   criterion, assigner, device, seed, plateau, metric)
+                   criterion, assigner, device, seed, policy, plateau, metric)
 
     def draws(self, step: int, batch: int) -> list:
         """The augmentation draws of global step ``step`` (on the CPU)."""
@@ -188,4 +206,5 @@ class Trainer:
         box_mask = torch.as_tensor(box_mask, dtype=torch.bool).to(self.device)
         step = self.state.step if step is None else step
         draws = draws_to(self.draws(step, images.shape[0]), self.device)
-        return self._train_step(self.state, images, boxes, box_mask, draws)
+        with self.policy.scope():
+            return self._train_step(self.state, images, boxes, box_mask, draws)

@@ -106,9 +106,11 @@ def to_jax_variables(state_dict) -> dict:
 class JaxSide:
     """One config's JAX detector at ``size`` px, with ``variables`` or,
     without them, variables from its own initializer (one jit).  ``model``
-    replaces the config's ``model`` (say, fewer TUMs)."""
+    replaces the config's ``model`` (say, fewer TUMs); ``dtype`` is the
+    compute dtype."""
 
-    def __init__(self, config: str, size: int, model=None, variables=None):
+    def __init__(self, config: str, size: int, model=None, variables=None,
+                 dtype=jnp.float32):
         self.config, self.size = config, size
         self.cfg = jax_load_config(config)
         if model is not None:
@@ -116,7 +118,7 @@ class JaxSide:
         model = dict(self.cfg.model)
         self.bundle = jax_builder.build(
             base=model['base'], anchor_generator=model['anchor_generator'],
-            input_size=(size, size), **dict(model['detector']))
+            input_size=(size, size), dtype=dtype, **dict(model['detector']))
         self.variables = variables or jax.jit(
             lambda key: self.bundle.module.init(
                 key, jnp.zeros((1, size, size, 3)), train=False))(
@@ -166,15 +168,16 @@ def port_overrides(size: int, fused_bn: bool = True, model=None,
 
 
 def port_bundle(config: str, size: int, seed: int = 0, variables=None,
-                model=None):
+                model=None, dtype=torch.float32):
     """The port's detector of ``config`` at ``size`` px (``model`` in place
-    of the config's): a JAX variable tree loaded with ``strict=True``, or
-    its initializers drawn with ``seed``."""
+    of the config's) in compute ``dtype``: a JAX variable tree loaded with
+    ``strict=True``, or its initializers drawn with ``seed``."""
     cfg = load_config(config)
     cfg.override({'input_size': (size, size)})
     if model is not None:
         cfg.override({'model': model})
-    return pt_builder.from_config(cfg, variables=variables, seed=seed)
+    return pt_builder.from_config(cfg, variables=variables, seed=seed,
+                                  dtype=dtype)
 
 
 def perturb(variables, rng, score_gain: float = 1.0):

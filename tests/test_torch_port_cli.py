@@ -4,7 +4,8 @@ phases of ``samples/synthetic_smoke.py`` with its own schedule, the files
 they write, a resume with more epochs, ``--debug``, ``--load-weights``
 with ``--profile``, ``embed``, the evaluation of the committed JAX
 checkpoint against ``Experiment.evaluate()`` from the flax-restored
-weights (exactly equal), and the flags not ported yet; and the emergency
+weights (exactly equal), and the flags not ported yet (``--bf16`` and
+``--matmul-precision`` run in ``test_torch_port_precision.py``); and the emergency
 checkpoint of ``Experiment.train()`` on an interrupt.  Everything runs on
 the CPU.
 """
@@ -151,11 +152,10 @@ def test_cli_evaluates_the_committed_jax_checkpoint_exactly():
 
 
 @pytest.mark.parametrize('argv', [
-    ['--bf16'], ['--int8'], ['--tensorboard'], ['--phases', 'test'],
+    ['--int8'], ['--tensorboard'], ['--phases', 'test'],
     ['--video', 'clip.mp4'], ['--phases', 'eval', 'export'],
     ['--coordinator-address', 'localhost:1234'], ['--num-processes', '2'],
-    ['--process-id', '0'], ['--matmul-precision', 'bfloat16'],
-    ['--compilation-cache', 'cache_dir'],
+    ['--process-id', '0'], ['--compilation-cache', 'cache_dir'],
 ], ids=lambda argv: ' '.join(argv))
 def test_cli_raises_on_what_is_not_ported(argv, tmp_path):
     with pytest.raises(NotImplementedError, match='not ported yet|no XLA'):

@@ -291,16 +291,6 @@ def test_postprocessor_matches_jax(name):
                                rtol=1e-6, atol=1e-5)
 
 
-def test_postprocessor_unported_options_raise():
-    coder = pt_coder.BoxCoder()
-    with pytest.raises(NotImplementedError):
-        pt_pp.Postprocessor(coder, 0.01, {'overlap_threshold': 0.45,
-                                          'soft': True})
-    with pytest.raises(NotImplementedError):
-        pt_pp.Postprocessor(coder, 0.01, {'overlap_threshold': 0.45},
-                            pre_nms_top_k={'k': 100, 'approx': True})
-
-
 @pytest.mark.parametrize('cfg,anchors', [
     ({'score_threshold': 0.01}, 2006),
     ({'score_threshold': 0.01}, 20000),

@@ -382,16 +382,13 @@ def test_every_jax_backbone_name_of_the_slice_is_registered():
 
 
 def test_builder_raises_on_what_it_does_not_read():
-    """A MobileNetV2 config with an unknown ``model.detector`` key, bf16
-    heads, VGG's ``packed_stem``, a neck's ``width_overrides`` or a
-    bilinear MLFPN raises rather than building another model."""
+    """A MobileNetV2 config with an unknown ``model.detector`` key, VGG's
+    ``packed_stem``, a neck's ``width_overrides`` or a bilinear MLFPN
+    raises rather than building another model (``heads.dtype`` is read:
+    ``test_torch_port_bf16.py``)."""
     cfg = load_config('samples/synthetic_smoke.py')
     cfg.config.model['detector']['frobnicate'] = 3
     with pytest.raises(NotImplementedError, match='frobnicate'):
-        pt_builder.from_config(cfg)
-    cfg = load_config('samples/synthetic_smoke.py')
-    cfg.config.model['detector']['heads'] = {'dtype': 'bfloat16'}
-    with pytest.raises(NotImplementedError, match='heads.dtype'):
         pt_builder.from_config(cfg)
     cfg = load_config('samples/ssd_300_vgg16_voc.py')
     cfg.config.model['base']['packed_stem'] = True
