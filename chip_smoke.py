@@ -8,9 +8,16 @@ Needs one CUDA card; exits non-zero without one.  ``--parent-nms`` builds
 another version of the NMS kernel (say, from a ``git archive`` of an
 earlier commit), calls its ``nms_keep_launch`` directly, and times it
 beside this one in phase 5, in turns.  ``--parent-bn`` does the same for
-the BN reductions K1 and K3 of a ``bn.cu`` whose launchers take a scratch
-buffer of partials (``bn_partial_floats``; the parent of the one-launch
-design), in phase 14.  Phases, each fatal:
+K2 and K4 of another ``bn.cu`` with this one's C interface
+(``bn_apply_launch``, ``bn_dx_launch``; the commit before their redesign;
+a ``bn.cu`` of the two-pass reductions, which exports
+``bn_partial_floats``, is refused): its K2 and K4 take the place of this
+one's inside each profiled train step (phases 7, 12, 13 and the bf16 step
+of 15) and at each shape of phase 14, in turns (parent, this, this,
+parent), and each profiled step's wall time is taken in turns too.  The
+parent's two launch symbols stand in for this build's on the loaded
+library, so both sides run the same wrappers.
+Phases, each fatal:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
@@ -24,8 +31,13 @@ design), in phase 14.  Phases, each fatal:
    65, 1500 and 2048); the four train-mode BatchNorm kernels K1-K4 on
    every distinct BN shape of the flagship's b32 step and on edge shapes
    (b = 1, C = 1, 1x1 planes, ``[64, 16, 300, 300]``, ragged, bf16 at odd
-   S, inputs off a 16-byte boundary), at the tolerances stated at
-   ``BN_TOL``, K1 and K3 launched twice and bit-equal;
+   S, inputs off a 16-byte boundary, bf16 planes of 1 and 4 elements into
+   an f32 z; for K2's 16-byte vectors, vectors across plane boundaries at
+   S = 5625, 1369, 361, 25 and 9 at f32 and bf16, C = 1 at odd S, 735
+   elements, x 1-7 elements off a 16-byte boundary at bf16 and 1-3 at
+   f32), at the tolerances stated at ``BN_TOL``, each kernel launched
+   twice and bit-equal, K2 and K4 also on each of their paths (vector,
+   lanes, scalar) into an output at x's phase;
 4. the serving path: ``Predictor`` on ``samples/ssd_mb2_voc.py`` at full
    width with seeded random weights, answering 3 batches of 32 and 4 single
    requests, with launch counts read around that run; outputs checked for
@@ -48,12 +60,17 @@ design), in phase 14.  Phases, each fatal:
    1e-4);
 7. training times: the b32 train step with the BN kernels and with
    PyTorch's batch norm in turns, each BN kernel's device time per launch
-   at ``[32, 96, 150, 150]`` beside its bound, its plain version and the
-   PyTorch pair that computes the same function (``native_batch_norm`` for
-   K1+K2, its backward for K3+K4), each kernel's device time summed over a
-   step beside the step's bound, a profiler table of one train step, and
-   the PyTorch pairs' device time summed over the step's 64 BN shapes
-   beside the kernel pairs' time per step;
+   at ``[32, 96, 150, 150]`` beside its bound, its plain version, the one
+   PyTorch call that computes its function (``LIBRARY_CALLS``:
+   ``torch.batch_norm_stats``, ``batch_norm_elemt``,
+   ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``) and the
+   PyTorch pair that computes it with its partner (``native_batch_norm``
+   for K1+K2, its backward for K3+K4), each kernel's device time summed
+   over a step beside the step's bound and its own call summed over the
+   step's 64 BN shapes, a profiler table of one train step, and the
+   pairs' device time per step; the same readings for each profiled step
+   of phases 12, 13 and 15, and at the end the steps on which a kernel
+   took longer than its own call;
 8. the flagship as shipped: ``Experiment`` on ``samples/ssd_mb2_voc.py``
    with its augmentation chain, ``train.fused_bn``, seeded random weights
    and the synthetic data of ``FLAGSHIP_DATA`` (500 px images, so the
@@ -105,13 +122,17 @@ design), in phase 14.  Phases, each fatal:
     at 0 launches, the running statistics unwritten and the forward
     against the CPU; and the NMS kernel at both serving inputs, its keep
     masks equal to its plain version's (as at every input it is timed at);
-14. K1 and K3 at every distinct BN shape of the five steps (f32, each
-    window repeating its inputs, so those that fit the L2 are warm): the
-    grid each launches, device µs per launch (with ``--parent-bn`` the
-    parent's partial and combine passes in turns: parent, this, this,
-    parent), the bound and the launch floor (an empty kernel on the same
-    grid, block and cluster); each step's sums (count x µs); and the split
-    and scalar paths side by side at S = 361 and S = 5625;
+14. K1 and K3 (f32), K2 and K4 (f32 and bf16) at every distinct BN
+    shape of the five steps (each window repeating its inputs, so those
+    that fit the L2 are warm): the grid or plan each launches, device µs
+    per launch (with ``--parent-bn`` the parent's K2 and K4 in turns:
+    parent, this, this, parent), the bound, the launch floor (an empty
+    kernel on the same grid, block and cluster) and, for K2 and K4, their
+    own PyTorch calls' device µs; each step's sums (count x µs); K1's
+    and K3's split and scalar paths side by side at S = 361 and S = 5625;
+    and with ``--parent-bn`` the host µs per call of the K2 and K4
+    wrappers at ``HOST_SHAPE``, f32 and bf16, in turns with the parent's
+    kernels;
 15. bf16 and the precision options (``POLICIES``: f32 with TF32 off, f32
     with TF32, bf16 activations): the flagship's ``Predictor(bf16=True)``
     answering b32 and b128 batches (NMS launched twice, no BN), its heads
@@ -157,7 +178,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -302,6 +323,13 @@ def busy_us(prof) -> float:
     ``ProfilerStep`` annotation spans the step on the device and is left
     out)."""
     return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, 'is_user_annotation', False))
+
+
+def busy_launches(prof) -> int:
+    """The launches of ``busy_us``'s kernels, copies and fills."""
+    return sum(e.count for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, 'is_user_annotation', False))
 
@@ -525,26 +553,69 @@ def step_bn_shapes(key: str):
     return {(batch, *shape): n for shape, n in shapes.items()}
 
 
-# (name, shape, dtype[, (x offset, dz offset) in elements]): every distinct
-# BN shape of the flagship's b32 step, then edge shapes: b = 1, C = 1, 1x1
-# planes, a channel of 5.76M elements (704 blocks combined by ticket),
-# ragged, bf16 at odd and even S, and inputs off a 16-byte boundary (alike
-# and unlike, so K3 takes its scalar path)
-BN_CASES = [(f'flagship {list(shape)}', shape, torch.float32)
+class BnCase(NamedTuple):
+    """A shape the BN kernels are held on: activations in ``dtype``, x and
+    dz ``offsets`` elements past the start of their allocations, K2's z in
+    ``out_dtype`` (default: x's)."""
+    name: str
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    offsets: Tuple[int, int] = (0, 0)
+    out_dtype: Optional[torch.dtype] = None
+
+
+def elementwise_boundary_cases():
+    """K2's and K4's 16-byte vectors across plane boundaries at S = 5625,
+    1369, 361, 25 and 9, at f32 and bf16; C = 1 at odd S; a total that is
+    not a multiple of 8; x 1-7 elements off a 16-byte boundary at bf16 and
+    1-3 at f32 (``check_bn_kernels`` also runs K2 and K4 into an output at
+    x's phase, so the vector path takes a head and a tail)."""
+    shapes = ((8, 24, 75, 75), (8, 32, 37, 37), (32, 116, 19, 19),
+              (32, 128, 5, 5), (32, 128, 3, 3))
+    cases = [BnCase(f'{label} across planes at S = {h * w}', (b, c, h, w), dtype)
+             for b, c, h, w in shapes
+             for label, dtype in (('f32', torch.float32),
+                                  ('bf16', torch.bfloat16))]
+    cases += [BnCase(f'C = 1 at S = 1369, {label}', (16, 1, 37, 37), dtype)
+              for label, dtype in (('f32', torch.float32),
+                                   ('bf16', torch.bfloat16))]
+    cases += [BnCase(f'735 elements, {label}', (3, 5, 7, 7), dtype)
+              for label, dtype in (('f32', torch.float32),
+                                   ('bf16', torch.bfloat16))]
+    cases += [BnCase(f'bf16 x {k} elements off', (4, 24, 19, 19),
+                     torch.bfloat16, (k, k)) for k in range(1, 8)]
+    cases += [BnCase(f'f32 x {k} elements off', (4, 24, 19, 19),
+                     torch.float32, (k, k)) for k in range(1, 4)]
+    return cases
+
+
+# Every distinct BN shape of the flagship's b32 step, then edge shapes: b =
+# 1, C = 1, 1x1 planes, a channel of 5.76M elements (704 blocks combined by
+# ticket), ragged, bf16 at odd and even S, inputs off a 16-byte boundary
+# (alike and unlike, so K3 takes its scalar path), bf16 planes shorter than
+# a 16-byte vector of 8 elements into an f32 z, and the elementwise passes'
+# boundary cases
+BN_CASES = [BnCase(f'flagship {list(shape)}', shape, torch.float32)
             for shape in step_bn_shapes('flagship')] + [
-    ('b = 1', (1, 96, 150, 150), torch.float32),
-    ('C = 1', (32, 1, 150, 150), torch.float32),
-    ('1x1 planes', (32, 1024, 1, 1), torch.float32),
-    ('a channel of 5.76M', (64, 16, 300, 300), torch.float32),
-    ('ragged', (3, 24, 75, 75), torch.float32),
-    ('bf16', (8, 96, 75, 75), torch.bfloat16),
-    ('bf16 at S = 361', (32, 116, 19, 19), torch.bfloat16),
-    ('bf16 at S = 5625', (8, 58, 75, 75), torch.bfloat16),
-    ('bf16 at S = 25', (32, 256, 5, 5), torch.bfloat16),
-    ('x and dz 1 element off', (32, 58, 38, 38), torch.float32, (1, 1)),
-    ('x 2 elements off, dz not', (32, 116, 19, 19), torch.float32, (2, 0)),
-    ('x 3 elements off at S = 9', (32, 128, 3, 3), torch.float32, (3, 3)),
-]
+    BnCase('b = 1', (1, 96, 150, 150), torch.float32),
+    BnCase('C = 1', (32, 1, 150, 150), torch.float32),
+    BnCase('1x1 planes', (32, 1024, 1, 1), torch.float32),
+    BnCase('a channel of 5.76M', (64, 16, 300, 300), torch.float32),
+    BnCase('ragged', (3, 24, 75, 75), torch.float32),
+    BnCase('bf16', (8, 96, 75, 75), torch.bfloat16),
+    BnCase('bf16 at S = 361', (32, 116, 19, 19), torch.bfloat16),
+    BnCase('bf16 at S = 5625', (8, 58, 75, 75), torch.bfloat16),
+    BnCase('bf16 at S = 25', (32, 256, 5, 5), torch.bfloat16),
+    BnCase('x and dz 1 element off', (32, 58, 38, 38), torch.float32, (1, 1)),
+    BnCase('x 2 elements off, dz not', (32, 116, 19, 19), torch.float32, (2, 0)),
+    BnCase('x 3 elements off at S = 9', (32, 128, 3, 3), torch.float32, (3, 3)),
+    BnCase('bf16 1x1 into f32', (32, 128, 1, 1), torch.bfloat16,
+           out_dtype=torch.float32),
+    BnCase('bf16 2x2 into f32', (32, 256, 2, 2), torch.bfloat16,
+           out_dtype=torch.float32),
+    BnCase('bf16 2x2 at b8 into f32', (8, 64, 2, 2), torch.bfloat16,
+           out_dtype=torch.float32),
+] + elementwise_boundary_cases()
 BN_TIMED_SHAPE = (32, 96, 150, 150)
 BN_EPS = 1e-5
 # Tolerances of the BN kernels against their plain versions on the same
@@ -568,17 +639,21 @@ BN_KERNELS = {
     'bn_dx': (('bn_dx_kernel',), 12,
                'single_shot_detection_tpu/ops/bn_pallas.py:118'),
 }
-# The reductions K1 and K3, and the CUDA kernels of a parent commit's
-# kernels/bn.cu behind each (a partial pass and a combine pass per call)
+# The reductions K1 and K3
 REDUCTIONS = ('bn_stats', 'bn_grad_sums')
-PARENT_BN_KERNELS = {
-    'bn_stats': ('bn_stats_partial_kernel', 'bn_stats_combine_kernel'),
-    'bn_grad_sums': ('bn_grad_sums_partial_kernel',
-                     'bn_grad_sums_combine_kernel'),
-}
-# the empty kernels on K1's and K3's grids (their launch floors)
+# the empty kernels on K1's, K3's, K2's and K4's grids (their launch floors)
 FLOOR_KERNELS = {'bn_stats': ('bn_floor_kernel<0>',),
-                 'bn_grad_sums': ('bn_floor_kernel<1>',)}
+                 'bn_grad_sums': ('bn_floor_kernel<1>',),
+                 'bn_apply': ('bn_floor_kernel<2>',),
+                 'bn_dx': ('bn_floor_kernel<3>',)}
+# The one PyTorch call that computes each kernel's function (the calls
+# SyncBatchNorm is built on; CUDA only), and the pair that computes two
+LIBRARY_CALLS = {'bn_stats': 'torch.batch_norm_stats',
+                 'bn_apply': 'torch.batch_norm_elemt',
+                 'bn_grad_sums': 'torch.batch_norm_backward_reduce',
+                 'bn_dx': 'torch.batch_norm_backward_elemt'}
+LIBRARY_PAIRS = {'bn_stats': 'K1+K2', 'bn_apply': 'K1+K2',
+                 'bn_grad_sums': 'K3+K4', 'bn_dx': 'K3+K4'}
 # f32 operations per element: K1 add, mul, add; K2 sub, mul, mul, add;
 # K3 add, sub, mul, mul, add; K4 sub, mul, sub, mul, sub, mul
 BN_OPS_PER_ELEMENT = {'bn_stats': 3, 'bn_apply': 4, 'bn_grad_sums': 5,
@@ -619,6 +694,15 @@ def plan_text(plan: dict) -> str:
     return (f'{plan["path"]} {plan["blocks"]}x{plan["threads"]}' + combine)
 
 
+def elementwise_text(plan: dict) -> str:
+    """``bn_kernel.elementwise_plan``'s launch in a few words."""
+    return (f'{plan["path"]} {plan["blocks"]}x{plan["threads"]}, '
+            f'{plan["vector"]} x {plan["unroll"]} elements a thread, '
+            f'{plan["vectors_per_block"]} vectors a block'
+            + (f', head {plan["head"]} tail {plan["tail"]}'
+               if plan['head'] or plan['tail'] else ''))
+
+
 def bit_equal_twice(fn, label: str):
     """``fn()`` (a tuple of tensors) launched twice on the same inputs:
     the two results equal bit for bit (no atomics in the sums)."""
@@ -628,17 +712,44 @@ def bit_equal_twice(fn, label: str):
     return first
 
 
+def elementwise_paths(kernel: str, x, dz=None, out=None):
+    """The paths K2 (``kernel='bn_apply'``) or K4 (``'bn_dx'``) takes on
+    these inputs into ``out``, of vector, lanes and scalar."""
+    paths = []
+    for path in ('vector', 'lanes', 'scalar'):
+        try:
+            bn_kernel.elementwise_plan(kernel, x, dz, path=path, out=out)
+        except ValueError:
+            continue
+        paths.append(path)
+    return tuple(paths)
+
+
+def check_elementwise(kernel: str, wrapper, want, out, kind: str, label: str,
+                      **inputs):
+    """K2 or K4 through its wrapper, launched twice and bit-equal, then on
+    each of its paths into ``out`` (at x's phase): the largest error
+    against the plain version's ``want`` (within ``BN_TOL[kind]``) and
+    those paths."""
+    got = bit_equal_twice(lambda: (wrapper(),), label)[0]
+    paths = elementwise_paths(kernel, inputs['x'], inputs.get('dz'), out)
+    return max(bn_err(got, want, kind), *(
+        bn_err(bn_kernel.elementwise_launcher(kernel, path=path, out=out,
+                                              **inputs)(), want, kind)
+        for path in paths)), paths
+
+
 def check_bn_kernels(cases=BN_CASES, quiet: bool = False) -> dict:
     """K1-K4 against their plain versions on the same inputs; K2 and K4 are
     given the plain K1 and K3 outputs, so each check isolates one kernel;
-    K1 and K3 launched twice, bit-equal.  ``cases``: ``(name, shape,
-    dtype[, offsets])``; ``quiet`` logs only the worst errors."""
+    each launched twice, bit-equal; K2 and K4 also on each of their paths
+    into an output at x's phase (``check_elementwise``).  ``cases``:
+    ``BnCase``s; ``quiet`` logs only the worst errors."""
     gen = torch.Generator().manual_seed(SEED + 2)
     worst = {name: 0.0 for name in BN_KERNELS}
-    for name, shape, dtype, *offsets in cases:
-        x, dz, scale, bias = bn_inputs(shape, dtype, gen, *offsets)
-        elementwise = ('elementwise_bf16' if dtype == torch.bfloat16
-                       else 'elementwise')
+    for name, shape, dtype, offsets, out_dtype in cases:
+        out_dtype = out_dtype or dtype
+        x, dz, scale, bias = bn_inputs(shape, dtype, gen, offsets)
         got = bit_equal_twice(lambda: bn_kernel.bn_stats(x, BN_EPS),
                               f'K1 on {name}')
         want = bn_kernel.bn_stats_plain(x, BN_EPS)
@@ -646,10 +757,13 @@ def check_bn_kernels(cases=BN_CASES, quiet: bool = False) -> dict:
         worst['bn_stats'] = max(worst['bn_stats'], *(
             bn_err(g, w, 'reduce') for g, w in zip(got, want)))
         mean, _, rstd = want
-        worst['bn_apply'] = max(worst['bn_apply'], bn_err(
-            bn_kernel.bn_apply(x, mean, rstd, scale, bias),
-            bn_kernel.bn_apply_plain(x, mean, rstd, scale, bias, dtype),
-            elementwise))
+        k2_err, k2_paths = check_elementwise(
+            'bn_apply',
+            lambda: bn_kernel.bn_apply(x, mean, rstd, scale, bias, out_dtype),
+            bn_kernel.bn_apply_plain(x, mean, rstd, scale, bias, out_dtype),
+            on_card(torch.zeros(shape), out_dtype, offsets[0]),
+            elementwise_tol(out_dtype), f'K2 on {name}', x=x, mean=mean,
+            rstd=rstd, scale=scale, bias=bias)
         got = bit_equal_twice(
             lambda: bn_kernel.bn_grad_sums(dz, x, mean, rstd, scale),
             f'K3 on {name}')
@@ -657,17 +771,34 @@ def check_bn_kernels(cases=BN_CASES, quiet: bool = False) -> dict:
         worst['bn_grad_sums'] = max(worst['bn_grad_sums'], *(
             bn_err(g, w, 'reduce') for g, w in zip(got, want)))
         coef = want[2]
-        worst['bn_dx'] = max(worst['bn_dx'], bn_err(
-            bn_kernel.bn_dx(dz, x, mean, rstd, coef),
-            bn_kernel.bn_dx_plain(dz, x, mean, rstd, coef), elementwise))
+        k4_err, k4_paths = check_elementwise(
+            'bn_dx', lambda: bn_kernel.bn_dx(dz, x, mean, rstd, coef),
+            bn_kernel.bn_dx_plain(dz, x, mean, rstd, coef),
+            on_card(torch.zeros(shape), dtype, offsets[0]),
+            elementwise_tol(dtype), f'K4 on {name}', x=x, dz=dz, mean=mean,
+            rstd=rstd, coef=coef)
+        worst['bn_apply'] = max(worst['bn_apply'], k2_err)
+        worst['bn_dx'] = max(worst['bn_dx'], k4_err)
         torch.cuda.synchronize()
         if not quiet:
             plan = bn_kernel.reduce_plan('bn_grad_sums', x, dz)
-            log(f'  bn {name}: {list(shape)} {str(dtype)[6:]} within '
-                f'tolerance, K1 and K3 bit-equal twice (K3 {plan_text(plan)})')
+            log(f'  bn {name}: {list(shape)} {str(dtype)[6:]}'
+                + (f' into {str(out_dtype)[6:]}' if out_dtype != dtype else '')
+                + f' within tolerance, each kernel bit-equal twice (K3 '
+                f'{plan_text(plan)}; K2 '
+                + elementwise_text(bn_kernel.elementwise_plan(
+                    'bn_apply', x, out_dtype=out_dtype))
+                + '; K4 ' + elementwise_text(bn_kernel.elementwise_plan(
+                    'bn_dx', x, dz)) + f'; at the phase of x K2 on '
+                f'{", ".join(k2_paths)}, K4 on {", ".join(k4_paths)})')
         del x, dz
     log('  bn max abs err: ' + ', '.join(f'{k} {v:.3g}' for k, v in worst.items()))
     return worst
+
+
+def elementwise_tol(dtype) -> str:
+    """``BN_TOL``'s key for an elementwise output in ``dtype``."""
+    return 'elementwise_bf16' if dtype == torch.bfloat16 else 'elementwise'
 
 
 def bn_bound_ms(name: str, elements: int, channels: int, card: str,
@@ -684,11 +815,64 @@ def bn_bound_ms(name: str, elements: int, channels: int, card: str,
     return max(bytes_ms, ops_ms), 'bytes' if bytes_ms >= ops_ms else 'operations'
 
 
+def library_calls(x, dz, scale, bias, mean, rstd,
+                  names=tuple(LIBRARY_CALLS)) -> dict:
+    """The one PyTorch call of each BN kernel of ``names``
+    (``LIBRARY_CALLS``) on these inputs, with f32 statistics and
+    parameters: a callable, or the first line of the error with which the
+    call refused the inputs (they are never cast).  K4's call takes the
+    sums K3 computes, here in f32 from the plain arithmetic, and the count
+    per channel."""
+    if 'bn_dx' in names:
+        dims = [0] + list(range(2, x.dim()))
+        per_channel = (1, -1) + (1,) * (x.dim() - 2)
+        g = dz.float()
+        sum_dy = g.sum(dims)
+        sum_dy_xmu = (g * (x.float() - mean.view(per_channel))).sum(dims)
+        count = torch.full((1,), x.numel() // x.shape[1], dtype=torch.int32,
+                           device=x.device)
+    calls = {
+        'bn_stats': lambda: torch.batch_norm_stats(x, BN_EPS),
+        'bn_apply': lambda: torch.batch_norm_elemt(x, scale, bias, mean, rstd,
+                                                   BN_EPS),
+        'bn_grad_sums': lambda: torch.batch_norm_backward_reduce(
+            dz, x, mean, rstd, scale, True, True, True),
+        'bn_dx': lambda: torch.batch_norm_backward_elemt(
+            dz, x, mean, rstd, scale, sum_dy, sum_dy_xmu, count),
+    }
+    out = {}
+    for name in names:
+        call = calls[name]
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = call
+        except RuntimeError as err:
+            out[name] = f'refused: {str(err).splitlines()[0]}'
+    return out
+
+
+def library_fields(name: str, ms) -> dict:
+    """``library_ms`` (``None`` where the call refused the inputs) and the
+    call's name, with its refusal."""
+    return {'library_ms': ms if isinstance(ms, float) else None,
+            'library_call': LIBRARY_CALLS[name],
+            **({} if isinstance(ms, float) else {'library_refused': ms})}
+
+
+def library_text(k: dict) -> str:
+    """``library_fields``'s call and time (or refusal) in a few words."""
+    return (f'{k["library_call"]} ' + (f'{k["library_ms"] * 1e3:.2f} us'
+                                       if k['library_ms'] is not None
+                                       else k['library_refused']))
+
+
 def time_bn_kernels(card: str, dtype=torch.float32) -> dict:
     """Each BN kernel at ``BN_TIMED_SHAPE`` with activations in ``dtype``:
-    device time per launch, the plain version's time, the bound, and the
-    PyTorch pair that computes the same function (``torch.native_batch_norm``
-    and its backward)."""
+    device time per launch, the plain version's time, the bound, the one
+    PyTorch call that computes the same function (``library_calls``) and
+    the PyTorch pair that computes it with its partner
+    (``torch.native_batch_norm`` and its backward)."""
     x, dz, scale, bias = bn_inputs(BN_TIMED_SHAPE, dtype,
                                    torch.Generator().manual_seed(SEED + 3))
     mean, _, rstd = bn_kernel.bn_stats(x, BN_EPS)
@@ -705,14 +889,18 @@ def time_bn_kernels(card: str, dtype=torch.float32) -> dict:
         'bn_dx': (lambda: bn_kernel.bn_dx(dz, x, mean, rstd, coef),
                   lambda: bn_kernel.bn_dx_plain(dz, x, mean, rstd, coef)),
     }
+    library = library_calls(x, dz, scale, bias, mean, rstd)
     elements, channels = x.numel(), x.shape[1]
     out = {}
     for name, (kernel, plain) in calls.items():
         bound, bound_by = bn_bound_ms(name, elements, channels, card,
                                       x.element_size())
+        own = library[name]
         out[name] = {'ms': kernels_device_ms(kernel, [BN_KERNELS[name][0]], 20),
                      'plain_ms': cuda_ms(plain, iters=5),
-                     'bound_ms': bound, 'bound_by': bound_by}
+                     'bound_ms': bound, 'bound_by': bound_by,
+                     **library_fields(name, cuda_ms(own, iters=20)
+                                      if callable(own) else own)}
     # the library pairs: native batch norm forward (K1 + K2) and backward
     # (K3 + K4), timed once per pair
     fwd = lambda: torch.native_batch_norm(x, scale, bias, None, None, True,  # noqa: E731
@@ -722,9 +910,8 @@ def time_bn_kernels(card: str, dtype=torch.float32) -> dict:
         dz, x, scale, None, None, save_mean, save_invstd, True, BN_EPS,
         [True, True, True])
     pairs = {'K1+K2': cuda_ms(fwd, iters=20), 'K3+K4': cuda_ms(bwd, iters=20)}
-    for name, pair in (('bn_stats', 'K1+K2'), ('bn_apply', 'K1+K2'),
-                       ('bn_grad_sums', 'K3+K4'), ('bn_dx', 'K3+K4')):
-        out[name].update(library_ms=pairs[pair], library_pair=pair)
+    for name, pair in LIBRARY_PAIRS.items():
+        out[name].update(library_pair=pair, library_pair_ms=pairs[pair])
     return out
 
 
@@ -873,7 +1060,7 @@ def load_parent_nms(source: str) -> ctypes.CDLL:
     return lib
 
 
-def parent_launcher(lib: ctypes.CDLL, boxes: torch.Tensor,
+def parent_nms_launcher(lib: ctypes.CDLL, boxes: torch.Tensor,
                     scores: torch.Tensor, thr: float):
     """A call that launches the other build's kernel on these inputs into a
     keep mask allocated once (the wrapper's launch count is untouched)."""
@@ -919,7 +1106,7 @@ def time_nms(thr: float, inputs: dict, card: str, parent=None) -> dict:
         row = {'shape': [n, k], **nms_bound(scores, card),
                'kept_mean': launch().sum(dim=1).double().mean().item()}
         if parent is not None:
-            parent_launch = parent_launcher(parent, boxes, scores, thr)
+            parent_launch = parent_nms_launcher(parent, boxes, scores, thr)
             if not torch.equal(parent_launch(), launch()):
                 fail(f'the parent NMS kernel and this one differ on {name}')
             turns = {'parent': [], 'this': []}
@@ -1066,8 +1253,9 @@ def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str,
     """One profiled train step of path ``key``: its BN shapes held against
     ``STEP_BN_SHAPES``, each BN kernel's device time in the step beside its
     bound for the step's shapes, the card's busy time, (with ``table``) the
-    table of device time by operator, and (with ``parent_bn``) K1 and K3 in
-    the step in turns against the parent build (``bn_step_turns``)."""
+    table of device time by operator, and (with ``parent_bn``) the kernels
+    of ``ELEMENTWISE`` and the step's wall time in turns against the
+    parent build (``bn_step_turns``)."""
     shapes = []
     hooks = [m.register_forward_pre_hook(
         lambda mod, args: shapes.append(tuple(args[0].shape)))
@@ -1102,11 +1290,15 @@ def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str,
     out['device_busy_ms'] = busy_ms
     out['profiled_step_wall_ms'] = wall_ms
     if parent_bn is not None:
-        for name, turns in bn_step_turns(step, parent_bn, n_bn).items():
-            out[name]['turns'] = turns
-            log(f'  {name} in the step, in turns: {turns["step_ms"]:.4f} ms, '
-                f'parent {turns["step_parent_ms"]:.4f} ms '
-                + json.dumps(turns['turns_ms']))
+        turns = bn_step_turns(step, parent_bn, n_bn)
+        for name, kernel in turns['kernels'].items():
+            out[name]['turns'] = kernel
+        out['parent_wall'] = turns['wall']
+        wall = turns['wall']
+        log(f'  the step with this build\'s {"/".join(ELEMENTWISE)} and the '
+            f'parent\'s, in turns: wall median {wall["ms"]:.3f} ms (IQR '
+            f'{wall["iqr_ms"]:.3f}), parent {wall["parent_ms"]:.3f} ms (IQR '
+            f'{wall["parent_iqr_ms"]:.3f}) ' + json.dumps(wall['turns_ms']))
     out['bn_elements_per_step'] = sum(math.prod(s) for s in shapes)
     out['bn_shapes'] = shapes
     log(f'  profile of one train_step({len(batch[0])}) with the BN kernels '
@@ -1119,28 +1311,42 @@ def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str,
 
 
 def device_busy_ms(fn, iters: int = 3) -> float:
-    """Device time per call of ``fn``, summed over every CUDA kernel it
-    launches, from the profiler's trace; a window that holds no device time
-    (the trace dropped all of it) is profiled again, ``PROFILER_TRIES``
-    windows at most."""
+    """Device time per call of ``fn``, summed over every CUDA kernel, copy
+    and fill it launches, from the profiler's trace.  How many launches
+    ``fn`` makes is not known beforehand (a PyTorch call's own), and the
+    trace drops launches at random and now and then holds one more, so a
+    window is read only where its launches are a positive multiple of
+    ``iters``, seen in an earlier window too and no fewer than any such
+    multiple seen; other windows are printed and profiled again,
+    ``2 * PROFILER_TRIES`` windows at most."""
     def run():
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
 
-    for _ in range(PROFILER_TRIES):
-        busy = busy_us(profile_window(run))
-        if busy > 0:
+    seen = []
+    for _ in range(2 * PROFILER_TRIES):
+        prof = profile_window(run)
+        busy = busy_us(prof)
+        launches = busy_launches(prof) if busy > 0 else 0
+        if (launches > 0 and launches % iters == 0 and launches in seen
+                and launches >= max(n for n in seen if n % iters == 0)):
             return busy / iters / 1e3
-        log('  profiler saw no device time; profiling again')
-    fail('profiler saw no device time in any window')
+        if seen:
+            log(f'  profiler saw {launches} launches in {iters} calls '
+                f'(earlier windows {seen}); profiling again')
+        seen.append(launches)
+    fail(f'profiler saw {seen} launches in windows of {iters} calls, never '
+         'the same whole count twice')
 
 
 def library_bn_step_ms(shapes, dtype=torch.float32) -> dict:
-    """The PyTorch pairs over one train step's BN shapes (activations in
-    ``dtype``, parameters f32, one call per shape): ``native_batch_norm``
-    (K1+K2) and ``native_batch_norm_backward`` (K3+K4), device time summed
-    over all of their kernels."""
+    """The PyTorch calls over one train step's BN shapes (activations in
+    ``dtype``, parameters f32, one call per shape), device time summed over
+    all of their kernels: the pairs ``native_batch_norm`` (``'K1+K2'``) and
+    ``native_batch_norm_backward`` (``'K3+K4'``), and each kernel's own
+    call (``library_calls``; by wrapper name, the refusal where a call
+    refuses the inputs)."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
     data = []
     for shape in shapes:
@@ -1163,9 +1369,66 @@ def library_bn_step_ms(shapes, dtype=torch.float32) -> dict:
                 [True, True, True])
 
     out = {'K1+K2': device_busy_ms(forward), 'K3+K4': device_busy_ms(backward)}
-    del data, saved
+    calls = [library_calls(x, dz, scale, bias, mean, invstd)
+             for (x, dz, scale, bias), (mean, invstd) in zip(data, saved)]
+    for name in BN_KERNELS:
+        refused = [c[name] for c in calls if not callable(c[name])]
+        out[name] = refused[0] if refused else device_busy_ms(
+            lambda: [c[name]() for c in calls])
+    del data, saved, calls
     torch.cuda.empty_cache()
     return out
+
+
+def library_step_fields(name: str, library_step: dict) -> dict:
+    """A kernel's own PyTorch call and its pair over a step's shapes
+    (``library_bn_step_ms``), for the kernels line."""
+    own = library_step[name]
+    return {'library_step_ms': own if isinstance(own, float) else None,
+            **({} if isinstance(own, float) else {'library_refused': own}),
+            'library_pair_step_ms': library_step[LIBRARY_PAIRS[name]]}
+
+
+def slower_than_library(steps: dict) -> dict:
+    """For each BN kernel, the profiled steps (``{key: (profile_train_step
+    result, library_bn_step_ms result)}``) over which it took more device
+    time than its own PyTorch call over the same shapes."""
+    return {name: [key for key, (step, library) in steps.items()
+                   if isinstance(library[name], float)
+                   and step[name]['step_ms'] > library[name]]
+            for name in BN_KERNELS}
+
+
+def log_bn_kernels(per_launch: dict, label: str) -> None:
+    """``time_bn_kernels``'s readings, a line per kernel."""
+    for name, k in per_launch.items():
+        log(f'  {name} {label}: {k["ms"] * 1e3:.2f} us/launch at '
+            f'{list(BN_TIMED_SHAPE)} (bound {k["bound_ms"] * 1e3:.2f} us, '
+            f'{k["bound_by"]}, {k["bound_ms"] / k["ms"]:.0%}; plain '
+            f'{k["plain_ms"] * 1e3:.2f} us; {library_text(k)}; PyTorch '
+            f'{k["library_pair"]} pair {k["library_pair_ms"] * 1e3:.2f} us)')
+
+
+def log_bn_step(step: dict, library_step: dict, n_bn: int) -> None:
+    """Each BN kernel's device ms over a profiled step beside its bound, its
+    own PyTorch call over the same shapes (``library_bn_step_ms``) and, with
+    the parent build (``--parent-bn``), its time in turns; then the
+    pairs."""
+    for name in BN_KERNELS:
+        k, own = step[name], library_step[name]
+        turns = k.get('turns')
+        log(f'  {name}: {k["step_ms"]:.3f} ms per step over {n_bn} launches '
+            f'(bound {k["step_bound_ms"]:.3f} ms, '
+            f'{k["step_bound_ms"] / k["step_ms"]:.0%}; {LIBRARY_CALLS[name]} '
+            + (f'{own:.3f} ms' if isinstance(own, float) else own) + ')'
+            + (f'; in turns {turns["step_ms"]:.4f} ms, parent '
+               f'{turns["step_parent_ms"]:.4f} ms ' + json.dumps(turns['turns_ms'])
+               if turns else ''))
+    pairs = {'K1+K2': step['bn_stats']['step_ms'] + step['bn_apply']['step_ms'],
+             'K3+K4': step['bn_grad_sums']['step_ms'] + step['bn_dx']['step_ms']}
+    for pair, ms in pairs.items():
+        log(f'  per step over the {n_bn} BN shapes: kernels {pair} {ms:.3f} '
+            f'ms, PyTorch pair {library_step[pair]:.3f} ms')
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1756,18 +2019,11 @@ def zoo_training(config: str, key: str, size: int, n_bn_expected: int,
     torch.cuda.empty_cache()
     shapes = sorted(set(step_shapes), key=math.prod, reverse=True)
     bn_check = check_bn_kernels(
-        [(str(list(s)), s, torch.float32) for s in shapes], quiet=True)
+        [BnCase(str(list(s)), s, torch.float32) for s in shapes], quiet=True)
     log(f'  K1-K4 vs plain on the {len(shapes)} distinct BN shapes of the '
         f'step, from {list(shapes[0])} to {list(shapes[-1])}: within BN_TOL')
     library_step = library_bn_step_ms(step_shapes)
-    for name in BN_KERNELS:
-        log(f'  {name}: {step[name]["step_ms"]:.3f} ms per step over {n_bn} '
-            f'launches (bound {step[name]["step_bound_ms"]:.3f} ms)')
-    pairs = {'K1+K2': step['bn_stats']['step_ms'] + step['bn_apply']['step_ms'],
-             'K3+K4': step['bn_grad_sums']['step_ms'] + step['bn_dx']['step_ms']}
-    for pair, ms in library_step.items():
-        log(f'  per step over the {n_bn} BN shapes: kernels {pair} '
-            f'{pairs[pair]:.3f} ms, PyTorch pair {ms:.3f} ms')
+    log_bn_step(step, library_step, n_bn)
     return {'n_bn': n_bn, 'losses': [m['loss'] for m in metrics],
             'launches': launches, 'peak_memory_bytes': peak,
             **library, **timing,
@@ -2054,172 +2310,214 @@ SHAPE_ITERS = 20
 # Planes of S % 4 != 0 (S = 361 and 5625) at which the split and scalar
 # paths are timed side by side
 ODD_PLANE_SHAPES = ((32, 116, 19, 19), (32, 58, 75, 75))
+# The elementwise passes K2 and K4, whose kernels ``--parent-bn`` swaps for
+# the parent build's in the profiled steps and times beside this build's
+# per shape
+ELEMENTWISE = ('bn_apply', 'bn_dx')
+# A BN shape of the flagship's step at which a K2 or K4 launch takes less
+# device time than its wrapper's host path (phase 14's host µs per call)
+HOST_SHAPE = (32, 256, 3, 3)
+# The elementwise passes' activation dtypes in phase 14 (z, dz and dx in
+# x's)
+ELEMENTWISE_DTYPES = {'f32': torch.float32, 'bf16': torch.bfloat16}
 
 
 def load_parent_bn(source: str) -> ctypes.CDLL:
-    """Build another version of ``bn.cu`` whose reductions take a scratch
-    buffer of partials (``bn_partial_floats``) and declare that C interface
-    of its K1 and K3."""
+    """Build another version of ``bn.cu`` (say, a ``git archive`` of the
+    commit before the elementwise passes' redesign) and declare its K2 and
+    K4 launchers, ``bn_apply_launch`` and ``bn_dx_launch``, whose C
+    interface is this build's.  A ``bn.cu`` of the two-pass reductions (it
+    exports ``bn_partial_floats``) is refused: that comparison was recorded
+    when K1 and K3 became one launch."""
     lib = ctypes.CDLL(str(_build.build_source(Path(source))))
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.bn_partial_floats.argtypes = [ll, ll, ll]
-    lib.bn_partial_floats.restype = ll
-    lib.bn_stats_launch.argtypes = [p, i, p, p, p, p, ll, ll, ll, f, i, p]
-    lib.bn_grad_sums_launch.argtypes = [p, i, p, i, p, p, p, p, p, p, p,
-                                        ll, ll, ll, i, p]
-    lib.bn_stats_launch.restype = lib.bn_grad_sums_launch.restype = i
+    if hasattr(lib, 'bn_partial_floats'):
+        fail(f'{source} has the two-pass reductions; --parent-bn takes a '
+             'bn.cu with one-launch K1 and K3')
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.bn_apply_launch.argtypes = [p, i, p, p, p, p, p, i, ll, ll, ll, i, p]
+    lib.bn_dx_launch.argtypes = [p, i, p, i, p, p, p, p, ll, ll, ll, i, p]
+    lib.bn_apply_launch.restype = lib.bn_dx_launch.restype = i
     return lib
 
 
-def parent_bn_launchers(lib: ctypes.CDLL, x, dz, mean, rstd, scale,
-                        eps: float = BN_EPS) -> dict:
-    """Calls that launch the other build's K1 and K3 on these inputs into
-    outputs and a scratch buffer allocated once (the wrappers' launch
-    counts are untouched)."""
-    b, c, s = x.shape[0], x.shape[1], math.prod(x.shape[2:])
-    partial = torch.empty(lib.bn_partial_floats(b, c, s), device=x.device)
-    stats = [torch.empty(c, device=x.device) for _ in range(3)]
-    sums = [torch.empty(c, device=x.device), torch.empty(c, device=x.device),
-            torch.empty((3, c), device=x.device)]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = {torch.float32: 0, torch.bfloat16: 1}
-
-    def launched(err, outs):
-        if err:
-            fail(f'parent BN kernel launch failed ({err})')
-        return outs
-
-    def k1():
-        return launched(lib.bn_stats_launch(
-            x.data_ptr(), code[x.dtype], partial.data_ptr(),
-            *(t.data_ptr() for t in stats), b, c, s, eps, x.device.index,
-            stream), stats)
-
-    def k3():
-        return launched(lib.bn_grad_sums_launch(
-            dz.data_ptr(), code[dz.dtype], x.data_ptr(), code[x.dtype],
-            mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
-            partial.data_ptr(), *(t.data_ptr() for t in sums), b, c, s,
-            x.device.index, stream), sums)
-    return {'bn_stats': k1, 'bn_grad_sums': k3}
-
-
 @contextlib.contextmanager
-def parent_reductions(lib: ctypes.CDLL):
-    """``bn_kernel``'s K1 and K3 wrappers replaced, for the block, by calls
-    of another build's kernels (``load_parent_bn``) that allocate their
-    outputs and scratch on each call, as that build's wrappers did."""
-    def bn_stats(x, eps):
-        return tuple(parent_bn_launchers(lib, x, None, None, None, None,
-                                         eps)['bn_stats']())
-
-    def bn_grad_sums(dz, x, mean, rstd, scale):
-        return tuple(parent_bn_launchers(lib, x, dz, mean, rstd,
-                                         scale)['bn_grad_sums']())
-
-    saved = bn_kernel.bn_stats, bn_kernel.bn_grad_sums
-    bn_kernel.bn_stats, bn_kernel.bn_grad_sums = bn_stats, bn_grad_sums
+def parent_kernels(lib: ctypes.CDLL):
+    """For the block, the wrappers of ``ELEMENTWISE`` launch another
+    build's K2 and K4 (``load_parent_bn``): its ``bn_apply_launch`` and
+    ``bn_dx_launch`` stand in for this build's on the loaded library, so
+    both sides run the same Python; the wrappers' launch counts are put
+    back at the end."""
+    own = bn_kernel._library()
+    symbols = ('bn_apply_launch', 'bn_dx_launch')
+    saved = {name: getattr(own, name) for name in symbols}
+    counts = [bn_kernel.bn_apply.launches, bn_kernel.bn_dx.launches]
+    for name in symbols:
+        setattr(own, name, getattr(lib, name))
     try:
         yield
     finally:
-        bn_kernel.bn_stats, bn_kernel.bn_grad_sums = saved
+        for name, fn in saved.items():
+            setattr(own, name, fn)
+        bn_kernel.bn_apply.launches, bn_kernel.bn_dx.launches = counts
+
+
+def wrapper_call(kernel: str, x, mean, rstd, scale=None, bias=None, dz=None,
+                 coef=None):
+    """A call of the wrapper of K2 (``kernel='bn_apply'``, z in x's dtype)
+    or K4 (``'bn_dx'``) on these inputs."""
+    if kernel == 'bn_apply':
+        return lambda: bn_kernel.bn_apply(x, mean, rstd, scale, bias)
+    return lambda: bn_kernel.bn_dx(dz, x, mean, rstd, coef)
 
 
 def bn_step_turns(step, parent, n_bn: int) -> dict:
-    """K1's and K3's device ms in one profiled call of ``step`` (a train
-    step) with this build's kernels and with the parent build's
-    (``parent_reductions``), in turns: parent, this, this, parent."""
-    groups = {'this': [BN_KERNELS[name][0] for name in REDUCTIONS],
-              'parent': [(n,) for name in REDUCTIONS
-                         for n in PARENT_BN_KERNELS[name]]}
+    """The device ms of the kernels of ``ELEMENTWISE`` in one profiled
+    call of ``step`` (a train step that ends in a synchronize) with this
+    build's kernels and with the parent build's (``parent_kernels``), in
+    turns: parent, this, this, parent; then the step's wall time in turns
+    (twice that order, 3 steps a turn after a warm-up step): median and
+    interquartile range per side."""
+    groups = [BN_KERNELS[name][0] for name in ELEMENTWISE]
     turns = {'parent': [], 'this': []}
-    for side in ('parent', 'this', 'this', 'parent'):
-        with (parent_reductions(parent) if side == 'parent'
+    walls = {'parent': [], 'this': []}
+    order = ('parent', 'this', 'this', 'parent')
+    for side in order:
+        with (parent_kernels(parent) if side == 'parent'
               else contextlib.nullcontext()):
-            prof = profile_counted(step, groups[side], n_bn)
-        ms = [group_us(prof, g)[0] / 1e3 for g in groups[side]]
-        turns[side].append(ms if side == 'this' else [ms[0] + ms[1],
-                                                      ms[2] + ms[3]])
-    return {name: {'step_ms': statistics.mean(t[i] for t in turns['this']),
-                   'step_parent_ms': statistics.mean(
-                       t[i] for t in turns['parent']),
-                   'turns_ms': {side: [t[i] for t in ts]
-                                for side, ts in turns.items()}}
-            for i, name in enumerate(REDUCTIONS)}
+            prof = profile_counted(step, groups, n_bn)
+        turns[side].append([group_us(prof, g)[0] / 1e3 for g in groups])
+    for side in order * 2:
+        with (parent_kernels(parent) if side == 'parent'
+              else contextlib.nullcontext()):
+            walls[side] += host_times_ms(step, iters=3, warmup=1)
+
+    def iqr(times):
+        quartiles = statistics.quantiles(times, n=4)
+        return quartiles[2] - quartiles[0]
+    return {'kernels': {name: {
+                'step_ms': statistics.mean(t[i] for t in turns['this']),
+                'step_parent_ms': statistics.mean(t[i] for t in turns['parent']),
+                'turns_ms': {side: [t[i] for t in ts]
+                             for side, ts in turns.items()}}
+                for i, name in enumerate(ELEMENTWISE)},
+            'wall': {'ms': statistics.median(walls['this']),
+                     'parent_ms': statistics.median(walls['parent']),
+                     'iqr_ms': iqr(walls['this']),
+                     'parent_iqr_ms': iqr(walls['parent']),
+                     'turns_ms': walls}}
 
 
-def both(calls: dict):
-    """One call of K1 then K3 from ``calls`` (by wrapper name)."""
-    return lambda: [calls[name]() for name in REDUCTIONS]
+def time_elementwise_shape(kernel: str, card: str, parent=None,
+                           weight=None, **inputs) -> dict:
+    """K2 (``kernel='bn_apply'``) or K4 (``'bn_dx'``) at one shape, its
+    output in x's dtype: its plan, device µs per launch of its wrapper
+    (with ``parent``, the parent build's kernel through the same wrapper
+    too, in turns: parent, this, this, parent), the bound, the launch floor
+    (an empty kernel on the same grid) and its own PyTorch call's device µs
+    (with ``weight``, the BN scale); this build's output on its own path
+    and the parent's held against the plain version."""
+    x = inputs['x']
+    plain = {'bn_apply': lambda x, mean, rstd, scale, bias:
+             bn_kernel.bn_apply_plain(x, mean, rstd, scale, bias, x.dtype),
+             'bn_dx': bn_kernel.bn_dx_plain}[kernel]
+    want = plain(**inputs)
+    kind = elementwise_tol(x.dtype)
+    call = wrapper_call(kernel, **inputs)
+    floor = bn_kernel.elementwise_launcher(kernel, floor=True, **inputs)
+    row = {'plan': bn_kernel.elementwise_plan(kernel, x, inputs.get('dz')),
+           'bound_ms': bn_bound_ms(kernel, x.numel(), x.shape[1], card,
+                                   x.element_size())[0],
+           'max_abs_err': bn_err(call(), want, kind)}
+    groups = [BN_KERNELS[kernel][0], FLOOR_KERNELS[kernel]]
+    sides = {'this': lambda: groups_device_ms(lambda: (call(), floor()),
+                                              groups, SHAPE_ITERS)}
+    if parent is not None:
+        with parent_kernels(parent):
+            bn_err(call(), want, kind)
+
+        def on_parent():
+            with parent_kernels(parent):
+                return groups_device_ms(call, groups[:1], SHAPE_ITERS)
+        sides['parent'] = on_parent
+    turns = {side: [] for side in sides}
+    for side in ('parent', 'this', 'this', 'parent'):
+        if side in sides:
+            turns[side].append(sides[side]())
+    row['ms'] = statistics.mean(t[0] for t in turns['this'])
+    row['floor_ms'] = statistics.mean(t[1] for t in turns['this'])
+    if parent is not None:
+        row['parent_ms'] = statistics.mean(t[0] for t in turns['parent'])
+        row['turns_ms'] = {side: [t[0] for t in ts] for side, ts in turns.items()}
+    own = library_calls(x, inputs.get('dz', x), weight, inputs.get('bias'),
+                        inputs['mean'], inputs['rstd'], (kernel,))[kernel]
+    row.update(library_fields(kernel, device_busy_ms(own, SHAPE_ITERS)
+                              if callable(own) else own))
+    return row
 
 
 def time_bn_shape(shape, card: str, parent=None) -> dict:
     """K1 and K3 at one f32 ``shape``: the grid each launches, device µs
-    per launch (with ``parent``, the parent build's partial and combine
-    passes too, after checking them against the plain versions, in turns:
-    parent, this, this, parent), the bound and the launch floor (an empty
-    kernel on the same grid, block and cluster).  Each window launches the
-    same inputs ``SHAPE_ITERS`` times, so inputs that fit the L2 are warm."""
+    per launch, the bound and the launch floor (an empty kernel on the same
+    grid, block and cluster); K2 and K4 at f32 and bf16
+    (``time_elementwise_shape``).  Each window launches the same inputs
+    ``SHAPE_ITERS`` times, so inputs that fit the L2 are warm."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 11)
     x = torch.randn(shape, device='cuda', generator=gen) * 2 + 0.3
     dz = torch.randn(shape, device='cuda', generator=gen)
     scale = torch.rand(shape[1], device='cuda', generator=gen) + 0.5
+    bias = torch.randn(shape[1], device='cuda', generator=gen) * 0.1
     mean, _, rstd = bn_kernel.bn_stats_plain(x, BN_EPS)
-    this = {'bn_stats': lambda: bn_kernel.bn_stats(x, BN_EPS),
-            'bn_grad_sums': lambda: bn_kernel.bn_grad_sums(dz, x, mean, rstd,
-                                                           scale)}
-    groups = [BN_KERNELS[name][0] for name in REDUCTIONS]
+    coef = bn_kernel.bn_grad_sums_plain(dz, x, mean, rstd, scale)[2]
+    calls = [lambda: bn_kernel.bn_stats(x, BN_EPS),
+             lambda: bn_kernel.bn_grad_sums(dz, x, mean, rstd, scale)]
+    calls += [bn_kernel.reduce_launcher(name, x, dz, mean, rstd, scale,
+                                        floor=True) for name in REDUCTIONS]
+    groups = ([BN_KERNELS[name][0] for name in REDUCTIONS]
+              + [FLOOR_KERNELS[name] for name in REDUCTIONS])
+    ms = groups_device_ms(lambda: [call() for call in calls], groups,
+                          SHAPE_ITERS)
     row = {'shape': list(shape)}
-    for name in REDUCTIONS:
+    for i, name in enumerate(REDUCTIONS):
         row[name] = {'plan': bn_kernel.reduce_plan(
             name, x, dz if name == 'bn_grad_sums' else None),
-            'bound_ms': bn_bound_ms(name, x.numel(), shape[1], card)[0]}
-    if parent is not None:
-        old = parent_bn_launchers(parent, x, dz, mean, rstd, scale)
-        want = {'bn_stats': bn_kernel.bn_stats_plain(x, BN_EPS),
-                'bn_grad_sums': bn_kernel.bn_grad_sums_plain(dz, x, mean, rstd,
-                                                             scale)}
-        for name in REDUCTIONS:
-            for got, ref in zip(old[name](), want[name]):
-                bn_err(got, ref, 'reduce')
-        old_groups = [(n,) for name in REDUCTIONS for n in PARENT_BN_KERNELS[name]]
-        turns = {'parent': [], 'this': []}
-        for side in ('parent', 'this', 'this', 'parent'):
-            if side == 'this':
-                turns[side].append(groups_device_ms(both(this), groups,
-                                                    SHAPE_ITERS))
-            else:
-                ms = groups_device_ms(both(old), old_groups, SHAPE_ITERS)
-                turns[side].append([ms[0] + ms[1], ms[2] + ms[3]])
-        for i, name in enumerate(REDUCTIONS):
-            row[name].update(
-                ms=statistics.mean(t[i] for t in turns['this']),
-                parent_ms=statistics.mean(t[i] for t in turns['parent']),
-                turns_ms={side: [t[i] for t in ts] for side, ts in turns.items()})
-    else:
-        for name, ms in zip(REDUCTIONS, groups_device_ms(both(this), groups,
-                                                         SHAPE_ITERS)):
-            row[name]['ms'] = ms
-    floors = {name: bn_kernel.reduce_launcher(name, x, dz, mean, rstd, scale,
-                                              floor=True) for name in REDUCTIONS}
-    for name, ms in zip(REDUCTIONS, groups_device_ms(
-            both(floors), [FLOOR_KERNELS[name] for name in REDUCTIONS],
-            SHAPE_ITERS)):
-        row[name]['floor_ms'] = ms
+            'bound_ms': bn_bound_ms(name, x.numel(), shape[1], card)[0],
+            'ms': ms[i], 'floor_ms': ms[len(REDUCTIONS) + i]}
+    for label, dtype in ELEMENTWISE_DTYPES.items():
+        xd, dzd = x.to(dtype), dz.to(dtype)
+        row.setdefault('bn_apply', {})[label] = time_elementwise_shape(
+            'bn_apply', card, parent, scale, x=xd, mean=mean, rstd=rstd,
+            scale=scale, bias=bias)
+        row.setdefault('bn_dx', {})[label] = time_elementwise_shape(
+            'bn_dx', card, parent, scale, x=xd, dz=dzd, mean=mean, rstd=rstd,
+            coef=coef)
+        del xd, dzd
     del x, dz
     return row
 
 
 def log_bn_shape(row: dict) -> None:
+    """``time_bn_shape``'s row, one line."""
     parts = []
     for name, label in zip(REDUCTIONS, ('K1', 'K3')):
         k, plan = row[name], row[name]['plan']
-        parent = (f' (parent {k["parent_ms"] * 1e3:.2f})' if 'parent_ms' in k
-                  else '')
         parts.append(
-            f'{label} {plan_text(plan)}: {k["ms"] * 1e3:.2f} us{parent}, bound '
+            f'{label} {plan_text(plan)}: {k["ms"] * 1e3:.2f} us, bound '
             f'{k["bound_ms"] * 1e3:.2f}, floor {k["floor_ms"] * 1e3:.2f}')
+    for name, label in zip(ELEMENTWISE, ('K2', 'K4')):
+        for dtype, k in row[name].items():
+            parent = (f' (parent {k["parent_ms"] * 1e3:.2f})'
+                      if 'parent_ms' in k else '')
+            parts.append(
+                f'{label} {dtype} {elementwise_text(k["plan"])}: '
+                f'{k["ms"] * 1e3:.2f} us{parent}, bound '
+                f'{k["bound_ms"] * 1e3:.2f}, floor {k["floor_ms"] * 1e3:.2f}, '
+                f'{library_text(k)}')
     log(f'  {row["shape"]}: ' + '; '.join(parts))
+
+
+def both(calls: dict):
+    """One call of K1 then K3 from ``calls`` (by wrapper name)."""
+    return lambda: [calls[name]() for name in REDUCTIONS]
 
 
 def compare_odd_plane_paths(card: str) -> dict:
@@ -2261,11 +2559,24 @@ def compare_odd_plane_paths(card: str) -> dict:
     return out
 
 
+def step_sums(rows: dict, counts: dict, get, fields) -> dict:
+    """``step_<field>``: the count-weighted sum over a step's shapes of each
+    field of ``get(row)``; ``None`` where a shape lacks a number."""
+    out = {}
+    for field in fields:
+        values = [(n, get(rows[shape]).get(field)) for shape, n in counts.items()]
+        out[f'step_{field}'] = (None if any(v is None for _, v in values)
+                                else sum(n * v for n, v in values))
+    return out
+
+
 def time_bn_shapes(card: str, parent=None) -> dict:
-    """Phase 14: K1 and K3 at every distinct BN shape of the five steps
-    (``time_bn_shape``, with ``parent`` in turns against the parent build),
-    each step's sums (count x µs per launch over its shapes) beside its
-    bound and launch floors, and the odd-plane paths side by side."""
+    """Phase 14: K1 and K3 (f32), K2 and K4 (f32 and bf16) at every
+    distinct BN shape of the five steps (``time_bn_shape``; with
+    ``parent``, the parent build's K2 and K4 in turns), each step's sums
+    (count x µs per launch over its shapes) beside its bound, launch floors
+    and (K2, K4) their own PyTorch calls, and the odd-plane paths of K1 and
+    K3 side by side."""
     rows = {}
     for key in STEP_BN_SHAPES:
         log(f'  {key} step (b{STEP_BN_SHAPES[key][0]}):')
@@ -2277,24 +2588,80 @@ def time_bn_shapes(card: str, parent=None) -> dict:
     steps = {}
     for key in STEP_BN_SHAPES:
         counts = step_bn_shapes(key)
-        steps[key] = {}
-        for name in REDUCTIONS:
-            fields = ('ms', 'bound_ms', 'floor_ms') + (
-                ('parent_ms',) if parent is not None else ())
-            steps[key][name] = {f'step_{f}': sum(
-                n * rows[shape][name][f] for shape, n in counts.items())
-                for f in fields}
+        steps[key] = {name: step_sums(rows, counts, lambda r, n=name: r[n],
+                                      ('ms', 'bound_ms', 'floor_ms'))
+                      for name in REDUCTIONS}
+        fields = ('ms', 'bound_ms', 'floor_ms', 'library_ms') + (
+            ('parent_ms',) if parent is not None else ())
+        for name in ELEMENTWISE:
+            steps[key][name] = {
+                label: step_sums(rows, counts,
+                                 lambda r, n=name, d=label: r[n][d], fields)
+                for label in ELEMENTWISE_DTYPES}
+        parts = [(label, name, steps[key][name])
+                 for name, label in zip(REDUCTIONS, ('K1', 'K3'))]
+        parts += [(f'{label} {dtype}', name, t)
+                  for name, label in zip(ELEMENTWISE, ('K2', 'K4'))
+                  for dtype, t in steps[key][name].items()]
         log(f'  {key} step sums over {sum(counts.values())} BNs: ' + '; '.join(
             f'{label} {t["step_ms"]:.4f} ms'
-            + (f' (parent {t["step_parent_ms"]:.4f})' if parent is not None else '')
+            + (f' (parent {t["step_parent_ms"]:.4f})'
+               if t.get('step_parent_ms') is not None else '')
             + f', bound {t["step_bound_ms"]:.4f} '
             f'({100 * t["step_bound_ms"] / t["step_ms"]:.0f} %), floors '
             f'{t["step_floor_ms"]:.4f}'
-            for (name, t), label in zip(steps[key].items(), ('K1', 'K3'))))
+            + (f', {LIBRARY_CALLS[name]} {t["step_library_ms"]:.4f}'
+               if t.get('step_library_ms') is not None else '')
+            for label, name, t in parts))
     log('  the odd-plane paths side by side:')
     odd = compare_odd_plane_paths(card)
-    return {'shapes': [rows[s] for s in rows], 'steps': steps,
-            'odd_plane_paths': odd}
+    out = {'shapes': [rows[s] for s in rows], 'steps': steps,
+           'odd_plane_paths': odd}
+    if parent is not None:
+        log('  host µs per wrapper call, in turns with the parent:')
+        out['wrapper_host_us'] = wrapper_host_us(parent)
+    return out
+
+
+def wrapper_host_us(parent, iters: int = 2000) -> dict:
+    """Host µs per call of the wrappers of ``ELEMENTWISE`` at f32 and bf16
+    (the checks, the output's allocation, the C++ planning and the launch)
+    at ``HOST_SHAPE``, where the card keeps up with the host, with this
+    build's kernels and with the parent's (``parent_kernels``), in turns:
+    parent, this, this, parent; each side's mean of its two turns of
+    ``iters`` calls."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 13)
+    c = HOST_SHAPE[1]
+    mean = torch.randn(c, device='cuda', generator=gen)
+    rstd, scale = (torch.rand(c, device='cuda', generator=gen) + 0.5
+                   for _ in range(2))
+    bias = torch.randn(c, device='cuda', generator=gen)
+    coef = torch.randn((3, c), device='cuda', generator=gen)
+    out = {}
+    for dtype_name, dtype in ELEMENTWISE_DTYPES.items():
+        x, dz = (torch.randn(HOST_SHAPE, device='cuda', generator=gen).to(dtype)
+                 for _ in range(2))
+        for kernel in ELEMENTWISE:
+            call = wrapper_call(kernel, x, mean, rstd, scale, bias, dz, coef)
+            turns = {'parent': [], 'this': []}
+            for side in ('parent', 'this', 'this', 'parent'):
+                with (parent_kernels(parent) if side == 'parent'
+                      else contextlib.nullcontext()):
+                    call()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    for _ in range(iters):
+                        call()
+                    turns[side].append((time.perf_counter() - t) / iters * 1e6)
+                    torch.cuda.synchronize()
+            row = {'us': statistics.mean(turns['this']),
+                   'parent_us': statistics.mean(turns['parent']),
+                   'turns_us': turns}
+            out[f'{kernel} {dtype_name}'] = row
+            log(f'    {kernel} {dtype_name} {list(HOST_SHAPE)}: '
+                f'{row["us"]:.2f} us, parent {row["parent_us"]:.2f} us '
+                + json.dumps(turns))
+    return out
 
 
 # --------------------------------------------------------------- phase 15
@@ -2518,13 +2885,14 @@ def bf16_against_library_bn(trainer: Trainer, f32: Trainer, batch) -> dict:
             'stats_max_rel_err': stats_err, 'f32_stats_max_rel_err': f32_err}
 
 
-def bf16_training(card: str, smi: str) -> dict:
+def bf16_training(card: str, smi: str, parent_bn=None) -> dict:
     """The flagship's b32 train step with ``bf16`` and ``fused_bn``: 3
     steps with the BN counts read around them, one step against the same
     bf16 step with PyTorch's BN, K1-K4 at bf16 on every distinct BN shape
     of the step, each BN kernel's device time over a step beside its bf16
     bound and the PyTorch pairs at bf16, each kernel per launch at
-    ``BN_TIMED_SHAPE`` in bf16; the step at f32, TF32 and bf16 in turns."""
+    ``BN_TIMED_SHAPE`` in bf16; the step at f32, TF32 and bf16 in turns;
+    with ``parent_bn``, the parent build's K2 and K4 in the step in turns."""
     trainers = {name: build_trainer(True, **policy)
                 for name, policy in POLICIES.items()}
     trainer = trainers['bf16']
@@ -2540,28 +2908,20 @@ def bf16_training(card: str, smi: str) -> dict:
         + '; BN kernel launches ' + json.dumps(launches))
     library = bf16_against_library_bn(trainer, trainers['f32'], batches[0])
     step = profile_train_step(trainer, batches[0], n_bn, card, 'flagship',
-                              table=False, itemsize=2)
+                              table=False, parent_bn=parent_bn, itemsize=2)
     shapes = step.pop('bn_shapes')
     distinct = sorted(set(shapes), key=math.prod, reverse=True)
     bn_check = check_bn_kernels(
-        [(str(list(s)), s, torch.bfloat16) for s in distinct], quiet=True)
+        [BnCase(str(list(s)), s, torch.bfloat16) for s in distinct], quiet=True)
     log(f'  K1-K4 at bf16 vs plain on the {len(distinct)} distinct BN shapes '
-        'of the bf16 step: within BN_TOL, K1 and K3 bit-equal twice')
+        'of the bf16 step: within BN_TOL, K1, K2 and K3 bit-equal twice')
     turns = step_turns(trainers, batches[0], iters=6)
     del trainers, trainer
     torch.cuda.empty_cache()
     library_step = library_bn_step_ms(shapes, torch.bfloat16)
     per_launch = time_bn_kernels(card, torch.bfloat16)
-    for name in BN_KERNELS:
-        k, s = per_launch[name], step[name]
-        log(f'  {name} bf16: {k["ms"] * 1e3:.2f} us/launch at '
-            f'{list(BN_TIMED_SHAPE)} (bound {k["bound_ms"] * 1e3:.2f} us; '
-            f'PyTorch {k["library_pair"]} pair {k["library_ms"] * 1e3:.2f} '
-            f'us); {s["step_ms"]:.3f} ms per step (bound '
-            f'{s["step_bound_ms"]:.3f} ms, {s["step_bound_ms"] / s["step_ms"]:.0%})')
-    for pair, ms in library_step.items():
-        log(f'  bf16 per step over the {n_bn} BN shapes: PyTorch pair {pair} '
-            f'{ms:.3f} ms')
+    log_bn_kernels(per_launch, 'bf16')
+    log_bn_step(step, library_step, n_bn)
     log(f'  {smi}: flagship train_step b32 in turns: ' + ', '.join(
         f'{name} {row["ms"]:.2f} ms ({row["device_ms"]:.2f} ms device)'
         for name, row in turns.items()))
@@ -2591,10 +2951,10 @@ def bf16_retina(smi: str) -> dict:
     return turns
 
 
-def run_precision(card: str, smi: str) -> dict:
+def run_precision(card: str, smi: str, parent_bn=None) -> dict:
     """Phase 15: bf16 and the precision options on the main paths."""
     out = {'serving': bf16_serving(card, smi),
-           'training': bf16_training(card, smi),
+           'training': bf16_training(card, smi, parent_bn),
            'retina': bf16_retina(smi)}
     work = tempfile.mkdtemp(prefix='chip_smoke_bf16_')
     try:
@@ -2616,9 +2976,10 @@ def parse_args(argv):
              'of an earlier commit) to build and time beside this one')
     parser.add_argument(
         '--parent-bn', metavar='BN_CU',
-        help='another version of kernels/bn.cu whose K1 and K3 take a '
-             'scratch buffer of partials (e.g. from a git archive of an '
-             'earlier commit) to build and time beside this one in phase 14')
+        help='another version of kernels/bn.cu with this C interface (e.g. '
+             'from a git archive of an earlier commit) whose K2 and K4 are '
+             'built and timed in turns beside this one in the profiled '
+             'train steps and in phase 14')
     return parser.parse_args(argv)
 
 
@@ -2724,20 +3085,8 @@ def main(argv=None) -> int:
         f'{train_timing["train_step_b32_fused_bn_img_per_s"]:.1f} img/s; with '
         f'PyTorch BN {train_timing["train_step_b32_library_bn_ms"]:.3f} ms = '
         f'{train_timing["train_step_b32_library_bn_img_per_s"]:.1f} img/s')
-    for name in BN_KERNELS:
-        k, s = bn_time[name], step_profile[name]
-        log(f'  {name}: {k["ms"] * 1e3:.2f} us/launch at {list(BN_TIMED_SHAPE)} '
-            f'(bound {k["bound_ms"] * 1e3:.2f} us, {k["bound_by"]}; plain '
-            f'{k["plain_ms"] * 1e3:.2f} us; PyTorch {k["library_pair"]} pair '
-            f'{k["library_ms"] * 1e3:.2f} us); {s["step_ms"]:.3f} ms per step '
-            f'over {n_bn} launches (bound {s["step_bound_ms"]:.3f} ms)')
-    pair_steps = {'K1+K2': step_profile['bn_stats']['step_ms']
-                  + step_profile['bn_apply']['step_ms'],
-                  'K3+K4': step_profile['bn_grad_sums']['step_ms']
-                  + step_profile['bn_dx']['step_ms']}
-    for pair, ms in library_step.items():
-        log(f'  per step over the {n_bn} BN shapes: kernels {pair} {pair_steps[pair]:.3f} ms, '
-            f'PyTorch pair {ms:.3f} ms')
+    log_bn_kernels(bn_time, 'f32')
+    log_bn_step(step_profile, library_step, n_bn)
     del trainer, library_check['library']
     torch.cuda.empty_cache()
 
@@ -2826,11 +3175,13 @@ def main(argv=None) -> int:
     zoo_rest = run_zoo_rest(card, smi, parent_bn)
     log(f'  phase 13 in {time.perf_counter() - t:.1f} s')
 
-    # 14. K1 and K3 shape by shape over the five steps
+    # 14. the BN kernels shape by shape over the five steps
     t = time.perf_counter()
-    log(f'[14] {smi}: K1 and K3 per launch at every BN shape of the five '
-        'steps (f32, warm: each window repeats its inputs)'
-        + (f', in turns against {args.parent_bn}' if parent_bn else ''))
+    log(f'[14] {smi}: K1 and K3 (f32), K2 and K4 (f32 and bf16) per launch '
+        'at every BN shape of the five steps (warm: each window repeats its '
+        'inputs)'
+        + (f', K2 and K4 in turns against {args.parent_bn}' if parent_bn
+           else ''))
     bn_shapes = time_bn_shapes(card, parent_bn)
     log(f'  phase 14 in {time.perf_counter() - t:.1f} s')
 
@@ -2838,7 +3189,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     log(f'[15] {smi}: bf16 and TF32 against f32 on the flagship\'s serving '
         'and train step and RetinaNet\'s step, soft-NMS, the CLI with --bf16')
-    precision = run_precision(card, smi)
+    precision = run_precision(card, smi, parent_bn)
     log(f'  phase 15 in {time.perf_counter() - t:.1f} s')
 
     log(json.dumps({'slice': {
@@ -2915,6 +3266,13 @@ def main(argv=None) -> int:
     zoo_steps = {key: paths[key]['training'] for paths, keys in
                  ((zoo, ZOO), (zoo_rest, ZOO_REST)) for key in keys}
     bf16 = precision['training']
+    slower = slower_than_library({
+        'flagship': (step_profile, library_step),
+        **{key: (t['bn_step'], t['library_step_ms'])
+           for key, t in zoo_steps.items()},
+        'flagship_bf16': (bf16['bn_step'], bf16['library_step_ms'])})
+    log('each BN kernel against its own PyTorch call over the six profiled '
+        'steps, steps where the kernel was slower: ' + json.dumps(slower))
     for name, (_, _, replaces) in BN_KERNELS.items():
         kernels.append({
             'name': name,
@@ -2944,22 +3302,21 @@ def main(argv=None) -> int:
             'shape': list(BN_TIMED_SHAPE),
             **bn_time[name],
             **step_profile[name],
-            'library_step_ms': library_step[bn_time[name]['library_pair']],
+            **library_step_fields(name, library_step),
             'by_step': {key: {
                 **t['bn_step'][name], 'launches': t['n_bn'],
-                'library_step_ms': t['library_step_ms'][
-                    bn_time[name]['library_pair']],
+                **library_step_fields(name, t['library_step_ms']),
                 'max_abs_err': t['bn_max_abs_err'][name]}
                 for key, t in zoo_steps.items()},
-            **({'by_step_per_shape': {key: step[name] for key, step in
-                                      bn_shapes['steps'].items()}}
-               if name in REDUCTIONS else {}),
+            'by_step_per_shape': {key: step[name] for key, step in
+                                  bn_shapes['steps'].items()
+                                  if name in step},
             # the flagship's bf16 train step (phase 15)
             'bf16': {**bf16['per_launch'][name], **bf16['bn_step'][name],
                      'launches': bf16['launches'][name],
-                     'library_step_ms': bf16['library_step_ms'][
-                         bn_time[name]['library_pair']],
+                     **library_step_fields(name, bf16['library_step_ms']),
                      'max_abs_err': bf16['bn_max_abs_err'][name]},
+            'slower_than_library_on': slower[name],
         })
     log(json.dumps({'kernels': kernels}))
     log(smi)

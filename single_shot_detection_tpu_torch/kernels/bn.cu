@@ -48,12 +48,26 @@
 // count tickets only and never sum, so a result does not change from run
 // to run.
 
-// Elementwise passes (K2, K4).  Where S % 4 == 0 and every pointer is
-// aligned, a thread moves 4 elements per load (16 bytes in f32); otherwise
-// one.  A grid-stride loop over the flat tensor; each thread carries the
-// channel index of its position forward by adding the stride's plane and
-// channel steps, so no division per element.
-//
+// Elementwise passes (K2, K4).  They read the contiguous tensors as one
+// flat run of 16-byte vectors (V = 4 elements at f32, 8 at bf16, by x's
+// type; a bf16 x into an f32 z stores two 16-byte vectors), not as planes,
+// so every plane size moves 16 bytes a load.  A vector starting at flat
+// element e lies in channel (e / S) % C; where S >= V at most one plane
+// boundary falls inside it, so its lanes take one channel's coefficients or
+// two (vector path); planes shorter than a vector give each lane its own
+// channel (lanes path).  The elements before the first 16-byte boundary and
+// a tail short of a vector go one at a time; inputs and output at different
+// phases take the one-element path (scalar).  Each block takes a contiguous
+// chunk of one or two batches; a thread issues every load of its batch (K2
+// two vectors, K4 one vector of each input) before its first store.  The
+// grid is sized from the card: small layers spread over its resident
+// blocks, large ones take many short blocks, which the card balances (on
+// the largest layers one wave of long chunks was slower).  The
+// block's first loads are in flight while its threads fill a shared table
+// with the per-channel coefficients of each plane its chunk covers, so a
+// vector finds its plane by one 32-bit multiply-shift division and reads
+// its coefficients from shared memory, with no 64-bit division on the way.
+
 // Numerics.  Statistics, sums and coefficients are f32; x, dz, z and dx may
 // be f32 or bf16 (z in the output type, dx in x's type).  The file is built
 // with --fmad=false and never --use_fast_math, so each product and sum is
@@ -76,9 +90,6 @@
 namespace {
 
 namespace cg = cooperative_groups;
-
-constexpr int kThreads = 256;
-constexpr long long kMaxElementwiseBlocks = 4096;
 
 // dtype codes shared with ops/bn_kernel.py
 constexpr int kFloat32 = 0;
@@ -126,32 +137,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
-
-// Walks the flat vector index i = global thread id, += grid stride, carrying
-// the channel of i in the [B, C, Sv] view.
-struct FlatCursor {
-  long long i, s, c, r, qc, stride, sv, nc;
-  __device__ FlatCursor(long long C, long long Sv) {
-    i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    stride = static_cast<long long>(gridDim.x) * blockDim.x;
-    const long long plane = i / Sv;
-    s = i - plane * Sv;
-    c = plane % C;
-    const long long q = stride / Sv;
-    r = stride - q * Sv;
-    qc = q % C;
-    sv = Sv;
-    nc = C;
-  }
-  __device__ __forceinline__ void advance() {
-    i += stride;
-    s += r;
-    const long long carry = s >= sv;
-    s -= carry * sv;
-    c += qc + carry;
-    if (c >= nc) c -= nc;
-  }
-};
 
 // ------------------------------------------------------------- K1, K3
 
@@ -513,51 +498,220 @@ bn_grad_sums_narrow_kernel(GradSumsOp<TG, TX> op, long long B, long long C,
   reduce_narrow(op, B, C, S, tile, R);
 }
 
-// The launch floor of K1 (Kernel 0) and K3 (1): the same grid, block and
-// cluster, no work.
+// The launch floor of K1 (Kernel 0), K3 (1) and K2 (2): the same grid,
+// block and cluster, no work.
 template <int Kernel>
 __global__ void bn_floor_kernel(int) {}
 
-// ------------------------------------------------------------------ K2
+// ------------------------------------------------------------ K2, K4
 
-template <typename TX, typename TZ, int V>
-__global__ void __launch_bounds__(kThreads)
-bn_apply_kernel(const TX* __restrict__ x, const float* __restrict__ mean,
-                const float* __restrict__ rstd, const float* __restrict__ scale,
-                const float* __restrict__ bias, TZ* __restrict__ z, long long C,
-                long long Sv, long long nv) {
-  for (FlatCursor cur(C, Sv); cur.i < nv; cur.advance()) {
-    const float m = mean[cur.c], r = rstd[cur.c], a = scale[cur.c],
-                b = bias[cur.c];
-    float v[V];
-    load<TX, V>(x, cur.i, v);
+// The elementwise passes' paths (codes shared with ops/bn_kernel.py).
+constexpr int kVector = 0;  // 16-byte vectors, S >= V
+constexpr int kLanes = 1;   // 16-byte vectors, a channel per lane
+constexpr int kScalar = 2;  // one element per load
+
+constexpr int kElementwiseThreads = 256;
+constexpr int kElementwiseTable = 256;  // planes a block's chunk covers at most
+constexpr long long kMaxElementwisePlane = 1LL << 30;  // larger are refused
+
+// Division of n < 2^31 by a fixed d in [1, 2^31) as a multiply and a shift
+// (Granlund and Montgomery): n / d = (umulhi(n, magic) + n) >> shift.
+struct Divider {
+  unsigned int d, magic;
+  int shift;
+  __device__ __forceinline__ unsigned int div(unsigned int n) const {
+    return (__umulhi(n, magic) + n) >> shift;
+  }
+};
+
+// The flat run an elementwise pass walks: `head` elements before the
+// inputs' first 16-byte boundary, then `nvec` vectors of V elements,
+// `chunk` a block, then the tail up to `total`.
+struct Run {
+  long long C, S, head, nvec, total, chunk;
+  Divider plane, channel;  // division by S and by C
+
+  // plane p's channel, p % C
+  __device__ __forceinline__ long long channel_of(long long p) const {
+    return p < 0x7fffffffLL
+               ? p - static_cast<long long>(channel.div(static_cast<unsigned int>(p))) * C
+               : p % C;
+  }
+  // element e's plane, e / S
+  __device__ __forceinline__ long long plane_of(long long e) const {
+    return e < 0x7fffffffLL ? plane.div(static_cast<unsigned int>(e)) : e / S;
+  }
+};
+
+// K2's work: z = (x - mean) * rstd * scale + bias.
+template <typename TX, typename TZ>
+struct ApplyOp {
+  static constexpr int kInputs = 1;
+  static constexpr int kUnroll = 2;  // vectors a thread loads per batch
+  using Coef = float4;  // mean, rstd, scale, bias
+  const TX* __restrict__ x;
+  TZ* __restrict__ z;
+  const float* mean;
+  const float* rstd;
+  const float* scale;
+  const float* bias;
+  __device__ __forceinline__ Coef coef(long long c) const {
+    return make_float4(mean[c], rstd[c], scale[c], bias[c]);
+  }
+  template <int V>
+  __device__ __forceinline__ void read(long long e, float (&v)[1][V]) const {
+    load<TX, V>(x + e, 0, v[0]);
+  }
+  template <int V>
+  __device__ __forceinline__ float apply(const Coef& k, const float (&v)[1][V],
+                                         int i) const {
+    return (v[0][i] - k.x) * k.y * k.z + k.w;
+  }
+  template <int V>
+  __device__ __forceinline__ void write(long long e, const float (&v)[V]) const {
+    store<TZ, V>(z + e, 0, v);
+  }
+};
+
+// K4's work: dx = coef0 * ((dz - coef1) - xhat * coef2), xhat = (x - mean)
+// * rstd.
+template <typename TG, typename TX>
+struct DxOp {
+  static constexpr int kInputs = 2;
+  static constexpr int kUnroll = 1;  // vectors a thread loads per batch
+  struct alignas(16) Coef {
+    float4 a;  // mean, rstd, coef0, coef1
+    float b;   // coef2
+  };
+  const TG* __restrict__ dz;
+  const TX* __restrict__ x;
+  TX* __restrict__ dx;
+  const float* mean;
+  const float* rstd;
+  const float* k;  // [3, C]
+  long long C;
+  __device__ __forceinline__ Coef coef(long long c) const {
+    return {make_float4(mean[c], rstd[c], k[c], k[C + c]), k[2 * C + c]};
+  }
+  template <int V>
+  __device__ __forceinline__ void read(long long e, float (&v)[2][V]) const {
+    load<TG, V>(dz + e, 0, v[0]);
+    load<TX, V>(x + e, 0, v[1]);
+  }
+  template <int V>
+  __device__ __forceinline__ float apply(const Coef& c, const float (&v)[2][V],
+                                         int i) const {
+    const float xhat = (v[1][i] - c.a.x) * c.a.y;
+    return c.a.z * ((v[0][i] - c.a.w) - xhat * c.b);
+  }
+  template <int V>
+  __device__ __forceinline__ void write(long long e, const float (&v)[V]) const {
+    store<TX, V>(dx + e, 0, v);
+  }
+};
+
+// Element e alone (the head and the tail).
+template <class Op>
+__device__ __forceinline__ void elementwise_one(const Op& op, const Run& a,
+                                                long long e) {
+  float v[Op::kInputs][1];
+  op.template read<1>(e, v);
+  const float out[1] = {
+      op.template apply<1>(op.coef(a.channel_of(a.plane_of(e))), v, 0)};
+  op.template write<1>(e, out);
+}
+
+// Block i takes vectors [i * chunk, (i + 1) * chunk) of the run; its thread
+// t takes vectors j = t, t + T, ... Op::kUnroll at a time, all loads of a
+// batch issued before its first store.  The block's first batch is in
+// flight while its threads fill a shared table with the coefficients of
+// each plane its chunk covers (one plane a thread); a vector finds its
+// plane lp by one multiply-shift division and reads table[lp] and, where a
+// plane boundary falls inside it, table[lp + 1] (the lanes path walks its
+// lanes' planes one by one).  Block 0 also takes the head and the tail, one
+// element a thread.
+template <int V, bool Lanes, class Op>
+__device__ __forceinline__ void elementwise(const Op& op, const Run& a) {
+  constexpr int U = Op::kUnroll;
+  using Coef = typename Op::Coef;
+  __shared__ Coef table[kElementwiseTable];
+  const long long v0 = static_cast<long long>(blockIdx.x) * a.chunk;
+  const int n = static_cast<int>(min(a.chunk, a.nvec - v0));
+  const long long e0 = a.head + v0 * V;
+  // the plane of e0 and e0's place in it
+  const long long p0 = a.plane_of(e0);
+  const unsigned int o0 = static_cast<unsigned int>(e0 - p0 * a.S);
+  const int t = threadIdx.x, T = blockDim.x;
+  float v[U][Op::kInputs][V];
+  const auto read_batch = [&](int base) {
 #pragma unroll
-    for (int k = 0; k < V; ++k) v[k] = (v[k] - m) * r * a + b;
-    store<TZ, V>(z, cur.i, v);
+    for (int u = 0; u < U; ++u)
+      if (base + u * T + t < n)
+        op.template read<V>(e0 + static_cast<long long>(base + u * T + t) * V,
+                            v[u]);
+  };
+  read_batch(0);
+  if (n > 0 && t <= static_cast<int>(a.plane.div(
+                       o0 + static_cast<unsigned int>(n - 1) * V + (V - 1))))
+    table[t] = op.coef(a.channel_of(p0 + t));
+  if (blockIdx.x == 0) {
+    const long long tail = a.head + a.nvec * V;
+    if (t < a.head)
+      elementwise_one(op, a, t);
+    else if (tail + (t - a.head) < a.total)
+      elementwise_one(op, a, tail + (t - a.head));
+  }
+  __syncthreads();
+  for (int base = 0; base < n; base += U * T) {
+    if (base > 0) read_batch(base);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = base + u * T + t;
+      if (j >= n) continue;
+      const unsigned int pos = o0 + static_cast<unsigned int>(j) * V;
+      const unsigned int lp = a.plane.div(pos);
+      const unsigned int rem = pos - lp * a.plane.d;
+      float out[V];
+      if constexpr (Lanes) {
+        unsigned int p = lp, r = rem;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          out[i] = op.template apply<V>(table[p], v[u], i);
+          if (++r == a.plane.d) {
+            r = 0;
+            ++p;
+          }
+        }
+      } else {
+        // lanes [0, split) lie in plane lp, the rest in plane lp + 1
+        const unsigned int split = a.plane.d - rem;
+        const Coef c0 = table[lp];
+        if (split >= static_cast<unsigned int>(V)) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) out[i] = op.template apply<V>(c0, v[u], i);
+        } else {
+          const Coef c1 = table[lp + 1];
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            out[i] = op.template apply<V>(
+                static_cast<unsigned int>(i) < split ? c0 : c1, v[u], i);
+        }
+      }
+      op.template write<V>(e0 + static_cast<long long>(j) * V, out);
+    }
   }
 }
 
-// ------------------------------------------------------------------ K4
+template <typename TX, typename TZ, int V, bool Lanes>
+__global__ void __launch_bounds__(kElementwiseThreads)
+bn_apply_kernel(ApplyOp<TX, TZ> op, Run run) {
+  elementwise<V, Lanes>(op, run);
+}
 
-template <typename TG, typename TX, int V>
-__global__ void __launch_bounds__(kThreads)
-bn_dx_kernel(const TG* __restrict__ dz, const TX* __restrict__ x,
-             const float* __restrict__ mean, const float* __restrict__ rstd,
-             const float* __restrict__ coef, TX* __restrict__ dx, long long C,
-             long long Sv, long long nv) {
-  for (FlatCursor cur(C, Sv); cur.i < nv; cur.advance()) {
-    const float m = mean[cur.c], r = rstd[cur.c], k0 = coef[cur.c],
-                k1 = coef[C + cur.c], k2 = coef[2 * C + cur.c];
-    float gv[V], xv[V];
-    load<TG, V>(dz, cur.i, gv);
-    load<TX, V>(x, cur.i, xv);
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const float xhat = (xv[k] - m) * r;
-      gv[k] = k0 * ((gv[k] - k1) - xhat * k2);
-    }
-    store<TX, V>(dx, cur.i, gv);
-  }
+template <typename TG, typename TX, int V, bool Lanes>
+__global__ void __launch_bounds__(kElementwiseThreads)
+bn_dx_kernel(DxOp<TG, TX> op, Run run) {
+  elementwise<V, Lanes>(op, run);
 }
 
 // ------------------------------------------------------------------ host
@@ -568,28 +722,9 @@ struct Shape {
   long long elements_per_channel() const { return b * s; }
 };
 
-bool aligned(const void* p, size_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
-// 4 when every tensor can be moved 4 elements at a time without a vector
-// crossing a plane, else 1.
-int vector_width(long long s, std::initializer_list<std::pair<const void*, size_t>> ptrs) {
-  if (s % 4) return 1;
-  for (const auto& p : ptrs)
-    if (!aligned(p.first, 4 * p.second)) return 1;
-  return 4;
-}
-
 size_t itemsize(int dtype) { return dtype == kBFloat16 ? 2 : 4; }
 
 bool valid_dtype(int dtype) { return dtype == kFloat32 || dtype == kBFloat16; }
-
-unsigned int elementwise_blocks(long long nv) {
-  const long long blocks = (nv + kThreads - 1) / kThreads;
-  return static_cast<unsigned int>(
-      blocks > kMaxElementwiseBlocks ? kMaxElementwiseBlocks : blocks);
-}
 
 int start(int device, const Shape& shape) {
   cudaError_t err = cudaSetDevice(device);
@@ -624,9 +759,9 @@ long long clamp(long long v, long long lo, long long hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// Elements from the last 4-element boundary to p's element 0.
-int element_phase(const void* p, size_t item) {
-  return static_cast<int>((reinterpret_cast<uintptr_t>(p) / item) % 4);
+// Elements from the last n-element boundary to p's element 0.
+int element_phase(const void* p, size_t item, int n = 4) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) / item) % n);
 }
 
 // The path for `path` (kPathAuto: the shape's own) over inputs whose
@@ -910,23 +1045,154 @@ int reduce(int kernel, int path, Action action, const void* dz, int dz_dtype,
   return result;
 }
 
+Divider make_divider(unsigned int d) {
+  int shift = 0;
+  while ((1ULL << shift) < d) ++shift;
+  const unsigned long long magic =
+      ((1ULL << 32) * ((1ULL << shift) - d)) / d + 1;
+  return {d, static_cast<unsigned int>(magic), shift};
+}
+
+// An elementwise pass's launch: its path, elements per vector, grid and run.
+struct ElementwisePlan {
+  int path, vec, unroll, batches;
+  unsigned int blocks;
+  Run run;
+};
+
+// The path for `path` (kPathAuto: the inputs' own) over a tensor whose
+// first input is of `item` bytes and whose pointers `ptrs` (pointer, item
+// bytes; a null pointer is a fresh allocation, aligned) lie at element
+// phases mod V alike or not, and the run it walks; cudaErrorInvalidValue
+// for a path the inputs do not take.
+int plan_run(int path, const Shape& sh, size_t item,
+             std::initializer_list<std::pair<const void*, size_t>> ptrs,
+             ElementwisePlan& plan) {
+  if (sh.s >= kMaxElementwisePlane) return cudaErrorInvalidValue;
+  const int V = 16 / static_cast<int>(item);
+  int phase = -1;
+  bool same = true;
+  for (const auto& p : ptrs) {
+    const int q = p.first == nullptr ? 0 : element_phase(p.first, p.second, V);
+    if (phase >= 0 && q != phase) same = false;
+    if (phase < 0) phase = q;
+  }
+  if (path == kPathAuto) path = !same ? kScalar : sh.s >= V ? kVector : kLanes;
+  const bool ok = path == kScalar || (same && path == kLanes)
+                  || (same && path == kVector && sh.s >= V);
+  if (!ok) return cudaErrorInvalidValue;
+  const int vec = path == kScalar ? 1 : V;
+  const long long total = sh.b * sh.c * sh.s;
+  const long long head = std::min<long long>(total, (vec - phase % vec) % vec);
+  const long long nvec = (total - head) / vec;
+  if (sh.c >= 0x7fffffffLL) return cudaErrorInvalidValue;
+  // a block takes one batch of loads at f32, two at bf16 (tuned on the H100)
+  plan = ElementwisePlan{path, vec, 1, item == 4 ? 1 : 2, 1,
+                         Run{sh.c, sh.s, head, nvec, total, 1,
+                             make_divider(static_cast<unsigned int>(sh.s)),
+                             make_divider(static_cast<unsigned int>(sh.c))}};
+  return 0;
+}
+
+// plan's grid for `kernel`: the run spread over as many blocks as the card
+// holds at once where that leaves each thread a vector or more (so small
+// layers reach every SM), a block's chunk a multiple of its threads, at
+// most plan.batches batches (the largest layers take many short blocks,
+// which the card balances) and at most the planes the shared table holds.
+int size_elementwise(ElementwisePlan& plan, const void* kernel, int unroll,
+                     int device) {
+  const long long slots = resident_blocks(kernel, kElementwiseThreads, device);
+  if (slots == 0) return cudaErrorInvalidConfiguration;
+  plan.unroll = unroll;
+  Run& r = plan.run;
+  const long long spread =
+      clamp(std::min(slots, ceil_div(r.nvec, kElementwiseThreads)), 1, slots);
+  const long long most = std::min(
+      {static_cast<long long>(plan.batches) * kElementwiseThreads * unroll,
+       (kElementwiseTable - 1) * r.S / plan.vec, (1LL << 30) / plan.vec});
+  const long long chunk =
+      ceil_div(ceil_div(r.nvec, spread), kElementwiseThreads) * kElementwiseThreads;
+  r.chunk = std::max(1LL, std::min(chunk, most));
+  const long long blocks = std::max(1LL, ceil_div(r.nvec, r.chunk));
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  plan.blocks = static_cast<unsigned int>(blocks);
+  return 0;
+}
+
+// The kernel of each path (the scalar path moves one element at a time).
 template <typename TX, typename TZ, int V>
-void apply(const void* x, const float* mean, const float* rstd,
-           const float* scale, const float* bias, void* z, const Shape& sh,
-           cudaStream_t stream) {
-  const long long sv = sh.s / V, nv = sh.b * sh.c * sv;
-  bn_apply_kernel<TX, TZ, V><<<elementwise_blocks(nv), kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), mean, rstd, scale, bias, static_cast<TZ*>(z),
-      sh.c, sv, nv);
+auto apply_kernel(int path) {
+  return path == kVector  ? bn_apply_kernel<TX, TZ, V, false>
+         : path == kLanes ? bn_apply_kernel<TX, TZ, V, true>
+                          : bn_apply_kernel<TX, TZ, 1, false>;
 }
 
 template <typename TG, typename TX, int V>
-void dx(const void* dz, const void* x, const float* mean, const float* rstd,
-        const float* coef, void* out, const Shape& sh, cudaStream_t stream) {
-  const long long sv = sh.s / V, nv = sh.b * sh.c * sv;
-  bn_dx_kernel<TG, TX, V><<<elementwise_blocks(nv), kThreads, 0, stream>>>(
-      static_cast<const TG*>(dz), static_cast<const TX*>(x), mean, rstd, coef,
-      static_cast<TX*>(out), sh.c, sv, nv);
+auto dx_kernel(int path) {
+  return path == kVector  ? bn_dx_kernel<TG, TX, V, false>
+         : path == kLanes ? bn_dx_kernel<TG, TX, V, true>
+                          : bn_dx_kernel<TG, TX, 1, false>;
+}
+
+// Sizes plan for `kernel` and, by `action`, launches it on op, or the
+// launch floor of K2 (which 2) or K4 (3) on the same grid, or nothing.
+template <class Op>
+int launch_elementwise(ElementwisePlan& plan, void (*kernel)(Op, Run),
+                       const Op& op, int device, cudaStream_t stream,
+                       Action action, int which) {
+  int err = size_elementwise(plan, reinterpret_cast<const void*>(kernel),
+                             Op::kUnroll, device);
+  if (err || action == kPlanOnly) return err;
+  if (action == kFloor) {
+    if (which == 2)
+      bn_floor_kernel<2><<<plan.blocks, kElementwiseThreads, 0, stream>>>(0);
+    else
+      bn_floor_kernel<3><<<plan.blocks, kElementwiseThreads, 0, stream>>>(0);
+  } else {
+    kernel<<<plan.blocks, kElementwiseThreads, 0, stream>>>(op, plan.run);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 (kernel 0: z from x, p0 = scale, p1 = bias; dz unused) or K4 (1: dx
+// from dz and x, p0 = coef, p1 unused; out in x's dtype) on `path` by
+// `action`: run it, launch the empty kernel on its grid, or only fill
+// `plan` (out may be null there: a fresh allocation).
+int elementwise(int kernel, int path, Action action, const void* dz,
+                int dz_dtype, const void* x, int x_dtype, const float* mean,
+                const float* rstd, const float* p0, const float* p1, void* out,
+                int out_dtype, const Shape& sh, int device, cudaStream_t stream,
+                ElementwisePlan& plan) {
+  if ((kernel != 0 && kernel != 1) || !valid_dtype(x_dtype)
+      || !valid_dtype(kernel == 0 ? out_dtype : dz_dtype)
+      || (kernel == 1 && out_dtype != x_dtype))
+    return cudaErrorInvalidValue;
+  int result = kernel == 0
+      ? plan_run(path, sh, itemsize(x_dtype),
+                 {{x, itemsize(x_dtype)}, {out, itemsize(out_dtype)}}, plan)
+      : plan_run(path, sh, itemsize(x_dtype),
+                 {{dz, itemsize(dz_dtype)}, {x, itemsize(x_dtype)},
+                  {out, itemsize(x_dtype)}}, plan);
+  if (result) return result;
+  with_type(x_dtype, [&](auto tx) {
+    with_type(kernel == 0 ? out_dtype : dz_dtype, [&](auto t2) {
+      using TX = decltype(tx);
+      using T2 = decltype(t2);
+      constexpr int V = 16 / sizeof(TX);
+      if (kernel == 0) {
+        const ApplyOp<TX, T2> op{static_cast<const TX*>(x), static_cast<T2*>(out),
+                                 mean, rstd, p0, p1};
+        result = launch_elementwise(plan, apply_kernel<TX, T2, V>(plan.path),
+                                    op, device, stream, action, 2);
+      } else {
+        const DxOp<T2, TX> op{static_cast<const T2*>(dz), static_cast<const TX*>(x),
+                              static_cast<TX*>(out), mean, rstd, p0, sh.c};
+        result = launch_elementwise(plan, dx_kernel<T2, TX, V>(plan.path),
+                                    op, device, stream, action, 3);
+      }
+    });
+  });
+  return result;
 }
 
 }  // namespace
@@ -1013,63 +1279,83 @@ extern "C" int bn_reduce_plan(int kernel, int path, const void* dz,
   return 0;
 }
 
-// K2.  z = (x - mean) * rstd * scale + bias, z in dtype code z_dtype.
+// K2 (kernel 0) or K4 (1) on a given path (0 vector, 1 lanes, 2 scalar,
+// -1 the inputs' own), or with `floor` the empty kernel on the same grid.
+// K2: out = (x - mean) * rstd * p0 + p1 (p0 scale, p1 bias; dz unused), in
+// out_dtype.  K4: out = p0[0] * ((dz - p0[1]) - xhat * p0[2]) with p0 the
+// coef [3, c] (p1 unused), in x's dtype.
+extern "C" int bn_elementwise_launch(int kernel, int path, int floor,
+                                     const void* dz, int dz_dtype,
+                                     const void* x, int x_dtype,
+                                     const void* mean, const void* rstd,
+                                     const void* p0, const void* p1, void* out,
+                                     int out_dtype, long long b, long long c,
+                                     long long s, int device,
+                                     void* stream_ptr) {
+  const Shape sh{b, c, s};
+  const int err = start(device, sh);
+  if (err) return err;
+  ElementwisePlan plan;
+  return elementwise(kernel, path, floor ? kFloor : kRun, dz, dz_dtype, x,
+                     x_dtype, static_cast<const float*>(mean),
+                     static_cast<const float*>(rstd),
+                     static_cast<const float*>(p0), static_cast<const float*>(p1),
+                     out, out_dtype, sh, device,
+                     static_cast<cudaStream_t>(stream_ptr), plan);
+}
+
+// The launch bn_elementwise_launch(kernel, path, ...) makes on these inputs
+// on device (out null: a fresh allocation): result[0..7] = path, elements
+// per vector, loads in flight per thread, threads per block, blocks,
+// vectors per block, head and tail elements (one at a time).
+extern "C" int bn_elementwise_plan(int kernel, int path, const void* dz,
+                                   int dz_dtype, const void* x, int x_dtype,
+                                   const void* out, int out_dtype, long long b,
+                                   long long c, long long s, int device,
+                                   int* result) {
+  const Shape sh{b, c, s};
+  const int err = start(device, sh);
+  if (err) return err;
+  ElementwisePlan plan;
+  const int r = elementwise(kernel, path, kPlanOnly, dz, dz_dtype, x, x_dtype,
+                            nullptr, nullptr, nullptr, nullptr,
+                            const_cast<void*>(out), out_dtype, sh, device,
+                            nullptr, plan);
+  if (r) return r;
+  const Run& run = plan.run;
+  result[0] = plan.path;
+  result[1] = plan.vec;
+  result[2] = plan.unroll;
+  result[3] = kElementwiseThreads;
+  result[4] = static_cast<int>(plan.blocks);
+  result[5] = static_cast<int>(run.chunk);
+  result[6] = static_cast<int>(run.head);
+  result[7] = static_cast<int>(run.total - run.head - run.nvec * plan.vec);
+  return 0;
+}
+
+// K2 on the inputs' own path.  z = (x - mean) * rstd * scale + bias, z in
+// dtype code z_dtype.
 extern "C" int bn_apply_launch(const void* x, int x_dtype, const void* mean,
                                const void* rstd, const void* scale,
                                const void* bias, void* z, int z_dtype,
                                long long b, long long c, long long s,
                                int device, void* stream_ptr) {
-  const Shape sh{b, c, s};
-  int err = start(device, sh);
-  if (err) return err;
-  if (!valid_dtype(x_dtype) || !valid_dtype(z_dtype)) return cudaErrorInvalidValue;
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int vec = vector_width(s, {{x, itemsize(x_dtype)}, {z, itemsize(z_dtype)}});
-  const float* m = static_cast<const float*>(mean);
-  const float* r = static_cast<const float*>(rstd);
-  const float* a = static_cast<const float*>(scale);
-  const float* bb = static_cast<const float*>(bias);
-  with_type(x_dtype, [&](auto tx) {
-    with_type(z_dtype, [&](auto tz) {
-      using TX = decltype(tx);
-      using TZ = decltype(tz);
-      if (vec == 4)
-        apply<TX, TZ, 4>(x, m, r, a, bb, z, sh, stream);
-      else
-        apply<TX, TZ, 1>(x, m, r, a, bb, z, sh, stream);
-    });
-  });
-  return static_cast<int>(cudaGetLastError());
+  return bn_elementwise_launch(0, kPathAuto, 0, nullptr, 0, x, x_dtype, mean,
+                               rstd, scale, bias, z, z_dtype, b, c, s, device,
+                               stream_ptr);
 }
 
-// K4.  dx = coef0 * (dz - coef1 - xhat * coef2), dx in x's dtype.
+// K4 on the inputs' own path.  dx = coef0 * (dz - coef1 - xhat * coef2),
+// dx in x's dtype.
 extern "C" int bn_dx_launch(const void* dz, int dz_dtype, const void* x,
                             int x_dtype, const void* mean, const void* rstd,
                             const void* coef, void* dx_out, long long b,
                             long long c, long long s, int device,
                             void* stream_ptr) {
-  const Shape sh{b, c, s};
-  int err = start(device, sh);
-  if (err) return err;
-  if (!valid_dtype(dz_dtype) || !valid_dtype(x_dtype)) return cudaErrorInvalidValue;
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int vec = vector_width(s, {{dz, itemsize(dz_dtype)},
-                                   {x, itemsize(x_dtype)},
-                                   {dx_out, itemsize(x_dtype)}});
-  const float* m = static_cast<const float*>(mean);
-  const float* r = static_cast<const float*>(rstd);
-  const float* k = static_cast<const float*>(coef);
-  with_type(dz_dtype, [&](auto tg) {
-    with_type(x_dtype, [&](auto tx) {
-      using TG = decltype(tg);
-      using TX = decltype(tx);
-      if (vec == 4)
-        dx<TG, TX, 4>(dz, x, m, r, k, dx_out, sh, stream);
-      else
-        dx<TG, TX, 1>(dz, x, m, r, k, dx_out, sh, stream);
-    });
-  });
-  return static_cast<int>(cudaGetLastError());
+  return bn_elementwise_launch(1, kPathAuto, 0, dz, dz_dtype, x, x_dtype,
+                               mean, rstd, coef, nullptr, dx_out, x_dtype, b,
+                               c, s, device, stream_ptr);
 }
 
 extern "C" const char* bn_error_string(int code) {

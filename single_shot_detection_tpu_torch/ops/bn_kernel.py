@@ -100,9 +100,14 @@ def _library() -> ctypes.CDLL:
     lib.bn_reduce_launch.argtypes = [i, i, i, p, i, p, i, p, p, p, p, p, p,
                                      ll, ll, ll, f, i, p]
     lib.bn_reduce_plan.argtypes = [i, i, p, i, p, i, ll, ll, ll, i, p]
+    lib.bn_elementwise_launch.argtypes = [i, i, i, p, i, p, i, p, p, p, p, p,
+                                          i, ll, ll, ll, i, p]
+    lib.bn_elementwise_plan.argtypes = [i, i, p, i, p, i, p, i, ll, ll, ll,
+                                        i, p]
     for fn in (lib.bn_stats_launch, lib.bn_apply_launch,
                lib.bn_grad_sums_launch, lib.bn_dx_launch,
-               lib.bn_reduce_launch, lib.bn_reduce_plan):
+               lib.bn_reduce_launch, lib.bn_reduce_plan,
+               lib.bn_elementwise_launch, lib.bn_elementwise_plan):
         fn.restype = i
     lib.bn_error_string.argtypes = [i]
     lib.bn_error_string.restype = ctypes.c_char_p
@@ -293,5 +298,79 @@ def reduce_launcher(kernel: str, x: Tensor, dz: Optional[Tensor] = None,
         _launch(_library().bn_reduce_launch, *args, device=x.device)
         return outs
     return launch
+
+
+# ------------------------------------------------ the elementwise launches
+
+# K2's and K4's paths (codes of kernels/bn.cu): 16-byte vectors whose lanes
+# take one channel or two, 16-byte vectors with a channel per lane (planes
+# shorter than a vector), one element per load (inputs and output at
+# different phases); 'auto' is the inputs' own
+ELEMENTWISE_PATHS = {'auto': -1, 'vector': 0, 'lanes': 1, 'scalar': 2}
+_ELEMENTWISE_KERNELS = {'bn_apply': 0, 'bn_dx': 1}
+
+
+def elementwise_plan(kernel: str, x: Tensor, dz: Optional[Tensor] = None,
+                     out_dtype: Optional[torch.dtype] = None,
+                     path: str = 'auto', out: Optional[Tensor] = None) -> dict:
+    """The launch K2 (``kernel='bn_apply'``, z in ``out_dtype``) or K4
+    (``'bn_dx'``, with ``dz``; dx in x's dtype) makes on these CUDA tensors
+    into ``out`` (default: a fresh allocation, as the wrappers make) on
+    ``path``: the path, the elements per 16-byte vector, the loads each
+    thread keeps in flight, the threads per block, the blocks, the vectors
+    per block and the elements before the first vector and after the last
+    (one at a time)."""
+    out_dtype = (out.dtype if out is not None
+                 else x.dtype if kernel == 'bn_dx' else out_dtype or x.dtype)
+    b, c, s = _geometry(x)
+    result = (ctypes.c_int * 8)()
+    err = _library().bn_elementwise_plan(
+        _ELEMENTWISE_KERNELS[kernel], ELEMENTWISE_PATHS[path],
+        dz.data_ptr() if dz is not None else None,
+        _DTYPES[dz.dtype] if dz is not None else 0, x.data_ptr(),
+        _DTYPES[x.dtype], out.data_ptr() if out is not None else None,
+        _DTYPES[out_dtype], b, c, s, x.device.index, result)
+    if err:
+        raise ValueError(f'{kernel} takes no path {path!r} on {tuple(x.shape)}')
+    names = {v: k for k, v in ELEMENTWISE_PATHS.items()}
+    return {'path': names[result[0]], 'vector': result[1],
+            'unroll': result[2], 'threads': result[3], 'blocks': result[4],
+            'vectors_per_block': result[5], 'head': result[6],
+            'tail': result[7]}
+
+
+def elementwise_launcher(kernel: str, x: Tensor, mean: Tensor, rstd: Tensor,
+                         scale: Optional[Tensor] = None,
+                         bias: Optional[Tensor] = None,
+                         dz: Optional[Tensor] = None,
+                         coef: Optional[Tensor] = None,
+                         out_dtype: Optional[torch.dtype] = None,
+                         path: str = 'auto', floor: bool = False,
+                         out: Optional[Tensor] = None):
+    """A call that launches K2 (``kernel='bn_apply'``, with ``scale`` and
+    ``bias``) or K4 (``'bn_dx'``, with ``dz`` and ``coef``) on ``path`` into
+    ``out`` (default: allocated once, z in ``out_dtype``, dx in x's dtype; a
+    given ``out`` must be contiguous, of x's shape), or with ``floor`` an
+    empty kernel on the same grid (the launch floor); the wrappers' launch
+    counts are untouched.  For timing, and for holding each path against
+    the plain version."""
+    if out is None:
+        out = torch.empty(x.shape, device=x.device, dtype=(
+            x.dtype if kernel == 'bn_dx' else out_dtype or x.dtype))
+    _check_activation('out', out, like=x)
+    b, c, s = _geometry(x)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    p0, p1 = (scale, bias) if kernel == 'bn_apply' else (coef, None)
+    args = (_ELEMENTWISE_KERNELS[kernel], ELEMENTWISE_PATHS[path], int(floor),
+            ptr(dz), _DTYPES[dz.dtype] if dz is not None else 0, x.data_ptr(),
+            _DTYPES[x.dtype], mean.data_ptr(), rstd.data_ptr(), ptr(p0),
+            ptr(p1), out.data_ptr(), _DTYPES[out.dtype], b, c, s)
+
+    def launch():
+        _launch(_library().bn_elementwise_launch, *args, device=x.device)
+        return out
+    return launch
+
+
 for _fn in KERNELS:
     _fn.launches = 0

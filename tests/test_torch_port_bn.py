@@ -66,7 +66,13 @@ def inputs(seed, shape, dtype=np.float32):
 
 # ------------------------------------------------- each kernel's plain version
 
-@pytest.mark.parametrize('shape', [(4, 16, 16, 64), (2, 8, 24, 32)])
+# NHWC shapes: planes (H*W) of 256 and 192, then odd planes and planes
+# shorter than a 16-byte vector of f32 (4) or bf16 (8): 25, 9, 1 and 4.  The
+# Pallas kernels take [B*H*W, C] in blocks of 16 rows (``_pick_rows``), so
+# B*H*W is a multiple of 16.
+@pytest.mark.parametrize('shape', [(4, 16, 16, 64), (2, 8, 24, 32),
+                                   (16, 5, 5, 24), (16, 3, 3, 8),
+                                   (16, 1, 1, 16), (4, 2, 2, 12)])
 def test_plain_kernels_match_pallas_kernels(shape):
     """K1-K4 plain versions against the Pallas kernels one by one."""
     x, g, b = inputs(0, shape)
@@ -107,6 +113,33 @@ def test_plain_kernels_match_pallas_kernels(shape):
     want = np.asarray(dx_j).reshape(shape)
     np.testing.assert_allclose(nhwc(dx), want, rtol=0,
                                atol=1e-4 * max(np.abs(want).max(), 1.0))
+
+
+@pytest.mark.parametrize('out_dtype', ['bfloat16', 'float32'])
+def test_plain_apply_matches_pallas_on_bf16_input(out_dtype):
+    """K2's plain version on bf16 x (planes of 25) against the Pallas
+    ``_bn_apply`` with the same f32 statistics, into a bf16 z (within one
+    bf16 step, 2**-8 of the largest value: the two round from f32 values
+    computed in the same order, so they should agree) or an f32 z (1e-5)."""
+    shape = (16, 5, 5, 24)
+    x, g, b = inputs(6, shape)
+    x = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    c = shape[-1]
+    x2d = jnp.asarray(x.reshape(-1, c), jnp.bfloat16)
+    mean_j, var_j = bn_pallas._bn_stats(x2d)
+    rstd_j = jax.lax.rsqrt(var_j + 1e-5)
+    z_j = bn_pallas._bn_apply(x2d, mean_j, rstd_j, jnp.asarray(g),
+                              jnp.asarray(b), getattr(jnp, out_dtype))
+    z = bn_kernel.bn_apply(nchw(x).to(torch.bfloat16),
+                           torch.from_numpy(np.array(mean_j)),
+                           torch.from_numpy(np.array(rstd_j)),
+                           torch.from_numpy(g), torch.from_numpy(b),
+                           getattr(torch, out_dtype))
+    assert z.dtype == getattr(torch, out_dtype)
+    want = np.asarray(z_j.astype(jnp.float32)).reshape(shape)
+    atol = (2.0 ** -8 * np.abs(want).max() if out_dtype == 'bfloat16'
+            else 1e-5)
+    np.testing.assert_allclose(nhwc(z.float()), want, rtol=0, atol=atol)
 
 
 # -------------------------------------------------------- fused_bn_train

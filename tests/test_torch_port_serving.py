@@ -6,6 +6,8 @@ to end on the committed checkpoint, ``valid`` masks equal and detections
 within atol 1e-3 px of JAX ``make_predict_step`` plus the eval ``Pipeline``.
 """
 
+import ast
+import collections
 import os
 import re
 import subprocess
@@ -243,6 +245,19 @@ def test_port_sources_import_no_jax():
     for path in port_sources():
         hits = banned.findall(path.read_text())
         assert not hits, f'{path.relative_to(REPO)} names {hits}'
+
+
+def test_port_sources_define_each_top_level_name_once():
+    """No module-level function or class of the port or of chip_smoke.py is
+    defined twice: the later definition would replace the earlier one for
+    every caller (flake8's F811)."""
+    for path in port_sources():
+        names = collections.Counter(
+            node.name for node in ast.parse(path.read_text()).body
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef)))
+        twice = sorted(name for name, n in names.items() if n > 1)
+        assert not twice, f'{path.relative_to(REPO)} defines {twice} twice'
 
 
 def test_package_imports_with_jax_blocked():
