@@ -152,7 +152,26 @@ Phases, each fatal:
     step and RetinaNet-ResNet50-500's b16 step at the three policies in
     turns, ms and device ms; and ``python -m single_shot_detection_tpu_torch
     --bf16`` (in process) for one synthetic epoch with an evaluation and a
-    checkpoint (f32 on disk).
+    checkpoint (f32 on disk);
+16. int8 serving and QAT (``export/quantize.py``) at ``INT8_POINTS``:
+    SSD300-VGG16 at b32 and b128, the flagship at b128 and at b32 past the
+    gate with an explicit ``int8`` block, each with seeded weights and
+    perturbed BNs, calibrated on 2 batches: at VGG b32 and the flagship
+    b128 every quantized conv's s32 accumulator on the card equal to the
+    CPU's on the same int8 inputs, the card's int8 heads against the CPU's
+    (``INT8_CARD_VS_CPU_SHARE``), the NMS kernel exact on the int8 inputs
+    and the int8 call's device split (quantize, im2col, ``torch._int_mm``,
+    dequant, float convs, NMS); at every point the NMS count around two
+    int8 calls (no BN), the share of f32 detections an int8 one matches
+    (``INT8_MATCH_IOU``, same class) and ``predict_batch`` ms in turns
+    (f32, bf16, int8, int8, bf16, f32); the flagship's b32 step with
+    ``train.qat`` (``QAT_STEPS`` steps, no kernel launched, ``act_amax``
+    changing and finite, ms in turns against the float step) and an int8
+    ``Predictor`` on its learned scales; the JAX checkpoint through
+    ``--int8`` (mAP above 0.55);
+17. ``train.transfer_ahead``: the flagship's augmented epoch (phase 8's
+    data) at depths 0 and 2 in turns (0, 2, 2, 0), img/s, and the batch
+    stream on the card equal at the two depths.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -211,7 +230,7 @@ NMS_OPS_PER_PAIR = 13
 # Launches a profiled window of kernels_device_ms may miss, and the windows
 # profile_counted takes before it fails
 PROFILER_MISSED_LAUNCHES = 2
-PROFILER_TRIES = 10
+PROFILER_TRIES = 20
 
 
 def log(msg: str) -> None:
@@ -1314,11 +1333,13 @@ def device_busy_ms(fn, iters: int = 3) -> float:
     """Device time per call of ``fn``, summed over every CUDA kernel, copy
     and fill it launches, from the profiler's trace.  How many launches
     ``fn`` makes is not known beforehand (a PyTorch call's own), and the
-    trace drops launches at random and now and then holds one more, so a
+    trace drops launches at random and now and then holds more, so a
     window is read only where its launches are a positive multiple of
-    ``iters``, seen in an earlier window too and no fewer than any such
-    multiple seen; other windows are printed and profiled again,
-    ``2 * PROFILER_TRIES`` windows at most."""
+    ``iters`` seen in an earlier window too, and either no fewer than any
+    such multiple seen, or seen in three windows and no fewer than any
+    other multiple seen in two (a window that once held launches of
+    something else does not block the reading for good); other windows are
+    printed and profiled again, ``2 * PROFILER_TRIES`` windows at most."""
     def run():
         for _ in range(iters):
             fn()
@@ -1329,15 +1350,17 @@ def device_busy_ms(fn, iters: int = 3) -> float:
         prof = profile_window(run)
         busy = busy_us(prof)
         launches = busy_launches(prof) if busy > 0 else 0
-        if (launches > 0 and launches % iters == 0 and launches in seen
-                and launches >= max(n for n in seen if n % iters == 0)):
+        whole = [n for n in seen if n % iters == 0]
+        if launches > 0 and launches % iters == 0 and launches in seen and (
+                launches >= max(whole) or (seen.count(launches) > 1 and all(
+                    launches >= n for n in whole if whole.count(n) > 1))):
             return busy / iters / 1e3
         if seen:
             log(f'  profiler saw {launches} launches in {iters} calls '
                 f'(earlier windows {seen}); profiling again')
         seen.append(launches)
     fail(f'profiler saw {seen} launches in windows of {iters} calls, never '
-         'the same whole count twice')
+         'a count that could be read')
 
 
 def library_bn_step_ms(shapes, dtype=torch.float32) -> dict:
@@ -2968,6 +2991,461 @@ def run_precision(card: str, smi: str, parent_bn=None) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 16
+
+# The int8 serving points (export/quantize.py): (label, config, batch,
+# explicit int8 block).  SSD300-VGG16 at b32 and b128 (the JAX package's
+# preset serves the VGG family int8), the flagship at b128 (its gate lets a
+# MobileNet through from b128) and at b32 forced past the gate with an
+# explicit block, to record what the gate refuses.
+INT8_POINTS = (('vgg_b32', VGG, 32, False), ('vgg_b128', VGG, 128, False),
+               ('flagship_b128', FLAGSHIP, 128, False),
+               ('flagship_b32_forced', FLAGSHIP, 32, True))
+INT8_CALIBRATION_BATCHES = 2
+# The card's int8 heads against the CPU's, both from the same amax.  The
+# s32 accumulators are held exact on the same int8 inputs; end to end the
+# float parts between the convs (BN, depthwise convs) round in another
+# order on the card, and one activation put on the other side of a
+# quantization boundary moves the next conv's input by a whole step, a
+# flip that cascades through the layers (the first card run, SSD300-VGG16
+# at b2: 0.014 against int8's distance from f32 of 0.023, while the f32
+# heads agree to rounding).  So each head is held within this share of the
+# CPU's own int8-to-f32 distance: int8 noise of the same size, not a wrong
+# product or layout, whose errors are of the heads' own size
+INT8_CARD_VS_CPU_SHARE = 1.0
+# Detections of the int8 and the f32 forward matched at this IoU with the
+# same class (a share, reported)
+INT8_MATCH_IOU = 0.5
+QAT_STEPS = 5
+
+
+def int8_predictors(config: str, batches, explicit: bool) -> dict:
+    """f32, bf16 and int8 ``Predictor``s of ``config`` with the seeded
+    weights and perturbed BNs of phase 4; the int8 one shares the f32 one's
+    model, calibrated on ``batches`` (uint8 images) through its eval
+    preprocessing, with the gate's options at the batch of ``batches``."""
+    from single_shot_detection_tpu_torch.export import quantize
+    from single_shot_detection_tpu_torch.utils.config import load_config
+    preds = {name: Predictor.from_config(config, device='cuda', seed=SEED,
+                                         **policy)
+             for name, policy in (('f32', {}), ('bf16', {'bf16': True}))}
+    for pred in preds.values():
+        perturb_bn(pred.model, torch.Generator().manual_seed(SEED + 1))
+    f32 = preds['f32']
+    cfg = load_config(config, phases=('eval',))
+    if explicit:
+        cfg.config.int8 = {}
+    enabled, opts = quantize.resolve_int8_opts(cfg, batch_size=len(batches[0]))
+    if not enabled:
+        fail(f'{config}: the int8 gate refused b{len(batches[0])}')
+    with torch.inference_mode():
+        amax = quantize.calibrate(f32.model, [
+            f32.preprocess(torch.from_numpy(b).cuda()) for b in batches])
+    preds['int8'] = Predictor(f32.bundle, f32.postprocessor, f32.preprocess,
+                              f32.device, f32.policy, amax,
+                              opts.get('spatial_limit'))
+    return {'preds': preds, 'amax': amax,
+            'spatial_limit': opts.get('spatial_limit')}
+
+
+def record_int8_inputs(model, amax, x, spatial_limit):
+    """One int8 forward of ``x``: each quantized conv's int8 inputs, in
+    order of application, and every conv's float input (the split's
+    shapes)."""
+    from single_shot_detection_tpu_torch.export import quantize
+    from single_shot_detection_tpu_torch.models.layers import Conv2d
+    modes = quantize.make_interceptor(model, amax, spatial_limit)
+    int8_in, float_in = [], []
+
+    def recorder(key, mode):
+        def call(conv, x):
+            if mode is not None and not quantize._over_limit(x, spatial_limit):
+                int8_in.append((key, quantize.quantize_input(x, mode.x_scale)))
+                float_in.append((key, 'int8', x))
+                return mode(conv, x)
+            float_in.append((key, 'float', x))
+            return conv.float_forward(x)
+        return call
+
+    convs = {name.replace('.', '/'): m for name, m in model.named_modules()
+             if isinstance(m, Conv2d)}
+    try:
+        for key, conv in convs.items():
+            conv.quant = recorder(key, modes.get(key))
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for conv in convs.values():
+            conv.quant = None
+    return modes, int8_in, float_in, convs
+
+
+def int8_accumulators_vs_cpu(pred: Predictor, amax, x, spatial_limit) -> dict:
+    """Every quantized conv's s32 accumulator on the card against the CPU's
+    on the same int8 inputs (captured on the card), bit for bit; the int8
+    weights too."""
+    from single_shot_detection_tpu_torch.export import quantize
+    modes, int8_in, _, _ = record_int8_inputs(pred.model, amax, x,
+                                              spatial_limit)
+    cpu_modes = quantize.make_interceptor(copy.deepcopy(pred.model).cpu(),
+                                          amax, spatial_limit)
+    for key, mode in modes.items():
+        if not torch.equal(mode.w_t.cpu(), cpu_modes[key].w_t):
+            fail(f'int8 weights of {key} differ between the card and the CPU')
+    macs = 0
+    with torch.inference_mode():
+        for key, x_q in int8_in:
+            card = modes[key].accumulator(x_q)
+            cpu = cpu_modes[key].accumulator(x_q.cpu())
+            if card.dtype != torch.int32 or not torch.equal(card.cpu(), cpu):
+                fail(f'the s32 accumulator of {key} differs between the card '
+                     f'and the CPU')
+            macs += card.numel() * modes[key].k
+    return {'convs': len(modes), 'applications': len(int8_in),
+            'int8_macs': macs}
+
+
+def int8_heads_vs_cpu(pred: Predictor, amax, x, spatial_limit) -> dict:
+    """The card's int8 heads against the CPU's int8 heads from the same
+    amax, within ``INT8_CARD_VS_CPU_SHARE`` of the CPU's int8-to-f32
+    distance; the detections' valid masks compared."""
+    from single_shot_detection_tpu_torch.export import quantize
+    cpu_model = copy.deepcopy(pred.model).cpu()
+    with torch.inference_mode():
+        card = quantize.quantized_apply(pred.model, amax, spatial_limit)(x)
+        card_f32 = pred.model(x)
+        cpu = quantize.quantized_apply(cpu_model, amax, spatial_limit)(x.cpu())
+        cpu_f32 = cpu_model(x.cpu())
+    out = {}
+    for i, name in enumerate(('scores', 'locs')):
+        err = (card[i].cpu() - cpu[i]).abs().max().item()
+        noise = (cpu[i] - cpu_f32[i]).abs().max().item()
+        f32_err = (card_f32[i].cpu() - cpu_f32[i]).abs().max().item()
+        if not err <= INT8_CARD_VS_CPU_SHARE * noise:
+            fail(f'int8 {name} on the card differ from the CPU\'s by {err}, '
+                 f'more than {INT8_CARD_VS_CPU_SHARE} of int8\'s distance '
+                 f'from f32 ({noise})')
+        out[name] = {'max_abs_err': err, 'int8_vs_f32': noise,
+                     'f32_card_vs_cpu': f32_err}
+    d_card, v_card = pred.postprocessor(card[0].float(), card[1].float(),
+                                        pred.anchors)
+    d_cpu, v_cpu = nms_plain_postprocess(pred, cpu[0], cpu[1])
+    out['detections_matched_card_vs_cpu'] = matched_share(
+        d_cpu, v_cpu, d_card.cpu(), v_card.cpu())
+    return out
+
+
+def nms_plain_postprocess(pred: Predictor, scores, locs):
+    """The postprocessor on the CPU with the plain NMS."""
+    plain = copy.copy(pred.postprocessor)
+    plain.nms_keep = lambda boxes, s: nms_ops.nms_keep_sorted(
+        boxes, s, plain.overlap_threshold)
+    return plain(scores.float(), locs.float(), pred.anchors.cpu())
+
+
+def matched_share(dets_a, valid_a, dets_b, valid_b) -> float:
+    """The share of ``a``'s valid detections that a valid detection of
+    ``b`` of the same class matches at IoU >= ``INT8_MATCH_IOU`` (each ``b``
+    row matched once, greedily in ``a``'s score order)."""
+    from single_shot_detection_tpu_torch.ops.boxes import iou
+    hits = total = 0
+    for i in range(dets_a.shape[0]):
+        a, b = dets_a[i][valid_a[i]], dets_b[i][valid_b[i]]
+        total += len(a)
+        if not len(a) or not len(b):
+            continue
+        overlap = iou(a[:, :4], b[:, :4])
+        overlap[a[:, 4:5] != b[None, :, 4]] = -1
+        used = torch.zeros(len(b), dtype=torch.bool, device=b.device)
+        for r in range(len(a)):
+            row = overlap[r].masked_fill(used, -1)
+            j = int(row.argmax())
+            if row[j] >= INT8_MATCH_IOU:
+                used[j] = True
+                hits += 1
+    return hits / max(total, 1)
+
+
+def int8_split(pred: Predictor, amax, x, spatial_limit, iters: int = 10) -> dict:
+    """Device ms of one int8 forward of ``x`` by part, each part timed alone
+    with CUDA events on the inputs this forward gives it (warm in the L2
+    where they fit), summed over the convs' applications: the quantize
+    passes, the im2col, ``torch._int_mm``, the dequant epilogue (the float
+    cast, scale, bias and output cast), the float convs (depthwise, and
+    convs beyond ``spatial_limit``); and the NMS kernel of the whole call
+    and the call's device busy time from the profiler."""
+    from single_shot_detection_tpu_torch.export import quantize
+    modes, int8_in, float_in, convs = record_int8_inputs(pred.model, amax, x,
+                                                         spatial_limit)
+    parts = collections.Counter()
+    with torch.inference_mode():
+        for key, kind, inp in float_in:
+            conv = convs[key]
+            if kind == 'float':
+                parts['float_convs'] += cuda_ms(lambda: conv.float_forward(inp),
+                                                iters)
+                continue
+            mode = modes[key]
+            x_q = quantize.quantize_input(inp, mode.x_scale)
+            parts['quantize'] += cuda_ms(
+                lambda: quantize.quantize_input(inp, mode.x_scale), iters)
+            a, (b, ho, wo) = quantize.im2col(x_q, mode.kernel_size, mode.stride,
+                                             mode.padding, mode.k_pad)
+            parts['im2col'] += cuda_ms(lambda: quantize.im2col(
+                x_q, mode.kernel_size, mode.stride, mode.padding, mode.k_pad),
+                iters)
+            y = torch._int_mm(a, mode.w_t)
+            parts['int_mm'] += cuda_ms(lambda: torch._int_mm(a, mode.w_t), iters)
+            m = b * ho * wo
+
+            def epilogue():
+                out = y[:m, :mode.n].to(torch.float32) * mode.scale
+                if mode.bias is not None:
+                    out = out + mode.bias
+                return out.to(inp.dtype)
+
+            parts['dequant'] += cuda_ms(epilogue, iters)
+    # the whole call: its NMS kernel and its device busy time
+    prof = profile_window(lambda: (pred.predict_step(x), torch.cuda.synchronize()))
+    nms_us, nms_n = device_us(prof, 'nms_keep_kernel')
+    out = {k: parts[k] for k in ('quantize', 'im2col', 'int_mm', 'dequant',
+                                 'float_convs')}
+    out.update(nms=nms_us / 1e3, nms_launches=nms_n,
+               call_device_busy_ms=busy_us(prof) / 1e3,
+               call_launches=busy_launches(prof))
+    return out
+
+
+def int8_serving_point(label: str, config: str, batch: int, explicit: bool,
+                       card: str, exact: bool, split: bool) -> dict:
+    """One serving point: calibrate on ``INT8_CALIBRATION_BATCHES``
+    batches; with ``exact`` the accumulators and the heads against the CPU
+    (at b2) and the NMS kernel exact on the int8 inputs; the NMS count
+    around 2 int8 calls (and no BN launch); int8 against f32 detections;
+    ``predict_batch`` ms of f32, bf16 and int8 in turns (f32, bf16, int8,
+    int8, bf16, f32); with ``split`` the int8 call's device split."""
+    size = 300
+    rng = np.random.RandomState(SEED + 16)
+    calib = [rng.randint(0, 256, (batch, size, size, 3), dtype=np.uint8)
+             for _ in range(INT8_CALIBRATION_BATCHES)]
+    built = int8_predictors(config, calib, explicit)
+    preds, amax, limit = built['preds'], built['amax'], built['spatial_limit']
+    int8 = preds['int8']
+    images = rng.randint(0, 256, (batch, size, size, 3), dtype=np.uint8)
+    out = {'config': config, 'batch': batch, 'explicit_int8_block': explicit,
+           'spatial_limit': limit, 'calibrated_convs': len(amax)}
+    if exact:
+        x2 = int8.preprocess(torch.from_numpy(images[:2]).cuda())
+        out['accumulators'] = int8_accumulators_vs_cpu(int8, amax, x2, limit)
+        out['heads_vs_cpu'] = int8_heads_vs_cpu(int8, amax, x2, limit)
+        out['nms'] = time_nms(int8.postprocessor.overlap_threshold, {
+            f'int8 {label}': nms_inputs(int8, images)}, card)
+    zero_launches()
+    runs = [int8.predict_batch(images) for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches['nms_keep_batched'] != 2 or any(
+            launches[fn.__name__] for fn in bn_kernel.KERNELS):
+        fail(f'int8 serving {label} launched {launches}, expected NMS 2, '
+             'no BN')
+    dets, valid = runs[0]
+    if (tuple(dets.shape) != (batch, int8.postprocessor.max_total, 6)
+            or not torch.isfinite(dets).all()):
+        fail(f'int8 predict_batch {label}: shape {tuple(dets.shape)} or '
+             'non-finite detections')
+    if not (torch.equal(runs[0][0], runs[1][0])
+            and torch.equal(runs[0][1], runs[1][1])):
+        fail(f'int8 predict_batch {label}: two calls differ')
+    f32_dets, f32_valid = preds['f32'].predict_batch(images)
+    out.update(launches=launches,
+               valid_per_image_mean=valid.sum(1).double().mean().item(),
+               matched_share_vs_f32=matched_share(f32_dets, f32_valid, dets,
+                                                  valid))
+    turns = in_turns({name: (lambda p=p: p.predict_batch(images))
+                      for name, p in preds.items()}, iters=5)
+    out['turns'] = {name: {'ms': t['ms'], 'img_per_s': batch * 1e3 / t['ms'],
+                           'all_ms': t['all_ms']} for name, t in turns.items()}
+    if split:
+        x = int8.preprocess(torch.from_numpy(images).cuda())
+        out['split'] = int8_split(int8, amax, x, limit)
+    log(f'  int8 {label} ({config}, b{batch}'
+        + (', explicit int8 block' if explicit else '')
+        + (f', spatial_limit {limit}' if limit else '') + f'): {len(amax)} '
+        f'convs calibrated; img/s ' + ', '.join(
+            f'{name} {t["img_per_s"]:.1f} ({t["ms"]:.2f} ms)'
+            for name, t in out['turns'].items())
+        + f'; int8 vs f32 detections matched {out["matched_share_vs_f32"]:.3f}'
+        + (f'; s32 accumulators of {out["accumulators"]["applications"]} '
+           'applications == CPU; heads vs CPU '
+           + json.dumps(out['heads_vs_cpu']) if exact else '')
+        + (f'; device split (ms) {json.dumps(out["split"])}' if split else ''))
+    del preds, built, int8, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def qat_training(smi: str) -> dict:
+    """The flagship's b32 step with ``train.qat`` (``fused_bn`` off, as the
+    JAX engine requires): ``QAT_STEPS`` steps with every kernel's count read
+    around them (no BN kernel, no NMS), ``act_amax`` changing and finite;
+    the step ms in turns against the float step (``fused_bn`` off too);
+    then an int8 ``Predictor`` on the QAT-learned scales (no calibration)
+    answers a b32 batch with the NMS kernel."""
+    from single_shot_detection_tpu_torch.export import quantize
+    trainers = {name: Trainer.from_config(FLAGSHIP, device='cuda', seed=SEED,
+                                          overrides={'augmentations': [],
+                                                     'train': {'fused_bn': False,
+                                                               **extra}})
+                for name, extra in (('float', {}), ('qat', {'qat': True}))}
+    qat = trainers['qat']
+    rng = np.random.RandomState(SEED + 17)
+    batches = [train_batch(rng) for _ in range(QAT_STEPS)]
+    seen = []
+    zero_launches()
+    metrics = []
+    for b in batches:
+        metrics.append(qat.train_step(*b))
+        seen.append(quantize.amax_from_batch_stats(qat.model.state_dict()))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f'the QAT step launched {launches}, expected no kernel')
+    losses = [m['loss'].item() for m in metrics]
+    if not all(np.isfinite(losses)):
+        fail(f'QAT losses {losses}')
+    keys = {k for k, _ in quantize.supported_convs(qat.model)}
+    if set(seen[0]) != keys or not all(np.isfinite(v) and v > 0
+                                       for v in seen[-1].values()):
+        fail('QAT act_amax not seeded on every conv, or not finite')
+    changed = sum(seen[-1][k] != seen[0][k] for k in keys)
+    if not changed:
+        fail('QAT act_amax did not change over the steps')
+    turns = in_turns({name: (lambda t=t: (t.train_step(*batches[0]),
+                                          torch.cuda.synchronize()))
+                      for name, t in trainers.items()}, iters=5)
+    # int8 serving on the learned scales
+    serving = Predictor.from_config(FLAGSHIP, device='cuda', seed=SEED)
+    learned = quantize.amax_from_batch_stats(qat.model.state_dict())
+    int8 = Predictor(qat.bundle, serving.postprocessor, serving.preprocess,
+                     qat.device, serving.policy, learned)
+    images = rng.randint(0, 256, (32, 300, 300, 3), dtype=np.uint8)
+    zero_launches()
+    dets, valid = int8.predict_batch(images)
+    torch.cuda.synchronize()
+    eval_launches = read_launches()
+    if eval_launches['nms_keep_batched'] != 1 or not torch.isfinite(dets).all():
+        fail(f'int8 serving on the QAT scales: launches {eval_launches}')
+    out = {'losses': losses, 'launches': launches,
+           'act_amax_convs': len(keys), 'act_amax_changed': changed,
+           'act_amax_first': seen[0], 'act_amax_last': seen[-1],
+           'turns': {name: {'ms': t['ms'], 'all_ms': t['all_ms']}
+                     for name, t in turns.items()},
+           'int8_eval_launches': eval_launches,
+           'int8_eval_valid_mean': valid.sum(1).double().mean().item()}
+    log(f'  QAT: {QAT_STEPS} x train_step(32) on {FLAGSHIP}, losses '
+        + ', '.join(f'{v:.4f}' for v in losses) + f'; act_amax on {len(keys)} '
+        f'convs, {changed} changed over the steps, all finite; launches '
+        f'{json.dumps(launches)}; step ms in turns: QAT '
+        f'{turns["qat"]["ms"]:.2f}, float {turns["float"]["ms"]:.2f} '
+        f'(fused_bn off); int8 b32 on the learned scales: NMS '
+        f'{eval_launches["nms_keep_batched"]} launch, '
+        f'{out["int8_eval_valid_mean"]:.1f} valid per image')
+    del trainers, qat, int8, serving
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_jax_checkpoint(f32_metrics: dict) -> dict:
+    """The committed JAX checkpoint through ``--int8`` (``Experiment(int8=
+    True)`` with an explicit ``int8`` block) on the card: its int8 mAP
+    above the JAX test's 0.55, beside phase 11's f32 mAP on the card."""
+    work = tempfile.mkdtemp(prefix='chip_smoke_int8_')
+    try:
+        config = Path(work) / 'config.py'
+        config.write_text((REPO / JAX_RUN / 'config.py').read_text()
+                          + '\n# chip_smoke.py phase 16: int8 evaluation\n'
+                          + 'int8 = {}\n')
+        zero_launches()
+        exp, metrics = cli.main(['--config', str(config), '--checkpoint',
+                                 JAX_RUN, '--phases', 'eval', '--int8'])
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if metrics.get('int8') != 1.0 or not metrics['mAP'] > 0.55:
+        fail(f'the JAX checkpoint at int8: {metrics}')
+    if launches['nms_keep_batched'] != len(exp.loaders['eval']):
+        fail(f'the int8 evaluation launched {launches}')
+    log(f'  the JAX checkpoint through --int8 on the card: mAP '
+        f'{metrics["mAP"]!r} (f32 on the card {f32_metrics["mAP"]!r}; bar '
+        f'0.55), loss {metrics["loss"]!r}, {len(exp._int8_amax)} convs '
+        f'calibrated on {min(2, len(exp.loaders["eval"]))} eval batches; '
+        'launches '
+        + json.dumps(launches))
+    return {'int8': metrics, 'f32_mAP': f32_metrics['mAP'],
+            'launches': launches, 'convs': len(exp._int8_amax)}
+
+
+def run_int8(card: str, smi: str, f32_checkpoint: dict) -> dict:
+    """Phase 16: the int8 serving points, QAT and the JAX checkpoint at
+    int8."""
+    out = {}
+    for label, config, batch, explicit in INT8_POINTS:
+        out[label] = int8_serving_point(
+            label, config, batch, explicit, card,
+            exact=label in ('vgg_b32', 'flagship_b128'),
+            split=label in ('vgg_b32', 'flagship_b128'))
+    out['qat'] = qat_training(smi)
+    out['jax_checkpoint'] = int8_jax_checkpoint(f32_checkpoint)
+    return out
+
+
+# --------------------------------------------------------------- phase 17
+
+TRANSFER_DEPTHS = (0, 2, 2, 0)
+
+
+def run_transfer_ahead(smi: str) -> dict:
+    """Phase 17: the flagship's augmented ``Experiment`` epoch (phase 8's
+    data) at ``train.transfer_ahead`` 0 and 2 in turns, img/s each; and the
+    batch stream on the card at the two depths, equal tensor for tensor."""
+    from single_shot_detection_tpu_torch.train.engine import prefetch_to_device
+    exp = build_experiment()
+    loader = exp.loaders['train']
+    streams = {}
+    for depth in (0, 2):
+        loader.epoch = 0
+        streams[depth] = [t for _, t in prefetch_to_device(loader, exp.device,
+                                                           depth)]
+    torch.cuda.synchronize()
+    if len(streams[0]) != len(streams[2]) or not all(
+            a.device.type == exp.device.type and torch.equal(a, b)
+            for x, y in zip(streams[0], streams[2]) for a, b in zip(x, y)):
+        fail('the batch stream differs between transfer_ahead 0 and 2')
+    del streams
+    exp.train_epoch(0)  # warm-up
+    seconds = {0: [], 2: []}
+    for i, depth in enumerate(TRANSFER_DEPTHS):
+        exp.transfer_ahead = depth
+        t = time.perf_counter()
+        exp.train_epoch(i + 1)  # reads its sums: waits for the card
+        seconds[depth].append(time.perf_counter() - t)
+    images = len(loader) * loader.batch_size
+    out = {'steps': len(loader), 'epoch_s': seconds,
+           'img_per_s': {d: [images / s for s in v] for d, v in seconds.items()},
+           'stream_equal': True}
+    log(f'[17] {smi}: the flagship\'s augmented epoch ({len(loader)} '
+        f'b{loader.batch_size} steps, synthetic 500 px data) in turns '
+        f'{TRANSFER_DEPTHS}: '
+        + '; '.join(f'transfer_ahead {d}: ' + ', '.join(
+            f'{s:.3f} s = {images / s:.1f} img/s' for s in v)
+            for d, v in seconds.items())
+        + '; the batch stream on the card equal at 0 and 2')
+    del exp
+    torch.cuda.empty_cache()
+    return out
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
@@ -3192,6 +3670,19 @@ def main(argv=None) -> int:
     precision = run_precision(card, smi, parent_bn)
     log(f'  phase 15 in {time.perf_counter() - t:.1f} s')
 
+    # 16. int8 serving and QAT
+    t = time.perf_counter()
+    log(f'[16] {smi}: int8 serving (export/quantize.py) against f32 and '
+        f'bf16 at {", ".join(p[0] for p in INT8_POINTS)}; QAT on the '
+        'flagship; the JAX checkpoint at int8')
+    int8 = run_int8(card, smi, card_metrics)
+    log(f'  phase 16 in {time.perf_counter() - t:.1f} s')
+
+    # 17. train.transfer_ahead
+    t = time.perf_counter()
+    transfer = run_transfer_ahead(smi)
+    log(f'  phase 17 in {time.perf_counter() - t:.1f} s')
+
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
         **train_timing,
@@ -3218,7 +3709,11 @@ def main(argv=None) -> int:
                         if k != 'nms'},
             'training': {k: v for k, v in precision['training'].items()
                          if k not in ('bn_step', 'per_launch')},
-            'retina': precision['retina'], 'cli': precision['cli']}}}))
+            'retina': precision['retina'], 'cli': precision['cli']},
+        'int8': {key: ({k: v for k, v in value.items() if k != 'nms'}
+                       if isinstance(value, dict) else value)
+                 for key, value in int8.items()},
+        'transfer_ahead': transfer}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -3250,7 +3745,15 @@ def main(argv=None) -> int:
                              'bf16_train': precision['training']['launches'][
                                  'nms_keep_batched'],
                              'bf16_cli': precision['cli']['launches'][
-                                 'nms_keep_batched']},
+                                 'nms_keep_batched'],
+                             **{f'int8_{label}': int8[label]['launches'][
+                                 'nms_keep_batched'] for label, *_ in INT8_POINTS},
+                             'qat_train': int8['qat']['launches'][
+                                 'nms_keep_batched'],
+                             'qat_int8_serving': int8['qat'][
+                                 'int8_eval_launches']['nms_keep_batched'],
+                             'int8_cli_jax_checkpoint': int8['jax_checkpoint'][
+                                 'launches']['nms_keep_batched']},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
             'shape', 'ms', 'call_ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -3260,7 +3763,10 @@ def main(argv=None) -> int:
                             if key not in ('bytes', 'turns_ms')}
                      for name, row in {**nms_time, **trained,
                                        **zoo['nms'], **zoo_rest['nms'],
-                                       **precision['serving']['nms']}.items()},
+                                       **precision['serving']['nms'],
+                                       **{k: v for label, *_ in INT8_POINTS
+                                          for k, v in int8[label].get(
+                                              'nms', {}).items()}}.items()},
     }]
     # each zoo path's train step, phases 12 and 13
     zoo_steps = {key: paths[key]['training'] for paths, keys in
@@ -3296,7 +3802,12 @@ def main(argv=None) -> int:
                                  'bf16_serving': precision['serving'][
                                      'launches'][name],
                                  'bf16_train': bf16['launches'][name],
-                                 'bf16_cli': precision['cli']['launches'][name]},
+                                 'bf16_cli': precision['cli']['launches'][name],
+                                 **{f'int8_{label}': int8[label]['launches'][name]
+                                    for label, *_ in INT8_POINTS},
+                                 'qat_train': int8['qat']['launches'][name],
+                                 'int8_cli_jax_checkpoint': int8[
+                                     'jax_checkpoint']['launches'][name]},
             'max_abs_err': max(bn_check[name], *(
                 t['bn_max_abs_err'][name] for t in zoo_steps.values())),
             'shape': list(BN_TIMED_SHAPE),

@@ -5,7 +5,7 @@ Port of the JAX package's ``main.py``, flag for flag::
     python -m single_shot_detection_tpu_torch --config samples/synthetic_smoke.py \\
         --phases train eval [--save-dir DIR] [--checkpoint FILE_OR_DIR]
         [--new-checkpoint] [--load-weights] [--debug] [--cpu] [--profile DIR]
-        [--bf16] [--matmul-precision NAME]
+        [--bf16] [--int8] [--matmul-precision NAME]
 
 ``train`` runs the epochs (checkpoints, ``log.csv``, ``train.log`` and a
 copy of the config go to a timestamped directory under ``--save-dir``, or
@@ -19,12 +19,14 @@ writes a ``torch.profiler`` trace of the train phase into DIR.
 momentum and losses stay f32; checkpoints are f32) and
 ``--matmul-precision`` sets the precision of the convolutions and matmuls
 (unset: ``highest``, TF32 off, for f32 runs; ``default``, TF32 on, for
-bf16 runs; ``device.py``).
+bf16 runs; ``device.py``).  ``--int8`` evaluates with the dense convs in
+int8, calibrated on eval batches or from a ``train.qat`` run's scales
+(``export/quantize.py``), unless the JAX package's serving gate refuses the
+config's backbone at its eval batch.
 
-Not ported yet, each raising ``NotImplementedError``: ``--int8``,
-``--tensorboard``, the ``test`` phase with ``--video``, the ``export``
-phase, the distributed flags, and ``--compilation-cache`` other than
-``off`` (the port has no XLA cache; its kernels are built once into
+Not ported yet, each raising ``NotImplementedError``: ``--tensorboard``,
+the ``test`` phase with ``--video``, the ``export`` phase, the distributed
+flags, and ``--compilation-cache`` other than ``off`` (the port has no XLA cache; its kernels are built once into
 ``kernels/build/``).
 """
 
@@ -38,7 +40,6 @@ from typing import Optional, Sequence
 
 # flag -> where ROADMAP.md's Queue 1 lists it
 _UNPORTED_FLAGS = (
-    ('int8', '--int8', 'item 2 (int8 serving)'),
     ('tensorboard', '--tensorboard', 'item 6 (tensorboard)'),
     ('video', '--video', 'item 7 (the video viewer of the test phase)'),
     ('coordinator_address', '--coordinator-address', 'item 8 (multi-GPU)'),
@@ -70,7 +71,8 @@ def get_argparser() -> argparse.ArgumentParser:
                         help='bfloat16 activations (parameters, BN '
                              'statistics and losses stay f32)')
     parser.add_argument('--int8', default=False, action='store_true',
-                        help='int8 serving (not ported yet)')
+                        help='int8 evaluation: dense convs as s8 x s8 -> '
+                             's32 products, calibrated on eval batches')
     parser.add_argument('--matmul-precision', type=str, default=None,
                         choices=['default', 'high', 'highest',
                                  'bfloat16', 'tensorfloat32', 'float32'],
@@ -163,6 +165,7 @@ def main(argv: Optional[Sequence[str]] = None):
                                 resume_from=args.checkpoint,
                                 load_weights=args.load_weights,
                                 debug=args.debug, bf16=args.bf16,
+                                int8=args.int8,
                                 matmul_precision=args.matmul_precision)
         result = None
         if 'embed' in args.phases:

@@ -19,11 +19,13 @@ from typing import Callable, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from single_shot_detection_tpu_torch.export import quantize
 from single_shot_detection_tpu_torch.models import backbones
 from single_shot_detection_tpu_torch.models.detector import Detector
 from single_shot_detection_tpu_torch.models.features import NECKS
 from single_shot_detection_tpu_torch.ops import anchors as anchor_ops
-from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
+from single_shot_detection_tpu_torch.utils.weights import (from_jax_variables,
+                                                           reconcile_qat)
 
 
 @dataclasses.dataclass
@@ -140,7 +142,10 @@ def from_config(cfg, variables: Optional[Mapping] = None,
     ``variables``: a JAX ``{'params', 'batch_stats'}`` tree (e.g. a restored
     checkpoint) loaded with ``strict=True``; without it the weights are the
     JAX package's initializers drawn from a ``torch.Generator`` seeded with
-    ``seed`` (default: the config's).  ``dtype`` is the compute dtype.  A
+    ``seed`` (default: the config's).  ``dtype`` is the compute dtype.
+    Under ``train.qat`` every dense conv gets its ``act_amax`` buffer and
+    QAT's mode first (``export/quantize.py::qat_init``), and the variables'
+    ``act_amax`` entries are reconciled as a checkpoint restore does.  A
     ``model.detector`` key the port does not read raises
     ``NotImplementedError``.
     """
@@ -159,9 +164,13 @@ def from_config(cfg, variables: Optional[Mapping] = None,
         anchor_generator=model_cfg['anchor_generator'],
         input_size=tuple(cfg.input_size), dtype=dtype,
         **{k: v for k, v in detector_cfg.items() if k in _DETECTOR_KEYS})
+    qat = quantize.qat_options(dict(cfg.train or {}).get('qat'))
+    if qat is not None:
+        quantize.qat_init(bundle.module, **qat)
     if variables is not None:
-        bundle.module.load_state_dict(from_jax_variables(variables),
-                                      strict=True)
+        bundle.module.load_state_dict(reconcile_qat(
+            from_jax_variables(variables), bundle.module.state_dict()),
+            strict=True)
     else:
         generator = torch.Generator().manual_seed(
             int(cfg.seed if seed is None else seed))

@@ -230,24 +230,51 @@ def get_initializer(params: Optional[Mapping],
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` in its input's dtype: an f32 weight and bias are cast
     to a bf16 input's dtype at use, as flax's ``nn.Conv(dtype=...)`` casts
-    its f32 parameters, so the gradients still reach f32 parameters."""
+    its f32 parameters, so the gradients still reach f32 parameters.
+
+    ``pad`` (``F.pad`` widths ``(left, right, top, bottom)``, or None) is
+    the zero padding of a conv that flax pads asymmetrically (the custom
+    MobileNets' TF-style stride 2), applied ahead of the conv's own
+    symmetric ``padding``; the conv still sees the unpadded input, as the
+    flax conv does.  ``quant`` (None: the float conv) is the quantization
+    mode that ``export/quantize.py`` switches on: a callable ``(conv, x) ->
+    y`` run in place of :meth:`float_forward` (int8 serving, QAT's fake
+    quantization, calibration)."""
+
+    pad: Optional[Tuple[int, int, int, int]] = None
+    quant: Optional[Callable[['Conv2d', torch.Tensor], torch.Tensor]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant is not None:
+            return self.quant(self, x)
+        return self.float_forward(x)
+
+    def float_forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        return self.conv_with(x, self.weight.to(x.dtype), bias)
+
+    def conv_with(self, x: torch.Tensor, weight: torch.Tensor,
+                  bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """This conv's geometry (``pad``, stride, padding, groups) on
+        ``x`` with another ``weight`` and ``bias``."""
+        if self.pad is not None:
+            x = F.pad(x, self.pad)
+        return self._conv_forward(x, weight, bias)
 
 
 def conv2d(in_channels: int, out_channels: int, kernel_size: int,
            stride: int = 1, padding: int = 0, groups: int = 1,
            bias: bool = False, kernel_init: Optional[Init] = None,
-           bias_init: float = 0.0) -> Conv2d:
+           bias_init: float = 0.0,
+           pad: Optional[Tuple[int, int, int, int]] = None) -> Conv2d:
     """:class:`Conv2d` that carries its own initializer: ``kernel_init``
     (default: flax's ``lecun_normal``) and a constant ``bias_init``, which
-    ``reset_conv`` applies."""
+    ``reset_conv`` applies; ``pad`` as :class:`Conv2d` takes it."""
     conv = Conv2d(in_channels, out_channels, kernel_size, stride=stride,
                   padding=padding, groups=groups, bias=bias)
     conv.kernel_init = kernel_init or lecun_normal
     conv.bias_init = bias_init
+    conv.pad = pad
     return conv
 
 

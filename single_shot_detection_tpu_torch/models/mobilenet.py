@@ -72,8 +72,8 @@ class MobileNet(nn.Module):
         self.depth_multiplier = depth_multiplier
         self.min_depth = min_depth
         c = self.depth(32)
-        self.stage0_pad = tf_same_pad(3, 2)
-        self.stage0_conv = conv2d(3, c, 3, stride=2, kernel_init=xavier_uniform)
+        self.stage0_conv = conv2d(3, c, 3, stride=2, kernel_init=xavier_uniform,
+                                  pad=tf_same_pad(3, 2))
         self.stage0_bn = batch_norm(c)
         self.stage_channels: List[int] = [c]
         self.aux_channels = {}
@@ -88,7 +88,7 @@ class MobileNet(nn.Module):
 
     def forward(self, x, max_stage: Optional[int] = None):
         last = self.num_stages - 1 if max_stage is None else max_stage
-        x = _relu6(self.stage0_bn(self.stage0_conv(F.pad(x, self.stage0_pad))))
+        x = _relu6(self.stage0_bn(self.stage0_conv(x)))
         stages = [x]
         for i in range(1, min(last, self.num_stages - 1) + 1):
             x = getattr(self, f'stage{i}')(x)

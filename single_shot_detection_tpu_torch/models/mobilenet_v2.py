@@ -3,8 +3,8 @@
 Port of ``single_shot_detection_tpu/models/mobilenet_v2.py``: the custom
 TF-flavoured MobileNetV2 with inverted-residual bottlenecks, ReLU6, residual
 iff same-shape stride-1, TF-style asymmetric zero padding ``(0, 1, 0, 1)`` on
-stride-2 convs (an explicit ``F.pad`` before a ``padding=0`` conv, since
-``nn.Conv2d`` pads symmetrically), and 19 public stages (0..18) whose indices
+stride-2 convs (a ``padding=0`` conv with the explicit ``pad`` of
+``layers.Conv2d``, since ``nn.Conv2d`` pads symmetrically), and 19 public stages (0..18) whose indices
 configs tap (``out_layers=(13, 18)``).  The inner tap ``expand_relu`` is
 returned in ``aux``.
 """
@@ -32,13 +32,13 @@ class _ConvBn(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1):
         super().__init__()
-        self.pad = tf_same_pad(kernel_size, stride)
         self.conv = conv2d(in_channels, out_channels, kernel_size,
-                           stride=stride, kernel_init=xavier_uniform)
+                           stride=stride, kernel_init=xavier_uniform,
+                           pad=tf_same_pad(kernel_size, stride))
         self.bn = batch_norm(out_channels)
 
     def forward(self, x):
-        return _relu6(self.bn(self.conv(F.pad(x, self.pad))))
+        return _relu6(self.bn(self.conv(x)))
 
 
 class InvertedResidual(nn.Module):

@@ -7,6 +7,11 @@ forward (every BatchNorm a GroupNorm under ``train.group_norm``, as the JAX
 engine serves such a model) and the postprocessor (hard NMS on the CUDA
 kernel on a GPU) to ``[B, max_total, 6]`` detections and a ``valid`` mask.
 
+``amax`` (``{conv key: input amax}``, from ``export/quantize.py::
+calibrate`` or a QAT run's ``amax_from_batch_stats``) serves with those
+convs in int8 (``make_quantized_predict_step``; ``spatial_limit`` keeps the
+convs of larger inputs float), and composes with ``bf16``.
+
 ``bf16=True`` serves with bfloat16 activations (the heads at
 ``model.detector.heads.dtype`` when the config sets it; the postprocessor
 takes f32 scores and locs) and ``matmul_precision`` sets the precision of
@@ -27,6 +32,7 @@ from single_shot_detection_tpu_torch.data.preprocess import Preprocess
 from single_shot_detection_tpu_torch.device import (NumericPolicy,
                                                     numeric_policy,
                                                     resolve_device)
+from single_shot_detection_tpu_torch.export import quantize
 from single_shot_detection_tpu_torch.models import builder, norm
 from single_shot_detection_tpu_torch.models.layers import set_group_norm
 from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
@@ -46,7 +52,9 @@ class Predictor:
 
     def __init__(self, bundle: builder.DetectorBundle,
                  postprocessor: Postprocessor, preprocess: Preprocess,
-                 device: torch.device, policy: NumericPolicy):
+                 device: torch.device, policy: NumericPolicy,
+                 amax: Optional[Mapping[str, float]] = None,
+                 spatial_limit: Optional[int] = None):
         self.bundle = bundle
         self.policy = policy
         self.device = device
@@ -55,14 +63,20 @@ class Predictor:
         self.anchors = torch.from_numpy(bundle.anchors).to(device)
         self.postprocessor = postprocessor
         self.preprocess = preprocess
-        self.predict_step = make_predict_step(self.model, postprocessor,
-                                              self.anchors)
+        if amax is None:
+            self.predict_step = make_predict_step(self.model, postprocessor,
+                                                  self.anchors)
+        else:
+            self.predict_step = quantize.make_quantized_predict_step(
+                self.model, postprocessor, self.anchors, amax, spatial_limit)
 
     @classmethod
     def from_config(cls, path: str, variables: Optional[Mapping] = None,
                     device: Optional[Union[str, torch.device]] = None,
                     seed: Optional[int] = None, bf16: bool = False,
-                    matmul_precision: Optional[str] = None) -> 'Predictor':
+                    matmul_precision: Optional[str] = None,
+                    amax: Optional[Mapping[str, float]] = None,
+                    spatial_limit: Optional[int] = None) -> 'Predictor':
         """Build from a ``samples/*.py`` config.
 
         ``variables``: a JAX ``{'params', 'batch_stats'}`` tree (e.g. a
@@ -70,10 +84,11 @@ class Predictor:
         weights are the JAX package's initializers drawn from a
         ``torch.Generator`` seeded with ``seed`` (default: the config's).
         ``bf16`` and ``matmul_precision`` as ``device.py::numeric_policy``
-        takes them.
+        takes them; ``amax`` and ``spatial_limit`` serve int8.
         """
         device = resolve_device(device)
         cfg = load_config(path, phases=('eval',))
+        quantize.check_composes(dict(cfg.train or {}), amax is not None)
         policy = numeric_policy(bf16, matmul_precision, cfg.train)
         bundle = builder.from_config(cfg, variables, seed, policy.dtype)
         set_group_norm(bundle.module, norm.groups_from_config(
@@ -84,7 +99,8 @@ class Predictor:
         postprocessor = filter_kwargs(Postprocessor)(box_coder=box_coder,
                                                      **pp_cfg)
         preprocess = Preprocess(cfg.preprocessing, bundle.input_size)
-        return cls(bundle, postprocessor, preprocess, device, policy)
+        return cls(bundle, postprocessor, preprocess, device, policy, amax,
+                   spatial_limit)
 
     def predict_batch(self, images: Union[np.ndarray, torch.Tensor]
                       ) -> Tuple[torch.Tensor, torch.Tensor]:

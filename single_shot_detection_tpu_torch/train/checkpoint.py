@@ -119,7 +119,8 @@ def _load_model(state: TrainState, model_state: Dict[str, torch.Tensor],
                 rules=None) -> None:
     template = state.model.state_dict()
     if model_state.keys() != template.keys():
-        model_state = migrate_state_dict(model_state, template, rules)
+        model_state = weights.reconcile_qat(
+            migrate_state_dict(model_state, template, rules), template)
     state.model.load_state_dict(model_state, strict=True)
 
 
@@ -191,7 +192,9 @@ def restore(path: str, state: TrainState, rules=None) -> Tuple[TrainState, dict]
     """Restore ``state`` in place from a ``.pt`` or a JAX ``.msgpack``
     file; returns ``(state, meta)``, ``meta`` being ``{'epoch',
     'global_step'}`` from the sidecar (epoch 0 without one).  Model names
-    that predate a rename go through :func:`migrate_state_dict`."""
+    that predate a rename go through :func:`migrate_state_dict`; QAT's
+    ``act_amax`` entries are reconciled both ways
+    (``utils/weights.py::reconcile_qat``)."""
     if path.endswith('.msgpack'):
         restored = weights.from_jax_state(flax_msgpack.read(path))
         _load_model(state, restored['model'], rules)

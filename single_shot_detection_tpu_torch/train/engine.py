@@ -19,10 +19,18 @@ Unlike the JAX engine, a resumed run keeps the earlier epochs' rows of the
 ``log.csv`` it resumes in.  Left out: the JAX engine's retry of an epoch
 after a transient device failure; a failed step raises.
 
+``train.transfer_ahead`` (default 2, as in the JAX engine; 0 copies
+inline) copies the next batches to the device ahead of the step that takes
+them (:func:`prefetch_to_device`).  ``int8=True`` evaluates with the
+calibrated convs in int8 (``export/quantize.py``), calibrated on eval
+batches and again whenever training has advanced, or with the scales a
+``train.qat`` run learned; the JAX package's serving gate may refuse it,
+and ``evaluate()`` then reports ``int8: 0.0``.
+
 Not ported yet, each raising ``NotImplementedError`` when asked for: the
 asynchronous checkpoint writer, the device-resident dataset and the eval
 replay cache, keras ``.h5`` and torch-hub backbones, the reference's whole
-detector (``detector.torch_weight``), int8, pruning, EMA, tensorboard and
+detector (``detector.torch_weight``), pruning, EMA, tensorboard and
 multi-host runs.
 
 ``bf16`` runs the activations in bfloat16 (docs/DESIGN.md §10: parameters, BN
@@ -36,12 +44,16 @@ Runs on ``cuda`` unless the caller passes ``device='cpu'``.
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import itertools
 import logging
 import os
+import queue
 import signal
+import threading
 import time
-from typing import Dict, List, Mapping, Optional, Union
+from typing import Dict, Iterable, Iterator, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,6 +62,7 @@ from single_shot_detection_tpu_torch.data.datasets import DATASETS
 from single_shot_detection_tpu_torch.data.loader import create_loaders
 from single_shot_detection_tpu_torch.data.transforms import Pipeline
 from single_shot_detection_tpu_torch.device import resolve_device
+from single_shot_detection_tpu_torch.export import quantize
 from single_shot_detection_tpu_torch.models import norm
 from single_shot_detection_tpu_torch.ops import metrics as metrics_ops
 from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
@@ -62,6 +75,99 @@ from single_shot_detection_tpu_torch.utils import torch_import
 from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
 
 METRIC_KEYS = ('loss', 'class_loss', 'loc_loss')
+BATCH_KEYS = ('image', 'boxes', 'box_mask')
+
+
+def _copy_inline(batch: dict, device: torch.device) -> Tuple[torch.Tensor, ...]:
+    return tuple(torch.from_numpy(batch[k]).to(device, non_blocking=True)
+                 for k in BATCH_KEYS)
+
+
+def prefetch_to_device(batches: Iterable[dict], device: torch.device,
+                       depth: int) -> Iterator[Tuple[dict, Tuple[torch.Tensor, ...]]]:
+    """Yield ``(batch, (image, boxes, box_mask) on the device)`` for each
+    loader batch, with up to ``depth`` batches copied ahead (port of the JAX
+    engine's ``_prefetch_shard``; ``train.transfer_ahead``).
+
+    ``depth`` 0 or less copies inline.  Otherwise a thread takes the
+    batches and issues their copies ahead, in order, through a FIFO of
+    ``depth``; on a card each copy leaves a pinned host buffer on a side
+    stream, and the consumer's stream waits for that copy's event before the
+    batch is handed over (the tensors are marked as used on it, so the
+    caching allocator keeps them until its work is done).  The batches are
+    the same at any depth: only the copy moves.  An error of the loader or
+    of a copy reaches the consumer once the batches before it are
+    consumed; leaving the loop early stops the thread.  Pinning and the
+    side stream have no fallback: a failure raises.
+    """
+    if depth <= 0:
+        for batch in batches:
+            yield batch, _copy_inline(batch, device)
+        return
+
+    cuda = device.type == 'cuda'
+    stream = torch.cuda.Stream(device) if cuda else None
+    q: 'queue.Queue' = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    err: List[BaseException] = []
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def copy_ahead(batch: dict):
+        if not cuda:
+            return _copy_inline(batch, device), None
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            tensors = tuple(torch.from_numpy(batch[k]).pin_memory().to(
+                device, non_blocking=True) for k in BATCH_KEYS)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return tensors, event
+
+    def pump():
+        it = iter(batches)
+        try:
+            for batch in it:
+                if not put((batch, *copy_ahead(batch))):
+                    return
+        except BaseException as exc:  # loader and copy errors reach the consumer
+            err.append(exc)
+        finally:
+            close = getattr(it, 'close', None)
+            if close is not None:
+                close()  # the loader's own thread stops too
+            put(end)
+
+    thread = threading.Thread(target=pump, daemon=True, name='transfer-ahead')
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                break
+            batch, tensors, event = item
+            if event is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(event)
+                for t in tensors:
+                    t.record_stream(current)
+            yield batch, tensors
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+        if thread.is_alive():
+            logging.warning('WW transfer-ahead thread still alive 30 s after '
+                            'the consumer finished (a copy or the loader is '
+                            'wedged)')
+    if err:
+        raise err[0]
 
 
 def bn_stats_look_untouched(model: torch.nn.Module) -> bool:
@@ -147,7 +253,7 @@ class Experiment:
                  matmul_precision: Optional[str] = None,
                  tensorboard: bool = False,
                  process_count: int = 1):
-        for name, value in (('int8', int8), ('tensorboard', tensorboard),
+        for name, value in (('tensorboard', tensorboard),
                             ('process_count > 1', process_count != 1)):
             if value:
                 raise NotImplementedError(f'Experiment {name} is not ported yet')
@@ -171,6 +277,8 @@ class Experiment:
             detector['num_classes'] = ref.num_classes
             cfg.override({'model': {'detector': detector}})
         train_cfg = dict(cfg.train or {})
+        quantize.check_composes(train_cfg, int8)
+        self.transfer_ahead = int(train_cfg.get('transfer_ahead', 2) or 0)
         input_size = tuple(cfg.input_size)
         self.loaders = {}
         if self.datasets:
@@ -218,6 +326,13 @@ class Experiment:
         self.start_epoch = 0
         self._load_weights(dict(cfg.model or {}), resume_from, load_weights)
         self._current_epoch = self.start_epoch  # the emergency save's epoch
+
+        # --- int8 evaluation (export/quantize.py) ---------------------------
+        self.int8 = bool(int8)
+        self._int8_requested = bool(int8)
+        self._int8_amax: Optional[Dict[str, float]] = None
+        self._int8_calib_step: Optional[int] = None
+        self._int8_modes: Dict[str, quantize.QuantizedConv] = {}
 
     def _load_weights(self, model_cfg: dict, resume_from: Optional[str],
                       load_weights: bool) -> None:
@@ -267,11 +382,60 @@ class Experiment:
     def model(self) -> torch.nn.Module:
         return self.trainer.model
 
-    def _to_device(self, batch: dict):
-        dev = self.device
-        return (torch.from_numpy(batch['image']).to(dev, non_blocking=True),
-                torch.from_numpy(batch['boxes']).to(dev, non_blocking=True),
-                torch.from_numpy(batch['box_mask']).to(dev, non_blocking=True))
+    def _device_batches(self, batches: Iterable[dict]):
+        """``(batch, device tensors)`` with ``train.transfer_ahead``."""
+        return prefetch_to_device(batches, self.device, self.transfer_ahead)
+
+    # ------------------------------------------------------------------- int8
+    def _calibration_images(self, n_batches: int = 2) -> List[torch.Tensor]:
+        """Eval batches through the eval pipeline, for int8 calibration
+        (the JAX package's ``export/__init__.py::_calibration_images``)."""
+        if not self.loaders:
+            raise ValueError(
+                'int8 calibration needs real batches but no dataset is '
+                'configured for the active phases — include an eval (or '
+                'train) dataset when using --int8')
+        loader = self.loaders.get('eval') or next(iter(self.loaders.values()))
+        images = []
+        for batch in itertools.islice(loader, n_batches):
+            with torch.no_grad():
+                x, _, _ = self.eval_pipeline.apply(
+                    [], *_copy_inline(batch, self.device))
+            images.append(x)
+        return images
+
+    def _ensure_int8(self) -> None:
+        """Calibrate on eval batches and switch the evaluation to int8
+        (port of the JAX engine's ``_ensure_int8``); calibrate again when
+        training has advanced since.  The serving gate is judged at the
+        eval loader's batch; a ``train.qat`` run's learned scales are taken
+        in place of a calibration."""
+        if not self.int8:
+            return
+        step = int(self.trainer.state.step)
+        if self._int8_amax is not None and self._int8_calib_step == step:
+            return
+        serving_batch = (self.loaders['eval'].batch_size
+                         if 'eval' in self.loaders else None)
+        enabled, opts = quantize.resolve_int8_opts(self.cfg,
+                                                   batch_size=serving_batch)
+        if not enabled:
+            self.int8 = False
+            return
+        qat_amax = quantize.amax_from_batch_stats(self.model.state_dict())
+        if qat_amax:
+            self._int8_amax = qat_amax
+            how = 'QAT-learned scales for'
+        else:
+            n_batches = int(opts.get('calibration_batches', 2))
+            with self.policy.scope():
+                images = self._calibration_images(n_batches)
+                self._int8_amax = quantize.calibrate(self.model, images)
+            how = f'calibrated ({len(images)} batches)'
+        self._int8_calib_step = step
+        self._int8_modes = quantize.make_interceptor(
+            self.model, self._int8_amax, opts.get('spatial_limit'))
+        logging.info(f'>> int8: {how} {len(self._int8_amax)} convs')
 
     # ------------------------------------------------------------------ train
     def train(self) -> List[Dict[str, float]]:
@@ -345,11 +509,10 @@ class Experiment:
         start = time.perf_counter()
         sums = None
         count = 0
-        for step_idx, batch in enumerate(loader):
-            if step_idx >= num_batches:
-                break
+        batches = self._device_batches(itertools.islice(loader, num_batches))
+        for step_idx, (_, tensors) in enumerate(batches):
             metrics = self.trainer.train_step(
-                *self._to_device(batch), step=epoch * num_batches + step_idx)
+                *tensors, step=epoch * num_batches + step_idx)
             stacked = torch.stack([metrics[k] for k in METRIC_KEYS])
             sums = stacked if sums is None else sums + stacked
             count += 1
@@ -366,16 +529,19 @@ class Experiment:
 
     # ------------------------------------------------------------------- eval
     def evaluate(self) -> Dict[str, float]:
-        """Loss and mAP over the eval loader.  Detections stay on the device
-        until every batch has been dispatched."""
+        """Loss and mAP over the eval loader (and ``int8``, 1.0 or 0.0, when
+        int8 was asked for).  Detections stay on the device until every
+        batch has been dispatched."""
+        self._ensure_int8()
         loader = self.loaders['eval']
         start = time.perf_counter()
         sums = None
         count = 0
         pending = []
-        with self.policy.scope():
-            for batch in loader:
-                images, boxes, mask = self._to_device(batch)
+        int8 = (quantize.quant_modes(self.model, self._int8_modes) if self.int8
+                else contextlib.nullcontext())
+        with self.policy.scope(), int8:
+            for batch, (images, boxes, mask) in self._device_batches(loader):
                 with torch.no_grad():
                     x, full_boxes, mask = self.eval_pipeline.apply(
                         [], images, boxes, mask)
@@ -415,6 +581,10 @@ class Experiment:
                 coco_kwargs = dict(coco_flag) if isinstance(coco_flag, dict) else {}
                 result.update(metrics_ops.coco_mean_average_precision(
                     preds, all_gts, **coco_kwargs))
+        if self._int8_requested:
+            # 1.0: the int8 forward served this evaluation; 0.0: the gate
+            # refused it and the evaluation ran in float
+            result['int8'] = float(self.int8)
         logging.info(f'[eval] {count} batches in {time.perf_counter() - start:.2f} s: '
                      + ' '.join(f'{k}={v:.4f}' for k, v in result.items()))
         return result

@@ -1,8 +1,9 @@
 """Step functions.
 
 Port of ``single_shot_detection_tpu/train/step.py``: ``make_train_step``
-(without mixup, ``frozen_bn``, EMA, QAT and the pipeline-parallel pinning,
-which are not ported yet), ``make_eval_step`` and ``make_predict_step``.
+(without mixup, ``frozen_bn``, EMA and the pipeline-parallel pinning,
+which are not ported yet; QAT runs inside the model's convs,
+``export/quantize.py``), ``make_eval_step`` and ``make_predict_step``.
 """
 
 from __future__ import annotations

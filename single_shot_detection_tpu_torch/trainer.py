@@ -16,10 +16,16 @@ Each step draws its augmentation from a generator seeded from ``(seed,
 step)``, as the JAX engine folds the global step index into its key, so a
 run that starts at step ``n`` draws what an uninterrupted one draws there.
 
+``train.qat`` (``True``, a decay, or ``{'decay', 'spatial_limit'}``)
+trains with every dense conv's weight and input fake-quantized to int8
+(``export/quantize.py``), each conv's activation scale an EMA buffer
+``act_amax`` updated in the train forward; it does not compose with
+``fused_bn`` or ``group_norm``.
+
 What is not ported yet raises ``NotImplementedError`` rather than being
-skipped: mixup, ``frozen_bn``, EMA, QAT, gradient accumulation and
-clipping, ``lr_groups``, pruning, ``fused_steps``, the YUV420 staging and
-the multi-device options; an augmentation the ``Pipeline`` does not know
+skipped: mixup, ``frozen_bn``, EMA, gradient accumulation and clipping,
+``lr_groups``, pruning, ``fused_steps``, the YUV420 staging and the
+multi-device options; an augmentation the ``Pipeline`` does not know
 raises as well.
 
 ``bf16=True`` runs the activations in bfloat16 under docs/DESIGN.md §10's
@@ -43,6 +49,7 @@ from single_shot_detection_tpu_torch.data.transforms import Pipeline, draws_to
 from single_shot_detection_tpu_torch.device import (NumericPolicy,
                                                     numeric_policy,
                                                     resolve_device)
+from single_shot_detection_tpu_torch.export import quantize
 from single_shot_detection_tpu_torch.models import builder, norm
 from single_shot_detection_tpu_torch.models.layers import (set_fused_bn,
                                                            set_group_norm)
@@ -57,7 +64,7 @@ from single_shot_detection_tpu_torch.utils.config import load_config
 from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
 
 # train options of the JAX engine not ported yet: each raises when set
-_UNPORTED_TRAIN_OPTIONS = ('mixup', 'frozen_bn', 'ema', 'qat', 'pruner',
+_UNPORTED_TRAIN_OPTIONS = ('mixup', 'frozen_bn', 'ema', 'pruner',
                            'clip_grad_norm', 'tensor_sharding',
                            'spatial_sharding', 'pipeline_sharding',
                            'zero_sharding')
@@ -157,6 +164,7 @@ class Trainer:
             raise ValueError('train.fused_bn does not compose with '
                              'train.group_norm (both replace the BatchNorm '
                              'forward)')
+        quantize.check_composes(train_cfg)
         bundle = builder.from_config(cfg, variables, seed, policy.dtype)
         model = bundle.module.to(device)
         set_fused_bn(model, bool(train_cfg.get('fused_bn', False)))

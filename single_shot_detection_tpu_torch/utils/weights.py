@@ -19,7 +19,9 @@ import torch
 
 # flax leaf -> torch name, per collection
 _PARAM_LEAVES = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias'}
-_STAT_LEAVES = {'mean': 'running_mean', 'var': 'running_var'}
+# ``act_amax``: a conv's QAT activation scale (``export/quantize.py``)
+_STAT_LEAVES = {'mean': 'running_mean', 'var': 'running_var',
+                'act_amax': 'act_amax'}
 
 
 def _walk(tree: Mapping, prefix=()):
@@ -58,8 +60,9 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
 
     Conv kernels go HWIO -> OIHW; BatchNorm ``scale``/``bias``/``mean``/
     ``var`` become ``weight``/``bias``/``running_mean``/``running_var``, and
-    each BatchNorm gets ``num_batches_tracked = 0``.  Other collections
-    (``opt_state``, ``step``, ...) are ignored.
+    each BatchNorm gets ``num_batches_tracked = 0``; a QAT conv's
+    ``act_amax`` keeps its name.  Other collections (``opt_state``,
+    ``step``, ...) are ignored.
     """
     state = _params_to_torch(variables.get('params', {}))
     for path, value in _walk(variables.get('batch_stats', {})):
@@ -72,6 +75,56 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             state['.'.join(module + ['num_batches_tracked'])] = torch.tensor(
                 0, dtype=torch.long)
     return state
+
+
+def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`from_jax_variables`: a ``state_dict`` as a JAX
+    ``{'params', 'batch_stats'}`` tree of numpy arrays (OIHW -> HWIO,
+    ``num_batches_tracked`` dropped, ``act_amax`` in ``batch_stats``)."""
+    stats = {v: k for k, v in _STAT_LEAVES.items()}
+    variables = {'params': {}, 'batch_stats': {}}
+    for name, value in state_dict.items():
+        *module, leaf = name.split('.')
+        if leaf == 'num_batches_tracked':
+            continue
+        arr = value.detach().cpu().numpy()
+        if leaf in stats:
+            coll, key = 'batch_stats', stats[leaf]
+        elif leaf == 'bias':
+            coll, key = 'params', 'bias'
+        else:
+            coll, key = 'params', 'kernel' if arr.ndim == 4 else 'scale'
+        node = variables[coll]
+        for part in module:
+            node = node.setdefault(part, {})
+        node[key] = arr.transpose(2, 3, 1, 0) if key == 'kernel' else arr
+    return variables
+
+
+def reconcile_qat(incoming: Dict[str, torch.Tensor],
+                  template: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """QAT's ``act_amax`` entries are auxiliary (port of the JAX package's
+    ``checkpoint.py::_reconcile_qat``): a float state loaded into a QAT
+    model takes the model's zeros (uncalibrated, so the conv's input is not
+    quantized until the first train batch seeds it); a QAT state loaded
+    into a float model drops them.  Any other mismatch is left for the
+    strict load to report."""
+    out = {k: v for k, v in incoming.items()
+           if not k.endswith('.act_amax') or k in template}
+    dropped = len(incoming) - len(out)
+    filled = 0
+    for k, v in template.items():
+        if k not in out and k.endswith('.act_amax'):
+            out[k] = v.detach().clone()
+            filled += 1
+    if dropped:
+        logging.info(f'>> checkpoint carries QAT act_amax but this run '
+                     f'disables QAT: dropped {dropped} leaves')
+    if filled:
+        logging.info(f'>> checkpoint predates QAT: {filled} act_amax '
+                     'stats start uncalibrated')
+    return out
 
 
 def _sgd_trace(opt_state) -> Optional[Mapping]:

@@ -152,7 +152,7 @@ def test_cli_evaluates_the_committed_jax_checkpoint_exactly():
 
 
 @pytest.mark.parametrize('argv', [
-    ['--int8'], ['--tensorboard'], ['--phases', 'test'],
+    ['--tensorboard'], ['--phases', 'test'],
     ['--video', 'clip.mp4'], ['--phases', 'eval', 'export'],
     ['--coordinator-address', 'localhost:1234'], ['--num-processes', '2'],
     ['--process-id', '0'], ['--compilation-cache', 'cache_dir'],

@@ -305,7 +305,6 @@ def test_experiment_raises_on_what_is_not_ported():
     are in ``test_torch_port_checkpoint.py``)."""
     over = {'train': {'scheduler': MULTISTEP}}
     for kwargs, match in ((dict(tensorboard=True), 'tensorboard'),
-                          (dict(int8=True), 'int8'),
                           (dict(process_count=2), 'process_count')):
         with pytest.raises(NotImplementedError, match=match):
             Experiment(SMOKE, device='cpu', overrides=over, **kwargs)
