@@ -172,6 +172,29 @@ Phases, each fatal:
 17. ``train.transfer_ahead``: the flagship's augmented epoch (phase 8's
     data) at depths 0 and 2 in turns (0, 2, 2, 0), img/s, and the batch
     stream on the card equal at the two depths.
+18. export (``export/__init__.py``): the CLI's ``eval export`` phases on
+    the committed JAX checkpoint with a standalone ``export`` block, its
+    artifact against the eager path on an eval batch, and
+    ``tools/infer_exported.py`` on that batch's images in a fresh process
+    (each image's printed rows against the artifact's own call, some
+    detections required) while ``EXPORT_POINTS`` are exported: the
+    flagship with ``torch.export`` (plain at b32, weights an input;
+    standalone at b32 and b128, one experiment for the three; bf16
+    standalone at b128) and SSD300-VGG16 standalone at int8 b32
+    (calibrated on synthetic eval batches, past the gate), each loaded and
+    held against the experiment's ``Predictor`` on the same inputs
+    (``valid`` equal, values within ``EXPORT_TOL``), called under TF32-on
+    flags that it must give back (an f32 program records TF32 off), its
+    launches in one call (one NMS, none without the postprocessor, no BN),
+    export and load seconds, file bytes; then each one's ms in turns
+    against the eager call (eager, artifact, artifact, eager) and the
+    standalone b32 call's split against eager (host ms with and without
+    the module's input checks, device-busy ms, operators by CPU time);
+    ``tools/serve.py::DynamicBatcher`` over that artifact, 64 images from
+    8 threads (answers against the artifact's own call, mean batch fill,
+    img/s); the HTTP server (``/healthz``, concurrent ``/detect`` uploads,
+    ``/stats``, a bad upload) and the ``test`` phase on the JAX checkpoint
+    (3 frames, headless).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -194,6 +217,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -3446,6 +3470,584 @@ def run_transfer_ahead(smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 18
+
+# The JAX package's export path in the port (export/__init__.py): the
+# artifacts phase 18 exports on the card, each (label, experiment, batch,
+# export_model's options); the three f32 flagship points share one
+# experiment.  The standalone ones take raw resized RGB and bake weights,
+# normalization and NMS in.
+STANDALONE = {'with_postprocess': True, 'with_preprocess': True,
+              'bake_variables': True}
+EXPORT_POINTS = (
+    ('plain_b32', 'flagship', 32, {}),
+    ('standalone_b32', 'flagship', 32, STANDALONE),
+    ('standalone_b128', 'flagship', 128, STANDALONE),
+    ('bf16_standalone_b128', 'flagship_bf16', 128, STANDALONE),
+    ('vgg_int8_standalone_b32', 'vgg_int8', 32, {**STANDALONE, 'int8': True}),
+)
+# each experiment's (config, Experiment options); SSD300-VGG16's int8 one
+# calibrates on the eval batches of EXPORT_VGG_DATA at its point's batch,
+# so the serving gate is judged there
+EXPORT_EXPERIMENTS = {'flagship': (FLAGSHIP, {}),
+                      'flagship_bf16': (FLAGSHIP, {'bf16': True}),
+                      'vgg_int8': (VGG, {'int8': True})}
+EXPORT_VGG_DATA = {'eval': {'name': 'Synthetic', 'num_images': 64,
+                            'image_size': 300, 'num_classes': 21,
+                            'max_boxes': 6, 'seed': 2}}
+# An artifact against the eager path on the same inputs: ``valid`` equal,
+# and detections (probabilities and boxes for the plain one) within phase
+# 4's agreement of the card's forward with the CPU's
+EXPORT_TOL = 1e-3
+# calls a side in each turn of an artifact against the eager call: the b32
+# points 5, the b128 points (device-bound, 35-40 ms a call) 2
+EXPORT_TURN_ITERS = {32: 5, 128: 2}
+BATCHER_IMAGES, BATCHER_THREADS = 64, 8
+
+
+def export_experiment(key: str, batch: int) -> Experiment:
+    """``EXPORT_EXPERIMENTS[key]`` on the card, with phase 4's seeded
+    weights and perturbed BNs; an ``int8`` one calibrates at ``batch``."""
+    config, options = EXPORT_EXPERIMENTS[key]
+    overrides, phases = {}, ('export',)
+    if options.get('int8'):
+        phases = ('eval', 'export')
+        overrides = {'dataset': EXPORT_VGG_DATA, 'batch_size': batch}
+    exp = Experiment(config, phases=phases, device='cuda', seed=SEED,
+                     overrides=overrides, **options)
+    perturb_bn(exp.model, torch.Generator().manual_seed(SEED + 1))
+    return exp
+
+
+def export_timed(exp: Experiment, path: str, batch: int, options: dict):
+    """``export_model`` then ``load_exported_with_spec``: ``(call, specs,
+    {'export_s', 'load_s', 'file_bytes'})``."""
+    from single_shot_detection_tpu_torch.export import (export_model,
+                                                        load_exported_with_spec)
+    t = time.perf_counter()
+    path = export_model(exp, path, batch_size=batch, **options)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    call, specs = load_exported_with_spec(path)
+    load_s = time.perf_counter() - t
+    return path, call, specs, {'export_s': export_s, 'load_s': load_s,
+                               'file_bytes': os.path.getsize(path)}
+
+
+def plain_eager(pred: Predictor, x: torch.Tensor):
+    """The plain artifact's function on the eager path: the forward, f32
+    softmax scores and decoded corner boxes."""
+    from single_shot_detection_tpu_torch.ops import boxes as box_ops
+    with torch.inference_mode(), pred.policy.scope():
+        scores, locs = pred.model(x)
+        coder = pred.postprocessor.box_coder
+        return (torch.softmax(scores.float(), -1), box_ops.to_corners(
+            coder.decode(locs.float(), pred.anchors)))
+
+
+def outputs_agree(label: str, got, want, with_valid: bool) -> dict:
+    """``valid`` equal (postprocessed outputs) and the values within
+    ``EXPORT_TOL``; whether they are equal bit for bit."""
+    if with_valid:
+        (dets, valid), (want_d, want_v) = got, want
+        if not torch.equal(valid, want_v):
+            fail(f'export {label}: valid differs from the eager path in '
+                 f'{(valid != want_v).sum().item()} slots')
+        pairs = [(dets[valid], want_d[want_v])]
+        bit_equal = torch.equal(dets, want_d)
+    else:
+        pairs = list(zip(got, want))
+        bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    err = max((a - b).abs().max().item() for a, b in pairs)
+    if not err <= EXPORT_TOL:
+        fail(f'export {label}: the artifact differs from the eager path by '
+             f'{err} (tol {EXPORT_TOL})')
+    return {'max_abs_err': err, 'bit_equal': bit_equal}
+
+
+def artifact_launches(call, *inputs) -> dict:
+    """Every kernel's count around one artifact call."""
+    zero_launches()
+    call(*inputs)
+    torch.cuda.synchronize()
+    return read_launches()
+
+
+class ExportPoint(NamedTuple):
+    """A checked artifact with what its timing needs."""
+    out: dict
+    path: str
+    call: object
+    inputs: tuple
+    eager: object
+
+
+def export_point(label, config, exp, batch, options, work,
+                 rng) -> ExportPoint:
+    """One artifact: exported on the card, loaded, held against the
+    experiment's own ``Predictor`` on the same inputs, its kernel launches
+    in one call (one NMS launch a call, none without the postprocessor, no
+    BN).  The eager side takes uint8 images on the card, the artifact f32
+    ones (raw RGB for the standalone artifacts, normalized NHWC with the
+    weights for the plain one), both already on the card."""
+    from single_shot_detection_tpu_torch.device import current_flags, set_flags
+    pred = exp.predictor()
+    if options.get('int8') and not exp.int8:
+        fail(f'export {label}: the int8 gate refused b{batch}')
+    path, call, specs, info = export_timed(exp, os.path.join(work, label),
+                                           batch, options)
+    w, h = exp.input_size
+    images = torch.from_numpy(rng.randint(0, 256, (batch, h, w, 3),
+                                          dtype=np.uint8)).cuda()
+    meta = call.meta
+    out = {'config': config, 'batch': batch, **info,
+           'flags': meta['flags'], 'dtype': meta['dtype'],
+           'inputs': len(specs), 'input_shape': list(specs[-1].shape)}
+    if options.get('bake_variables'):
+        if specs[0].shape != (batch, h, w, 3) or len(specs) != 1:
+            fail(f'export {label}: input specs {specs}')
+        inputs = (images.float(),)
+        want = pred.predict_batch(images)
+        eager_fn = lambda: pred.predict_batch(images)  # noqa: E731
+    else:
+        x = pred.preprocess(images)
+        inputs = (dict(exp.model.state_dict()),
+                  x.permute(0, 2, 3, 1).contiguous())
+        want = plain_eager(pred, x)
+        eager_fn = lambda: plain_eager(pred, x)  # noqa: E731
+    with_pp = bool(options.get('with_postprocess'))
+    # the caller's flags are TF32 on: the artifact runs under its own and
+    # gives them back
+    before = current_flags()
+    set_flags((True, 'high'))
+    try:
+        got = call(*inputs)
+        if current_flags() != (True, 'high'):
+            fail(f'export {label}: the call left the flags {current_flags()}')
+    finally:
+        set_flags(before)
+    out['vs_eager'] = outputs_agree(label, got, want, with_pp)
+    if meta['dtype'] == 'float32' and meta['flags'] != [False, 'highest']:
+        fail(f'export {label}: an f32 artifact records {meta["flags"]}')
+    if meta['dtype'] == 'float32' and not with_pp:
+        # the same program under TF32: how far the recorded flags keep it
+        set_flags((True, 'high'))
+        try:
+            with torch.inference_mode():
+                tf32 = call.module(*inputs)
+        finally:
+            set_flags(before)
+        out['tf32_module_vs_eager_max_abs_err'] = max(
+            (a - b).abs().max().item() for a, b in zip(tf32, want))
+    launches = artifact_launches(call, *inputs)
+    want_nms = 1 if with_pp else 0
+    if launches['nms_keep_batched'] != want_nms or any(
+            launches[fn.__name__] for fn in bn_kernel.KERNELS):
+        fail(f'export {label}: one call launched {launches}, expected NMS '
+             f'{want_nms} and no BN')
+    out['launches_per_call'] = launches
+    log(f'  {label} ({config}, b{batch}, {meta["dtype"]}, flags '
+        f'{meta["flags"]}): export {info["export_s"]:.2f} s, load '
+        f'{info["load_s"]:.2f} s, {info["file_bytes"]} bytes, {len(specs)} '
+        f'input(s); vs eager max abs err {out["vs_eager"]["max_abs_err"]:.3g}'
+        f' (bit-equal {out["vs_eager"]["bit_equal"]}); NMS launches a call '
+        f'{launches["nms_keep_batched"]}'
+        + (f'; the program under TF32 off the eager path by '
+           f'{out["tf32_module_vs_eager_max_abs_err"]:.3g}'
+           if 'tf32_module_vs_eager_max_abs_err' in out else ''))
+    return ExportPoint(out, path, call, inputs, eager_fn)
+
+
+def time_export_point(label: str, point: ExportPoint, batch: int) -> None:
+    """The artifact's ms against the eager call's in turns (eager,
+    artifact, artifact, eager), into ``point.out['turns']``."""
+    turns = in_turns({'eager': point.eager,
+                      'artifact': lambda: point.call(*point.inputs)},
+                     iters=EXPORT_TURN_ITERS[batch])
+    point.out['turns'] = {name: {'ms': t['ms'],
+                                 'img_per_s': batch * 1e3 / t['ms'],
+                                 'all_ms': t['all_ms']}
+                          for name, t in turns.items()}
+    log(f'  {label} ms in turns: eager {point.out["turns"]["eager"]["ms"]:.3f}'
+        f', artifact {point.out["turns"]["artifact"]["ms"]:.3f}')
+
+
+def artifact_call_split(point: ExportPoint, calls: int = 3) -> dict:
+    """Where a loaded artifact's call spends the time the eager call does
+    not: host ms in turns of the eager call, the artifact's call (numeric
+    flags, inference mode, the module's input-checking pre-hooks, its
+    pytree flattening and graph) and its module's ``forward`` alone under
+    the same flags (no pre-hooks); then device-busy ms, launches, operator
+    calls and the operators by self CPU time of ``calls`` calls of the
+    eager call and of the artifact's (profiler)."""
+    call, inputs = point.call, point.inputs
+
+    def forward_only():
+        with call.policy.scope(), torch.inference_mode():
+            return call.module.forward(*inputs)
+
+    sides = {'eager': point.eager, 'artifact': lambda: call(*inputs),
+             'artifact_forward_only': forward_only}
+    turns = in_turns(sides, iters=5)
+    out = {name: {'host_ms': turns[name]['ms']} for name in sides}
+    for name in ('eager', 'artifact'):
+        def run(fn=sides[name]):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        prof = profile_window(run)
+        cpu = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU]
+        top = sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:8]
+        out[name].update({
+            'device_busy_ms': busy_us(prof) / calls / 1e3,
+            'launches': busy_launches(prof) / calls,
+            'cpu_ops': sum(e.count for e in cpu) / calls,
+            # ProfilerStep*'s self time: the host's time outside any
+            # operator (Python, hooks, pytree handling)
+            'top_self_cpu_us': {e.key: e.self_cpu_time_total / calls
+                                for e in top}})
+    log('  the standalone b32 artifact\'s call split against eager (per '
+        'call): ' + json.dumps(out))
+    return out
+
+
+def infer_exported_start(path: str, images: torch.Tensor, work: str):
+    """``python -m single_shot_detection_tpu_torch.tools.infer_exported ART
+    IMG... --min-score 0`` started in a fresh process on the card, on
+    ``images`` (uint8 at the artifact's size) written as PNG files; it
+    runs while the flagship is exported.  ``(process, stdout file, files,
+    start time)``."""
+    from PIL import Image
+    folder = os.path.join(work, 'infer_images')
+    os.makedirs(folder)
+    files = []
+    for i, img in enumerate(images.cpu().numpy()):
+        files.append(os.path.join(folder, f'{i:02d}.png'))
+        Image.fromarray(img).save(files[-1])
+    streams = [open(os.path.join(work, f'infer_exported.{name}'), 'w+')
+               for name in ('out', 'err')]
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'single_shot_detection_tpu_torch.tools.'
+         'infer_exported', path, *files, '--min-score', '0'], cwd=REPO,
+        stdout=streams[0], stderr=streams[1], text=True,
+        env={**os.environ, 'PYTHONPATH': str(REPO)})
+    return proc, streams, files, time.perf_counter()
+
+
+def infer_exported_finish(started, want, batch: int, h: int, w: int) -> dict:
+    """The tool's exit 0 and the JAX tool's lines (a header, a count line
+    per image, its rows, a timing line); each image's rows equal to the
+    valid detections of the artifact's own call on the same images, to the
+    printed rounding (boxes 2 decimals, scores 3); some detections in all."""
+    proc, streams, files, t = started
+    try:
+        code = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t
+    for stream in streams:
+        stream.seek(0)
+    text, errors = (stream.read() for stream in streams)
+    for stream in streams:
+        stream.close()
+    lines = text.strip().splitlines()
+    if (code != 0 or not lines
+            or lines[0] != f'>> artifact expects [{batch}, {h}, {w}, 3] raw RGB'
+            or not lines[-1].endswith(f'for 1 call of batch {batch}')):
+        fail(f'infer_exported exit {code}: {text[-3000:]}{errors[-3000:]}')
+    dets, valid = (t.cpu().numpy() for t in want)
+    rows = iter(lines[1:-1])
+    box_err = score_err = 0.0
+    total = 0
+    for i, name in enumerate(files):
+        head = next(rows, '')
+        want_rows = dets[i][valid[i]]
+        if head != f'{name}: {len(want_rows)} detections':
+            fail(f'infer_exported printed "{head}", the artifact has '
+                 f'{len(want_rows)} detections for {name}')
+        for x1, y1, x2, y2, cls, score in want_rows:
+            row = next(rows, '')
+            box, rest = row.strip()[1:].split(']')
+            got_score, got_cls = (f.split('=')[1] for f in rest.split())
+            if int(got_cls) != int(cls):
+                fail(f'infer_exported printed "{row}" for class {int(cls)}')
+            box_err = max(box_err, float(np.abs(
+                np.array(box.split(), np.float64)
+                - np.array([x1, y1, x2, y2], np.float64)).max()))
+            score_err = max(score_err, abs(float(got_score) - float(score)))
+        total += len(want_rows)
+    if next(rows, None) is not None:
+        fail('infer_exported printed more lines than the artifact has rows')
+    if total == 0:
+        fail('infer_exported: the artifact found no detection to compare')
+    # %.2f and %.3f of float32 values: half a printed step, and the float's
+    # own rounding
+    if not (box_err <= 0.005 + 1e-6 and score_err <= 0.0005 + 1e-6):
+        fail(f'infer_exported rows off the artifact\'s by {box_err} (boxes), '
+             f'{score_err} (scores)')
+    return {'seconds': seconds, 'timing_line': lines[-1], 'images': len(files),
+            'detections': total, 'box_max_abs_err_rounded': box_err,
+            'score_max_abs_err_rounded': score_err, 'lines': len(lines)}
+
+
+def batcher_round_trip(call, batch: int, h: int, w: int, rng) -> dict:
+    """``tools/serve.py::DynamicBatcher`` over the b32 artifact, fed
+    ``BATCHER_IMAGES`` images from ``BATCHER_THREADS`` threads: every
+    answer against the artifact's own call on the image (in its first
+    slot), the mean batch fill and images/s."""
+    from single_shot_detection_tpu_torch.tools.serve import DynamicBatcher
+    images = (rng.rand(BATCHER_IMAGES, h, w, 3) * 255).astype(np.float32)
+    batcher = DynamicBatcher(call, batch, (h, w), max_delay_ms=5.0)
+    answers = [None] * BATCHER_IMAGES
+    try:
+        batcher.warmup()
+
+        def client(k):
+            for i in range(k, BATCHER_IMAGES, BATCHER_THREADS):
+                answers[i] = batcher.submit(images[i])
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(BATCHER_THREADS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        seconds = time.perf_counter() - t
+        if any(th.is_alive() for th in threads):
+            fail('DynamicBatcher: a client did not finish in 120 s')
+        stats = batcher.stats()
+    finally:
+        batcher.stop()
+    err, bit_equal = 0.0, 0
+    for i, (dets, valid) in enumerate(answers):
+        slot = np.zeros((batch, h, w, 3), np.float32)
+        slot[0] = images[i]
+        want_d, want_v = (t[0].cpu().numpy() for t in call(slot))
+        if not np.array_equal(valid, want_v):
+            fail(f'DynamicBatcher: image {i}\'s valid differs from the '
+                 'artifact\'s own call')
+        err = max(err, float(np.abs(dets[valid] - want_d[want_v]).max()))
+        bit_equal += np.array_equal(dets, want_d)
+    if not err <= EXPORT_TOL:
+        fail(f'DynamicBatcher: answers differ from the artifact by {err}')
+    return {'images': BATCHER_IMAGES, 'threads': BATCHER_THREADS,
+            **stats, 'seconds': seconds,
+            'img_per_s': BATCHER_IMAGES / seconds,
+            'max_abs_err_vs_artifact': err, 'bit_equal_answers': bit_equal}
+
+
+def http_round_trip(path: str, call, batch: int, h: int, w: int,
+                    rng) -> dict:
+    """``tools/serve.py::make_server`` on the b32 artifact at a local port:
+    ``/healthz``, 4 concurrent ``/detect`` PNG uploads of other sizes (each
+    answer against the artifact's own call on the decoded image), ``/stats``
+    and a 400 on a bad upload."""
+    import http.client
+    import io
+    from PIL import Image
+    from single_shot_detection_tpu_torch.tools.serve import make_server
+    server, batcher = make_server(path, port=0, max_delay_ms=50.0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def request(method, url, body=None):
+        conn = http.client.HTTPConnection(*server.server_address, timeout=120)
+        try:
+            conn.request(method, url, body=body)
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read().decode())
+        finally:
+            conn.close()
+
+    sizes = [(500, 375), (640, 480), (300, 300), (1280, 720)]
+    bodies = []
+    for src_w, src_h in sizes:
+        buf = io.BytesIO()
+        Image.fromarray(rng.randint(0, 256, (src_h, src_w, 3),
+                                    dtype=np.uint8)).save(buf, format='PNG')
+        bodies.append(buf.getvalue())
+    results = [None] * len(sizes)
+    try:
+        health = request('GET', '/healthz')
+        threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+            i, request('POST', '/detect?min_score=0.0', bodies[i])))
+            for i in range(len(sizes))]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        seconds = time.perf_counter() - t
+        stats = request('GET', '/stats')
+        bad = request('POST', '/detect', b'not an image')
+    finally:
+        server.shutdown()
+        batcher.stop()
+        server.server_close()
+        thread.join(timeout=10)
+    if health != (200, {'status': 'ok', 'batch': batch, 'input_hw': [h, w]}):
+        fail(f'/healthz answered {health}')
+    if bad[0] != 400:
+        fail(f'a bad upload got {bad}')
+    err = 0.0
+    for (src_w, src_h), body, res in zip(sizes, bodies, results):
+        if res is None or res[0] != 200 or res[1]['size'] != [src_w, src_h]:
+            fail(f'/detect of a {src_w}x{src_h} PNG answered {res}')
+        with Image.open(io.BytesIO(body)) as im:
+            img = np.asarray(im.convert('RGB').resize((w, h), Image.BILINEAR),
+                             np.float32)
+        slot = np.zeros((batch, h, w, 3), np.float32)
+        slot[0] = img
+        dets, valid = (t[0].cpu().numpy() for t in call(slot))
+        want = dets[valid].astype(np.float64)
+        want[:, (0, 2)] *= src_w / w
+        want[:, (1, 3)] *= src_h / h
+        got = np.asarray(res[1]['detections'], np.float64).reshape(-1, 6)
+        if len(got) != len(want):
+            fail(f'/detect of a {src_w}x{src_h} PNG: {len(got)} detections, '
+                 f'the artifact {len(want)}')
+        # the server rounds boxes to 2 decimals and scores to 4
+        err = max(err, float(np.abs(got - want).max()))
+    if not err <= 0.006:
+        fail(f'/detect answers differ from the artifact by {err}')
+    return {'requests': len(sizes), 'seconds': seconds, 'stats': stats[1],
+            'max_abs_err_vs_artifact_rounded': err}
+
+
+def run_test_phase(work: str) -> dict:
+    """``--phases test --video DIR`` on the committed JAX checkpoint (in
+    process, on the card, headless): each image of DIR through
+    ``Experiment.predict`` and ``draw_boxes``, saved as a PNG in the
+    temporary directory, with the NMS count read around it."""
+    from PIL import Image
+    folder = os.path.join(work, 'video')
+    os.makedirs(folder)
+    rng = np.random.RandomState(SEED + 19)
+    for i, (h, w) in enumerate([(128, 128), (300, 400), (720, 1280)]):
+        Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            os.path.join(folder, f'{i}.png'))
+    before = listing('experiments')
+    tmp = tempfile.tempdir
+    tempfile.tempdir = os.path.join(work, 'tmp')
+    os.makedirs(tempfile.tempdir)
+    env = {k: os.environ.pop(k) for k in ('DISPLAY', 'WAYLAND_DISPLAY')
+           if k in os.environ}
+    try:
+        zero_launches()
+        t = time.perf_counter()
+        cli.main(['--config', f'{JAX_RUN}/config.py', '--checkpoint', JAX_RUN,
+                  '--phases', 'test', '--video', folder])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = read_launches()
+        frames = sorted(os.listdir(os.path.join(tempfile.tempdir,
+                                                'ssd_torch_frames')))
+    finally:
+        tempfile.tempdir = tmp
+        os.environ.update(env)
+    if listing('experiments') != before:
+        fail('experiments/ changed')
+    if frames != ['00000.png', '00001.png', '00002.png'] or launches[
+            'nms_keep_batched'] != 3:
+        fail(f'the test phase wrote {frames} with launches {launches}')
+    return {'frames': len(frames), 'seconds': seconds, 'launches': launches}
+
+
+def cli_export_jax_checkpoint(work: str):
+    """``--phases eval export`` on the committed JAX checkpoint with a
+    standalone ``export`` block at its eval batch (twice the config's
+    batch): the artifact's detections on the first eval batch against the
+    eager ones.  ``(result, artifact path, the batch's uint8 images, the
+    artifact's outputs on them)``."""
+    from single_shot_detection_tpu_torch.export import load_exported
+    config = Path(work) / 'jax_run_export.py'
+    out = os.path.join(work, 'jax_run', 'model')
+    config.write_text((REPO / JAX_RUN / 'config.py').read_text()
+                      + '\n# chip_smoke.py phase 18: a standalone artifact\n'
+                      + f"export = {{'standalone': True, 'path': {out!r}, "
+                        "'batch_size': 2 * batch_size}\n")
+    before = listing('experiments')
+    zero_launches()
+    t = time.perf_counter()
+    exp, metrics = cli.main(['--config', str(config), '--checkpoint', JAX_RUN,
+                             '--phases', 'eval', 'export'])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = read_launches()
+    if listing('experiments') != before:
+        fail('experiments/ changed')
+    if launches['nms_keep_batched'] != len(exp.loaders['eval']):
+        fail(f'the CLI\'s eval and export launched {launches}')
+    call = load_exported(out + '.pt2')
+    images, _, _ = first_batch(exp.loaders['eval'], exp.device)
+    got = call(images.float())
+    want = exp.predictor().predict_batch(images)
+    agree = outputs_agree('cli_jax_checkpoint', got, want, True)
+    log(f'  the CLI\'s eval and export phases on {JAX_RUN} in {seconds:.2f} '
+        f's (mAP {metrics["mAP"]:.5f}), the artifact on its first eval batch '
+        f'({int(got[1].sum())} detections) against the eager path: max abs '
+        f'err {agree["max_abs_err"]:.3g}, bit-equal {agree["bit_equal"]}')
+    return ({'seconds': seconds, 'eval_launches': launches,
+             'mAP': metrics['mAP'], 'detections': int(got[1].sum()),
+             'file_bytes': os.path.getsize(out + '.pt2'), **agree},
+            out + '.pt2', images, got)
+
+
+def run_export(smi: str) -> dict:
+    """Phase 18: the CLI's export phase on the JAX checkpoint, whose
+    artifact ``infer_exported`` runs in a fresh process meanwhile;
+    ``EXPORT_POINTS`` exported, loaded and held against the eager path,
+    then timed against it in turns (the fresh process done), with the
+    standalone b32 call's split; the ``DynamicBatcher``, the HTTP server
+    and the test phase on that artifact."""
+    rng = np.random.RandomState(SEED + 18)
+    work = tempfile.mkdtemp(prefix='chip_smoke_export_')
+    out, points, started = {}, {}, None
+    try:
+        log(f'[18] {smi}: export (torch.export, the NMS op in the program), '
+            'each artifact against the eager path')
+        out['cli_jax_checkpoint'], jax_path, jax_images, jax_got = (
+            cli_export_jax_checkpoint(work))
+        started = infer_exported_start(jax_path, jax_images, work)
+        experiments = {}
+        for label, key, batch, options in EXPORT_POINTS:
+            if key not in experiments:
+                experiments[key] = export_experiment(key, batch)
+            points[label] = export_point(
+                label, EXPORT_EXPERIMENTS[key][0], experiments[key], batch,
+                options, work, rng)
+        out['infer_exported'] = infer_exported_finish(
+            started, jax_got, *jax_images.shape[:3])
+        started = None
+        log('  infer_exported on the eval batch\'s PNGs in a fresh process '
+            '(while the flagship was exported): '
+            + json.dumps(out['infer_exported']))
+        for label, _, batch, _ in EXPORT_POINTS:
+            time_export_point(label, points[label], batch)
+            out[label] = points[label].out
+        b32 = points['standalone_b32']
+        out['standalone_b32']['call_split'] = artifact_call_split(b32)
+        b32_shape = out['standalone_b32']['input_shape'][:3]
+        out['batcher'] = batcher_round_trip(b32.call, *b32_shape, rng)
+        log('  DynamicBatcher: ' + json.dumps(out['batcher']))
+        out['http'] = http_round_trip(b32.path, b32.call, *b32_shape, rng)
+        out['test_phase'] = run_test_phase(work)
+        log('  HTTP: ' + json.dumps(out['http']) + '; the test phase: '
+            + json.dumps(out['test_phase']))
+    finally:
+        if started is not None and started[0].poll() is None:
+            started[0].kill()
+            started[0].wait()
+        shutil.rmtree(work, ignore_errors=True)
+    del points, experiments
+    torch.cuda.empty_cache()
+    return out
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
@@ -3683,6 +4285,11 @@ def main(argv=None) -> int:
     transfer = run_transfer_ahead(smi)
     log(f'  phase 17 in {time.perf_counter() - t:.1f} s')
 
+    # 18. export and the artifact's consumers
+    t = time.perf_counter()
+    export = run_export(smi)
+    log(f'  phase 18 in {time.perf_counter() - t:.1f} s')
+
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
         **train_timing,
@@ -3713,7 +4320,7 @@ def main(argv=None) -> int:
         'int8': {key: ({k: v for k, v in value.items() if k != 'nms'}
                        if isinstance(value, dict) else value)
                  for key, value in int8.items()},
-        'transfer_ahead': transfer}}))
+        'transfer_ahead': transfer, 'export': export}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -3753,6 +4360,15 @@ def main(argv=None) -> int:
                              'qat_int8_serving': int8['qat'][
                                  'int8_eval_launches']['nms_keep_batched'],
                              'int8_cli_jax_checkpoint': int8['jax_checkpoint'][
+                                 'launches']['nms_keep_batched'],
+                             # one artifact call each (phase 18)
+                             **{f'export_{label}': export[label][
+                                 'launches_per_call']['nms_keep_batched']
+                                for label, *_ in EXPORT_POINTS},
+                             'export_cli_jax_checkpoint_eval': export[
+                                 'cli_jax_checkpoint']['eval_launches'][
+                                 'nms_keep_batched'],
+                             'export_test_phase': export['test_phase'][
                                  'launches']['nms_keep_batched']},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
@@ -3807,7 +4423,10 @@ def main(argv=None) -> int:
                                     for label, *_ in INT8_POINTS},
                                  'qat_train': int8['qat']['launches'][name],
                                  'int8_cli_jax_checkpoint': int8[
-                                     'jax_checkpoint']['launches'][name]},
+                                     'jax_checkpoint']['launches'][name],
+                                 **{f'export_{label}': export[label][
+                                     'launches_per_call'][name]
+                                    for label, *_ in EXPORT_POINTS}},
             'max_abs_err': max(bn_check[name], *(
                 t['bn_max_abs_err'][name] for t in zoo_steps.values())),
             'shape': list(BN_TIMED_SHAPE),

@@ -10,7 +10,10 @@ train-mode forward -> multibox loss -> backward -> SGD, with the train-mode
 BatchNorm on four hand-written CUDA kernels under ``train.fused_bn``), and
 the config's train and eval phases as users start them
 (``python -m single_shot_detection_tpu_torch``, ``cli.py``; checkpoints in
-``train/checkpoint.py``, which also reads the JAX package's files).  It
+``train/checkpoint.py``, which also reads the JAX package's files), and
+export and deployment (``export/__init__.py``: ``torch.export`` artifacts
+with the NMS kernel inside, consumed by ``tools/infer_exported.py`` and
+``tools/serve.py``).  It
 imports ``torch`` only; the JAX package beside it is the reference the
 port's tests hold it against.
 

@@ -5,14 +5,19 @@ Port of the JAX package's ``main.py``, flag for flag::
     python -m single_shot_detection_tpu_torch --config samples/synthetic_smoke.py \\
         --phases train eval [--save-dir DIR] [--checkpoint FILE_OR_DIR]
         [--new-checkpoint] [--load-weights] [--debug] [--cpu] [--profile DIR]
-        [--bf16] [--int8] [--matmul-precision NAME]
+        [--bf16] [--int8] [--matmul-precision NAME] [--video PATH]
 
 ``train`` runs the epochs (checkpoints, ``log.csv``, ``train.log`` and a
 copy of the config go to a timestamped directory under ``--save-dir``, or
 to the ``--checkpoint`` directory it resumes unless ``--new-checkpoint``);
-``eval`` alone evaluates and writes nothing; ``embed`` opens an interactive
-shell with ``experiment`` and ``cfg``.  ``--checkpoint`` also takes the JAX
-package's ``ckpt-N.msgpack`` files and directories.  The run is on ``cuda``
+``eval`` alone evaluates and writes nothing; ``test`` runs the detector on
+each frame of ``--video`` (a video file or an image folder) and shows or,
+headless, saves the frames with their boxes (``utils/video_viewer.py``);
+``export`` writes a ``torch.export`` artifact as the config's ``export``
+block says (``Experiment.export``, ``export/__init__.py``); ``embed``
+opens an interactive shell with ``experiment`` and ``cfg``.
+``--checkpoint`` also takes the JAX package's ``ckpt-N.msgpack`` files and
+directories.  The run is on ``cuda``
 and raises without a GPU unless ``--cpu`` is given.  ``--profile DIR``
 writes a ``torch.profiler`` trace of the train phase into DIR.
 ``--bf16`` runs the activations in bfloat16 (parameters, BN statistics,
@@ -22,12 +27,12 @@ momentum and losses stay f32; checkpoints are f32) and
 bf16 runs; ``device.py``).  ``--int8`` evaluates with the dense convs in
 int8, calibrated on eval batches or from a ``train.qat`` run's scales
 (``export/quantize.py``), unless the JAX package's serving gate refuses the
-config's backbone at its eval batch.
+config's backbone at its eval batch; with the ``export`` phase it exports
+an int8 artifact.
 
 Not ported yet, each raising ``NotImplementedError``: ``--tensorboard``,
-the ``test`` phase with ``--video``, the ``export`` phase, the distributed
-flags, and ``--compilation-cache`` other than ``off`` (the port has no XLA cache; its kernels are built once into
-``kernels/build/``).
+the distributed flags, and ``--compilation-cache`` other than ``off`` (the
+port has no XLA cache; its kernels are built once into ``kernels/build/``).
 """
 
 from __future__ import annotations
@@ -41,13 +46,10 @@ from typing import Optional, Sequence
 # flag -> where ROADMAP.md's Queue 1 lists it
 _UNPORTED_FLAGS = (
     ('tensorboard', '--tensorboard', 'item 6 (tensorboard)'),
-    ('video', '--video', 'item 7 (the video viewer of the test phase)'),
     ('coordinator_address', '--coordinator-address', 'item 8 (multi-GPU)'),
     ('num_processes', '--num-processes', 'item 8 (multi-GPU)'),
     ('process_id', '--process-id', 'item 8 (multi-GPU)'),
 )
-_UNPORTED_PHASES = {'test': 'item 7 (the video viewer of the test phase)',
-                    'export': 'item 2 (export)'}
 
 
 def get_argparser() -> argparse.ArgumentParser:
@@ -71,8 +73,9 @@ def get_argparser() -> argparse.ArgumentParser:
                         help='bfloat16 activations (parameters, BN '
                              'statistics and losses stay f32)')
     parser.add_argument('--int8', default=False, action='store_true',
-                        help='int8 evaluation: dense convs as s8 x s8 -> '
-                             's32 products, calibrated on eval batches')
+                        help='int8 evaluation and export: dense convs as '
+                             's8 x s8 -> s32 products, calibrated on eval '
+                             'batches')
     parser.add_argument('--matmul-precision', type=str, default=None,
                         choices=['default', 'high', 'highest',
                                  'bfloat16', 'tensorfloat32', 'float32'],
@@ -83,8 +86,7 @@ def get_argparser() -> argparse.ArgumentParser:
                         choices=['train', 'eval', 'test', 'export', 'embed'],
                         help='One or multiple runtime phases')
     parser.add_argument('--video', type=str,
-                        help='Video file or image folder for the test phase '
-                             '(not ported yet)')
+                        help='Video file or image folder for the test phase')
     parser.add_argument('--tensorboard', default=False, action='store_true',
                         help='Log to tensorboard (not ported yet)')
     parser.add_argument('--profile', type=str, default=None, metavar='DIR',
@@ -103,16 +105,12 @@ def get_argparser() -> argparse.ArgumentParser:
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for a flag or phase not ported yet."""
+    """Raise ``NotImplementedError`` for a flag not ported yet."""
     for attr, flag, item in _UNPORTED_FLAGS:
         value = getattr(args, attr)
         if value is not None and value is not False:
             raise NotImplementedError(
                 f'{flag} is not ported yet (ROADMAP.md Queue 1 {item})')
-    for phase, item in _UNPORTED_PHASES.items():
-        if phase in args.phases:
-            raise NotImplementedError(f'the {phase} phase is not ported yet '
-                                      f'(ROADMAP.md Queue 1 {item})')
     if args.compilation_cache not in (None, 'off'):
         raise NotImplementedError(
             '--compilation-cache: the port has no XLA compilation cache; its '
@@ -136,7 +134,8 @@ def _profiled(directory: str, device, run):
 def main(argv: Optional[Sequence[str]] = None):
     """Run ``main.py``'s phases; returns ``(experiment, result)``, the
     result being the train phase's epoch rows, the eval phase's metrics
-    when it runs alone, or None."""
+    when it runs alone, or None.  ``test`` and ``export`` run after them,
+    in that order."""
     args = get_argparser().parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.debug else logging.INFO,
@@ -167,11 +166,12 @@ def main(argv: Optional[Sequence[str]] = None):
                                 debug=args.debug, bf16=args.bf16,
                                 int8=args.int8,
                                 matmul_precision=args.matmul_precision)
-        result = None
         if 'embed' in args.phases:
             import code
             code.interact(local={'experiment': experiment, 'cfg': cfg})
-        elif train:
+            return experiment, None
+        result = None
+        if train:
             if args.profile:
                 result = _profiled(args.profile, experiment.device,
                                    experiment.train)
@@ -179,6 +179,11 @@ def main(argv: Optional[Sequence[str]] = None):
                 result = experiment.train()
         elif 'eval' in args.phases:
             result = experiment.evaluate()
+        if 'test' in args.phases:
+            from single_shot_detection_tpu_torch.utils.video_viewer import VideoViewer
+            VideoViewer(args.video, experiment).run()
+        if 'export' in args.phases:
+            experiment.export(int8=args.int8)
         return experiment, result
     finally:
         if handler is not None:

@@ -277,13 +277,12 @@ class QuantizedConv:
         self.k_pad = _round_up(self.k, _ALIGN)
         self.n = n
         # [N_pad, K_pad] row-major, handed to the product as its transpose
-        w = w_q.new_zeros((_round_up(n, _ALIGN), self.k_pad))
-        w[:n, :self.k] = w_q.reshape(n, self.k)
-        self.w_t = w.t()
+        self.w = w_q.new_zeros((_round_up(n, _ALIGN), self.k_pad))
+        self.w[:n, :self.k] = w_q.reshape(n, self.k)
         # the JAX package takes the activation scale in Python floats, then
         # as an f32 constant
         self.x_scale = torch.tensor(max(input_scale, 1e-12) / QMAX,
-                                    dtype=torch.float32, device=w.device)
+                                    dtype=torch.float32, device=self.w.device)
         self.scale = w_scale * self.x_scale  # one f32 product, as JAX's
         self.bias = (None if conv.bias is None
                      else conv.bias.detach().to(torch.float32))
@@ -293,6 +292,12 @@ class QuantizedConv:
         if conv.pad is not None:
             pl, pr, pt, pb = conv.pad
             self.padding = (pl + pw, pr + pw, pt + ph, pb + ph)
+
+    @property
+    def w_t(self) -> torch.Tensor:
+        """The int8 weight ``[K_pad, N_pad]``, column-major, as cuBLASLt
+        takes it (a view of ``w``, which an exported program keeps whole)."""
+        return self.w.t()
 
     def accumulator(self, x_q: torch.Tensor) -> torch.Tensor:
         """The conv's s32 accumulator ``[B, Ho, Wo, N]`` of an int8 NCHW

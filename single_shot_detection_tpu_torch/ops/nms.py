@@ -72,8 +72,9 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
     sigma)`` with the picked box and zeroes the picked box's.  The JAX
     package runs ``K`` rounds for each row; a row with no score above the
     threshold is left as it is, so the rounds stop once no row has one,
-    with the same mask.  Callers keep the *original* scores of picked
-    boxes.
+    with the same mask.  Under ``torch.export`` all ``K`` rounds run, as in
+    JAX: the stop test reads the device, which a traced program cannot.
+    Callers keep the *original* scores of picked boxes.
 
     Args:
       boxes: ``[..., K, 4]`` corner boxes.
@@ -86,10 +87,11 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
     working = scores.clone()
     picked = torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
     index = torch.arange(k, device=scores.device)
+    exporting = torch.compiler.is_exporting()
     for _ in range(k):
         above = working > score_threshold
         active = above.any(dim=-1, keepdim=True)
-        if not bool(active.any()):
+        if not exporting and not bool(active.any()):
             break
         # the first maximum, as jnp.argmax takes it (torch.argmax on CUDA
         # does not promise which of tied maxima it returns)

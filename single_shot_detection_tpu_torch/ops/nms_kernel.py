@@ -5,6 +5,15 @@ A CUDA tensor goes to the kernel; a CPU tensor goes to the plain version
 ``ops/nms.py::nms_keep_sorted``.  On CUDA there is no fallback: a failed
 build or launch raises.  The kernel takes K up to ``MAX_K`` candidates per
 problem (its greedy sweep holds one 64-bit word per lane of a warp).
+
+The function is the ``torch.library`` custom op
+``ssd_torch::nms_keep_batched`` (:data:`OP`), with a fake implementation
+for tracing, so the eager postprocessor and a ``torch.export`` program of it
+run the same op, and an exported program carries the op by name.  Loading
+such a program needs the op registered: import this module first.
+Importing it registers the op and builds nothing (the kernel is built at
+its first launch); it imports only ``torch``, ``kernels/_build.py`` and
+``ops/nms.py`` (with its ``ops/boxes.py``).
 """
 
 from __future__ import annotations
@@ -65,21 +74,16 @@ def _check(boxes: torch.Tensor, scores: torch.Tensor) -> None:
                          f'per problem, got {boxes.shape[1]}')
 
 
-def nms_keep_batched(boxes: torch.Tensor, scores: torch.Tensor,
-                     overlap_threshold: float) -> torch.Tensor:
-    """Exact greedy NMS over ``N`` independent problems.
-
-    Args:
-      boxes: ``[N, K, 4]`` f32 corner boxes, **sorted by score descending**.
-      scores: ``[N, K]`` f32 sorted scores; ``-inf`` marks invalid candidates.
-      overlap_threshold: suppress IoU strictly greater than this.
-    Returns:
-      ``[N, K]`` bool keep mask.
-    """
+@torch.library.custom_op('ssd_torch::nms_keep_batched', mutates_args=())
+def _nms_keep_op(boxes: torch.Tensor, scores: torch.Tensor,
+                 overlap_threshold: float) -> torch.Tensor:
     if boxes.device.type == 'cpu':
         return nms_ops.nms_keep_sorted(boxes, scores, overlap_threshold)
     if boxes.device.type != 'cuda':
         raise ValueError(f'no NMS kernel for device {boxes.device}')
+    # the kernel reads the boxes as float4: a traced program may hand over
+    # a strided view
+    boxes, scores = boxes.contiguous(), scores.contiguous()
     _check(boxes, scores)
     n, k = scores.shape
     keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
@@ -99,6 +103,29 @@ def nms_keep_batched(boxes: torch.Tensor, scores: torch.Tensor,
                            f'{lib.nms_error_string(err).decode()} ({err})')
     nms_keep_batched.launches += 1
     return keep
+
+
+@_nms_keep_op.register_fake
+def _nms_keep_fake(boxes, scores, overlap_threshold):
+    return scores.new_empty(scores.shape, dtype=torch.bool)
+
+
+# the registered op, as a traced or loaded program calls it
+OP = torch.ops.ssd_torch.nms_keep_batched.default
+
+
+def nms_keep_batched(boxes: torch.Tensor, scores: torch.Tensor,
+                     overlap_threshold: float) -> torch.Tensor:
+    """Exact greedy NMS over ``N`` independent problems (the custom op).
+
+    Args:
+      boxes: ``[N, K, 4]`` f32 corner boxes, **sorted by score descending**.
+      scores: ``[N, K]`` f32 sorted scores; ``-inf`` marks invalid candidates.
+      overlap_threshold: suppress IoU strictly greater than this.
+    Returns:
+      ``[N, K]`` bool keep mask.
+    """
+    return OP(boxes, scores, float(overlap_threshold))
 
 
 # Kernel launches since the count was last set to 0.

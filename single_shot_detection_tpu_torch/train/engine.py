@@ -67,6 +67,7 @@ from single_shot_detection_tpu_torch.models import norm
 from single_shot_detection_tpu_torch.ops import metrics as metrics_ops
 from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
 from single_shot_detection_tpu_torch.ops.postprocess import Postprocessor
+from single_shot_detection_tpu_torch.predict import Predictor
 from single_shot_detection_tpu_torch.train import checkpoint as ckpt
 from single_shot_detection_tpu_torch.train.step import make_eval_step
 from single_shot_detection_tpu_torch.trainer import Trainer
@@ -280,6 +281,7 @@ class Experiment:
         quantize.check_composes(train_cfg, int8)
         self.transfer_ahead = int(train_cfg.get('transfer_ahead', 2) or 0)
         input_size = tuple(cfg.input_size)
+        self.input_size = input_size
         self.loaders = {}
         if self.datasets:
             self.loaders = create_loaders(
@@ -316,6 +318,11 @@ class Experiment:
         box_coder = filter_kwargs(BoxCoder)(**(cfg.box_coder or {}))
         self.postprocessor = filter_kwargs(Postprocessor)(
             box_coder=box_coder, **cfg.postprocess)
+        # the serving paths' (predict, the test phase, export): the
+        # preset's pre_nms_top_k on configs of more than 10000 anchors
+        self.serving_postprocessor = filter_kwargs(Postprocessor)(
+            box_coder=box_coder, **Postprocessor.serving_preset(
+                cfg.postprocess, len(self.anchors)))
         self.eval_step = make_eval_step(self.trainer.criterion,
                                         self.trainer.assigner, self.anchors,
                                         self.postprocessor)
@@ -333,6 +340,9 @@ class Experiment:
         self._int8_amax: Optional[Dict[str, float]] = None
         self._int8_calib_step: Optional[int] = None
         self._int8_modes: Dict[str, quantize.QuantizedConv] = {}
+        self._int8_spatial_limit: Optional[int] = None
+        self._predictor: Optional[Predictor] = None
+        self._predictor_key = None
 
     def _load_weights(self, model_cfg: dict, resume_from: Optional[str],
                       load_weights: bool) -> None:
@@ -433,9 +443,59 @@ class Experiment:
                 self._int8_amax = quantize.calibrate(self.model, images)
             how = f'calibrated ({len(images)} batches)'
         self._int8_calib_step = step
+        self._int8_spatial_limit = opts.get('spatial_limit')
         self._int8_modes = quantize.make_interceptor(
             self.model, self._int8_amax, opts.get('spatial_limit'))
         logging.info(f'>> int8: {how} {len(self._int8_amax)} convs')
+
+    # ---------------------------------------------------------------- serving
+    def predictor(self) -> Predictor:
+        """The serving ``Predictor`` on this experiment's model: its serving
+        postprocessor, eval preprocessing and numeric policy, int8 on the
+        scales of ``_ensure_int8`` when the gate allows.  Built once, and
+        again when the int8 calibration step changes."""
+        self._ensure_int8()
+        key = (self.int8, self._int8_calib_step)
+        if self._predictor is None or self._predictor_key != key:
+            self._predictor = Predictor(
+                self.bundle, self.serving_postprocessor,
+                self.eval_pipeline.preprocess, self.device, self.policy,
+                self._int8_amax if self.int8 else None,
+                self._int8_spatial_limit)
+            self._predictor_key = key
+        return self._predictor
+
+    def predict(self, image: np.ndarray) -> np.ndarray:
+        """One uint8 ``[H, W, 3]`` RGB image of any size -> ``[n, 6]`` valid
+        detections ``[x0, y0, x1, y1, class, score]`` in its own pixels
+        (port of the JAX engine's ``predict``), through :meth:`predictor`."""
+        predictor = self.predictor()
+        self.model.eval()
+        return predictor.predict(image)
+
+    def export(self, int8: bool = False) -> str:
+        """The export phase on the config's ``export`` block (``main.py``'s):
+        ``standalone`` sets ``with_postprocess``, ``with_preprocess`` and
+        ``bake_variables`` unless given, ``path`` (default
+        ``exported/model``), ``int8`` (or the ``int8`` argument, ``--int8``)
+        and ``batch_size``; an unknown key ends the run.  Returns the
+        artifact's path."""
+        from single_shot_detection_tpu_torch.export import export_model
+        opts = dict(self.cfg.export or {})
+        if opts.pop('standalone', False):
+            opts.setdefault('with_postprocess', True)
+            opts.setdefault('with_preprocess', True)
+            opts.setdefault('bake_variables', True)
+        path = opts.pop('path', 'exported/model')
+        int8 = bool(opts.pop('int8', False)) or int8
+        allowed = {'with_postprocess', 'batch_size', 'with_preprocess',
+                   'bake_variables'}
+        unknown = sorted(set(opts) - allowed)
+        if unknown:
+            raise SystemExit(
+                f"config export block has unknown key(s) {unknown}; "
+                f"supported: {sorted(allowed | {'standalone', 'path', 'int8'})}")
+        return export_model(self, path, int8=int8, **opts)
 
     # ------------------------------------------------------------------ train
     def train(self) -> List[Dict[str, float]]:

@@ -5,7 +5,8 @@ they write, a resume with more epochs, ``--debug``, ``--load-weights``
 with ``--profile``, ``embed``, the evaluation of the committed JAX
 checkpoint against ``Experiment.evaluate()`` from the flax-restored
 weights (exactly equal), and the flags not ported yet (``--bf16`` and
-``--matmul-precision`` run in ``test_torch_port_precision.py``); and the emergency
+``--matmul-precision`` run in ``test_torch_port_precision.py``, the ``test``
+and ``export`` phases in ``test_torch_port_deploy.py``); and the emergency
 checkpoint of ``Experiment.train()`` on an interrupt.  Everything runs on
 the CPU.
 """
@@ -152,8 +153,7 @@ def test_cli_evaluates_the_committed_jax_checkpoint_exactly():
 
 
 @pytest.mark.parametrize('argv', [
-    ['--tensorboard'], ['--phases', 'test'],
-    ['--video', 'clip.mp4'], ['--phases', 'eval', 'export'],
+    ['--tensorboard'],
     ['--coordinator-address', 'localhost:1234'], ['--num-processes', '2'],
     ['--process-id', '0'], ['--compilation-cache', 'cache_dir'],
 ], ids=lambda argv: ' '.join(argv))
