@@ -195,6 +195,24 @@ Phases, each fatal:
     img/s); the HTTP server (``/healthz``, concurrent ``/detect`` uploads,
     ``/stats``, a bad upload) and the ``test`` phase on the JAX checkpoint
     (3 frames, headless).
+19. structured channel pruning: ``samples/ssd_mb2_coco_pruning.py`` at
+    full width through ``Experiment`` with seeded weights and perturbed
+    BNs (its ``detector.weight`` placeholder and ``base.pretrained`` off),
+    synthetic 300 px data at the config's b32, ``fused_bn`` and the
+    shipped pruner with ``num`` at ``PRUNING_NUM``: two epochs of 3 masked
+    steps, a prune before each, and an evaluation, with the kernels'
+    counts read around them (each BN kernel 64 a step, NMS once an eval
+    batch); every dead entry exactly 0 after the steps and the momentum
+    finite; one more masked step with each BN's input and output gradient
+    captured, K1-K4 against their plain versions on them at ``BN_TOL``
+    and y and dx exactly 0 on the dead channels; ``materialize_pruned``
+    (parameters before and after), the narrow model against the masked one
+    at the heads and every backbone stage (``PRUNING_TOL`` of scale),
+    both ``Predictor``s (``valid`` equal) and their ``predict_batch`` ms in
+    turns at b32 and b128; the narrow standalone ``.pt2`` at b32 against
+    the eager narrow call, one NMS launch a call; the committed JAX
+    checkpoint pruned by ``PRUNING_JAX_NUM`` picks and evaluated masked and
+    narrow (mAPs within ``PRUNING_MAP_TOL``).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -209,6 +227,7 @@ import copy
 import csv
 import ctypes
 import functools
+import itertools
 import json
 import math
 import os
@@ -235,6 +254,7 @@ from single_shot_detection_tpu_torch.ops import nms_kernel
 from single_shot_detection_tpu_torch.data import transforms
 from single_shot_detection_tpu_torch.predict import Predictor
 from single_shot_detection_tpu_torch.train import checkpoint as ckpt
+from single_shot_detection_tpu_torch.train import pruning
 from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.train.step import make_train_step
 from single_shot_detection_tpu_torch.trainer import Trainer
@@ -4048,6 +4068,343 @@ def run_export(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 19
+
+PRUNING = 'samples/ssd_mb2_coco_pruning.py'
+# synthetic data at the config's 300 px input (no resize in the loader), 81
+# classes; 3 b32 steps an epoch, 2 b32 eval batches
+PRUNING_DATA = {
+    'train': {'name': 'Synthetic', 'num_images': 96, 'image_size': 300,
+              'num_classes': 81, 'max_boxes': 6, 'seed': 1},
+    'eval': {'name': 'Synthetic', 'num_images': 64, 'image_size': 300,
+             'num_classes': 81, 'max_boxes': 6, 'seed': 2},
+}
+PRUNING_EPOCHS, PRUNING_STEPS = 2, 3
+# channels picked a prune (the config ships 1 a prune over 500 epochs):
+# two prunes take a real share of the 17,000-odd out-channels of the
+# backbone and the extras
+PRUNING_NUM = 400
+# the JAX checkpoint's prune (test_torch_port_materialize.py's), and how
+# far the narrow model's mAP may be from the masked one's
+PRUNING_JAX_NUM = 8
+PRUNING_MAP_TOL = 1e-3
+# the narrow model against the masked one on the card: heads and stage
+# outputs within this share of each output's scale (other convolution
+# algorithms on other widths; TF32 off)
+PRUNING_TOL = 1e-4
+PRUNING_TURN_ITERS = {32: 5, 128: 2}
+
+
+def pruning_experiment() -> Experiment:
+    """``PRUNING`` at full width on the card: seeded weights (its
+    ``detector.weight`` placeholder and ``base.pretrained`` off),
+    ``PRUNING_DATA``, ``fused_bn``, the shipped pruner with ``num`` at
+    ``PRUNING_NUM``."""
+    from single_shot_detection_tpu_torch.utils.config import load_config
+    cfg = load_config(PRUNING, phases=('train', 'eval'))
+    model = copy.deepcopy(dict(cfg.model))
+    model['detector'] = {**model['detector'], 'weight': None}
+    model['base'] = {**model['base'], 'pretrained': False}
+    pruner = {**dict(cfg.train)['pruner'], 'num': PRUNING_NUM}
+    return Experiment(cfg, phases=('train', 'eval'), device='cuda', seed=SEED,
+                      overrides={'model': model, 'dataset': PRUNING_DATA,
+                                 'train': {'epochs': PRUNING_EPOCHS,
+                                           'num_batches_per_epoch': PRUNING_STEPS,
+                                           'eval_every': PRUNING_EPOCHS,
+                                           'save_every': 10 * PRUNING_EPOCHS,
+                                           'fused_bn': True,
+                                           'pruner': pruner}})
+
+
+def check_mask_holds(exp: Experiment) -> dict:
+    """Every dead entry (kernel slices, BN weights and biases, conv biases)
+    exactly 0 after the steps, the momentum buffers finite; the dead share
+    of the out-channels the pruner takes."""
+    named = dict(exp.model.named_parameters())
+    entries = [(named[name], m) for name, m in exp.trainer.state.mask.items()]
+    nonzero = sum(int((p.detach()[m.expand_as(p) == 0] != 0).sum())
+                  for p, m in entries)
+    if not entries or nonzero:
+        fail(f'pruning: {nonzero} dead entries not 0 over {len(entries)} '
+             'masked tensors after the masked steps')
+    opt = exp.trainer.state.optimizer
+    if not all(torch.isfinite(opt.state[p]['momentum_buffer']).all()
+               for p in exp.model.parameters()):
+        fail('pruning: a momentum buffer is not finite')
+    params = pruning.param_tree(exp.model)
+    total = sum(params[k].shape[0]
+                for k in exp.pruner.criterion._included(params))
+    dead = {'.'.join(k[:-1]): f'{len(d)}/{params[k].shape[0]}'
+            for k, d in exp.pruner.dead.items() if d}
+    channels = sum(len(d) for d in exp.pruner.dead.values())
+    return {'masked_tensors': len(entries), 'dead_channels': channels,
+            'pruned_convs': dead, 'included_channels': total,
+            'dead_share': channels / total}
+
+
+def masked_step_bn_check(exp: Experiment, batch) -> dict:
+    """One more masked ``fused_bn`` step with each BatchNorm's input, its
+    output's gradient, weight and bias captured; on each, K1-K4 against
+    their plain versions (each kernel given the plain outputs of the one
+    before, as phase 3 does) at ``BN_TOL``, and on the dead channels K2's
+    y and K4's dx exactly 0."""
+    captured, hooks = [], []
+    mask = exp.trainer.state.mask
+
+    def capture(name):
+        def hook(module, inputs, output):
+            rec = {'name': name, 'x': inputs[0].detach(),
+                   'scale': module.weight.detach().clone(),
+                   'bias': module.bias.detach().clone()}
+            output.register_hook(lambda g: rec.__setitem__('dz', g.detach()))
+            captured.append(rec)
+        return hook
+
+    for name, m in exp.model.named_modules():
+        if isinstance(m, BatchNorm):
+            hooks.append(m.register_forward_hook(capture(name)))
+    try:
+        exp.trainer.train_step(*batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    worst = {name: 0.0 for name in BN_KERNELS}
+    dead_planes, live_dz_planes, shapes = 0, 0, set()
+    for rec in captured:
+        x, dz, scale, bias = rec['x'], rec['dz'], rec['scale'], rec['bias']
+        keep = mask.get(f'{rec["name"]}.weight')
+        dead = (keep == 0) if keep is not None else torch.zeros(
+            x.shape[1], dtype=torch.bool, device=x.device)
+        shapes.add(tuple(x.shape))
+        got = bn_kernel.bn_stats(x, BN_EPS)
+        want = bn_kernel.bn_stats_plain(x, BN_EPS)
+        worst['bn_stats'] = max(worst['bn_stats'], *(
+            bn_err(g, w, 'reduce') for g, w in zip(got, want)))
+        mean, _, rstd = want
+        y = bn_kernel.bn_apply(x, mean, rstd, scale, bias, x.dtype)
+        worst['bn_apply'] = max(worst['bn_apply'], bn_err(
+            y, bn_kernel.bn_apply_plain(x, mean, rstd, scale, bias, x.dtype),
+            'elementwise'))
+        got = bn_kernel.bn_grad_sums(dz, x, mean, rstd, scale)
+        want = bn_kernel.bn_grad_sums_plain(dz, x, mean, rstd, scale)
+        worst['bn_grad_sums'] = max(worst['bn_grad_sums'], *(
+            bn_err(g, w, 'reduce') for g, w in zip(got, want)))
+        dx = bn_kernel.bn_dx(dz, x, mean, rstd, want[2])
+        worst['bn_dx'] = max(worst['bn_dx'], bn_err(
+            dx, bn_kernel.bn_dx_plain(dz, x, mean, rstd, want[2]),
+            'elementwise'))
+        if dead.any():
+            if torch.any(y[:, dead] != 0) or torch.any(dx[:, dead] != 0):
+                fail(f'pruning: {rec["name"]}: a dead channel\'s y or dx is '
+                     'not exactly 0')
+            dead_planes += int(dead.sum()) * x.shape[0]
+            live_dz_planes += int((dz[:, dead] != 0).flatten(2).any(2).sum())
+    torch.cuda.synchronize()
+    return {'bn_layers': len(captured), 'distinct_shapes': len(shapes),
+            'dead_planes': dead_planes,
+            'dead_planes_with_nonzero_dz': live_dz_planes,
+            'max_abs_err': worst}
+
+
+def stage_keep(exp: Experiment):
+    """Per MobileNetV2 stage, the channels the narrow model keeps."""
+    out = []
+    base = exp.model.features.base
+    for i, width in enumerate(base.stage_channels):
+        path = ('features', 'base', f'stage{i}',
+                'conv' if i in (0, 18) else 'project_conv', 'kernel')
+        gone = exp.pruner.dead.get(path, set())
+        out.append([c for c in range(width) if c not in gone])
+    return out
+
+
+def narrow_vs_masked(exp: Experiment, narrow: torch.nn.Module,
+                     images: torch.Tensor) -> dict:
+    """Heads and every backbone stage of the narrow model against the
+    masked one on the same preprocessed batch, within ``PRUNING_TOL`` of
+    each output's scale (the stages on their kept channels; the masked
+    stages' pruned channels exactly 0)."""
+    x = exp.eval_pipeline.preprocess(images)
+    worst = {'heads': 0.0, 'stages': 0.0}
+    with torch.inference_mode(), exp.policy.scope():
+        masked = exp.model.eval()
+        heads = [masked(x), narrow(x)]
+        stages = [masked.features.base(x)[0], narrow.features.base(x)[0]]
+    for a, b in zip(*heads):
+        worst['heads'] = max(worst['heads'], (a - b).abs().max().item()
+                             / max(1.0, a.abs().max().item()))
+    for i, keep in enumerate(stage_keep(exp)):
+        m, n = stages[0][i], stages[1][i]
+        gone = [c for c in range(m.shape[1]) if c not in set(keep)]
+        if gone and torch.any(m[:, gone] != 0):
+            fail(f'pruning: masked stage {i}: a pruned channel is not 0')
+        worst['stages'] = max(worst['stages'], (m[:, keep] - n).abs().max().item()
+                              / max(1.0, m.abs().max().item()))
+    if not max(worst.values()) <= PRUNING_TOL:
+        fail(f'pruning: the narrow model differs from the masked one: {worst}')
+    return worst
+
+
+def pruned_jax_checkpoint() -> dict:
+    """The committed JAX checkpoint pruned once (``MinL1Norm`` over
+    ``features`` and ``extra``, ``PRUNING_JAX_NUM`` picks) and evaluated on
+    the card masked and narrow: the two mAPs within ``PRUNING_MAP_TOL``."""
+    exp = Experiment(f'{JAX_RUN}/config.py', phases=('eval',), device='cuda',
+                     resume_from=f'{JAX_RUN}/ckpt-1800.msgpack',
+                     load_weights=True, overrides={'train': {'pruner': {
+                         'include_paths': ['features', 'extra'],
+                         'num': PRUNING_JAX_NUM}}})
+    unpruned = exp.evaluate()
+    exp.pruner.prune(exp.trainer.state)
+    zero_launches()
+    masked = exp.evaluate()
+    bundle, _ = exp.materialize_pruned()
+    exp.trainer.state.model = bundle.module
+    narrow = exp.evaluate()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if not abs(masked['mAP'] - narrow['mAP']) <= PRUNING_MAP_TOL:
+        fail(f'pruning: the JAX checkpoint\'s narrow mAP {narrow["mAP"]} is '
+             f'{abs(masked["mAP"] - narrow["mAP"])} from the masked '
+             f'{masked["mAP"]}')
+    if launches['nms_keep_batched'] != 2 * len(exp.loaders['eval']):
+        fail(f'pruning: the JAX checkpoint\'s evaluations launched {launches}')
+    return {'unpruned_mAP': unpruned['mAP'], 'masked_mAP': masked['mAP'],
+            'narrow_mAP': narrow['mAP'], 'masked_loss': masked['loss'],
+            'narrow_loss': narrow['loss'],
+            'dead_channels': sum(len(d) for d in exp.pruner.dead.values()),
+            'launches': launches}
+
+
+def run_pruning(smi: str) -> dict:
+    """Phase 19: ``PRUNING`` at full width through ``Experiment`` with the
+    shipped pruner (``num`` raised) and ``fused_bn``: two epochs of masked
+    steps and an evaluation, the kernels' counts read around them; the mask
+    held exactly; K1-K4 against their plain versions on a masked step's BN
+    inputs; the narrow model (``materialize_pruned``) against the masked
+    one, both ``Predictor``s in turns at b32 and b128, its ``.pt2``
+    against the eager narrow call; the JAX checkpoint pruned and evaluated
+    masked and narrow."""
+    from single_shot_detection_tpu_torch import export as pt_export
+    rng = np.random.RandomState(SEED + 19)
+    out = {}
+    work = tempfile.mkdtemp(prefix='chip_smoke_pruning_')
+    try:
+        t = time.perf_counter()
+        exp = pruning_experiment()
+        perturb_bn(exp.model, torch.Generator().manual_seed(SEED + 19))
+        n_bn = sum(isinstance(m, BatchNorm) for m in exp.model.modules())
+        out['build_s'] = time.perf_counter() - t
+        rows, launches, seconds = run_experiment(exp)
+        steps = PRUNING_EPOCHS * PRUNING_STEPS
+        for fn in bn_kernel.KERNELS:
+            if launches[fn.__name__] != n_bn * steps:
+                fail(f'pruning: {fn.__name__} launched '
+                     f'{launches[fn.__name__]} times, not {n_bn} x {steps}')
+        if launches['nms_keep_batched'] != len(exp.loaders['eval']):
+            fail(f'pruning: the evaluation launched {launches}')
+        if not all(math.isfinite(r['train_loss']) for r in rows):
+            fail(f'pruning: non-finite losses {rows}')
+        out.update({'rows': rows, 'launches': launches, 'seconds': seconds,
+                    **check_mask_holds(exp)})
+        log(f'[19] {smi}: {PRUNING} at full width (built in '
+            f'{out["build_s"]:.2f} s, channel spaces included): '
+            f'{PRUNING_EPOCHS} epochs of {PRUNING_STEPS} masked b32 steps '
+            f'with fused_bn, a prune of {PRUNING_NUM} picks before each, and '
+            f'an evaluation in {seconds:.2f} s; {out["dead_channels"]} dead '
+            f'channels ({100 * out["dead_share"]:.1f} % of the '
+            f'{out["included_channels"]} out-channels of the convs the pruner '
+            f'takes), {out["masked_tensors"]} masked tensors exactly 0 after '
+            'the steps, momentum finite; launches ' + json.dumps(launches))
+        log('  dead/width by conv: ' + json.dumps(out['pruned_convs']))
+        for row in rows:
+            log('  ' + json.dumps(row))
+        batch = next(iter(exp._device_batches(itertools.islice(
+            exp.loaders['train'], 1))))[1]
+        out['bn_check'] = masked_step_bn_check(exp, batch)
+        log(f'  K1-K4 against their plain versions on a masked step\'s '
+            f'{out["bn_check"]["bn_layers"]} BN inputs '
+            f'({out["bn_check"]["distinct_shapes"]} shapes, '
+            f'{out["bn_check"]["dead_planes"]} dead planes, '
+            f'{out["bn_check"]["dead_planes_with_nonzero_dz"]} of them with a '
+            'non-zero dz: y and dx exactly 0): '
+            + json.dumps(out['bn_check']['max_abs_err']))
+        del batch
+
+        t = time.perf_counter()
+        bundle, _ = exp.materialize_pruned()
+        out['materialize_s'] = time.perf_counter() - t
+        narrow = bundle.module
+        out['parameters'] = {
+            'masked': sum(p.numel() for p in exp.model.parameters()),
+            'narrow': sum(p.numel() for p in narrow.parameters())}
+        w, h = exp.input_size
+        images = {b: torch.from_numpy(rng.randint(0, 256, (b, h, w, 3),
+                                                  dtype=np.uint8)).cuda()
+                  for b in (32, 128)}
+        out['narrow_vs_masked'] = narrow_vs_masked(exp, narrow, images[32])
+        masked_pred = exp.predictor()
+        narrow_pred = Predictor(bundle, exp.serving_postprocessor,
+                                exp.eval_pipeline.preprocess, exp.device,
+                                exp.policy)
+        _, vm = masked_pred.predict_batch(images[32])
+        _, vn = narrow_pred.predict_batch(images[32])
+        if not torch.equal(vm, vn):
+            fail(f'pruning: the narrow Predictor\'s valid differs in '
+                 f'{(vm != vn).sum().item()} slots')
+        log(f'  {smi}: materialize_pruned in {out["materialize_s"]:.2f} s: '
+            f'{out["parameters"]["masked"]} -> '
+            f'{out["parameters"]["narrow"]} parameters; narrow against '
+            'masked (share of scale): ' + json.dumps(out['narrow_vs_masked'])
+            + ', valid equal')
+        out['turns'] = {}
+        for b, x in images.items():
+            turns = in_turns({'masked': lambda: masked_pred.predict_batch(x),
+                              'narrow': lambda: narrow_pred.predict_batch(x)},
+                             iters=PRUNING_TURN_ITERS[b])
+            out['turns'][f'b{b}'] = {name: {'ms': t['ms'],
+                                            'img_per_s': b * 1e3 / t['ms'],
+                                            'all_ms': t['all_ms']}
+                                     for name, t in turns.items()}
+            log(f'  {smi}: predict_batch b{b} ms in turns: masked '
+                f'{turns["masked"]["ms"]:.3f}, narrow '
+                f'{turns["narrow"]["ms"]:.3f}')
+
+        path, call, specs, info = export_timed(
+            exp, os.path.join(work, 'narrow'), 32, STANDALONE)
+        program = torch.export.load(path)
+        program_params = sum(program.state_dict[name].numel() for name in
+                             program.graph_signature.parameters)
+        del program
+        raw = images[32].float()
+        eager = pt_export._make_inference_fn_for(
+            exp, narrow, True, with_preprocess=True, bake_variables=True)
+        with torch.inference_mode(), exp.policy.scope():
+            want = eager(raw)
+        out['export'] = {**info, 'program_parameters': program_params,
+                         'vs_eager': outputs_agree('pruned narrow', call(raw),
+                                                   want, True),
+                         'launches_per_call': artifact_launches(call, raw)}
+        if out['export']['launches_per_call']['nms_keep_batched'] != 1:
+            fail(f'pruning: one call of the narrow artifact launched '
+                 f'{out["export"]["launches_per_call"]}')
+        log(f'  {smi}: the narrow .pt2 (standalone b32): export '
+            f'{info["export_s"]:.2f} s, {info["file_bytes"]} bytes, '
+            f'{program_params} parameters in the program; against the '
+            'eager narrow call ' + json.dumps(out['export']['vs_eager'])
+            + '; NMS launches a call 1')
+        del exp, masked_pred, narrow_pred, bundle, narrow, call
+        torch.cuda.empty_cache()
+
+        out['jax_checkpoint'] = pruned_jax_checkpoint()
+        log(f'  {smi}: the JAX checkpoint ({JAX_RUN}) pruned by '
+            f'{PRUNING_JAX_NUM} picks: ' + json.dumps(out['jax_checkpoint']))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
@@ -4290,6 +4647,11 @@ def main(argv=None) -> int:
     export = run_export(smi)
     log(f'  phase 18 in {time.perf_counter() - t:.1f} s')
 
+    # 19. structured channel pruning and the narrow model
+    t = time.perf_counter()
+    pruned = run_pruning(smi)
+    log(f'  phase 19 in {time.perf_counter() - t:.1f} s')
+
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
         **train_timing,
@@ -4320,7 +4682,9 @@ def main(argv=None) -> int:
         'int8': {key: ({k: v for k, v in value.items() if k != 'nms'}
                        if isinstance(value, dict) else value)
                  for key, value in int8.items()},
-        'transfer_ahead': transfer, 'export': export}}))
+        'transfer_ahead': transfer, 'export': export,
+        'pruning': {key: value for key, value in pruned.items()
+                    if key != 'launches'}}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -4369,7 +4733,17 @@ def main(argv=None) -> int:
                                  'cli_jax_checkpoint']['eval_launches'][
                                  'nms_keep_batched'],
                              'export_test_phase': export['test_phase'][
-                                 'launches']['nms_keep_batched']},
+                                 'launches']['nms_keep_batched'],
+                             # phase 19: the pruned run's evaluation, one
+                             # call of its narrow artifact, the JAX
+                             # checkpoint's masked and narrow evaluations
+                             'pruning_experiment': pruned['launches'][
+                                 'nms_keep_batched'],
+                             'pruning_narrow_export': pruned['export'][
+                                 'launches_per_call']['nms_keep_batched'],
+                             'pruning_jax_checkpoint': pruned[
+                                 'jax_checkpoint']['launches'][
+                                 'nms_keep_batched']},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
             'shape', 'ms', 'call_ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -4426,7 +4800,10 @@ def main(argv=None) -> int:
                                      'jax_checkpoint']['launches'][name],
                                  **{f'export_{label}': export[label][
                                      'launches_per_call'][name]
-                                    for label, *_ in EXPORT_POINTS}},
+                                    for label, *_ in EXPORT_POINTS},
+                                 # phase 19's masked steps
+                                 'pruning_experiment': pruned['launches'][
+                                     name]},
             'max_abs_err': max(bn_check[name], *(
                 t['bn_max_abs_err'][name] for t in zoo_steps.values())),
             'shape': list(BN_TIMED_SHAPE),

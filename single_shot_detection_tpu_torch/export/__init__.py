@@ -54,11 +54,15 @@ class InputSpec(NamedTuple):
 
 
 def _deploy_model(experiment) -> Tuple[nn.Module, dict]:
-    """``(model, state_dict)`` to export: the experiment's model and its
-    weights.  The JAX package exports EMA's shadow weights under
-    ``train.ema`` and the materialized narrow model of a pruned run; neither
-    is ported, and both ``train.ema`` and ``train.pruner`` raise when an
-    ``Experiment`` is built."""
+    """``(model, state_dict)`` to export: the physically narrow rebuild of
+    a pruned run (``Experiment.materialize_pruned``,
+    ``train/materialize.py``), else the experiment's model and its weights.
+    The JAX package exports EMA's shadow weights under ``train.ema``,
+    which is not ported and raises when an ``Experiment`` is built."""
+    if getattr(experiment, 'pruner', None) is not None and experiment.pruner.dead:
+        bundle, state = experiment.materialize_pruned()
+        logging.info('>> exporting the materialized (narrow) pruned model')
+        return bundle.module, dict(state)
     return experiment.model, dict(experiment.model.state_dict())
 
 

@@ -22,25 +22,33 @@ from single_shot_detection_tpu_torch.models.shufflenet_v2 import (
 from single_shot_detection_tpu_torch.models.vgg import VGG, VGG_CONFIGS
 
 
-def _mbv2(depth_multiplier: float = 1.0, min_depth: int = 4, **_):
-    return MobileNetV2(depth_multiplier=depth_multiplier, min_depth=min_depth)
+def _mbv2(depth_multiplier: float = 1.0, min_depth: int = 4,
+          width_overrides=None, **_):
+    return MobileNetV2(depth_multiplier=depth_multiplier, min_depth=min_depth,
+                       width_overrides=width_overrides)
 
 
-def _mbv1(depth_multiplier: float = 1.0, min_depth: int = 4, **_):
-    return MobileNet(depth_multiplier=depth_multiplier, min_depth=min_depth)
+def _mbv1(depth_multiplier: float = 1.0, min_depth: int = 4,
+          width_overrides=None, **_):
+    return MobileNet(depth_multiplier=depth_multiplier, min_depth=min_depth,
+                     width_overrides=width_overrides)
 
 
 def _shufflenet_v2(mult: float, **_):
     return ShuffleNetV2(SHUFFLENET_WIDTHS[mult])
 
 
-def _vgg(depth: int, bn: bool, packed_stem: bool = False, **_):
-    return VGG(VGG_CONFIGS[depth], use_bn=bn, packed_stem=packed_stem)
+def _vgg(depth: int, bn: bool, packed_stem: bool = False,
+         width_overrides=None, **_):
+    return VGG(VGG_CONFIGS[depth], use_bn=bn, packed_stem=packed_stem,
+               width_overrides=width_overrides)
 
 
-def _resnet(depth: int, groups: int, width_per_group: int, **_):
+def _resnet(depth: int, groups: int, width_per_group: int,
+            width_overrides=None, **_):
     return ResNet(**RESNET_CONFIGS[depth], groups=groups,
-                  width_per_group=width_per_group)
+                  width_per_group=width_per_group,
+                  width_overrides=width_overrides)
 
 
 def _se_resnet(layers, groups: int, width_per_group: int, **_):

@@ -43,6 +43,9 @@ class DetectorBundle:
     anchors: np.ndarray
     input_size: Tuple[int, int]  # (w, h)
     num_classes: int
+    # :func:`build`'s arguments, from which ``train/materialize.py``
+    # rebuilds a pruned model at its narrow widths
+    build_args: Optional[dict] = None
 
 
 def feature_map_sizes(make_module: Callable[[], Detector],
@@ -58,7 +61,9 @@ def feature_map_sizes(make_module: Callable[[], Detector],
 
 def create_base(name: str, **kwargs):
     """Instantiate a backbone by registry name.  ``pretrained``/``weight``
-    are not read here: weights come in through ``utils/torch_import.py``."""
+    are not read here: weights come in through ``utils/torch_import.py``.
+    ``width_overrides`` reaches the backbones that take it (MobileNetV2,
+    MobileNet v1, VGG, ResNet)."""
     kwargs = {k: v for k, v in kwargs.items()
               if k not in ('pretrained', 'weight', 'hub_dir')}
     return backbones.get(name)(**kwargs)
@@ -82,10 +87,22 @@ def build(base: dict,
           predictor: Optional[dict] = None,
           heads: Optional[dict] = None,
           input_size: Tuple[int, int] = (300, 300),
-          dtype: torch.dtype = torch.float32) -> DetectorBundle:
+          dtype: torch.dtype = torch.float32,
+          width_overrides: Optional[Mapping] = None) -> DetectorBundle:
     """Assemble backbone -> neck -> extras -> predictor -> heads ->
     Detector.  Neck keyword arguments are filtered by the neck's signature,
-    as the JAX builder filters them by the flax module's fields."""
+    as the JAX builder filters them by the flax module's fields (so
+    ``features.width_overrides`` reaches the FPN, as in the JAX package).
+    ``width_overrides`` (``{'base': ..., 'extras': ...}``) are a pruned
+    model's narrow widths for the backbone and the extras
+    (``train/materialize.py``), which the JAX package sets on the flax
+    modules themselves."""
+    build_args = dict(base=base, anchor_generator=anchor_generator,
+                      num_classes=num_classes, features=features,
+                      use_depthwise=use_depthwise, extras=extras,
+                      predictor=predictor, heads=heads,
+                      input_size=tuple(input_size), dtype=dtype)
+    narrow = dict(width_overrides or {})
     extras = extras or {}
     heads = heads or {}
     extra_layers = tuple(tuple(l) for l in extras.get('layers', ()))
@@ -97,9 +114,6 @@ def build(base: dict,
     neck_name = features_cfg.pop('name')
     if neck_name not in NECKS:
         raise NotImplementedError(f'neck {neck_name!r} is not ported yet')
-    if features_cfg.get('width_overrides'):
-        raise NotImplementedError('features.width_overrides (pruning) is not '
-                                  'ported yet')
     Neck = NECKS[neck_name]
     accepted = inspect.signature(Neck).parameters
     neck_kwargs = {k: v for k, v in features_cfg.items() if k in accepted}
@@ -109,20 +123,25 @@ def build(base: dict,
     # checked by ``Detector``
     generators = anchor_ops.build_anchor_generators(**anchor_generator)
     num_boxes = tuple(g.num_boxes for g in generators)
+    # a config's base.width_overrides is dropped, as the JAX package's
+    # backbone factories drop it
+    base_kwargs = {k: v for k, v in base.items()
+                   if k not in ('name', 'width_overrides')}
+    if narrow.get('base') is not None:
+        base_kwargs['width_overrides'] = narrow['base']
 
     def make_module() -> Detector:
-        base_module = create_base(base['name'],
-                                  **{k: v for k, v in base.items()
-                                     if k != 'name'})
         return Detector(
-            NECKS[neck_name](base_module, **neck_kwargs),
+            NECKS[neck_name](create_base(base['name'], **base_kwargs),
+                             **neck_kwargs),
             num_classes=num_classes, extras=extra_layers,
             num_boxes=num_boxes, use_depthwise=use_depthwise,
             predictor=predictor,
             score_head_bias_init=heads.get('score_head_bias_init', 0.0),
             extras_initializer=extras.get('initializer'),
             head_initializer=heads.get('initializer'),
-            dtype=dtype, head_dtype=head_dtype)
+            dtype=dtype, head_dtype=head_dtype,
+            extras_overrides=narrow.get('extras'))
 
     fms = feature_map_sizes(make_module, tuple(input_size))
     return DetectorBundle(
@@ -131,7 +150,8 @@ def build(base: dict,
         feature_map_sizes=fms,
         anchors=anchor_ops.generate_anchors(generators, tuple(input_size), fms),
         input_size=tuple(input_size),
-        num_classes=num_classes)
+        num_classes=num_classes,
+        build_args=build_args)
 
 
 def from_config(cfg, variables: Optional[Mapping] = None,

@@ -49,11 +49,14 @@ class ExtraLayer(nn.Module):
     type 's': 1x1 reduce to out//2, then 3x3/2 conv to out (padding 1);
     type '':  1x1 reduce to out//2, then 3x3 valid conv to out.
     Convs take the config's ``initializer``, xavier-normal by default.
+    ``reduce_features`` (default ``out_channels // 2``) is the reduce conv's
+    width, a pruned model's narrow one (``train/materialize.py``).
     """
 
     def __init__(self, type: str, in_channels: int, out_channels: int,
                  use_depthwise: bool = False,
-                 initializer: Optional[Mapping] = None):
+                 initializer: Optional[Mapping] = None,
+                 reduce_features: Optional[int] = None):
         super().__init__()
         if type not in ('m', 's', ''):
             raise ValueError(f'Unknown layer type: {type}')
@@ -63,7 +66,8 @@ class ExtraLayer(nn.Module):
             self.pool = nn.MaxPool2d(3, stride=2, padding=1)
             return
         init = get_initializer(initializer, xavier_normal)
-        reduce_f = out_channels // 2
+        reduce_f = (out_channels // 2 if reduce_features is None
+                    else reduce_features)
         self.reduce = ConvBn(in_channels, reduce_f, kernel_size=1,
                              kernel_init=init)
         conv_op = DepthwiseConvBn if use_depthwise else ConvBn
@@ -137,6 +141,8 @@ class Detector(nn.Module):
     (normal(0.01) by default) and the score heads' bias
     ``score_head_bias_init``.  ``dtype`` is the compute dtype and
     ``head_dtype`` the heads' (None: ``dtype``); parameters stay f32.
+    ``extras_overrides`` (one ``{'reduce': n, 'out': n}`` or None per
+    extra) gives a pruned model's narrow extras (``train/materialize.py``).
     """
 
     def __init__(self, features: nn.Module, num_classes: int,
@@ -147,7 +153,8 @@ class Detector(nn.Module):
                  extras_initializer: Optional[Mapping] = None,
                  head_initializer: Optional[Mapping] = None,
                  dtype: torch.dtype = torch.float32,
-                 head_dtype: Optional[torch.dtype] = None):
+                 head_dtype: Optional[torch.dtype] = None,
+                 extras_overrides: Optional[Sequence[Optional[Mapping]]] = None):
         super().__init__()
         self.dtype = dtype
         self.head_dtype = dtype if head_dtype is None else head_dtype
@@ -157,8 +164,10 @@ class Detector(nn.Module):
         channels = list(features.channels)
         c = features.out_channels
         for i, (type_, out_channels) in enumerate(extras):
-            extra = ExtraLayer(type_, c, out_channels, use_depthwise,
-                               extras_initializer)
+            override = (extras_overrides[i] if extras_overrides else None) or {}
+            extra = ExtraLayer(type_, c, override.get('out', out_channels),
+                               use_depthwise, extras_initializer,
+                               reduce_features=override.get('reduce'))
             self.add_module(f'extra{i}', extra)
             c = extra.out_channels
             channels.append(c)

@@ -101,6 +101,10 @@ class FeaturePyramid(nn.Module):
 
     Convs take the config's ``initializer``, xavier-normal by default.
     ``use_depthwise`` makes each output conv grouped by its input's width.
+    ``width_overrides`` (``{'lateral': n, 'output': (n0, ...)}``) gives the
+    narrow widths of a pruned model (``train/materialize.py``): one width
+    for the laterals, which the top-down adds join, and one per output
+    conv; a depthwise output conv follows its input's width.
     """
 
     def __init__(self, base: nn.Module, out_layers: Sequence,
@@ -109,7 +113,8 @@ class FeaturePyramid(nn.Module):
                  use_depthwise: bool = False,
                  activation: Optional[str] = 'ReLU',
                  last_feature_layer: Optional[int] = None,
-                 initializer: Optional[Mapping] = None):
+                 initializer: Optional[Mapping] = None,
+                 width_overrides: Optional[Mapping] = None):
         super().__init__()
         if pyramid_layers < len(out_layers):
             raise ValueError(f'pyramid_layers={pyramid_layers} < '
@@ -121,19 +126,25 @@ class FeaturePyramid(nn.Module):
         self.interpolation_mode = interpolation_mode
         self.last_feature_layer = last_feature_layer
         init = get_initializer(initializer, xavier_normal)
+        overrides = width_overrides or {}
+        lateral = overrides.get('lateral', pyramid_channels)
+        outputs = overrides.get('output')
         for i, layer in enumerate(self.out_layers):
             self.add_module(f'lateral{i}', conv2d(
-                _tap_channels(base, layer), pyramid_channels, 1, bias=True,
+                _tap_channels(base, layer), lateral, 1, bias=True,
                 kernel_init=init))
+        self.channels = []
         for i in range(pyramid_layers):
             extra = i >= len(self.out_layers)
+            c = self.channels[-1] if extra else lateral
+            width = c if use_depthwise else (
+                outputs[i] if outputs and outputs[i] else pyramid_channels)
             self.add_module(f'output{i}', ConvBn(
-                pyramid_channels, pyramid_channels, kernel_size=3,
-                stride=2 if extra else 1, padding=1,
-                groups=pyramid_channels if use_depthwise else 1,
+                c, width, kernel_size=3, stride=2 if extra else 1, padding=1,
+                groups=c if use_depthwise else 1,
                 activation=activation, kernel_init=init))
-        self.channels = [pyramid_channels] * pyramid_layers
-        self.out_channels = pyramid_channels
+            self.channels.append(width)
+        self.out_channels = self.channels[-1]
 
     def forward(self, x):
         stages, aux = self.base(x, max_stage=self.last_feature_layer)

@@ -9,7 +9,9 @@ bias, as in the JAX package.  Children carry the flax names
 (``stage0_conv``, ``stage0_bn``, ``stage{1..13}.{depthwise,pointwise}_
 {conv,bn}``).
 
-``width_overrides`` (pruning) is not ported and raises.
+``width_overrides`` (``{stage: width}``) gives the narrow output widths of
+a pruned model (``train/materialize.py``): stage 0's conv, a block's
+pointwise conv; a block's depthwise conv follows its input.
 """
 
 from __future__ import annotations
@@ -66,21 +68,19 @@ class MobileNet(nn.Module):
     def __init__(self, depth_multiplier: float = 1.0, min_depth: int = 4,
                  width_overrides=None):
         super().__init__()
-        if width_overrides:
-            raise NotImplementedError('MobileNet width_overrides (pruning) '
-                                      'are not ported yet')
         self.depth_multiplier = depth_multiplier
         self.min_depth = min_depth
-        c = self.depth(32)
+        overrides = width_overrides or {}
+        c = overrides.get(0, self.depth(32))
         self.stage0_conv = conv2d(3, c, 3, stride=2, kernel_init=xavier_uniform,
                                   pad=tf_same_pad(3, 2))
         self.stage0_bn = batch_norm(c)
         self.stage_channels: List[int] = [c]
         self.aux_channels = {}
         for i, (features, stride) in enumerate(_MBV1_STAGES, start=1):
-            self.add_module(f'stage{i}', _SeparableBlock(
-                c, self.depth(features), stride))
-            c = self.depth(features)
+            width = overrides.get(i, self.depth(features))
+            self.add_module(f'stage{i}', _SeparableBlock(c, width, stride))
+            c = width
             self.stage_channels.append(c)
 
     def depth(self, d: int) -> int:

@@ -7,11 +7,19 @@ stride-2 convs (a ``padding=0`` conv with the explicit ``pad`` of
 ``layers.Conv2d``, since ``nn.Conv2d`` pads symmetrically), and 19 public stages (0..18) whose indices
 configs tap (``out_layers=(13, 18)``).  The inner tap ``expand_relu`` is
 returned in ``aux``.
+
+``width_overrides`` (``{stage: {'features': n, 'inner': n}}``) gives the
+narrow widths of a pruned model (``train/materialize.py``).  A block's
+structure comes from its configured widths, never from its overridden
+ones: a stage whose configured input and output widths differ gets no
+residual even when pruning has made its narrowed widths equal.  (The JAX
+package decides the residual from the widths at call time, and so adds one
+to such a stage of its narrow model.)
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,13 +51,21 @@ class _ConvBn(nn.Module):
 
 class InvertedResidual(nn.Module):
     """Inverted-residual bottleneck.  ``forward`` returns ``(out, aux)``
-    where ``aux['expand_relu']`` is the post-expansion activation."""
+    where ``aux['expand_relu']`` is the post-expansion activation.
+
+    ``inner_channels`` (default ``in_channels * expansion_ratio``) is the
+    expanded width; ``residual`` (default: same width at stride 1) is the
+    block's structure, which a narrowed block takes from its configured
+    widths."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int,
-                 expansion_ratio: int):
+                 expansion_ratio: int, inner_channels: Optional[int] = None,
+                 residual: Optional[bool] = None):
         super().__init__()
-        inner = in_channels * expansion_ratio
-        self.residual = in_channels == out_channels and stride == 1
+        inner = (in_channels * expansion_ratio if inner_channels is None
+                 else inner_channels)
+        self.residual = (in_channels == out_channels and stride == 1
+                         if residual is None else residual)
         self.expand = expansion_ratio > 1
         if self.expand:
             self.expand_conv = conv2d(in_channels, inner, 1,
@@ -95,28 +111,42 @@ class MobileNetV2(nn.Module):
     ``aux[(i, name)]`` holds inner taps.  Every conv is xavier-uniform, as
     in the JAX package.
     ``stage_channels[i]`` and ``aux_channels[(i, name)]`` give their widths.
+    ``width_overrides`` as the module docstring says.
     """
 
-    def __init__(self, depth_multiplier: float = 1.0, min_depth: int = 4):
+    def __init__(self, depth_multiplier: float = 1.0, min_depth: int = 4,
+                 width_overrides: Optional[Mapping] = None):
         super().__init__()
         self.depth_multiplier = depth_multiplier
         self.min_depth = min_depth
-        c = self.depth(32)
+        self.width_overrides = width_overrides
+        configured = self.depth(32)
+        c = self._width(0, configured)
         self.stage0 = _ConvBn(3, c, 3, stride=2)
         self.stage_channels: List[int] = [c]
         self.aux_channels: Dict[Tuple[int, str], int] = {}
         for i, (f, s, e) in enumerate(_MBV2_STAGES, start=1):
-            block = InvertedResidual(c, self.depth(f), s, e)
+            out = self._width(i, self.depth(f))
+            block = InvertedResidual(
+                c, out, s, e, inner_channels=self._inner(i),
+                residual=configured == self.depth(f) and s == 1)
             self.add_module(f'stage{i}', block)
             for name, width in block.aux_channels.items():
                 self.aux_channels[(i, name)] = width
-            c = self.depth(f)
+            c, configured = out, self.depth(f)
             self.stage_channels.append(c)
-        self.stage18 = _ConvBn(c, self.depth(1280), 1)
-        self.stage_channels.append(self.depth(1280))
+        self.stage18 = _ConvBn(c, self._width(18, self.depth(1280)), 1)
+        self.stage_channels.append(self._width(18, self.depth(1280)))
 
     def depth(self, d: int) -> int:
         return max(int(d * self.depth_multiplier), self.min_depth)
+
+    def _width(self, stage: int, default: int, key: str = 'features') -> int:
+        entry = (self.width_overrides or {}).get(stage) or {}
+        return entry.get(key) or default
+
+    def _inner(self, stage: int) -> Optional[int]:
+        return ((self.width_overrides or {}).get(stage) or {}).get('inner')
 
     def forward(self, x, max_stage: Optional[int] = None):
         last = 18 if max_stage is None else max_stage

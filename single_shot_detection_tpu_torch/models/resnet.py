@@ -8,12 +8,16 @@ Blocks are children ``layer{i}_{j}`` with the flax names (``conv1``,
 ``bn1``, ..., ``downsample_conv``, ``downsample_bn``, ``se.fc1``).  Every
 conv takes flax's default initializer (``lecun_normal``, zero bias).
 
-``width_overrides`` (pruning) is not ported and raises.
+``ResNet(width_overrides=)`` (``{block: {'conv1', 'conv2', 'out'}}``, e.g.
+``{'layer2_0': {'conv1': 100, 'out': 120}}``) gives the narrow widths of a
+pruned model (``train/materialize.py``); a block's downsample branch stays
+as configured (the stride or the configured widths decide it), and the stem
+keeps its 64 channels, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -26,17 +30,19 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_channels: int, features: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, width1: Optional[int] = None,
+                 out_width: Optional[int] = None):
         super().__init__()
-        self.conv1 = conv2d(in_channels, features, 3, stride=stride, padding=1)
-        self.bn1 = batch_norm(features)
-        self.conv2 = conv2d(features, features, 3, padding=1)
-        self.bn2 = batch_norm(features)
+        w1, out = width1 or features, out_width or features
+        self.conv1 = conv2d(in_channels, w1, 3, stride=stride, padding=1)
+        self.bn1 = batch_norm(w1)
+        self.conv2 = conv2d(w1, out, 3, padding=1)
+        self.bn2 = batch_norm(out)
         self.downsample = downsample
+        self.out_channels = out
         if downsample:
-            self.downsample_conv = conv2d(in_channels, features, 1,
-                                          stride=stride)
-            self.downsample_bn = batch_norm(features)
+            self.downsample_conv = conv2d(in_channels, out, 1, stride=stride)
+            self.downsample_bn = batch_norm(out)
 
     def residual(self, x):
         return self.bn2(self.conv2(F.relu(self.bn1(self.conv1(x)))))
@@ -55,18 +61,22 @@ class Bottleneck(BasicBlock):
 
     def __init__(self, in_channels: int, features: int, stride: int = 1,
                  downsample: bool = False, groups: int = 1,
-                 base_width: int = 64):
+                 base_width: int = 64, width1: Optional[int] = None,
+                 width2: Optional[int] = None,
+                 out_width: Optional[int] = None):
         nn.Module.__init__(self)
         width = int(features * (base_width / 64.0)) * groups
-        out = features * self.expansion
-        self.conv1 = conv2d(in_channels, width, 1)
-        self.bn1 = batch_norm(width)
-        self.conv2 = conv2d(width, width, 3, stride=stride, padding=1,
+        w1, w2 = width1 or width, width2 or width
+        out = out_width or features * self.expansion
+        self.conv1 = conv2d(in_channels, w1, 1)
+        self.bn1 = batch_norm(w1)
+        self.conv2 = conv2d(w1, w2, 3, stride=stride, padding=1,
                             groups=groups)
-        self.bn2 = batch_norm(width)
-        self.conv3 = conv2d(width, out, 1)
+        self.bn2 = batch_norm(w2)
+        self.conv3 = conv2d(w2, out, 1)
         self.bn3 = batch_norm(out)
         self.downsample = downsample
+        self.out_channels = out
         if downsample:
             self.downsample_conv = conv2d(in_channels, out, 1, stride=stride)
             self.downsample_bn = batch_norm(out)
@@ -106,22 +116,31 @@ class SEBottleneck(Bottleneck):
 
 
 def _make_layers(module: nn.Module, block_cls, layers: Sequence[int],
-                 groups: int = 1, width_per_group: int = 64) -> List[int]:
+                 groups: int = 1, width_per_group: int = 64,
+                 width_overrides: Optional[Mapping] = None) -> List[int]:
     """Add ``layer{i}_{j}`` blocks to ``module``; returns each layer's
-    output width."""
-    in_channels, widths = 64, []
+    output width.  A block's downsample comes from its configured widths,
+    its convs' widths from ``width_overrides``."""
+    in_channels, configured, widths = 64, 64, []
     for i, (features, count) in enumerate(zip((64, 128, 256, 512), layers)):
         stride = 1 if i == 0 else 2
         out = features * block_cls.expansion
         for j in range(count):
+            name = f'layer{i + 1}_{j}'
             kwargs = {} if block_cls is BasicBlock else dict(
                 groups=groups, base_width=width_per_group)
-            module.add_module(f'layer{i + 1}_{j}', block_cls(
+            ov = (width_overrides or {}).get(name)
+            if ov:
+                kwargs.update(width1=ov.get('conv1'), out_width=ov.get('out'))
+                if block_cls is not BasicBlock:
+                    kwargs['width2'] = ov.get('conv2')
+            block = block_cls(
                 in_channels, features, stride=stride if j == 0 else 1,
-                downsample=j == 0 and (stride != 1 or in_channels != out),
-                **kwargs))
-            in_channels = out
-        widths.append(out)
+                downsample=j == 0 and (stride != 1 or configured != out),
+                **kwargs)
+            module.add_module(name, block)
+            in_channels, configured = block.out_channels, out
+        widths.append(in_channels)
     return widths
 
 
@@ -140,16 +159,15 @@ class ResNet(nn.Module):
 
     def __init__(self, block: str = 'bottleneck',
                  layers: Sequence[int] = (3, 4, 6, 3), groups: int = 1,
-                 width_per_group: int = 64, width_overrides=None):
+                 width_per_group: int = 64,
+                 width_overrides: Optional[Mapping] = None):
         super().__init__()
-        if width_overrides:
-            raise NotImplementedError('ResNet width_overrides (pruning) are '
-                                      'not ported yet')
         self.conv1 = conv2d(3, 64, 7, stride=2, padding=3)
         self.bn1 = batch_norm(64)
         block_cls = Bottleneck if block == 'bottleneck' else BasicBlock
         self.stage_channels = [64] * 4 + _make_layers(
-            self, block_cls, layers, groups, width_per_group)
+            self, block_cls, layers, groups, width_per_group,
+            width_overrides)
         self.aux_channels = {}
 
     def forward(self, x, max_stage: Optional[int] = None):

@@ -8,8 +8,10 @@ stage 32, conv4_3's ReLU, and 42, conv5_3's, with ``last_feature_layer:
 initializer (``lecun_normal``, zero bias); the 2x2/2 pools floor odd sizes
 as flax's VALID ``max_pool`` does (75 -> 37).
 
-Not ported: ``packed_stem`` (a TPU lane-layout form of the first block with
-the same numbers) and ``width_overrides`` (pruning); both raise.
+``width_overrides`` (``{conv_idx: width}``) gives the narrow widths of a
+pruned model (``train/materialize.py``).  Not ported: ``packed_stem`` (a
+TPU lane-layout form of the first block with the same numbers), which
+raises.
 """
 
 from __future__ import annotations
@@ -47,9 +49,6 @@ class VGG(nn.Module):
             raise NotImplementedError(
                 'base.packed_stem is not ported: a TPU lane layout of the '
                 'first VGG block with the same numbers')
-        if width_overrides:
-            raise NotImplementedError('VGG width_overrides (pruning) are '
-                                      'not ported yet')
         self.use_bn = use_bn
         self.layers: List[str] = []  # per stage: 'conv', 'bn', 'relu', 'pool'
         self.stage_channels: List[int] = []
@@ -60,6 +59,7 @@ class VGG(nn.Module):
                 self.layers.append('pool')
                 self.stage_channels.append(c)
                 continue
+            item = (width_overrides or {}).get(conv, item)
             self.add_module(f'conv{conv}', conv2d(c, item, 3, padding=1,
                                                   bias=True))
             self.layers.append(f'conv{conv}')

@@ -8,7 +8,9 @@ checkpoints.
 
 The port's own files are ``ckpt-{step}.pt``, written by ``torch.save`` and
 holding only tensors and plain values: ``{'step', 'model': the model's
-state_dict, 'optimizer': the optimizer's state_dict, 'lr_scale'}``.  They
+state_dict, 'optimizer': the optimizer's state_dict, 'lr_scale'}`` and,
+for a ``train.pruner`` run, ``'mask'``, its pruning mask (the JAX
+package keeps it in the optimizer state).  They
 load with ``torch.load(weights_only=True)``; no module is pickled.
 :func:`restore` also reads the JAX package's ``ckpt-{step}.msgpack`` files
 (``utils/flax_msgpack.py``, ``utils/weights.py::from_jax_state``), with no
@@ -65,10 +67,13 @@ def save(checkpoint_dir: str, state: TrainState, epoch: int) -> str:
     os.makedirs(checkpoint_dir, exist_ok=True)
     path = os.path.join(checkpoint_dir, f'ckpt-{state.step}.pt')
     tmp = path + '.tmp'
-    torch.save({'step': int(state.step),
-                'model': state.model.state_dict(),
-                'optimizer': state.optimizer.state_dict(),
-                'lr_scale': float(state.lr_scale)}, tmp)
+    saved = {'step': int(state.step),
+             'model': state.model.state_dict(),
+             'optimizer': state.optimizer.state_dict(),
+             'lr_scale': float(state.lr_scale)}
+    if state.mask is not None:
+        saved['mask'] = state.mask
+    torch.save(saved, tmp)
     with open(path + '.meta.json.tmp', 'w') as f:
         json.dump({'epoch': epoch, 'global_step': int(state.step)}, f)
     os.replace(tmp, path)
@@ -180,6 +185,22 @@ def _load_optimizer(state: TrainState, saved: dict, step: int) -> None:
         group.update(hyper)
 
 
+def _install_mask(state: TrainState, mask) -> None:
+    """A checkpoint's pruning mask into a run with ``train.pruner`` (on each
+    parameter's device); a run without it drops the mask with a log line
+    (its pruned channels are free to regrow), and a pruned run restored
+    from an unpruned checkpoint starts with an all-ones mask."""
+    if state.mask is None:
+        if mask:
+            logging.warning(f'WW the checkpoint carries a pruning mask of '
+                            f'{len(mask)} tensors but this run has no '
+                            'train.pruner: dropped')
+        return
+    params = dict(state.model.named_parameters())
+    state.mask = {name: m.to(params[name].device) for name, m in
+                  (mask or {}).items()}
+
+
 def _read_meta(path: str, step: int) -> dict:
     meta = {'epoch': 0, 'global_step': step}
     if os.path.exists(path + '.meta.json'):
@@ -194,7 +215,8 @@ def restore(path: str, state: TrainState, rules=None) -> Tuple[TrainState, dict]
     'global_step'}`` from the sidecar (epoch 0 without one).  Model names
     that predate a rename go through :func:`migrate_state_dict`; QAT's
     ``act_amax`` entries are reconciled both ways
-    (``utils/weights.py::reconcile_qat``)."""
+    (``utils/weights.py::reconcile_qat``); a pruning mask goes to
+    ``state.mask`` (:func:`_install_mask`)."""
     if path.endswith('.msgpack'):
         restored = weights.from_jax_state(flax_msgpack.read(path))
         _load_model(state, restored['model'], rules)
@@ -204,6 +226,7 @@ def restore(path: str, state: TrainState, rules=None) -> Tuple[TrainState, dict]
         restored = torch.load(path, map_location='cpu', weights_only=True)
         _load_model(state, restored['model'], rules)
         _load_optimizer(state, restored['optimizer'], int(restored['step']))
+    _install_mask(state, restored.get('mask'))
     state.step = int(restored['step'])
     state.lr_scale = float(restored['lr_scale'])
     meta = _read_meta(path, state.step)

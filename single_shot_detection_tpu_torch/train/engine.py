@@ -27,11 +27,23 @@ batches and again whenever training has advanced, or with the scales a
 ``train.qat`` run learned; the JAX package's serving gate may refuse it,
 and ``evaluate()`` then reports ``int8: 0.0``.
 
+``train.pruner`` (``criterion``, default ``MinL1Norm``; ``include_paths``,
+``num``, ``observe_every``) prunes channels at the start of every epoch,
+the first and a resumed one included, with the channel spaces of the
+traced graph (``train/deps.py``, ``train/pruning.py``); data-dependent
+criteria are fed every ``observe_every`` steps of an epoch (activation
+means on the eval preprocessing of the step's batch, or the step's
+gradients), and :meth:`Experiment.materialize_pruned` rebuilds the
+physically narrow model (``train/materialize.py``), which the export
+phase exports.  As in the JAX package, ``Pruner.dead`` is not
+checkpointed: a resumed run starts with an empty dead set (the mask in the
+checkpoint keeps the pruned channels at 0).
+
 Not ported yet, each raising ``NotImplementedError`` when asked for: the
 asynchronous checkpoint writer, the device-resident dataset and the eval
 replay cache, keras ``.h5`` and torch-hub backbones, the reference's whole
-detector (``detector.torch_weight``), pruning, EMA, tensorboard and
-multi-host runs.
+detector (``detector.torch_weight``), EMA, tensorboard and multi-host
+runs.
 
 ``bf16`` runs the activations in bfloat16 (docs/DESIGN.md §10: parameters, BN
 statistics, SGD momentum and losses stay f32, so checkpoints are f32 and a
@@ -69,6 +81,7 @@ from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
 from single_shot_detection_tpu_torch.ops.postprocess import Postprocessor
 from single_shot_detection_tpu_torch.predict import Predictor
 from single_shot_detection_tpu_torch.train import checkpoint as ckpt
+from single_shot_detection_tpu_torch.train import materialize, pruning
 from single_shot_detection_tpu_torch.train.step import make_eval_step
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.config import ConfigWrapper, load_config
@@ -333,6 +346,7 @@ class Experiment:
         self.start_epoch = 0
         self._load_weights(dict(cfg.model or {}), resume_from, load_weights)
         self._current_epoch = self.start_epoch  # the emergency save's epoch
+        self._build_pruner(train_cfg.get('pruner'))
 
         # --- int8 evaluation (export/quantize.py) ---------------------------
         self.int8 = bool(int8)
@@ -387,6 +401,46 @@ class Experiment:
                 'its 0/1 init — if it was trained with train.group_norm, '
                 'set it here too or eval will silently use identity '
                 'normalization')
+
+    def _build_pruner(self, pruner_cfg) -> None:
+        """``train.pruner``: the ``Pruner`` over the channel spaces of the
+        model's traced graph (port of the JAX engine's set-up)."""
+        self.pruner: Optional[pruning.Pruner] = None
+        self._observe_means = False
+        if not pruner_cfg:
+            return
+        pruner_cfg = dict(pruner_cfg)
+        spaces = materialize.build_channel_spaces(self.model, self.input_size)
+        self.pruner = pruning.Pruner(
+            pruning.param_tree(self.model),
+            criterion=pruner_cfg.get('criterion', {'name': 'MinL1Norm'}),
+            include_paths=pruner_cfg.get('include_paths'),
+            num=pruner_cfg.get('num', 1), spaces=spaces)
+        self.observe_every = int(pruner_cfg.get('observe_every', 10))
+        self._observe_means = self.pruner.criterion.needs_activations
+
+    def _observe(self, tensors) -> None:
+        """Feed the pruner's data-dependent criterion after a step: the
+        step's loss gradients beside the parameters after it, or the
+        per-channel activation means of the batch's eval preprocessing."""
+        if isinstance(self.pruner.criterion, pruning.TaylorExpansion):
+            params = pruning.param_tree(self.model)
+            self.pruner.observe_grads(params, {k: p.grad
+                                               for k, p in params.items()})
+        if self._observe_means:
+            with torch.no_grad(), self.policy.scope():
+                x, _, _ = self.eval_pipeline.apply([], *tensors)
+                self.pruner.observe(pruning.activation_means(self.model, x))
+
+    def materialize_pruned(self):
+        """The physically narrow model of a pruned run: ``(bundle,
+        state_dict)``, the bundle's module loaded, on this experiment's
+        device (``train/materialize.py``)."""
+        if self.pruner is None or not self.pruner.dead:
+            raise ValueError('nothing pruned to materialize')
+        return materialize.materialize_bundle(
+            self.bundle, self.model.state_dict(), self.pruner.dead,
+            spaces=self.pruner.spaces)
 
     @property
     def model(self) -> torch.nn.Module:
@@ -545,6 +599,8 @@ class Experiment:
         for epoch in range(self.start_epoch, self.epochs):
             self._current_epoch = epoch
             logging.info(f'Epoch: {epoch}/{self.epochs - 1}')
+            if self.pruner is not None:
+                self.pruner.prune(trainer.state)
             row = self.train_epoch(epoch)
             if 'eval' in self.phases and (epoch + 1) % self.eval_every == 0:
                 row.update({f'eval_{k}': v for k, v in self.evaluate().items()})
@@ -573,6 +629,8 @@ class Experiment:
         for step_idx, (_, tensors) in enumerate(batches):
             metrics = self.trainer.train_step(
                 *tensors, step=epoch * num_batches + step_idx)
+            if self.pruner is not None and step_idx % self.observe_every == 0:
+                self._observe(tensors)
             stacked = torch.stack([metrics[k] for k in METRIC_KEYS])
             sums = stacked if sums is None else sums + stacked
             count += 1

@@ -1,9 +1,10 @@
 """Step functions.
 
 Port of ``single_shot_detection_tpu/train/step.py``: ``make_train_step``
-(without mixup, ``frozen_bn``, EMA and the pipeline-parallel pinning,
-which are not ported yet; QAT runs inside the model's convs,
-``export/quantize.py``), ``make_eval_step`` and ``make_predict_step``.
+(with the pruning mask; without mixup, ``frozen_bn``, EMA and the
+pipeline-parallel pinning, which are not ported yet; QAT runs inside the
+model's convs, ``export/quantize.py``), ``make_eval_step`` and
+``make_predict_step``.
 """
 
 from __future__ import annotations
@@ -13,17 +14,24 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from single_shot_detection_tpu_torch.train.pruning import apply_mask
 from single_shot_detection_tpu_torch.train.state import TrainState
 
 
 def apply_gradients(state: TrainState, schedule: Callable[[int], float]) -> None:
     """The optimizer step on the gradients in ``state.model``'s parameters
     at ``schedule(state.step) * state.lr_scale`` (the JAX step scales its
-    updates by ``lr_scale``, the same for SGD), then ``state.step += 1``."""
+    updates by ``lr_scale``, the same for SGD), the pruning mask
+    (``state.mask``) applied to the stepped parameters, then ``state.step
+    += 1``.  The dead entries were zeroed when they were pruned, so
+    masking the parameters after the step equals the JAX package's masking
+    of the update."""
     lr = schedule(state.step) * state.lr_scale
     for group in state.optimizer.param_groups:
         group['lr'] = lr
     state.optimizer.step()
+    if state.mask:
+        apply_mask(state.model, state.mask)
     state.step += 1
 
 

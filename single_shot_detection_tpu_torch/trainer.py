@@ -22,11 +22,15 @@ trains with every dense conv's weight and input fake-quantized to int8
 ``act_amax`` updated in the train forward; it does not compose with
 ``fused_bn`` or ``group_norm``.
 
+``train.pruner`` gives the state its pruning mask (``TrainState.mask``,
+the JAX package's ``masked`` optimizer wrapper), which each step applies;
+``train/engine.py::Experiment`` builds the ``Pruner`` that fills it
+(``train/pruning.py``).  It composes with ``fused_bn``.
+
 What is not ported yet raises ``NotImplementedError`` rather than being
 skipped: mixup, ``frozen_bn``, EMA, gradient accumulation and clipping,
-``lr_groups``, pruning, ``fused_steps``, the YUV420 staging and the
-multi-device options; an augmentation the ``Pipeline`` does not know
-raises as well.
+``lr_groups``, ``fused_steps``, the YUV420 staging and the multi-device
+options; an augmentation the ``Pipeline`` does not know raises as well.
 
 ``bf16=True`` runs the activations in bfloat16 under docs/DESIGN.md §10's
 policy (parameters, BN statistics, SGD momentum and the losses stay f32;
@@ -64,7 +68,7 @@ from single_shot_detection_tpu_torch.utils.config import load_config
 from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
 
 # train options of the JAX engine not ported yet: each raises when set
-_UNPORTED_TRAIN_OPTIONS = ('mixup', 'frozen_bn', 'ema', 'pruner',
+_UNPORTED_TRAIN_OPTIONS = ('mixup', 'frozen_bn', 'ema',
                            'clip_grad_norm', 'tensor_sharding',
                            'spatial_sharding', 'pipeline_sharding',
                            'zero_sharding')
@@ -192,8 +196,12 @@ class Trainer:
         optimizer = optimizers.create_optimizer(
             opt_cfg, model.parameters(), accumulation_steps=accumulation,
             clip_grad_norm=train_cfg.get('clip_grad_norm'))
-        return cls(bundle, TrainState(model, optimizer), pipeline, schedule,
-                   criterion, assigner, device, seed, policy, plateau, metric)
+        # train.pruner: the masked optimizer, its mask all ones until the
+        # first prune
+        mask = {} if train_cfg.get('pruner') else None
+        return cls(bundle, TrainState(model, optimizer, mask=mask), pipeline,
+                   schedule, criterion, assigner, device, seed, policy,
+                   plateau, metric)
 
     def draws(self, step: int, batch: int) -> list:
         """The augmentation draws of global step ``step`` (on the CPU)."""

@@ -12,7 +12,7 @@ and SGD momentum.
 from __future__ import annotations
 
 import logging
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,27 +77,43 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def variable_path(name: str, ndim: int) -> Optional[Tuple[str, ...]]:
+    """The JAX variable path of a ``state_dict`` entry, with its collection
+    (``('params', ..., 'kernel' | 'scale' | 'bias')``, ``('batch_stats',
+    ..., 'mean' | 'var' | 'act_amax')``); None for ``num_batches_tracked``,
+    which flax does not keep."""
+    *module, leaf = name.split('.')
+    stats = {v: k for k, v in _STAT_LEAVES.items()}
+    if leaf in stats:
+        return ('batch_stats', *module, stats[leaf])
+    if leaf == 'num_batches_tracked':
+        return None
+    if leaf == 'weight':
+        leaf = 'kernel' if ndim == 4 else 'scale'
+    return ('params', *module, leaf)
+
+
+def state_name(path: Tuple[str, ...]) -> str:
+    """The ``state_dict`` name of a JAX variable path (with its
+    collection): the inverse of :func:`variable_path`."""
+    leaves = _PARAM_LEAVES if path[0] == 'params' else _STAT_LEAVES
+    return '.'.join((*path[1:-1], leaves[path[-1]]))
+
+
 def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """The inverse of :func:`from_jax_variables`: a ``state_dict`` as a JAX
     ``{'params', 'batch_stats'}`` tree of numpy arrays (OIHW -> HWIO,
     ``num_batches_tracked`` dropped, ``act_amax`` in ``batch_stats``)."""
-    stats = {v: k for k, v in _STAT_LEAVES.items()}
     variables = {'params': {}, 'batch_stats': {}}
     for name, value in state_dict.items():
-        *module, leaf = name.split('.')
-        if leaf == 'num_batches_tracked':
+        path = variable_path(name, value.ndim)
+        if path is None:
             continue
         arr = value.detach().cpu().numpy()
-        if leaf in stats:
-            coll, key = 'batch_stats', stats[leaf]
-        elif leaf == 'bias':
-            coll, key = 'params', 'bias'
-        else:
-            coll, key = 'params', 'kernel' if arr.ndim == 4 else 'scale'
-        node = variables[coll]
-        for part in module:
+        node = variables[path[0]]
+        for part in path[1:-1]:
             node = node.setdefault(part, {})
-        node[key] = arr.transpose(2, 3, 1, 0) if key == 'kernel' else arr
+        node[path[-1]] = arr.transpose(2, 3, 1, 0) if path[-1] == 'kernel' else arr
     return variables
 
 
@@ -129,7 +145,8 @@ def reconcile_qat(incoming: Dict[str, torch.Tensor],
 
 def _sgd_trace(opt_state) -> Optional[Mapping]:
     """The momentum tree of an optax SGD chain state, or None without
-    momentum.  The chain is found by structure: its members are
+    momentum; under the pruning wrapper (``{'inner': chain, 'mask':
+    tree}``) the chain's.  The chain is found by structure: its members are
     ``add_decayed_weights`` (``{}``), ``trace`` (``{'trace': tree}``) and
     ``scale_by_learning_rate`` (``{'count': n}``), in a tuple stored as
     ``{'0': ..., '1': ...}``; with weight decay the flagship's is
@@ -140,6 +157,10 @@ def _sgd_trace(opt_state) -> Optional[Mapping]:
     traces = []
 
     def visit(node, path):
+        if isinstance(node, Mapping) and set(node) == {'inner', 'mask'}:
+            # the pruning wrapper (``masked``): the chain is its inner state
+            visit(node['inner'], path + ('inner',))
+            return
         if not isinstance(node, Mapping):
             raise NotImplementedError(
                 f'optimizer state leaf at {"/".join(path) or "opt_state"}: '
@@ -164,16 +185,41 @@ def _sgd_trace(opt_state) -> Optional[Mapping]:
     return traces[0] if traces else None
 
 
+def _pruning_mask(opt_state) -> Optional[Dict[str, torch.Tensor]]:
+    """The pruning wrapper's mask (``opt_state = {'inner', 'mask'}``) as
+    ``{parameter name: mask}``, or None without the wrapper.  An untouched
+    leaf is a scalar 1 and is left out; a conv kernel's ``[1, 1, 1, C]``
+    becomes ``[C, 1, 1, 1]``, a vector stays ``[C]``."""
+    if not (isinstance(opt_state, Mapping) and set(opt_state) == {'inner', 'mask'}):
+        return None
+    out = {}
+    for path, value in _walk(opt_state['mask']):
+        value = np.asarray(value, dtype=np.float32)
+        if value.ndim == 0:
+            continue
+        *module, leaf = path
+        if leaf not in _PARAM_LEAVES:
+            raise KeyError(f'unexpected mask leaf {"/".join(path)}')
+        if leaf == 'kernel':
+            value = value.reshape(-1, 1, 1, 1)
+        out['.'.join(module + [_PARAM_LEAVES[leaf]])] = torch.from_numpy(
+            np.array(value, order='C'))
+    return out
+
+
 def from_jax_state(raw: Mapping) -> dict:
     """A restored JAX ``TrainState`` dict (``ckpt-N.msgpack`` through
     ``utils/flax_msgpack.py``) -> the port's state:
 
     ``{'step': int, 'lr_scale': float, 'model': state_dict, 'momentum':
-    {parameter name: momentum buffer} or None}``.
+    {parameter name: momentum buffer} or None, 'mask': {parameter name:
+    pruning mask} or None}``.
 
     The model is :func:`from_jax_variables`'.  optax's ``trace`` (``t = g +
     m * t``, zero at init) is ``torch.optim.SGD``'s ``momentum_buffer`` with
-    ``dampening=0``; its kernels go HWIO -> OIHW as the weights do.  An EMA
+    ``dampening=0``; its kernels go HWIO -> OIHW as the weights do.  A
+    pruned run's state (``train.pruner``) carries its mask across
+    (:func:`_pruning_mask`).  An EMA
     shadow (``ema_params``) is dropped with a log line: the port does not
     run the EMA yet.
     """
@@ -185,4 +231,5 @@ def from_jax_state(raw: Mapping) -> dict:
     return {'step': int(np.asarray(raw['step'])),
             'lr_scale': float(np.asarray(raw.get('lr_scale', 1.0))),
             'model': from_jax_variables(raw),
-            'momentum': None if trace is None else _params_to_torch(trace)}
+            'momentum': None if trace is None else _params_to_torch(trace),
+            'mask': _pruning_mask(raw.get('opt_state', {}))}

@@ -111,7 +111,7 @@ def test_mobilenet_v1_stages_match_jax():
     14 stages equal to
     JAX's in eval mode and ``max_stage`` cuts; xavier-uniform convs of a
     512-wide block against JAX's own initialization; ``width_overrides``
-    raises."""
+    narrows a stage and what reads it."""
     jm = jax_mobilenet.MobileNet(depth_multiplier=0.25, min_depth=16)
     pm = pt_mobilenet.MobileNet(depth_multiplier=0.25, min_depth=16)
     assert pm.stage_channels == [16, 16, 32, 32, 64, 64] + [128] * 6 + [256] * 2
@@ -137,8 +137,10 @@ def test_mobilenet_v1_stages_match_jax():
         if isinstance(m, torch.nn.Conv2d):
             reset_conv(m, generator)
     assert assert_init_follows_jax(pb, init) == 2
-    with pytest.raises(NotImplementedError, match='width_overrides'):
-        pt_mobilenet.MobileNet(width_overrides={1: 8})
+    narrow = pt_mobilenet.MobileNet(width_overrides={1: 8})
+    assert narrow.stage_channels[1] == 8
+    assert narrow.stage1.pointwise_conv.out_channels == 8
+    assert narrow.stage2.depthwise_conv.in_channels == 8
 
 
 @pytest.mark.parametrize('size,levels', [

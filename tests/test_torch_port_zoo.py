@@ -1,7 +1,7 @@
 """Port parity for the model zoo's layers: VGG, ResNet, ResNeXt, SE-ResNet,
 the FPN neck, the shared-conv predictor, RetinaNet anchors, the focal loss,
 the torchvision weight mappings and the builder's checks; and the geometry
-of every shipped config but ``ssd_mb2_coco_pruning``.
+of every shipped config.
 
 The JAX modules (flax, NHWC, on the CPU) and the port's (NCHW) run the same
 seeded numpy inputs with the same weights, carried over by
@@ -66,6 +66,8 @@ ZOO = {
                                         24528),
     'samples/ssd_sh2_voc.py': (4209458, 68, [19, 10, 5, 3, 2, 1], 2268),
     'samples/ssd_mb2_coco.py': (15221302, 64, [18, 9, 5, 3, 2, 1], 2006),
+    'samples/ssd_mb2_coco_pruning.py': (15221302, 64, [18, 9, 5, 3, 2, 1],
+                                        2006),
 }
 
 
@@ -88,10 +90,13 @@ def test_zoo_geometry_matches_jax(config):
     bit) of the port's build against ``jax.eval_shape`` of JAX's."""
     cfg = jax_load_config(config)
     model = dict(cfg.model)
+    # ``detector.weight`` (the pruning config's trained checkpoint) is the
+    # JAX engine's to read, not its builder's
     jb = jax_builder.build(base=model['base'],
                            anchor_generator=model['anchor_generator'],
                            input_size=tuple(cfg.input_size),
-                           **dict(model['detector']))
+                           **{k: v for k, v in dict(model['detector']).items()
+                              if k != 'weight'})
     w, h = cfg.input_size
     out, variables = jax.eval_shape(lambda: jb.module.init_with_output(
         jax.random.PRNGKey(0), jnp.zeros((1, h, w, 3)), return_sources=True))
@@ -383,9 +388,10 @@ def test_every_jax_backbone_name_of_the_slice_is_registered():
 
 def test_builder_raises_on_what_it_does_not_read():
     """A MobileNetV2 config with an unknown ``model.detector`` key, VGG's
-    ``packed_stem``, a neck's ``width_overrides`` or a bilinear MLFPN
-    raises rather than building another model (``heads.dtype`` is read:
-    ``test_torch_port_bf16.py``)."""
+    ``packed_stem`` or a bilinear MLFPN raises rather than building another
+    model (``heads.dtype`` is read: ``test_torch_port_bf16.py``); the FPN's
+    ``width_overrides`` (pruning's narrow widths) is read, as the JAX
+    builder passes it to the neck."""
     cfg = load_config('samples/synthetic_smoke.py')
     cfg.config.model['detector']['frobnicate'] = 3
     with pytest.raises(NotImplementedError, match='frobnicate'):
@@ -396,8 +402,11 @@ def test_builder_raises_on_what_it_does_not_read():
         pt_builder.from_config(cfg)
     cfg = load_config('samples/retina_rn50_500_voc.py')
     cfg.config.model['detector']['features']['width_overrides'] = {'lateral': 8}
-    with pytest.raises(NotImplementedError, match='width_overrides'):
-        pt_builder.from_config(cfg)
+    cfg.config.input_size = (64, 64)
+    narrow = pt_builder.from_config(cfg).module.features
+    assert [narrow.get_submodule(f'lateral{i}').out_channels
+            for i in range(3)] == [8] * 3
+    assert narrow.output0.conv.in_channels == 8
     cfg = load_config('samples/m2det_512_vgg16_voc.py')
     cfg.config.model['detector']['features']['interpolation_mode'] = 'bilinear'
     with pytest.raises(NotImplementedError, match='bilinear'):
