@@ -204,15 +204,38 @@ Phases, each fatal:
     counts read around them (each BN kernel 64 a step, NMS once an eval
     batch); every dead entry exactly 0 after the steps and the momentum
     finite; one more masked step with each BN's input and output gradient
-    captured, K1-K4 against their plain versions on them at ``BN_TOL``
-    and y and dx exactly 0 on the dead channels; ``materialize_pruned``
+    captured, K1's and K3's sums against float64 (within
+    ``BN_TOL['reduce']`` of the sums of their terms' magnitudes: a trained
+    pruned model's near-constant channels make the sums cancel), K2 and
+    K4 against their plain versions at ``BN_TOL``, and y and dx exactly 0
+    on the dead channels; ``materialize_pruned``
     (parameters before and after), the narrow model against the masked one
     at the heads and every backbone stage (``PRUNING_TOL`` of scale),
     both ``Predictor``s (``valid`` equal) and their ``predict_batch`` ms in
     turns at b32 and b128; the narrow standalone ``.pt2`` at b32 against
     the eager narrow call, one NMS launch a call; the committed JAX
     checkpoint pruned by ``PRUNING_JAX_NUM`` picks and evaluated masked and
-    narrow (mAPs within ``PRUNING_MAP_TOL``).
+    narrow (mAPs within ``PRUNING_MAP_TOL``);
+20. the rest of the train path (``train/optimizers.py``, ``train/step.py``)
+    on the flagship at full width, b32 with ``fused_bn``: (a) one update of
+    each of the ten optimizers over the flagship's parameters from seeded
+    gradients, on the card and on the CPU (warmup schedule, ``lr_scale``
+    0.5, an ``lr_groups`` prefix, the global-norm clip active), each
+    parameter within ``OPTIMIZER_TOL`` of its tensor's update plus its ulp;
+    (b) ``Experiment.train()`` with ``OPTIONS_TRAIN`` (AdamW with
+    ``lr_groups``, clipping, accumulation 2, EMA 0.999, mixup) and the
+    soft-target CE and GIoU losses, 8 augmented micro-steps and an
+    evaluation on the shadow: finite losses, each BN kernel 64 launches a
+    micro-step, the parameters moved on every second micro-step only, the
+    shadow apart from them, NMS launched by the evaluation, a ``.pt`` save
+    restored bit for bit (shadow and accumulation state included); (c)
+    ``frozen_bn``: no BN kernel launch, the running statistics bit-equal;
+    (d) ``fused_steps`` 4 against 4 single steps under cudnn's
+    deterministic algorithms: parameters, buffers, the shadow and the
+    summed metrics bit-equal; (e) the step's ms in turns for SGD,
+    AdamW, EMA on, a micro-step of accumulation 2 and ``fused_steps`` 4
+    per step, and the optimizer's and the EMA's launches and host ms per
+    step.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -2904,8 +2927,9 @@ def step_turns(trainers: dict, batch, iters: int) -> dict:
     out = in_turns({name: (lambda t=t: t.train_step(*batch))
                     for name, t in trainers.items()}, iters=iters)
     for name, t in trainers.items():
+        # one step a window: a window's trace takes seconds to read
         out[name]['device_ms'] = device_busy_ms(lambda: t.train_step(*batch),
-                                                iters=2)
+                                                iters=1)
     return out
 
 
@@ -4142,12 +4166,41 @@ def check_mask_holds(exp: Experiment) -> dict:
             'dead_share': channels / total}
 
 
+def sums_tol(magnitude: torch.Tensor, n: int) -> torch.Tensor:
+    """Tolerance of an f32 per-channel sum (or mean) of ``n`` terms against
+    its float64 value: sqrt(n) rounding units of the same sum over the
+    terms' magnitudes (at least 1).  An f32 sum is exact only to that
+    scale: where a trained step's terms cancel (a pruned model's
+    near-constant channels), an f32 reference is as far off as the kernel
+    (the plain version was 2.06 from the float64 ``d_gamma`` of one BN
+    where K3 was 0.12)."""
+    return math.sqrt(n) * 2.0 ** -24 * torch.clamp(magnitude, min=1.0)
+
+
+def within(name: str, got: torch.Tensor, exact: torch.Tensor,
+           tol: torch.Tensor) -> float:
+    """Max abs error of ``got`` against float64 ``exact``; fails where a
+    channel's error passes its ``tol`` (NaN fails too)."""
+    err = (got.double() - exact).abs()
+    if not bool((err <= tol).all()):
+        worst = int(torch.argmax(err / tol))
+        fail(f'{name} differs from its float64 value: {err[worst].item()} > '
+             f'{tol[worst].item()} (channel {worst})')
+    return err.max().item()
+
+
 def masked_step_bn_check(exp: Experiment, batch) -> dict:
     """One more masked ``fused_bn`` step with each BatchNorm's input, its
-    output's gradient, weight and bias captured; on each, K1-K4 against
-    their plain versions (each kernel given the plain outputs of the one
-    before, as phase 3 does) at ``BN_TOL``, and on the dead channels K2's
-    y and K4's dx exactly 0."""
+    output's gradient, weight and bias captured; on each, K1's and K3's
+    sums against float64 within ``sums_tol`` (``rstd`` against the rsqrt
+    of the float64 variance, within the variance's tolerance carried
+    through the rsqrt), K2 and K4 against their plain versions at
+    ``BN_TOL`` (each kernel given the plain outputs of the one before, as
+    phase 3 does), and on the dead channels K2's y and K4's dx exactly 0.
+    A planted fault shows the sums' check can fail: each of K1's mean and
+    K3's two sums with image 0's terms taken out (one block of work) must
+    be flagged on at least half the channels where those terms add to
+    anything (``planted_fault``: flagged, such channels)."""
     captured, hooks = [], []
     mask = exp.trainer.state.mask
 
@@ -4169,6 +4222,15 @@ def masked_step_bn_check(exp: Experiment, batch) -> dict:
         for h in hooks:
             h.remove()
     worst = {name: 0.0 for name in BN_KERNELS}
+    planted = {q: [0, 0] for q in ('bn_stats mean', 'bn_grad_sums d_beta',
+                                   'bn_grad_sums d_gamma')}
+
+    def plant(quantity, got, exact, tol, dropped):
+        flagged = (got.double() - dropped - exact).abs() > tol
+        live = dropped != 0
+        planted[quantity][0] += int((flagged & live).sum())
+        planted[quantity][1] += int(live.sum())
+
     dead_planes, live_dz_planes, shapes = 0, 0, set()
     for rec in captured:
         x, dz, scale, bias = rec['x'], rec['dz'], rec['scale'], rec['bias']
@@ -4176,19 +4238,51 @@ def masked_step_bn_check(exp: Experiment, batch) -> dict:
         dead = (keep == 0) if keep is not None else torch.zeros(
             x.shape[1], dtype=torch.bool, device=x.device)
         shapes.add(tuple(x.shape))
-        got = bn_kernel.bn_stats(x, BN_EPS)
-        want = bn_kernel.bn_stats_plain(x, BN_EPS)
-        worst['bn_stats'] = max(worst['bn_stats'], *(
-            bn_err(g, w, 'reduce') for g, w in zip(got, want)))
-        mean, _, rstd = want
+        dims, n = (0, 2, 3), x.numel() // x.shape[1]
+        x64 = x.double()
+        mean64 = x64.sum(dims) / n
+        ex2 = (x64 * x64).sum(dims) / n
+        var64 = torch.clamp(ex2 - mean64 * mean64, min=0.0)
+        rstd64 = torch.rsqrt(var64 + BN_EPS)
+        mean_tol = sums_tol(x64.abs().sum(dims) / n, n)
+        var_tol = sums_tol(ex2, n)
+        # |d rsqrt(v + eps) / dv| at the variance's lowest admitted value
+        rstd_tol = (0.5 * (torch.clamp(var64 - var_tol, min=0.0) + BN_EPS)
+                    ** -1.5 * var_tol + BN_TOL['elementwise'] * rstd64)
+        k_mean, k_var, k_rstd = bn_kernel.bn_stats(x, BN_EPS)
+        worst['bn_stats'] = max(
+            worst['bn_stats'],
+            within('bn_stats mean', k_mean, mean64, mean_tol),
+            within('bn_stats var', k_var, var64, var_tol),
+            within('bn_stats rstd', k_rstd, rstd64, rstd_tol))
+        plant('bn_stats mean', k_mean, mean64, mean_tol, x64[0].sum((1, 2)) / n)
+        mean, _, rstd = bn_kernel.bn_stats_plain(x, BN_EPS)
         y = bn_kernel.bn_apply(x, mean, rstd, scale, bias, x.dtype)
         worst['bn_apply'] = max(worst['bn_apply'], bn_err(
             y, bn_kernel.bn_apply_plain(x, mean, rstd, scale, bias, x.dtype),
             'elementwise'))
         got = bn_kernel.bn_grad_sums(dz, x, mean, rstd, scale)
         want = bn_kernel.bn_grad_sums_plain(dz, x, mean, rstd, scale)
-        worst['bn_grad_sums'] = max(worst['bn_grad_sums'], *(
-            bn_err(g, w, 'reduce') for g, w in zip(got, want)))
+        dz64 = dz.double()
+        term = dz64 * ((x64 - mean.double()[None, :, None, None])
+                       * rstd.double()[None, :, None, None])
+        d_gamma, d_beta = term.sum(dims), dz64.sum(dims)
+        gamma_tol = sums_tol(term.abs().sum(dims), n)
+        beta_tol = sums_tol(dz64.abs().sum(dims), n)
+        worst['bn_grad_sums'] = max(
+            worst['bn_grad_sums'],
+            within('bn_grad_sums d_gamma', got[0], d_gamma, gamma_tol),
+            within('bn_grad_sums d_beta', got[1], d_beta, beta_tol),
+            bn_err(got[2][0], want[2][0], 'elementwise'),
+            within('bn_grad_sums d_beta / n', got[2][1], d_beta / n,
+                   sums_tol(dz64.abs().sum(dims) / n, n)),
+            within('bn_grad_sums d_gamma / n', got[2][2], d_gamma / n,
+                   sums_tol(term.abs().sum(dims) / n, n)))
+        plant('bn_grad_sums d_beta', got[1], d_beta, beta_tol,
+              dz64[0].sum((1, 2)))
+        plant('bn_grad_sums d_gamma', got[0], d_gamma, gamma_tol,
+              term[0].sum((1, 2)))
+        del x64, dz64, term
         dx = bn_kernel.bn_dx(dz, x, mean, rstd, want[2])
         worst['bn_dx'] = max(worst['bn_dx'], bn_err(
             dx, bn_kernel.bn_dx_plain(dz, x, mean, rstd, want[2]),
@@ -4199,11 +4293,15 @@ def masked_step_bn_check(exp: Experiment, batch) -> dict:
                      'not exactly 0')
             dead_planes += int(dead.sum()) * x.shape[0]
             live_dz_planes += int((dz[:, dead] != 0).flatten(2).any(2).sum())
+    for quantity, (flagged, live) in planted.items():
+        if flagged < 0.5 * live or not live:
+            fail(f'pruning: {quantity} with image 0 dropped was flagged on '
+                 f'{flagged} of {live} channels')
     torch.cuda.synchronize()
     return {'bn_layers': len(captured), 'distinct_shapes': len(shapes),
             'dead_planes': dead_planes,
             'dead_planes_with_nonzero_dz': live_dz_planes,
-            'max_abs_err': worst}
+            'max_abs_err': worst, 'planted_fault': planted}
 
 
 def stage_keep(exp: Experiment):
@@ -4280,8 +4378,8 @@ def run_pruning(smi: str) -> dict:
     """Phase 19: ``PRUNING`` at full width through ``Experiment`` with the
     shipped pruner (``num`` raised) and ``fused_bn``: two epochs of masked
     steps and an evaluation, the kernels' counts read around them; the mask
-    held exactly; K1-K4 against their plain versions on a masked step's BN
-    inputs; the narrow model (``materialize_pruned``) against the masked
+    held exactly; K1-K4 on a masked step's BN inputs (``masked_step_bn_check``);
+    the narrow model (``materialize_pruned``) against the masked
     one, both ``Predictor``s in turns at b32 and b128, its ``.pt2``
     against the eager narrow call; the JAX checkpoint pruned and evaluated
     masked and narrow."""
@@ -4307,6 +4405,9 @@ def run_pruning(smi: str) -> dict:
             fail(f'pruning: non-finite losses {rows}')
         out.update({'rows': rows, 'launches': launches, 'seconds': seconds,
                     **check_mask_holds(exp)})
+        if not out['dead_channels']:
+            # every space frozen: the channel analysis read no conv or BN
+            fail('pruning: the pruner found no channel to prune')
         log(f'[19] {smi}: {PRUNING} at full width (built in '
             f'{out["build_s"]:.2f} s, channel spaces included): '
             f'{PRUNING_EPOCHS} epochs of {PRUNING_STEPS} masked b32 steps '
@@ -4322,13 +4423,16 @@ def run_pruning(smi: str) -> dict:
         batch = next(iter(exp._device_batches(itertools.islice(
             exp.loaders['train'], 1))))[1]
         out['bn_check'] = masked_step_bn_check(exp, batch)
-        log(f'  K1-K4 against their plain versions on a masked step\'s '
+        log(f'  K1 and K3 against float64 sums, K2 and K4 against their '
+            f'plain versions, on a masked step\'s '
             f'{out["bn_check"]["bn_layers"]} BN inputs '
             f'({out["bn_check"]["distinct_shapes"]} shapes, '
             f'{out["bn_check"]["dead_planes"]} dead planes, '
             f'{out["bn_check"]["dead_planes_with_nonzero_dz"]} of them with a '
             'non-zero dz: y and dx exactly 0): '
-            + json.dumps(out['bn_check']['max_abs_err']))
+            + json.dumps(out['bn_check']['max_abs_err'])
+            + '; image 0 dropped from a sum flagged on (channels, of) '
+            + json.dumps(out['bn_check']['planted_fault']))
         del batch
 
         t = time.perf_counter()
@@ -4399,6 +4503,405 @@ def run_pruning(smi: str) -> dict:
         out['jax_checkpoint'] = pruned_jax_checkpoint()
         log(f'  {smi}: the JAX checkpoint ({JAX_RUN}) pruned by '
             f'{PRUNING_JAX_NUM} picks: ' + json.dumps(out['jax_checkpoint']))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 20
+
+# The options phase 20 trains the flagship with at full width (b32,
+# fused_bn): every option of the rest of the train path at once
+OPTIONS_TRAIN = {
+    'optimizer': {'name': 'AdamW', 'lr': 1e-3, 'weight_decay': 5e-4,
+                  'lr_groups': {'score_head': 2e-3}},
+    'clip_grad_norm': 10.0, 'accumulation_steps': 2, 'ema': 0.999,
+    'mixup': {'alpha': 1.5, 'p': 0.5}}
+OPTIONS_LOSS = {
+    'classification_loss': {'name': 'CrossEntropyWithSoftTargetsLoss',
+                            'epsilon': 0.1},
+    'localization_loss': {'name': 'GeneralizedIoULoss'}}
+# (a): each optimizer's base rate, so that one update moves a parameter by
+# a share of its own scale (the comparison is against the update's scale,
+# and a move far below the parameter's ulp would measure the rounding of
+# the parameter instead), and its other hyperparameters
+OPTIMIZER_CHECKS = {
+    'SGD': {'lr': 1.0, 'momentum': 0.9, 'weight_decay': 5e-4,
+            'nesterov': True},
+    'SGDW': {'lr': 1.0, 'momentum': 0.9, 'weight_decay': 5e-2},
+    'Adam': {'lr': 0.5, 'weight_decay': 5e-4},
+    'AdamW': {'lr': 0.5, 'weight_decay': 5e-2},
+    'RMSprop': {'lr': 0.05, 'momentum': 0.9, 'weight_decay': 5e-4},
+    'Adagrad': {'lr': 0.5, 'lr_decay': 0.1, 'weight_decay': 5e-4},
+    'Adadelta': {'lr': 100.0, 'weight_decay': 5e-4},
+    'Adamax': {'lr': 5.0, 'weight_decay': 5e-4},
+    'NAdam': {'lr': 0.5, 'weight_decay': 5e-4},
+    'RAdam': {'lr': 0.5, 'weight_decay': 5e-4}}
+# (a): the warmup schedule (lr(0) = 0.2 lr, lr(1) = 0.36 lr), the
+# plateau factor and the share of the gradients' global norm clipped to
+OPTIMIZER_SCHEDULE = {'name': 'LinearGrowthLR', 'cold_lr': 0.2, 'steps': 6,
+                      'run_each_step': True}
+OPTIMIZER_LR_SCALE = 0.5
+OPTIMIZER_CLIP_SHARE = 0.5
+# (a): each parameter on the card within this share of its tensor's
+# largest update on the CPU, plus the parameter's own ulp
+OPTIMIZER_TOL = 1e-6
+OPTIONS_STEPS = 8
+OPTIONS_FUSED = 4
+OPTIONS_TURN_ITERS = 10
+
+
+def options_trainer(train: dict, seed: int = SEED, loss=None) -> Trainer:
+    """The flagship at full width with ``fused_bn`` and no augmentation,
+    the train options ``train`` and the loss overrides ``loss``."""
+    overrides = {'augmentations': [],
+                 'train': {'fused_bn': True, **train}}
+    if loss:
+        overrides['loss'] = loss
+    return Trainer.from_config(FLAGSHIP, device='cuda', seed=seed,
+                               overrides=overrides)
+
+
+def optimizers_card_vs_cpu() -> dict:
+    """(a) One update of each optimizer over the flagship's parameters from
+    the same seeded gradients, on the card and on the CPU: the warmup
+    schedule, ``lr_scale`` 0.5, an ``lr_groups`` prefix (``score_head``)
+    and the global-norm clip at half the gradients' norm.  Each parameter
+    within ``OPTIMIZER_TOL`` of its tensor's largest CPU update plus its
+    own ulp."""
+    from single_shot_detection_tpu_torch.models import builder
+    from single_shot_detection_tpu_torch.train import optimizers, schedulers
+    from single_shot_detection_tpu_torch.utils.config import load_config
+    model = builder.from_config(load_config(FLAGSHIP), None, SEED).module
+    names = [n for n, _ in model.named_parameters()]
+    start = [p.detach().clone() for p in model.parameters()]
+    generator = torch.Generator().manual_seed(SEED + 20)
+    grads = [torch.randn(p.shape, generator=generator) for p in start]
+    norm = float(torch.linalg.vector_norm(torch.stack(
+        [g.norm() for g in grads])))
+    clip = OPTIMIZER_CLIP_SHARE * norm
+    out = {}
+    for name, hyper in OPTIMIZER_CHECKS.items():
+        cfg = {'name': name, **hyper,
+               'lr_groups': {'score_head': hyper['lr']}}
+        schedule = schedulers.create_lr_schedule(
+            dict(OPTIMIZER_SCHEDULE), hyper['lr'], 1)[0]
+        after = {}
+        for side, device in (('cpu', 'cpu'), ('card', 'cuda')):
+            params = [torch.nn.Parameter(p.to(device, copy=True))
+                      for p in start]
+            for p, g in zip(params, grads):
+                p.grad = g.to(device, copy=True)
+            opt = optimizers.create_optimizer(
+                cfg, list(zip(names, params)), clip_grad_norm=clip)
+            t = time.perf_counter()
+            opt.step(count=0, schedule=schedule, lr_scale=OPTIMIZER_LR_SCALE)
+            torch.cuda.synchronize()
+            after[side] = ([p.detach().cpu() for p in params],
+                           (time.perf_counter() - t) * 1e3)
+        worst, worst_name, largest = 0.0, None, 0.0
+        for n, p0, cpu, on_card in zip(names, start, after['cpu'][0],
+                                       after['card'][0]):
+            update = (cpu - p0).abs().max().item()
+            largest = max(largest, update)
+            bound = (OPTIMIZER_TOL * update
+                     + torch.from_numpy(np.spacing(cpu.abs().numpy())))
+            gap = ((on_card - cpu).abs() / bound).max().item()
+            if gap > worst:
+                worst, worst_name = gap, n
+        if not worst <= 1.0:
+            fail(f'{name}: the card\'s update is {worst:.3g} of the '
+                 f'tolerance from the CPU\'s at {worst_name}')
+        out[name] = {'worst_share_of_tol': worst, 'worst_tensor': worst_name,
+                     'largest_update': largest,
+                     'cpu_step_ms': after['cpu'][1],
+                     'card_first_step_ms': after['card'][1]}
+    return out
+
+
+def options_experiment() -> Experiment:
+    return Experiment(FLAGSHIP, phases=('train', 'eval'), device='cuda',
+                      seed=SEED, overrides={
+                          'dataset': FLAGSHIP_DATA, 'loss': OPTIONS_LOSS,
+                          'train': {'epochs': 1, 'eval_every': 1,
+                                    'fused_bn': True, **OPTIONS_TRAIN}})
+
+
+def flat_params(model: torch.nn.Module) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def combined_run(work: str) -> dict:
+    """(b) ``Experiment.train()`` with every option of ``OPTIONS_TRAIN``
+    and the soft-target and GIoU losses: one epoch of 8 augmented b32
+    micro-steps, then the evaluation on the shadow.  Each micro-step's
+    kernel counts and whether it moved the parameters are read around
+    it; then a ``.pt`` save restored into a fresh trainer bit for bit."""
+    exp = options_experiment()
+    n_bn = sum(isinstance(m, BatchNorm) for m in exp.model.modules())
+    trainer = exp.trainer
+    inner = trainer.train_step
+    per_step = []
+
+    def recorded(*args, **kwargs):
+        before = read_launches()
+        params = flat_params(trainer.model)
+        metrics = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        after = read_launches()
+        per_step.append({
+            'launches': {k: after[k] - before[k] for k in after},
+            'moved': not torch.equal(params, flat_params(trainer.model)),
+            'loss': metrics['loss'].item()})
+        return metrics
+
+    trainer.train_step = recorded
+    rows, launches, seconds = run_experiment(exp)
+    del trainer.train_step
+    if len(per_step) != OPTIONS_STEPS:
+        fail(f'train options: {len(per_step)} micro-steps, not '
+             f'{OPTIONS_STEPS}')
+    for i, step in enumerate(per_step):
+        if not math.isfinite(step['loss']):
+            fail(f'train options: micro-step {i} loss {step["loss"]}')
+        for fn in bn_kernel.KERNELS:
+            if step['launches'][fn.__name__] != n_bn:
+                fail(f'train options: micro-step {i} launched '
+                     f'{fn.__name__} {step["launches"][fn.__name__]} times, '
+                     f'not {n_bn}')
+        if step['moved'] != (i % 2 == 1):
+            fail(f'train options: micro-step {i} moved the parameters: '
+                 f'{step["moved"]} (accumulation_steps 2)')
+    if launches['nms_keep_batched'] != len(exp.loaders['eval']):
+        fail(f'train options: the evaluation launched {launches}')
+    if not all(math.isfinite(v) for v in rows[0].values()):
+        fail(f'train options: non-finite row {rows[0]}')
+    if exp.eval_model is exp.model:
+        fail('train options: the evaluation did not run the EMA shadow')
+    gap = max((exp.trainer.state.ema_params[n] - p.detach()).abs().max().item()
+              for n, p in exp.model.named_parameters())
+    if not gap > 0:
+        fail('train options: the shadow equals the parameters')
+
+    t = time.perf_counter()
+    path = ckpt.save(work, exp.trainer.state, 0)
+    save_ms = (time.perf_counter() - t) * 1e3
+    fresh = options_trainer({**OPTIONS_TRAIN}, seed=SEED + 1,
+                            loss=OPTIONS_LOSS)
+    t = time.perf_counter()
+    ckpt.restore(path, fresh.state)
+    restore_ms = (time.perf_counter() - t) * 1e3
+    state, again = exp.trainer.state, fresh.state
+    if again.step != state.step:
+        fail(f'train options: restored step {again.step}, not {state.step}')
+    want = exp.model.state_dict()
+    for k, v in fresh.model.state_dict().items():
+        if not torch.equal(v, want[k]):
+            fail(f'train options: restored {k} differs')
+    buffers = 0
+    for (n, p), q in zip(exp.model.named_parameters(),
+                         fresh.model.parameters()):
+        if not torch.equal(state.ema_params[n], again.ema_params[n]):
+            fail(f'train options: restored shadow of {n} differs')
+        for key, buf in state.optimizer.state[p].items():
+            buffers += 1
+            if not torch.equal(buf, again.optimizer.state[q][key]):
+                fail(f'train options: restored {key} of {n} differs')
+    kinds = sorted({k for s in state.optimizer.state.values() for k in s})
+    if kinds != ['acc_grad', 'mu', 'nu']:
+        fail(f'train options: optimizer buffers {kinds}')
+    out = {'rows': rows, 'launches': launches, 'seconds': seconds,
+           'n_bn': n_bn, 'per_step': per_step, 'shadow_gap': gap,
+           'save_ms': save_ms, 'restore_ms': restore_ms,
+           'restored_buffers': buffers, 'buffer_kinds': kinds}
+    del exp, fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def frozen_bn_run(batches) -> dict:
+    """(c) Two steps with ``frozen_bn`` and ``fused_bn``: no BN kernel
+    launch, the running statistics bit-equal before and after."""
+    trainer = options_trainer({'frozen_bn': True})
+    stats = {k: v.clone() for k, v in trainer.model.state_dict().items()
+             if k.endswith(('running_mean', 'running_var'))}
+    zero_launches()
+    losses = [trainer.train_step(*b)['loss'].item() for b in batches[:2]]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if any(launches[fn.__name__] for fn in bn_kernel.KERNELS):
+        fail(f'frozen_bn launched BN kernels: {launches}')
+    after = trainer.model.state_dict()
+    for k, v in stats.items():
+        if not torch.equal(v, after[k]):
+            fail(f'frozen_bn wrote {k}')
+    if not all(math.isfinite(v) for v in losses):
+        fail(f'frozen_bn losses {losses}')
+    return {'launches': launches, 'losses': losses,
+            'statistics_unchanged': len(stats)}
+
+
+def fused_against_single(batches) -> dict:
+    """(d) ``fused_steps`` 4 in one call against four single steps from the
+    same state (SGD, EMA and mixup on), under cudnn's deterministic
+    algorithms for this comparison only: the same kernels on the same
+    inputs in the same order, so the model's tensors, the shadow and the
+    summed metrics must be bit-equal."""
+    train = {'ema': 0.999, 'mixup': OPTIONS_TRAIN['mixup']}
+    single = options_trainer(train)
+    fused = options_trainer({**train, 'fused_steps': OPTIONS_FUSED})
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sums = None
+        for b in batches[:OPTIONS_FUSED]:
+            m = single.train_step(*b)
+            sums = m if sums is None else {k: sums[k] + v for k, v in m.items()}
+        got = fused.fused_train_step(batches[:OPTIONS_FUSED])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if fused.state.step != single.state.step:
+        fail(f'fused_steps: step {fused.state.step} against '
+             f'{single.state.step}')
+    want = single.model.state_dict()
+    unequal = [k for k, v in fused.model.state_dict().items()
+               if not torch.equal(v, want[k])]
+    unequal_shadow = [k for k, v in single.state.ema_params.items()
+                      if not torch.equal(fused.state.ema_params[k], v)]
+    unequal_metrics = [k for k in sums if not torch.equal(got[k], sums[k])]
+    if unequal or unequal_shadow or unequal_metrics:
+        fail(f'fused_steps: not bit-equal to the single steps: '
+             f'{len(unequal)} model tensors, {len(unequal_shadow)} shadow '
+             f'tensors, metrics {unequal_metrics}')
+    return {'bit_equal': True, 'model_tensors': len(want),
+            'shadow_tensors': len(single.state.ema_params),
+            'metrics': sorted(sums)}
+
+
+def launches_of(run) -> int:
+    """The kernel launches (kernels, copies, fills) of one call of ``run``:
+    the first count above 0 that two of the profiler's windows agree on
+    (its trace drops a window's launches at random, once all of them),
+    ``2 * PROFILER_TRIES`` windows at most, else the most seen."""
+    def once():
+        run()
+        torch.cuda.synchronize()
+
+    seen = []
+    for _ in range(2 * PROFILER_TRIES):
+        launches = busy_launches(profile_window(once))
+        if launches > 0 and launches in seen:
+            return launches
+        seen.append(launches)
+    log(f'  profiler windows saw {seen} launches of one call, no count '
+        'twice: the most is kept')
+    return max(seen)
+
+
+def option_times(batches) -> dict:
+    """(e) The b32 step in turns against the plain SGD step (a, b, ..., b,
+    a): AdamW, EMA on, a micro-step of accumulation 2, ``fused_steps`` 4
+    (its call over 4); the optimizer's and the EMA's launches per step and
+    host ms."""
+    from single_shot_detection_tpu_torch.train.step import update_ema
+    sides = {
+        'sgd': options_trainer({}),
+        'adamw': options_trainer({'optimizer': OPTIONS_TRAIN['optimizer'],
+                                  'clip_grad_norm': 10.0}),
+        'ema': options_trainer({'ema': 0.999}),
+        'accumulate_2': options_trainer({'accumulation_steps': 2}),
+        'fused_4': options_trainer({'fused_steps': OPTIONS_FUSED}),
+    }
+    batch = batches[0]
+    calls = {name: (lambda t=t: t.train_step(*batch))
+             for name, t in sides.items() if name != 'fused_4'}
+    fused = sides['fused_4']
+    calls['fused_4'] = lambda: fused.fused_train_step([batch] * OPTIONS_FUSED)
+    turns = in_turns(calls, iters=OPTIONS_TURN_ITERS)
+    turns['fused_4'] = {'call_ms': turns['fused_4']['ms'],
+                        'ms': turns['fused_4']['ms'] / OPTIONS_FUSED,
+                        'all_ms': turns['fused_4']['all_ms']}
+    out = {'step_ms': {k: v['ms'] for k, v in turns.items()},
+           'all_ms': {k: v['all_ms'] for k, v in turns.items()},
+           'fused_4_call_ms': turns['fused_4']['call_ms']}
+    per_step = {}
+    for name in ('sgd', 'adamw'):
+        t = sides[name]
+        t.train_step(*batch)  # leaves the gradients in .grad
+
+        def step(t=t):
+            t.state.optimizer.step(count=t.state.step, schedule=t.schedule,
+                                   lr_scale=t.state.lr_scale)
+
+        per_step[f'optimizer_{name}'] = {
+            'launches': launches_of(step),
+            'host_ms': statistics.median(host_times_ms(step, iters=10))}
+    ema = sides['ema']
+    run_ema = lambda: update_ema(ema.state, ema.ema)
+    per_step['ema'] = {'launches': launches_of(run_ema),
+                       'host_ms': statistics.median(host_times_ms(run_ema,
+                                                                  iters=10))}
+    out['per_step'] = per_step
+    out['parameters'] = sum(p.numel() for p in sides['sgd'].model.parameters())
+    out['parameter_tensors'] = len(list(sides['sgd'].model.parameters()))
+    del sides, fused, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_options(smi: str) -> dict:
+    """Phase 20: the rest of the train path on the flagship at full width
+    (b32, ``fused_bn``): (a) each optimizer on the card against the CPU,
+    (b) every option at once through ``Experiment`` with an evaluation on
+    the shadow and a ``.pt`` round trip, (c) ``frozen_bn``, (d)
+    ``fused_steps`` against single steps, (e) the options' step times in
+    turns."""
+    rng = np.random.RandomState(SEED + 20)
+    batches = [train_batch(rng) for _ in range(OPTIONS_FUSED)]
+    out = {}
+    work = tempfile.mkdtemp(prefix='chip_smoke_options_')
+    try:
+        t = time.perf_counter()
+        out['optimizers'] = optimizers_card_vs_cpu()
+        log(f'[20] {smi}: (a) one update of each optimizer over the '
+            f'flagship\'s parameters, card against CPU (warmup schedule, '
+            f'lr_scale {OPTIMIZER_LR_SCALE}, lr_groups score_head, clip at '
+            f'{OPTIMIZER_CLIP_SHARE} of the norm; worst share of the '
+            f'tolerance {OPTIMIZER_TOL} x update + ulp) in '
+            f'{time.perf_counter() - t:.1f} s: '
+            + json.dumps({k: round(v['worst_share_of_tol'], 4)
+                          for k, v in out['optimizers'].items()}))
+        t = time.perf_counter()
+        out['combined'] = combined_run(work)
+        c = out['combined']
+        log(f'  (b) Experiment with {json.dumps(OPTIONS_TRAIN)} and the '
+            f'soft-target CE + GIoU losses: {OPTIONS_STEPS} augmented b32 '
+            f'micro-steps and an evaluation on the shadow in '
+            f'{c["seconds"]:.2f} s; each micro-step {c["n_bn"]} launches of '
+            'each BN kernel, parameters moved on micro-steps '
+            + str([i for i, s in enumerate(c['per_step']) if s['moved']])
+            + f'; shadow apart by {c["shadow_gap"]:.3g}; launches '
+            + json.dumps(c['launches']) + '; row ' + json.dumps(c['rows'][0])
+            + f'; .pt save {c["save_ms"]:.1f} ms, restore '
+            f'{c["restore_ms"]:.1f} ms, bit-equal with the shadow and '
+            f'{c["restored_buffers"]} optimizer buffers ({c["buffer_kinds"]}) '
+            f'({time.perf_counter() - t:.1f} s)')
+        out['frozen_bn'] = frozen_bn_run(batches)
+        log('  (c) frozen_bn: 2 steps, BN kernel launches '
+            + json.dumps(out['frozen_bn']['launches']) + ', '
+            f'{out["frozen_bn"]["statistics_unchanged"]} running statistics '
+            'bit-equal')
+        out['fused'] = fused_against_single(batches)
+        log(f'  (d) fused_steps {OPTIONS_FUSED} against {OPTIONS_FUSED} single '
+            'steps (cudnn deterministic): ' + json.dumps(out['fused']))
+        out['times'] = option_times(batches)
+        log(f'  (e) {smi}: step ms in turns: '
+            + json.dumps({k: round(v, 3) for k, v in
+                          out['times']['step_ms'].items()})
+            + f' (fused_4 call {out["times"]["fused_4_call_ms"]:.3f} ms); '
+            'per step: ' + json.dumps(out['times']['per_step']))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4652,6 +5155,12 @@ def main(argv=None) -> int:
     pruned = run_pruning(smi)
     log(f'  phase 19 in {time.perf_counter() - t:.1f} s')
 
+    # 20. the rest of the train path: optimizers, EMA, mixup, accumulation,
+    # clipping, lr_groups, frozen BN, fused steps, the other losses
+    t = time.perf_counter()
+    options = run_train_options(smi)
+    log(f'  phase 20 in {time.perf_counter() - t:.1f} s')
+
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
         **train_timing,
@@ -4684,7 +5193,11 @@ def main(argv=None) -> int:
                  for key, value in int8.items()},
         'transfer_ahead': transfer, 'export': export,
         'pruning': {key: value for key, value in pruned.items()
-                    if key != 'launches'}}}))
+                    if key != 'launches'},
+        'train_options': {
+            **{k: v for k, v in options.items() if k != 'combined'},
+            'combined': {k: v for k, v in options['combined'].items()
+                         if k != 'launches'}}}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -4743,7 +5256,10 @@ def main(argv=None) -> int:
                                  'launches_per_call']['nms_keep_batched'],
                              'pruning_jax_checkpoint': pruned[
                                  'jax_checkpoint']['launches'][
-                                 'nms_keep_batched']},
+                                 'nms_keep_batched'],
+                             # phase 20: the evaluation on the EMA shadow
+                             'train_options_experiment': options[
+                                 'combined']['launches']['nms_keep_batched']},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
             'shape', 'ms', 'call_ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -4803,7 +5319,13 @@ def main(argv=None) -> int:
                                     for label, *_ in EXPORT_POINTS},
                                  # phase 19's masked steps
                                  'pruning_experiment': pruned['launches'][
-                                     name]},
+                                     name],
+                                 # phase 20: every train option at once,
+                                 # and frozen BN (none)
+                                 'train_options_experiment': options[
+                                     'combined']['launches'][name],
+                                 'train_options_frozen_bn': options[
+                                     'frozen_bn']['launches'][name]},
             'max_abs_err': max(bn_check[name], *(
                 t['bn_max_abs_err'][name] for t in zoo_steps.values())),
             'shape': list(BN_TIMED_SHAPE),

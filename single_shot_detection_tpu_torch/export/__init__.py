@@ -56,14 +56,14 @@ class InputSpec(NamedTuple):
 def _deploy_model(experiment) -> Tuple[nn.Module, dict]:
     """``(model, state_dict)`` to export: the physically narrow rebuild of
     a pruned run (``Experiment.materialize_pruned``,
-    ``train/materialize.py``), else the experiment's model and its weights.
-    The JAX package exports EMA's shadow weights under ``train.ema``,
-    which is not ported and raises when an ``Experiment`` is built."""
+    ``train/materialize.py``), else the experiment's evaluation model and
+    its weights: the EMA shadow under ``train.ema``, as the JAX package
+    exports it."""
     if getattr(experiment, 'pruner', None) is not None and experiment.pruner.dead:
         bundle, state = experiment.materialize_pruned()
         logging.info('>> exporting the materialized (narrow) pruned model')
         return bundle.module, dict(state)
-    return experiment.model, dict(experiment.model.state_dict())
+    return experiment.eval_model, dict(experiment.eval_model.state_dict())
 
 
 class _Forward(nn.Module):

@@ -61,3 +61,23 @@ def iou(a: torch.Tensor, b: torch.Tensor, cartesian: bool = True) -> torch.Tenso
         area_a = area_a[..., :, None]
         area_b = area_b[..., None, :]
     return inter / (area_a + area_b - inter)
+
+
+def generalized_iou(a: torch.Tensor, b: torch.Tensor,
+                    cartesian: bool = True) -> torch.Tensor:
+    """GIoU (arXiv 1902.09630) of corner-format boxes; ``[..., N, M]`` if
+    cartesian else elementwise."""
+    inter = area(intersection(a, b, cartesian=cartesian))
+    area_a = area(a)
+    area_b = area(b)
+    if cartesian:
+        area_a = area_a[..., :, None]
+        area_b = area_b[..., None, :]
+        enc_mins = torch.minimum(a[..., :, None, :2], b[..., None, :, :2])
+        enc_maxs = torch.maximum(a[..., :, None, 2:], b[..., None, :, 2:])
+    else:
+        enc_mins = torch.minimum(a[..., :2], b[..., :2])
+        enc_maxs = torch.maximum(a[..., 2:], b[..., 2:])
+    union = area_a + area_b - inter
+    enclosing = area(torch.cat([enc_mins, enc_maxs], dim=-1))
+    return inter / union - (enclosing - union) / enclosing

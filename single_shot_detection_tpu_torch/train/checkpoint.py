@@ -8,10 +8,15 @@ checkpoints.
 
 The port's own files are ``ckpt-{step}.pt``, written by ``torch.save`` and
 holding only tensors and plain values: ``{'step', 'model': the model's
-state_dict, 'optimizer': the optimizer's state_dict, 'lr_scale'}`` and,
-for a ``train.pruner`` run, ``'mask'``, its pruning mask (the JAX
-package keeps it in the optimizer state).  They
-load with ``torch.load(weights_only=True)``; no module is pickled.
+state_dict, 'optimizer': the optimizer's state_dict (its buffers, the
+accumulation's ``acc_grad`` among them, and NAdam's ``mu_product``),
+'lr_scale'}``, for a ``train.pruner`` run ``'mask'``, its pruning mask
+(the JAX package keeps it in the optimizer state), and for a
+``train.ema`` run ``'ema'``, the shadow.  They load with
+``torch.load(weights_only=True)``; no module is pickled.  The EMA shadow
+is reconciled as the JAX package's ``_reconcile_ema`` does it: a file
+without one seeds the shadow with a copy of its own parameters, and a
+shadow the run does not keep is dropped with a log line.
 :func:`restore` also reads the JAX package's ``ckpt-{step}.msgpack`` files
 (``utils/flax_msgpack.py``, ``utils/weights.py::from_jax_state``), with no
 flax or msgpack.  Every file is written under a temporary name and renamed,
@@ -34,6 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from single_shot_detection_tpu_torch.train import optimizers
 from single_shot_detection_tpu_torch.train.state import TrainState
 from single_shot_detection_tpu_torch.utils import flax_msgpack, weights
 
@@ -73,6 +79,8 @@ def save(checkpoint_dir: str, state: TrainState, epoch: int) -> str:
              'lr_scale': float(state.lr_scale)}
     if state.mask is not None:
         saved['mask'] = state.mask
+    if state.ema_params:
+        saved['ema'] = state.ema_params
     torch.save(saved, tmp)
     with open(path + '.meta.json.tmp', 'w') as f:
         json.dump({'epoch': epoch, 'global_step': int(state.step)}, f)
@@ -129,60 +137,120 @@ def _load_model(state: TrainState, model_state: Dict[str, torch.Tensor],
     state.model.load_state_dict(model_state, strict=True)
 
 
-def _install_momentum(state: TrainState,
-                      momentum: Optional[Dict[str, torch.Tensor]]) -> None:
-    """The JAX trace as each parameter's ``momentum_buffer``, created on
-    the parameter's device in f32 (a fresh SGD has no buffers until its
-    first step)."""
-    uses_momentum = any(g.get('momentum', 0) for g in state.optimizer.param_groups)
-    if (momentum is not None) != bool(uses_momentum):
+def _disagree(file_has, run_keeps) -> ValueError:
+    noun = ('momentum' if 'momentum_buffer' in set(file_has) ^ set(run_keeps)
+            else 'the optimizer buffers')
+    return ValueError(
+        f'the checkpoint and this optimizer disagree on {noun}: the '
+        f'checkpoint has {sorted(file_has) or "no buffers"}, the optimizer '
+        f'keeps {sorted(run_keeps) or "none"}')
+
+
+def _install_jax_optimizer(state: TrainState, parsed: dict, step: int) -> None:
+    """A JAX optimizer state (``utils/weights.py::parse_opt_state``) into
+    ``state.optimizer``: each group's buffers by its ``label``, created on
+    each parameter's device in f32, NAdam's ``mu_product``, and the
+    accumulation's running mean.  The counts must be the ones the port
+    derives from the step (``step // k`` updates, ``step % k`` into the
+    window)."""
+    optimizer = state.optimizer
+    optimizer.state.clear()
+    names = {p: n for n, p in state.model.named_parameters()}
+    k = optimizer.accumulation_steps
+    accumulation = parsed['accumulation']
+    if (accumulation is not None) != (k > 1):
         raise ValueError(
-            'the checkpoint and this optimizer disagree on momentum: the '
-            f'checkpoint {"has" if momentum is not None else "has no"} '
-            f'trace, the optimizer {"uses" if uses_momentum else "does not use"} '
-            'momentum')
-    if momentum is None:
-        return
-    params = dict(state.model.named_parameters())
-    if momentum.keys() != params.keys():
-        missing = sorted(params.keys() - momentum.keys())
-        extra = sorted(momentum.keys() - params.keys())
-        raise KeyError(f'momentum trace does not match the parameters: '
-                       f'missing {missing[:5]}, unexpected {extra[:5]}')
-    for name, p in params.items():
-        buf = momentum[name]
-        if buf.shape != p.shape:
-            raise ValueError(f'{name}: trace shape {tuple(buf.shape)} != '
-                             f'parameter shape {tuple(p.shape)}')
-        state.optimizer.state[p]['momentum_buffer'] = buf.to(
-            device=p.device, dtype=torch.float32).clone()
-
-
-# SGD hyperparameters that come from the config, never from a ``.pt``: the
-# JAX package rebuilds its optax chain from the config on a resume and
-# restores only the chain's state
-_CONFIG_HYPERPARAMETERS = ('weight_decay', 'momentum', 'nesterov', 'dampening')
+            'the checkpoint and this optimizer disagree on gradient '
+            f'accumulation: the checkpoint {"has" if accumulation else "has no"} '
+            f'MultiSteps state, the run has accumulation_steps={k}')
+    updates = step // k
+    counts = [c for g in parsed['groups'].values() for c in g['counts']]
+    if accumulation is not None:
+        counts.append(accumulation['gradient_step'])
+        if accumulation['mini_step'] != step % k:
+            raise ValueError(f'the checkpoint is {accumulation["mini_step"]} '
+                             f'micro-steps into its window at step {step}, not '
+                             f'{step % k}')
+    if any(c != updates for c in counts):
+        raise ValueError(f'the checkpoint counts {sorted(set(counts))} updates '
+                         f'at step {step}; the port derives {updates} from the '
+                         'step')
+    for group in optimizer.param_groups:
+        label = group['label']
+        stored = parsed['groups'].get(label, {'buffers': {}, 'mu_product': None})
+        buffers = {n: b for n, b in stored['buffers'].items() if b}
+        keeps = [n for n in optimizer.buffer_names(group) if n != 'acc_grad']
+        if set(buffers) != set(keeps):
+            raise _disagree(buffers, keeps)
+        if stored['mu_product'] is not None and 'mu_product' in group:
+            group['mu_product'] = stored['mu_product']
+        sources = dict(buffers)
+        if accumulation is not None:
+            sources['acc_grad'] = accumulation['acc_grads']
+        for buffer, tree in sources.items():
+            for p in group['params']:
+                name = names[p]
+                if name not in tree:
+                    raise KeyError(f'{buffer} of {name} missing from the '
+                                   f'checkpoint\'s group {label!r}')
+                if tree[name].shape != p.shape:
+                    raise ValueError(f'{name}: {buffer} shape '
+                                     f'{tuple(tree[name].shape)} != parameter '
+                                     f'shape {tuple(p.shape)}')
+                optimizer.state[p][buffer] = tree[name].to(
+                    device=p.device, dtype=torch.float32).clone()
 
 
 def _load_optimizer(state: TrainState, saved: dict, step: int) -> None:
-    """The optimizer's state from a ``.pt``, its hyperparameters other
-    than the rate from the config.  Momentum buffers that cannot apply (a
-    config without momentum, or one with momentum after a step saved
-    without buffers) raise, as the ``.msgpack`` path does."""
-    config = [{k: g[k] for k in _CONFIG_HYPERPARAMETERS if k in g}
-              for g in state.optimizer.param_groups]
-    has_buffers = any('momentum_buffer' in s for s in saved['state'].values())
-    uses_momentum = any(g.get('momentum', 0) for g in config)
-    # a momentum SGD has its buffers from its first step on
-    if has_buffers != uses_momentum and (has_buffers or step > 0):
-        raise ValueError(
-            'the checkpoint and this optimizer disagree on momentum: the '
-            f'checkpoint {"has" if has_buffers else "has no"} momentum '
-            f'buffers, the optimizer {"uses" if uses_momentum else "does not use"} '
-            'momentum')
-    state.optimizer.load_state_dict(saved)
-    for group, hyper in zip(state.optimizer.param_groups, config):
+    """The optimizer's state from a ``.pt``, its configuration (rates,
+    hyperparameters, groups) from the config, as the JAX package rebuilds
+    its optax chain from the config on a resume and restores only the
+    chain's state.  Buffers that cannot apply (a config without momentum,
+    or one with momentum after a step saved without buffers; another
+    optimizer) raise, as the ``.msgpack`` path does."""
+    optimizer = state.optimizer
+    config = [{k: v for k, v in g.items()
+               if k != 'params' and k not in optimizers.GROUP_STATE_KEYS}
+              for g in optimizer.param_groups]
+    has = set().union(*[s.keys() for s in saved['state'].values()])
+    keeps = set().union(*[optimizer.buffer_names(g)
+                          for g in optimizer.param_groups])
+    # the buffers exist from the first step on
+    if has != keeps and (has or step > 0):
+        raise _disagree(has, keeps)
+    optimizer.load_state_dict(saved)
+    for group, hyper in zip(optimizer.param_groups, config):
         group.update(hyper)
+
+
+def _install_ema(state: TrainState, ema: Optional[Dict[str, torch.Tensor]],
+                 rules=None) -> None:
+    """The file's EMA shadow into ``state.ema_params`` (in place: the
+    tensors are the evaluation model's parameters), as the JAX package's
+    ``_reconcile_ema``: a parameter the file has no shadow of takes a copy
+    of the (just loaded) parameter; shadow leaves this run does not keep
+    (a run without ``train.ema``) are dropped with a log line."""
+    ema = dict(ema or {})
+    if ema and state.ema_params:
+        ema = migrate_state_dict(ema, state.ema_params, rules)
+    dropped = [k for k in ema if k not in state.ema_params]
+    if dropped:
+        logging.info(f'>> checkpoint carries EMA but this run disables it: '
+                     f'dropped {len(dropped)} ema_params leaves')
+    if not state.ema_params:
+        return
+    params = dict(state.model.named_parameters())
+    seeded = 0
+    with torch.no_grad():
+        for name, shadow in state.ema_params.items():
+            if name in ema:
+                shadow.copy_(ema[name])
+            else:
+                shadow.copy_(params[name])
+                seeded += 1
+    if seeded:
+        logging.info(f'>> checkpoint predates EMA: seeded {seeded} '
+                     'ema_params leaves from its params')
 
 
 def _install_mask(state: TrainState, mask) -> None:
@@ -216,17 +284,19 @@ def restore(path: str, state: TrainState, rules=None) -> Tuple[TrainState, dict]
     that predate a rename go through :func:`migrate_state_dict`; QAT's
     ``act_amax`` entries are reconciled both ways
     (``utils/weights.py::reconcile_qat``); a pruning mask goes to
-    ``state.mask`` (:func:`_install_mask`)."""
+    ``state.mask`` (:func:`_install_mask`), the EMA shadow to
+    ``state.ema_params`` (:func:`_install_ema`)."""
     if path.endswith('.msgpack'):
         restored = weights.from_jax_state(flax_msgpack.read(path))
         _load_model(state, restored['model'], rules)
-        state.optimizer.state.clear()
-        _install_momentum(state, restored['momentum'])
+        _install_jax_optimizer(state, restored['optimizer'],
+                               int(restored['step']))
     else:
         restored = torch.load(path, map_location='cpu', weights_only=True)
         _load_model(state, restored['model'], rules)
         _load_optimizer(state, restored['optimizer'], int(restored['step']))
     _install_mask(state, restored.get('mask'))
+    _install_ema(state, restored.get('ema'), rules)
     state.step = int(restored['step'])
     state.lr_scale = float(restored['lr_scale'])
     meta = _read_meta(path, state.step)
@@ -237,14 +307,19 @@ def restore(path: str, state: TrainState, rules=None) -> Tuple[TrainState, dict]
 
 def restore_weights_only(path: str, state: TrainState) -> TrainState:
     """``--load-weights``: the model's parameters and BN statistics from a
-    ``.pt`` or ``.msgpack`` file; the optimizer, step and ``lr_scale`` stay
-    as they are."""
+    ``.pt`` or ``.msgpack`` file, and the EMA shadow with them (reconciled
+    as :func:`restore` does); the optimizer, step and ``lr_scale`` stay as
+    they are."""
     if path.endswith('.msgpack'):
-        model_state = weights.from_jax_variables(flax_msgpack.read(path))
+        raw = flax_msgpack.read(path)
+        model_state = weights.from_jax_variables(raw)
+        ema = raw.get('ema_params') or None
+        ema = weights.from_jax_variables({'params': ema}) if ema else None
     else:
-        model_state = torch.load(path, map_location='cpu',
-                                 weights_only=True)['model']
+        saved = torch.load(path, map_location='cpu', weights_only=True)
+        model_state, ema = saved['model'], saved.get('ema')
     _load_model(state, model_state)
+    _install_ema(state, ema)
     logging.info(f'>> Restored weights from {path}')
     return state
 

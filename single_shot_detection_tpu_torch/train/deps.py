@@ -1,12 +1,11 @@
 """Channel-dependency extraction from a ``torch.export`` ATen graph.
 
 Port of ``single_shot_detection_tpu/train/deps.py``, which walks a jaxpr.
-Here the traced program is the graph of
-``torch.export.export(model.eval(), (zeros [1, 3, H, W],))
-.run_decompositions()``: every ATen op the eval forward executes, with the
-parameters and buffers as named placeholders (``graph_signature``).  An
-abstract interpreter over that graph tracks which tensor axes carry which
-*channel spaces*.
+Here the traced program is the export IR of ``torch.export.export(
+model.eval(), (zeros [1, 3, H, W],))``, without ``run_decompositions``:
+every ATen op the eval forward executes, with the parameters and buffers
+as named placeholders (``graph_signature``).  An abstract interpreter over
+that graph tracks which tensor axes carry which *channel spaces*.
 
 A **channel space** is an equivalence class of tensor slices that must be
 pruned together:
@@ -37,10 +36,10 @@ or depthwise member slices axis 0 (HWIO axis 3 in JAX) and a consumer axis
 1 (HWIO axis 2); :func:`jax_axis` translates.
 
 Rules of the ATen ops that the JAX analyzer spells differently:
-``_native_batch_norm_legit_no_training`` is one op that registers its
-weight, bias, running mean and running variance as vectors of its input's
-space (JAX finds the four in the normalization's arithmetic); a conv's
-bias is an argument of ``convolution``; ``_to_copy``/``to`` keep a weight's
+an eval-mode ``batch_norm`` is one op that registers its weight, bias,
+running mean and running variance as vectors of its input's space (JAX
+finds the four in the normalization's arithmetic); a conv's bias is an
+argument of ``conv2d``; ``_to_copy``/``to`` keep a weight's
 provenance, as ``convert_element_type`` does in JAX;
 ``_assert_tensor_metadata`` checks and computes nothing.
 """
@@ -246,7 +245,7 @@ _INERT = {'_assert_tensor_metadata', 'arange', 'full', 'zeros', 'ones',
 # spatial ops that leave the channel axis whole
 _SPATIAL = {'max_pool2d_with_indices', 'max_pool2d', 'avg_pool2d',
             'upsample_nearest2d', '_upsample_nearest_exact2d'}
-_RESHAPES = {'view', '_unsafe_view', 'reshape', 'unsqueeze', 'squeeze'}
+_RESHAPES = {'view', 'reshape', 'unsqueeze', 'squeeze'}
 _REDUCTIONS = {'mean', 'sum', 'amax'}
 
 
@@ -273,14 +272,27 @@ def _norm_dim(dim: int, ndim: int) -> int:
     return dim + ndim if dim < 0 else dim
 
 
+def _conv2d_args(node) -> list:
+    """``aten.conv2d``'s seven arguments, defaults filled in."""
+    defaults = [None, None, None, 1, 0, 1, 1]
+    names = ['input', 'weight', 'bias', 'stride', 'padding', 'dilation',
+             'groups']
+    args = list(node.args) + defaults[len(node.args):]
+    for i, name in enumerate(names):
+        if name in node.kwargs:
+            args[i] = node.kwargs[name]
+    return args
+
+
 def analyze_program(program: torch.export.ExportedProgram,
                     model_outputs: Optional[int] = None,
                     prefix: str = '') -> List[Space]:
-    """Run the channel interpreter over an exported program (after
-    ``run_decompositions``), its placeholders named by ``graph_signature``
-    (``prefix`` taken off the names).  The first ``model_outputs`` outputs
-    (default: all) are the model's and freeze what reaches them; the rest
-    only keep their computation in the graph."""
+    """Run the channel interpreter over an exported program's export IR,
+    its placeholders named by ``graph_signature`` (``prefix`` taken off the
+    names).  The first ``model_outputs`` outputs (default: all) are the
+    model's and freeze what reaches them; the rest only keep their
+    computation in the graph.  An op without a rule freezes what it
+    touches."""
     spaces = _SpaceSet()
     interp = _Interp(spaces)
     sig = program.graph_signature
@@ -320,12 +332,12 @@ def analyze_program(program: torch.export.ExportedProgram,
         return replace_axis(ann, 1) if isinstance(ann, VecAnn) else ann
 
     def conv(node):
-        lhs, rhs, bias = node.args[:3]
-        transposed, groups = node.args[6], node.args[8]
+        # conv2d(input, weight, bias, stride, padding, dilation, groups)
+        lhs, rhs, bias, _, _, _, groups = _conv2d_args(node)
         kernel_path = provenance.get(rhs)
         lhs_ann = read(lhs)
-        if kernel_path is None or transposed:
-            # computed or transposed kernel: nothing we can slice
+        if kernel_path is None:
+            # computed kernel: nothing we can slice
             freeze_all(node.args)
             return None
         cin, cout = shape(lhs)[1], shape(node)[1]
@@ -508,15 +520,15 @@ def analyze_program(program: torch.export.ExportedProgram,
         if name == 'getitem':
             src = env.get(args[0])
             env[node] = src[args[1]] if isinstance(src, tuple) else None
-        elif name == 'convolution':
+        elif name == 'conv2d':
             env[node] = conv(node)
-        elif name == '_native_batch_norm_legit_no_training':
+        elif name == 'batch_norm' and not args[5]:
             ann = first
             for vec in args[1:5]:
                 if vec is not None:
                     ann = interp._combine(ann, channel_vector(vec),
                                           shape(args[0]))
-            env[node] = (ann,) + (None,) * (len(node.meta['val']) - 1)
+            env[node] = ann
         elif name in _COPIES:
             env[node] = first
             if args and args[0] in provenance:
@@ -528,7 +540,9 @@ def analyze_program(program: torch.export.ExportedProgram,
             env[node] = interp._combine(first, read(args[1]), shape(node))
         elif name in _INERT:
             env[node] = None
-        elif name == 'constant_pad_nd':
+        elif name == 'pad' and (args[2] if len(args) > 2 else
+                                node.kwargs.get('mode', 'constant')) \
+                == 'constant':
             ann = first
             if isinstance(ann, ChanAnn):
                 pad = args[1]
@@ -558,6 +572,13 @@ def analyze_program(program: torch.export.ExportedProgram,
                 perm = [_norm_dim(d, len(args[1])) for d in args[1]]
                 ann = replace_axis(ann, perm.index(ann.axis))
             env[node] = ann
+        elif name == 'transpose':
+            ann = first
+            if isinstance(ann, (ChanAnn, VecAnn)):
+                ndim = len(shape(args[0]))
+                a, b = _norm_dim(args[1], ndim), _norm_dim(args[2], ndim)
+                ann = replace_axis(ann, {a: b, b: a}.get(ann.axis, ann.axis))
+            env[node] = ann
         elif name in _RESHAPES:
             ann = first
             if isinstance(ann, (ChanAnn, VecAnn)):
@@ -568,11 +589,11 @@ def analyze_program(program: torch.export.ExportedProgram,
                 else:
                     ann = replace_axis(ann, b)
             env[node] = ann
-        elif name in ('index', '_unsafe_index'):
+        elif name == 'index':
             env[node] = index(node, first)
         elif name == 'slice':
             env[node] = slice_(node, first)
-        elif name in ('split', 'split_with_sizes'):
+        elif name in ('split', 'split_with_sizes', 'chunk'):
             env[node] = split(node, first)
         else:
             # no rule: freeze everything it touches
@@ -647,8 +668,8 @@ def analyze_module(model: torch.nn.Module,
     traced on a plain CPU copy (:func:`plain_copy`)."""
     wrapped = _EveryOutput(plain_copy(model))
     with torch.no_grad():
-        program = torch.export.export(
-            wrapped, (torch.zeros(tuple(input_shape)),)).run_decompositions()
+        program = torch.export.export(wrapped,
+                                      (torch.zeros(tuple(input_shape)),))
     out_spec = program.module_call_graph[0].signature.out_spec
     model_spec = (out_spec.child(0) if hasattr(out_spec, 'child')
                   else out_spec.children_specs[0])

@@ -39,11 +39,22 @@ phase exports.  As in the JAX package, ``Pruner.dead`` is not
 checkpointed: a resumed run starts with an empty dead set (the mask in the
 checkpoint keeps the pruned channels at 0).
 
+``train.ema`` keeps the shadow (``Trainer.eval_model``, whose parameters
+are ``state.ema_params`` and whose buffers are the model's): a copy of the
+parameters once the weights are loaded (``model.base.weight``), the file's
+shadow on a resume or ``load_weights`` (a copy of the file's parameters
+when it has none), and what :meth:`Experiment.evaluate`, the int8
+calibration, :meth:`Experiment.predictor`, :meth:`Experiment.predict`,
+the export and :meth:`Experiment.materialize_pruned` run, as the JAX
+engine's ``_eval_params`` serves them.  ``train.fused_steps`` k runs
+each k batches of an epoch in one ``Trainer.fused_train_step`` call and a
+remainder shorter than k unfused; with ``TaylorExpansion`` pruning, which
+needs each step's gradients, it falls back to 1 with a warning.
+
 Not ported yet, each raising ``NotImplementedError`` when asked for: the
 asynchronous checkpoint writer, the device-resident dataset and the eval
 replay cache, keras ``.h5`` and torch-hub backbones, the reference's whole
-detector (``detector.torch_weight``), EMA, tensorboard and multi-host
-runs.
+detector (``detector.torch_weight``), tensorboard and multi-host runs.
 
 ``bf16`` runs the activations in bfloat16 (docs/DESIGN.md §10: parameters, BN
 statistics, SGD momentum and losses stay f32, so checkpoints are f32 and a
@@ -58,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import dataclasses
 import itertools
 import logging
 import os
@@ -82,6 +94,7 @@ from single_shot_detection_tpu_torch.ops.postprocess import Postprocessor
 from single_shot_detection_tpu_torch.predict import Predictor
 from single_shot_detection_tpu_torch.train import checkpoint as ckpt
 from single_shot_detection_tpu_torch.train import materialize, pruning
+from single_shot_detection_tpu_torch.train.state import reset_shadow
 from single_shot_detection_tpu_torch.train.step import make_eval_step
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.config import ConfigWrapper, load_config
@@ -347,6 +360,13 @@ class Experiment:
         self._load_weights(dict(cfg.model or {}), resume_from, load_weights)
         self._current_epoch = self.start_epoch  # the emergency save's epoch
         self._build_pruner(train_cfg.get('pruner'))
+        self.fused_steps = self.trainer.fused_steps
+        if self.fused_steps > 1 and isinstance(
+                getattr(self.pruner, 'criterion', None), pruning.TaylorExpansion):
+            logging.warning('WW fused_steps is incompatible with '
+                            'TaylorExpansion pruning (per-step grads needed); '
+                            'running unfused')
+            self.fused_steps = 1
 
         # --- int8 evaluation (export/quantize.py) ---------------------------
         self.int8 = bool(int8)
@@ -369,6 +389,7 @@ class Experiment:
             state.model.load_state_dict(torch_import.import_backbone(
                 torch_import.load_torch_state_dict(base_cfg['weight']),
                 state.model.state_dict(), base_cfg['name']))
+            reset_shadow(state)  # the shadow was a copy of the random init
         elif base_cfg.get('pretrained'):
             logging.warning(
                 'WW base.pretrained=True cannot download torchvision weights; '
@@ -439,12 +460,18 @@ class Experiment:
         if self.pruner is None or not self.pruner.dead:
             raise ValueError('nothing pruned to materialize')
         return materialize.materialize_bundle(
-            self.bundle, self.model.state_dict(), self.pruner.dead,
+            self.bundle, self.eval_model.state_dict(), self.pruner.dead,
             spaces=self.pruner.spaces)
 
     @property
     def model(self) -> torch.nn.Module:
         return self.trainer.model
+
+    @property
+    def eval_model(self) -> torch.nn.Module:
+        """The model evaluation and serving run: the EMA shadow under
+        ``train.ema``, else the model."""
+        return self.trainer.eval_model
 
     def _device_batches(self, batches: Iterable[dict]):
         """``(batch, device tensors)`` with ``train.transfer_ahead``."""
@@ -486,7 +513,7 @@ class Experiment:
         if not enabled:
             self.int8 = False
             return
-        qat_amax = quantize.amax_from_batch_stats(self.model.state_dict())
+        qat_amax = quantize.amax_from_batch_stats(self.eval_model.state_dict())
         if qat_amax:
             self._int8_amax = qat_amax
             how = 'QAT-learned scales for'
@@ -494,12 +521,12 @@ class Experiment:
             n_batches = int(opts.get('calibration_batches', 2))
             with self.policy.scope():
                 images = self._calibration_images(n_batches)
-                self._int8_amax = quantize.calibrate(self.model, images)
+                self._int8_amax = quantize.calibrate(self.eval_model, images)
             how = f'calibrated ({len(images)} batches)'
         self._int8_calib_step = step
         self._int8_spatial_limit = opts.get('spatial_limit')
         self._int8_modes = quantize.make_interceptor(
-            self.model, self._int8_amax, opts.get('spatial_limit'))
+            self.eval_model, self._int8_amax, opts.get('spatial_limit'))
         logging.info(f'>> int8: {how} {len(self._int8_amax)} convs')
 
     # ---------------------------------------------------------------- serving
@@ -512,7 +539,8 @@ class Experiment:
         key = (self.int8, self._int8_calib_step)
         if self._predictor is None or self._predictor_key != key:
             self._predictor = Predictor(
-                self.bundle, self.serving_postprocessor,
+                dataclasses.replace(self.bundle, module=self.eval_model),
+                self.serving_postprocessor,
                 self.eval_pipeline.preprocess, self.device, self.policy,
                 self._int8_amax if self.int8 else None,
                 self._int8_spatial_limit)
@@ -524,7 +552,7 @@ class Experiment:
         detections ``[x0, y0, x1, y1, class, score]`` in its own pixels
         (port of the JAX engine's ``predict``), through :meth:`predictor`."""
         predictor = self.predictor()
-        self.model.eval()
+        self.eval_model.eval()
         return predictor.predict(image)
 
     def export(self, int8: bool = False) -> str:
@@ -617,27 +645,50 @@ class Experiment:
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """The steps of epoch ``epoch``, each with the draws of its global
-        step index; metric sums stay on the device and are read once.
-        Returns the epoch's row."""
+        step index (k at a time with ``train.fused_steps``, a remainder
+        shorter than k unfused); metric sums stay on the device and are
+        read once.  Returns the epoch's row."""
         loader = self.loaders['train']
         num_batches = self.num_batches_per_epoch or len(loader)
         loader.epoch = epoch  # a later start replays no earlier epoch's order
         start = time.perf_counter()
         sums = None
         count = 0
+        k = self.fused_steps
         batches = self._device_batches(itertools.islice(loader, num_batches))
-        for step_idx, (_, tensors) in enumerate(batches):
-            metrics = self.trainer.train_step(
-                *tensors, step=epoch * num_batches + step_idx)
-            if self.pruner is not None and step_idx % self.observe_every == 0:
-                self._observe(tensors)
-            stacked = torch.stack([metrics[k] for k in METRIC_KEYS])
+
+        def groups():
+            """('single', tensors) or, with ``fused_steps`` > 1, ('fused',
+            k tensors); a remainder shorter than k runs unfused."""
+            chunk = []
+            for _, tensors in batches:
+                if k == 1:
+                    yield 'single', tensors
+                    continue
+                chunk.append(tensors)
+                if len(chunk) == k:
+                    yield 'fused', chunk
+                    chunk = []
+            for tensors in chunk:
+                yield 'single', tensors
+
+        for kind, tensors in groups():
+            step = epoch * num_batches + count
+            if kind == 'fused':
+                metrics = self.trainer.fused_train_step(tensors, step=step)
+                n = k
+            else:
+                metrics = self.trainer.train_step(*tensors, step=step)
+                if self.pruner is not None and count % self.observe_every == 0:
+                    self._observe(tensors)
+                n = 1
+            stacked = torch.stack([metrics[key] for key in METRIC_KEYS])
             sums = stacked if sums is None else sums + stacked
-            count += 1
+            count += n
         pulled = sums.tolist() if sums is not None else None
         row = {'epoch': epoch}
-        for i, k in enumerate(METRIC_KEYS):
-            row[f'train_{k}'] = pulled[i] / max(count, 1) if pulled else 0.0
+        for i, key in enumerate(METRIC_KEYS):
+            row[f'train_{key}'] = pulled[i] / max(count, 1) if pulled else 0.0
         elapsed = time.perf_counter() - start
         logging.info(f'[train] epoch {epoch}: {count} steps in {elapsed:.2f} s '
                      f'({count * loader.batch_size / max(elapsed, 1e-9):.1f} '
@@ -656,8 +707,8 @@ class Experiment:
         sums = None
         count = 0
         pending = []
-        int8 = (quantize.quant_modes(self.model, self._int8_modes) if self.int8
-                else contextlib.nullcontext())
+        int8 = (quantize.quant_modes(self.eval_model, self._int8_modes)
+                if self.int8 else contextlib.nullcontext())
         with self.policy.scope(), int8:
             for batch, (images, boxes, mask) in self._device_batches(loader):
                 with torch.no_grad():
@@ -667,7 +718,7 @@ class Experiment:
                 image_valid = torch.from_numpy(
                     batch['ids'] >= 0).to(self.device)
                 metrics, dets, valid = self.eval_step(
-                    self.model, x, full_boxes[..., :6], mask, image_valid)
+                    self.eval_model, x, full_boxes[..., :6], mask, image_valid)
                 stacked = torch.stack([metrics[k] for k in METRIC_KEYS])
                 sums = stacked if sums is None else sums + stacked
                 count += 1

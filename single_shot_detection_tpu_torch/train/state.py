@@ -2,11 +2,16 @@
 
 Port of ``single_shot_detection_tpu/train/state.py::TrainState``.  The JAX
 state is one immutable pytree; here the model (parameters and BN running
-statistics) and the optimizer (momentum buffers) hold their tensors and are
-updated in place, and the state adds the step counter (the optimizer's
-step count, which the schedule ticks on) and ``lr_scale`` (the
-``ReduceLROnPlateau`` multiplier: the step's rate is ``schedule(step) *
-lr_scale``).  ``ema_params`` stays empty: the EMA is not ported yet.
+statistics) and the optimizer (its buffers) hold their tensors and are
+updated in place, and the state adds the step counter (micro-steps: with
+``accumulation_steps`` k the optimizer's update count is ``step // k``,
+which the schedule ticks on) and ``lr_scale`` (the ``ReduceLROnPlateau``
+multiplier of the whole update).
+
+``ema_params`` is the EMA shadow under ``train.ema``: ``{parameter name:
+f32 tensor}``, updated in place after each step (empty without EMA).  The
+tensors are the parameters of :func:`shadow_module`'s copy of the model,
+which evaluation and serving run.
 
 ``mask`` is the pruning mask, the state of the JAX package's ``masked``
 optimizer wrapper: None without ``train.pruner``; with it, ``{parameter
@@ -17,6 +22,7 @@ step (``train/pruning.py``).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, Optional
 
@@ -31,3 +37,26 @@ class TrainState:
     lr_scale: float = 1.0
     ema_params: dict = dataclasses.field(default_factory=dict)
     mask: Optional[Dict[str, torch.Tensor]] = None
+
+
+def shadow_module(model: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``model`` whose parameters are a separate shadow (a copy
+    of the parameters now, not requiring gradients) and whose buffers are
+    ``model``'s own tensors: the JAX package's ``{'params': ema_params,
+    'batch_stats': batch_stats}``.  The buffers stay shared as long as
+    both are written in place (the BN forward, ``load_state_dict``)."""
+    memo = {id(b): b for b in model.buffers()}
+    shadow = copy.deepcopy(model, memo)
+    shadow.requires_grad_(False)
+    return shadow
+
+
+def reset_shadow(state: TrainState) -> None:
+    """Set the EMA shadow to a copy of the parameters (after a weights
+    load, or for a checkpoint that has none)."""
+    if not state.ema_params:
+        return
+    params = dict(state.model.named_parameters())
+    names = list(state.ema_params)
+    torch._foreach_copy_([state.ema_params[n] for n in names],
+                         [params[n].detach() for n in names])

@@ -1,63 +1,128 @@
 """Step functions.
 
-Port of ``single_shot_detection_tpu/train/step.py``: ``make_train_step``
-(with the pruning mask; without mixup, ``frozen_bn``, EMA and the
-pipeline-parallel pinning, which are not ported yet; QAT runs inside the
-model's convs, ``export/quantize.py``), ``make_eval_step`` and
-``make_predict_step``.
+Port of ``single_shot_detection_tpu/train/step.py``: ``apply_mixup``,
+``make_train_step`` (the pruning mask, the EMA shadow, mixup and
+``frozen_bn``; QAT runs inside the model's convs, ``export/quantize.py``;
+the pipeline-parallel pinning is not ported), ``make_fused_train_step``,
+``make_eval_step`` and ``make_predict_step``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
+from single_shot_detection_tpu_torch.ops.matching import SCORE_INDEX
 from single_shot_detection_tpu_torch.train.pruning import apply_mask
 from single_shot_detection_tpu_torch.train.state import TrainState
 
 
-def apply_gradients(state: TrainState, schedule: Callable[[int], float]) -> None:
-    """The optimizer step on the gradients in ``state.model``'s parameters
-    at ``schedule(state.step) * state.lr_scale`` (the JAX step scales its
-    updates by ``lr_scale``, the same for SGD), the pruning mask
-    (``state.mask``) applied to the stepped parameters, then ``state.step
-    += 1``.  The dead entries were zeroed when they were pruned, so
-    masking the parameters after the step equals the JAX package's masking
-    of the update."""
-    lr = schedule(state.step) * state.lr_scale
-    for group in state.optimizer.param_groups:
-        group['lr'] = lr
-    state.optimizer.step()
-    if state.mask:
+def apply_gradients(state: TrainState, schedule: Callable[[int], float]) -> bool:
+    """The optimizer's micro-step on the gradients in ``state.model``'s
+    parameters (``train/optimizers.py``: the update count and the window
+    from ``state.step``, the whole update times ``state.lr_scale``), the
+    pruning mask (``state.mask``) applied to the stepped parameters, then
+    ``state.step += 1``.  Returns whether the parameters moved.  The dead
+    entries were zeroed when they were pruned, so masking the parameters
+    after the step equals the JAX package's masking of the update."""
+    moved = state.optimizer.step(count=state.step, schedule=schedule,
+                                 lr_scale=state.lr_scale)
+    if moved and state.mask:
         apply_mask(state.model, state.mask)
     state.step += 1
+    return moved
+
+
+def update_ema(state: TrainState, ema: float) -> None:
+    """The shadow after a step: ``e += (1 - decay) * (p - e)`` over every
+    parameter, in one multi-tensor op, with ``decay = min(ema, (1 + t) /
+    (10 + t))`` at the incremented step ``t`` in f32 as the JAX step
+    computes it; the shadow stays f32."""
+    params = dict(state.model.named_parameters())
+    names = list(state.ema_params)
+    t = np.float32(state.step)
+    decay = min(np.float32(ema), (np.float32(1.0) + t) / (np.float32(10.0) + t))
+    weight = float(np.float32(1.0) - decay)
+    torch._foreach_lerp_([state.ema_params[n] for n in names],
+                         [params[n].detach() for n in names], weight)
+
+
+def sample_mixup(generator: torch.Generator, batch: int, alpha: float,
+                 p: float) -> Dict[str, torch.Tensor]:
+    """Mixup's draws from the step's generator: ``lam`` from Beta(alpha,
+    alpha) (numpy's sampler, seeded from the generator: torch's Beta takes
+    no generator), a partner permutation and the images that mix (each
+    with probability ``p``)."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+    lam = np.random.default_rng(seed).beta(alpha, alpha)
+    index = torch.randperm(batch, generator=generator)
+    roll = torch.rand(batch, generator=generator) < p
+    return {'lam': torch.tensor(lam, dtype=torch.float32), 'index': index,
+            'roll': roll}
+
+
+def apply_mixup(draws: Dict[str, torch.Tensor], images: torch.Tensor,
+                boxes: torch.Tensor, box_mask: torch.Tensor):
+    """Batch mixup on ``images [B, ...]``, ``boxes [B, G, R]`` and
+    ``box_mask [B, G]``: each rolled image becomes ``lam * image + (1 -
+    lam) * partner``; the GT lists concatenate to ``2G`` rows, the own
+    scores (column ``SCORE_INDEX``) times ``lam`` where rolled, the
+    partner's times ``1 - lam`` and masked where not rolled."""
+    lam, index, roll = draws['lam'], draws['index'], draws['roll']
+    partner = images[index]
+    mixed = lam * images + (1.0 - lam) * partner
+    images = torch.where(roll.view(-1, *([1] * (images.dim() - 1))), mixed,
+                         images)
+    own = boxes.clone()
+    own[..., SCORE_INDEX] *= torch.where(roll, lam, 1.0)[:, None]
+    other = boxes[index]
+    other[..., SCORE_INDEX] *= 1.0 - lam
+    return (images, torch.cat([own, other], dim=1),
+            torch.cat([box_mask, box_mask[index] & roll[:, None]], dim=1))
 
 
 def make_update_step(criterion, assigner, anchors: torch.Tensor,
-                     schedule: Callable[[int], float]) -> Callable:
+                     schedule: Callable[[int], float],
+                     ema: Optional[float] = None,
+                     frozen_bn: bool = False) -> Callable:
     """Build ``update(state, x, boxes, box_mask) -> metrics`` on model input
     ``x [B, 3, h, w]`` and boxes ``[B, G, 6]`` in its pixels.
 
     ``TargetAssigner`` -> train-mode forward (BN batch statistics; the
     running statistics are updated in the forward) -> ``MultiboxLoss`` on
-    f32 heads -> backward -> SGD step at ``schedule(state.step) *
-    state.lr_scale``.  ``state`` is updated in place; the metrics ``{'loss',
-    'class_loss', 'loc_loss'}`` are 0-dim tensors on the device (reading
-    them waits for the step).
+    f32 heads -> backward -> the optimizer's micro-step
+    (:func:`apply_gradients`) -> with ``ema``, the shadow
+    (:func:`update_ema`).  ``frozen_bn`` runs every BatchNorm in eval mode
+    (the running statistics read, not written; no BN kernel launches)
+    while the rest of the model, QAT's ``act_amax`` updates included,
+    stays in train mode.  ``state`` is updated in place; the metrics
+    ``{'loss', 'class_loss', 'loc_loss'}`` are 0-dim tensors on the device
+    (reading them waits for the step).
     """
+    frozen: Dict[int, List[nn.Module]] = {}
 
     def update(state: TrainState, x: torch.Tensor, boxes: torch.Tensor,
                box_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
         target = assigner(boxes, box_mask, anchors)
         state.model.train()
+        if frozen_bn:
+            key = id(state.model)
+            if key not in frozen:
+                frozen[key] = [m for m in state.model.modules()
+                               if isinstance(m, nn.BatchNorm2d)]
+            for m in frozen[key]:
+                m.eval()
         scores, locs = state.model(x)
         loss, class_loss, loc_loss = criterion(scores.float(), locs.float(),
                                                anchors, target)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         apply_gradients(state, schedule)
+        if ema is not None:
+            update_ema(state, ema)
         return {'loss': loss.detach(), 'class_loss': class_loss.detach(),
                 'loc_loss': loc_loss.detach()}
 
@@ -65,21 +130,53 @@ def make_update_step(criterion, assigner, anchors: torch.Tensor,
 
 
 def make_train_step(criterion, assigner, anchors: torch.Tensor,
-                    schedule: Callable[[int], float], pipeline) -> Callable:
-    """Build ``train_step(state, images, boxes, box_mask, draws) ->
-    metrics``: the augmentation ``pipeline.apply(draws, ...)`` on staged
-    uint8 images and ``[B, G, R>=6]`` boxes in staged pixels, then
-    :func:`make_update_step`'s update on ``boxes[..., :6]``."""
-    update = make_update_step(criterion, assigner, anchors, schedule)
+                    schedule: Callable[[int], float], pipeline,
+                    ema: Optional[float] = None,
+                    frozen_bn: bool = False) -> Callable:
+    """Build ``train_step(state, images, boxes, box_mask, draws,
+    mixup_draws=None) -> metrics``: the augmentation ``pipeline.apply(draws,
+    ...)`` on staged uint8 images and ``[B, G, R>=6]`` boxes in staged
+    pixels, then :func:`apply_mixup` with ``mixup_draws`` (None: no mixup),
+    then :func:`make_update_step`'s update on ``boxes[..., :6]``."""
+    update = make_update_step(criterion, assigner, anchors, schedule, ema,
+                              frozen_bn)
 
     def train_step(state: TrainState, images: torch.Tensor,
                    boxes: torch.Tensor, box_mask: torch.Tensor,
-                   draws: list) -> Dict[str, torch.Tensor]:
+                   draws: list, mixup_draws: Optional[dict] = None
+                   ) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
             x, boxes, box_mask = pipeline.apply(draws, images, boxes, box_mask)
-        return update(state, x, boxes[..., :6], box_mask)
+            boxes = boxes[..., :6]
+            if mixup_draws is not None:
+                x, boxes, box_mask = apply_mixup(mixup_draws, x, boxes,
+                                                 box_mask)
+        return update(state, x, boxes, box_mask)
 
     return train_step
+
+
+def make_fused_train_step(train_step: Callable, k: int) -> Callable:
+    """``fused(state, batches, draws) -> metric sums``: ``k`` train steps
+    in one host call, on ``k`` ``(images, boxes, box_mask)`` batches and
+    their ``(draws, mixup_draws)``, returning the per-step metrics summed
+    as the JAX package's ``lax.scan`` returns them.  The port's draws come
+    from each step's own ``(seed, step)``, so the k steps equal k single
+    steps exactly."""
+
+    def fused(state: TrainState, batches: Sequence, draws: Sequence
+              ) -> Dict[str, torch.Tensor]:
+        if len(batches) != k or len(draws) != k:
+            raise ValueError(f'fused step of {k} took {len(batches)} batches '
+                             f'and {len(draws)} draws')
+        sums = None
+        for batch, step_draws in zip(batches, draws):
+            metrics = train_step(state, *batch, *step_draws)
+            sums = metrics if sums is None else {
+                key: sums[key] + value for key, value in metrics.items()}
+        return sums
+
+    return fused
 
 
 def make_eval_step(criterion, assigner, anchors: torch.Tensor,

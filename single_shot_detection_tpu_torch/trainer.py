@@ -27,13 +27,24 @@ the JAX package's ``masked`` optimizer wrapper), which each step applies;
 ``train/engine.py::Experiment`` builds the ``Pruner`` that fills it
 (``train/pruning.py``).  It composes with ``fused_bn``.
 
+The rest of the JAX engine's train options (``train/optimizers.py``,
+``train/step.py``): ``optimizer`` (the ten rules, ``lr_groups``),
+``clip_grad_norm``, ``accumulation_steps`` (the schedule counts updates:
+``total_train_steps`` and the steps per epoch are divided by it), ``ema``
+(a decay or ``{'decay'}``: the shadow ``state.ema_params``, a copy of the
+parameters at the start, evaluated and served as ``eval_model``), ``mixup``
+(``{'alpha', 'p'}``, drawn from the step's generator after the
+augmentation), ``frozen_bn`` (every BatchNorm in eval mode inside the
+step; with ``group_norm`` it raises) and ``fused_steps`` (k steps in one
+host call, :meth:`Trainer.fused_train_step`).
+
 What is not ported yet raises ``NotImplementedError`` rather than being
-skipped: mixup, ``frozen_bn``, EMA, gradient accumulation and clipping,
-``lr_groups``, ``fused_steps``, the YUV420 staging and the multi-device
-options; an augmentation the ``Pipeline`` does not know raises as well.
+skipped: the YUV420 staging and the multi-device options; an
+augmentation the ``Pipeline`` does not know raises as well.
 
 ``bf16=True`` runs the activations in bfloat16 under docs/DESIGN.md §10's
-policy (parameters, BN statistics, SGD momentum and the losses stay f32;
+policy (parameters, BN statistics, the optimizer's buffers, the EMA
+shadow and the losses stay f32;
 ``fused_bn`` then runs the BN kernels on bf16 activations), and
 ``matmul_precision`` sets the convolutions' and matmuls' precision
 (``device.py::numeric_policy``); each step runs under the trainer's own
@@ -44,7 +55,7 @@ Runs on ``cuda`` unless the caller passes ``device='cpu'``.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -62,16 +73,16 @@ from single_shot_detection_tpu_torch.ops.losses import MultiboxLoss
 from single_shot_detection_tpu_torch.ops.matching import TargetAssigner
 from single_shot_detection_tpu_torch.ops.sampling import build_sampler
 from single_shot_detection_tpu_torch.train import optimizers, schedulers
-from single_shot_detection_tpu_torch.train.state import TrainState
-from single_shot_detection_tpu_torch.train.step import make_train_step
+from single_shot_detection_tpu_torch.train.state import TrainState, shadow_module
+from single_shot_detection_tpu_torch.train.step import (make_fused_train_step,
+                                                        make_train_step,
+                                                        sample_mixup)
 from single_shot_detection_tpu_torch.utils.config import load_config
 from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
 
 # train options of the JAX engine not ported yet: each raises when set
-_UNPORTED_TRAIN_OPTIONS = ('mixup', 'frozen_bn', 'ema',
-                           'clip_grad_norm', 'tensor_sharding',
-                           'spatial_sharding', 'pipeline_sharding',
-                           'zero_sharding')
+_UNPORTED_TRAIN_OPTIONS = ('tensor_sharding', 'spatial_sharding',
+                           'pipeline_sharding', 'zero_sharding')
 
 
 def check_ported(cfg) -> None:
@@ -80,10 +91,15 @@ def check_ported(cfg) -> None:
     for key in _UNPORTED_TRAIN_OPTIONS:
         if train.get(key):
             raise NotImplementedError(f'train.{key} is not ported yet')
-    if int(train.get('fused_steps', 1)) != 1:
-        raise NotImplementedError('train.fused_steps is not ported yet')
     if str(train.get('staging_colorspace', 'rgb')) != 'rgb':
         raise NotImplementedError('train.staging_colorspace is not ported yet')
+
+
+def ema_from_config(value) -> Optional[float]:
+    """``train.ema``: a decay or ``{'decay': d}``; None when off."""
+    if isinstance(value, dict):
+        return float(value['decay'])
+    return float(value) if value else None
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -102,12 +118,14 @@ class Trainer:
                  assigner: TargetAssigner, device: torch.device, seed: int,
                  policy: NumericPolicy,
                  plateau: Optional[schedulers.ReduceLROnPlateau] = None,
-                 scheduler_metric: Optional[str] = None):
+                 scheduler_metric: Optional[str] = None,
+                 ema: Optional[float] = None, mixup: Optional[dict] = None,
+                 frozen_bn: bool = False, fused_steps: int = 1):
         self.bundle = bundle
         self.policy = policy
         self.state = state
         self.pipeline = pipeline
-        self.schedule = schedule  # optimizer step -> learning rate
+        self.schedule = schedule  # optimizer update count -> learning rate
         # ReduceLROnPlateau: the engine feeds it ``scheduler_metric`` after
         # each evaluation and writes its scale into ``state.lr_scale``
         self.plateau = plateau
@@ -117,12 +135,29 @@ class Trainer:
         self.device = device
         self.seed = seed
         self.anchors = torch.from_numpy(bundle.anchors).to(device)
+        self.ema = ema
+        self.mixup = dict(mixup) if mixup else None
+        self.frozen_bn = frozen_bn
+        self.fused_steps = int(fused_steps)
+        self._shadow = None
+        if ema is not None:
+            self._shadow = shadow_module(state.model)
+            state.ema_params = dict(self._shadow.named_parameters())
         self._train_step = make_train_step(criterion, assigner, self.anchors,
-                                           schedule, pipeline)
+                                           schedule, pipeline, ema, frozen_bn)
+        self._fused_train_step = make_fused_train_step(self._train_step,
+                                                       self.fused_steps)
 
     @property
     def model(self) -> torch.nn.Module:
         return self.state.model
+
+    @property
+    def eval_model(self) -> torch.nn.Module:
+        """What evaluation and serving run: under ``train.ema`` the shadow
+        (a copy of the model whose parameters are ``state.ema_params`` and
+        whose buffers are the model's own), else the model."""
+        return self.state.model if self._shadow is None else self._shadow
 
     @classmethod
     def from_config(cls, path: str, variables: Optional[Mapping] = None,
@@ -168,6 +203,9 @@ class Trainer:
             raise ValueError('train.fused_bn does not compose with '
                              'train.group_norm (both replace the BatchNorm '
                              'forward)')
+        if groups is not None and train_cfg.get('frozen_bn'):
+            raise ValueError('train.group_norm replaces BatchNorm entirely: '
+                             'train.frozen_bn is meaningless with it')
         quantize.check_composes(train_cfg)
         bundle = builder.from_config(cfg, variables, seed, policy.dtype)
         model = bundle.module.to(device)
@@ -191,21 +229,47 @@ class Trainer:
                     'total_train_steps': steps_per_epoch * epochs // accumulation})
         train_cfg = dict(cfg.train)  # re-read after interpolation
         opt_cfg = dict(train_cfg.get('optimizer', {'name': 'SGD', 'lr': 1e-3}))
+        # the schedule counts optimizer updates
         schedule, plateau, metric = schedulers.create_lr_schedule(
-            train_cfg.get('scheduler'), opt_cfg.get('lr', 1e-3), steps_per_epoch)
+            train_cfg.get('scheduler'), opt_cfg.get('lr', 1e-3),
+            steps_per_epoch // accumulation if accumulation > 1
+            else steps_per_epoch)
         optimizer = optimizers.create_optimizer(
-            opt_cfg, model.parameters(), accumulation_steps=accumulation,
+            opt_cfg, model.named_parameters(), accumulation_steps=accumulation,
             clip_grad_norm=train_cfg.get('clip_grad_norm'))
         # train.pruner: the masked optimizer, its mask all ones until the
         # first prune
         mask = {} if train_cfg.get('pruner') else None
         return cls(bundle, TrainState(model, optimizer, mask=mask), pipeline,
                    schedule, criterion, assigner, device, seed, policy,
-                   plateau, metric)
+                   plateau, metric, ema_from_config(train_cfg.get('ema')),
+                   train_cfg.get('mixup'), bool(train_cfg.get('frozen_bn')),
+                   int(train_cfg.get('fused_steps', 1)))
 
     def draws(self, step: int, batch: int) -> list:
         """The augmentation draws of global step ``step`` (on the CPU)."""
-        return self.pipeline.sample_draws(step_generator(self.seed, step), batch)
+        return self.step_draws(step, batch)[0]
+
+    def step_draws(self, step: int, batch: int):
+        """``(augmentation draws, mixup draws or None)`` of global step
+        ``step``, on the CPU: both from the step's generator, the mixup's
+        after the augmentation's."""
+        generator = step_generator(self.seed, step)
+        draws = self.pipeline.sample_draws(generator, batch)
+        mixup = None
+        if self.mixup is not None:
+            mixup = sample_mixup(generator, batch, float(self.mixup['alpha']),
+                                 float(self.mixup['p']))
+        return draws, mixup
+
+    def _device_batch(self, images, boxes, box_mask, step: int):
+        images = torch.as_tensor(images).to(self.device, non_blocking=True)
+        boxes = torch.as_tensor(boxes, dtype=torch.float32).to(self.device)
+        box_mask = torch.as_tensor(box_mask, dtype=torch.bool).to(self.device)
+        draws, mixup = self.step_draws(step, images.shape[0])
+        if mixup is not None:
+            mixup = {k: v.to(self.device) for k, v in mixup.items()}
+        return (images, boxes, box_mask), (draws_to(draws, self.device), mixup)
 
     def train_step(self, images: Union[np.ndarray, torch.Tensor],
                    boxes: Union[np.ndarray, torch.Tensor],
@@ -213,14 +277,23 @@ class Trainer:
                    step: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """One step on staged uint8 ``[B, S, S, 3]`` images, ground truth
         ``boxes [B, G, R>=6]`` (``[x0, y0, x1, y1, class, score, ...]`` in
-        staged pixels) and ``box_mask [B, G]``, augmented with the draws of
-        global step ``step`` (default: the optimizer's step count).
-        Returns ``{'loss', 'class_loss', 'loc_loss'}`` as 0-dim tensors on
-        the device."""
-        images = torch.as_tensor(images).to(self.device, non_blocking=True)
-        boxes = torch.as_tensor(boxes, dtype=torch.float32).to(self.device)
-        box_mask = torch.as_tensor(box_mask, dtype=torch.bool).to(self.device)
+        staged pixels) and ``box_mask [B, G]``, augmented (and mixed, with
+        ``train.mixup``) with the draws of global step ``step`` (default:
+        the state's step count).  Returns ``{'loss', 'class_loss',
+        'loc_loss'}`` as 0-dim tensors on the device."""
         step = self.state.step if step is None else step
-        draws = draws_to(self.draws(step, images.shape[0]), self.device)
+        batch, draws = self._device_batch(images, boxes, box_mask, step)
         with self.policy.scope():
-            return self._train_step(self.state, images, boxes, box_mask, draws)
+            return self._train_step(self.state, *batch, *draws)
+
+    def fused_train_step(self, batches: Sequence, step: Optional[int] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """``train.fused_steps`` k steps in one call on k ``(images, boxes,
+        box_mask)`` batches, the i-th with the draws of global step ``step
+        + i``; returns the metrics summed over the k steps."""
+        step = self.state.step if step is None else step
+        moved = [self._device_batch(*batch, step + i)
+                 for i, batch in enumerate(batches)]
+        with self.policy.scope():
+            return self._fused_train_step(self.state, [b for b, _ in moved],
+                                          [d for _, d in moved])

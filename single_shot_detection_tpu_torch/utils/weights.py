@@ -5,8 +5,8 @@ The port's modules carry the flax submodule names
 ``score_head2``, ...), so a JAX variable tree maps onto the port's
 ``state_dict`` by a plain walk; the result loads with ``strict=True``.
 :func:`from_jax_state` does the same for a whole restored JAX ``TrainState``
-(``single_shot_detection_tpu/train/state.py``), with its step, ``lr_scale``
-and SGD momentum.
+(``single_shot_detection_tpu/train/state.py``), with its step, ``lr_scale``,
+optimizer state and EMA shadow.
 """
 
 from __future__ import annotations
@@ -143,46 +143,82 @@ def reconcile_qat(incoming: Dict[str, torch.Tensor],
     return out
 
 
-def _sgd_trace(opt_state) -> Optional[Mapping]:
-    """The momentum tree of an optax SGD chain state, or None without
-    momentum; under the pruning wrapper (``{'inner': chain, 'mask':
-    tree}``) the chain's.  The chain is found by structure: its members are
-    ``add_decayed_weights`` (``{}``), ``trace`` (``{'trace': tree}``) and
-    ``scale_by_learning_rate`` (``{'count': n}``), in a tuple stored as
-    ``{'0': ..., '1': ...}``; with weight decay the flagship's is
-    ``{'0': {}, '1': {'trace'}, '2': {'count'}}``, without it
-    ``{'0': {'trace'}, '1': {'count'}}``.  Any other state (another
-    optimizer, ``lr_groups``, accumulation, clipping) raises
-    ``NotImplementedError``."""
-    traces = []
+# optax state leaves holding a tree of per-parameter buffers -> the port's
+# buffer names (``train/optimizers.py``): ``trace`` is torch's
+# ``momentum_buffer``; the hand-written optimizers' dicts keep their names
+_OPT_BUFFERS = {'trace': 'momentum_buffer', 'mu': 'mu', 'nu': 'nu',
+                'acc': 'acc', 'square_avg': 'square_avg',
+                'acc_delta': 'acc_delta', 'm': 'm', 'u': 'u', 'v': 'v'}
+_OPT_SCALARS = ('count', 'mu_product')
+_MULTI_STEPS = {'mini_step', 'gradient_step', 'inner_opt_state', 'acc_grads'}
+DEFAULT_LABEL = '__default__'
 
-    def visit(node, path):
-        if isinstance(node, Mapping) and set(node) == {'inner', 'mask'}:
-            # the pruning wrapper (``masked``): the chain is its inner state
-            visit(node['inner'], path + ('inner',))
-            return
+
+def parse_opt_state(opt_state) -> dict:
+    """A JAX optimizer state (``train/optimizers.py::create_optimizer``'s,
+    as ``utils/flax_msgpack.py`` reads it) by structure:
+
+    ``{'groups': {label: {'buffers': {buffer name: {parameter name:
+    tensor}}, 'counts': [update counts], 'mu_product': float or None}},
+    'accumulation': None or {'mini_step', 'gradient_step', 'acc_grads':
+    {parameter name: tensor}}}``.
+
+    The members recognized: a chain (a tuple stored as ``{'0': ..., '1':
+    ...}``); the empty states of ``add_decayed_weights``, a constant rate,
+    the decoupled decay and ``clip_by_global_norm`` (``{}``);
+    ``scale_by_learning_rate``'s ``{'count'}``; ``trace``,
+    ``scale_by_adam``, ``scale_by_rms`` and the five hand-written dicts;
+    ``multi_transform``'s ``{'inner_states': {label: {'inner_state'}}}``
+    for ``lr_groups`` (the default group's label ``__default__``, a
+    parameter outside a label an empty leaf); ``MultiSteps``; and the
+    pruning wrapper's ``{'inner', 'mask'}``, whose inner state is parsed.
+    Anything else raises ``ValueError``."""
+    out = {'groups': {}, 'accumulation': None}
+
+    def group(label):
+        return out['groups'].setdefault(
+            label, {'buffers': {}, 'counts': [], 'mu_product': None})
+
+    def visit(node, path, label):
+        where = '/'.join(path) or 'opt_state'
         if not isinstance(node, Mapping):
-            raise NotImplementedError(
-                f'optimizer state leaf at {"/".join(path) or "opt_state"}: '
-                'only the SGD chain is ported yet')
+            raise ValueError(f'unexpected optimizer state leaf at {where}')
         keys = set(node)
-        if keys == {'trace'}:
-            traces.append(node['trace'])
-        elif keys and keys != {'count'}:
-            if not all(str(k).isdigit() for k in keys):
-                raise NotImplementedError(
-                    f'optimizer state {sorted(keys)} at '
-                    f'{"/".join(path) or "opt_state"}: only the SGD chain '
-                    '(add_decayed_weights, trace, scale_by_learning_rate) is '
-                    'ported yet')
+        if not keys:
+            return
+        if keys == {'inner', 'mask'}:
+            visit(node['inner'], path + ('inner',), label)
+        elif _MULTI_STEPS <= keys:
+            out['accumulation'] = {
+                'mini_step': int(np.asarray(node['mini_step'])),
+                'gradient_step': int(np.asarray(node['gradient_step'])),
+                'acc_grads': _params_to_torch(node['acc_grads'])}
+            visit(node['inner_opt_state'], path + ('inner_opt_state',), label)
+        elif keys == {'inner_states'}:
+            for name, inner in node['inner_states'].items():
+                inner = inner.get('inner_state', inner)
+                visit(inner, path + ('inner_states', name), name)
+        elif all(str(k).isdigit() for k in keys):
             for k in sorted(keys, key=int):
-                visit(node[k], path + (str(k),))
+                visit(node[k], path + (str(k),), label)
+        elif keys <= set(_OPT_BUFFERS) | set(_OPT_SCALARS):
+            g = group(label)
+            for key in keys & set(_OPT_BUFFERS):
+                name = _OPT_BUFFERS[key]
+                if name in g['buffers']:
+                    raise ValueError(f'two {key!r} states in one optimizer '
+                                     f'group ({where})')
+                g['buffers'][name] = _params_to_torch(node[key])
+            if 'count' in keys:
+                g['counts'].append(int(np.asarray(node['count'])))
+            if 'mu_product' in keys:
+                g['mu_product'] = float(np.asarray(node['mu_product']))
+        else:
+            raise ValueError(f'optimizer state {sorted(keys)} at {where}: '
+                             'not a state of the JAX package\'s optimizers')
 
-    visit(opt_state, ())
-    if len(traces) > 1:
-        raise NotImplementedError(f'{len(traces)} momentum traces in one '
-                                  'optimizer state')
-    return traces[0] if traces else None
+    visit(opt_state, (), DEFAULT_LABEL)
+    return out
 
 
 def _pruning_mask(opt_state) -> Optional[Dict[str, torch.Tensor]]:
@@ -211,25 +247,29 @@ def from_jax_state(raw: Mapping) -> dict:
     """A restored JAX ``TrainState`` dict (``ckpt-N.msgpack`` through
     ``utils/flax_msgpack.py``) -> the port's state:
 
-    ``{'step': int, 'lr_scale': float, 'model': state_dict, 'momentum':
-    {parameter name: momentum buffer} or None, 'mask': {parameter name:
-    pruning mask} or None}``.
+    ``{'step': int, 'lr_scale': float, 'model': state_dict, 'optimizer':
+    parse_opt_state(...), 'momentum': {parameter name: momentum buffer} or
+    None, 'mask': {parameter name: pruning mask} or None, 'ema':
+    {parameter name: shadow} or None}``.
 
-    The model is :func:`from_jax_variables`'.  optax's ``trace`` (``t = g +
-    m * t``, zero at init) is ``torch.optim.SGD``'s ``momentum_buffer`` with
-    ``dampening=0``; its kernels go HWIO -> OIHW as the weights do.  A
-    pruned run's state (``train.pruner``) carries its mask across
-    (:func:`_pruning_mask`).  An EMA
-    shadow (``ema_params``) is dropped with a log line: the port does not
-    run the EMA yet.
+    The model is :func:`from_jax_variables`'.  The optimizer's buffers
+    (:func:`parse_opt_state`) go HWIO -> OIHW as the weights do; optax's
+    ``trace`` (``t = g + m * t``, zero at init) is ``torch.optim.SGD``'s
+    ``momentum_buffer`` with ``dampening=0``, and ``momentum`` gathers it
+    over the groups.  A pruned run's state (``train.pruner``) carries its
+    mask across (:func:`_pruning_mask`), an EMA run's its shadow
+    (``ema_params``).
     """
-    ema = list(_walk(raw.get('ema_params') or {}))
-    if ema:
-        logging.info(f'>> checkpoint carries EMA but the port does not run '
-                     f'it: dropped {len(ema)} ema_params leaves')
-    trace = _sgd_trace(raw.get('opt_state', {}))
+    opt_state = raw.get('opt_state', {})
+    parsed = parse_opt_state(opt_state)
+    traces = [g['buffers']['momentum_buffer'] for g in parsed['groups'].values()
+              if 'momentum_buffer' in g['buffers']]
+    ema = raw.get('ema_params') or {}
     return {'step': int(np.asarray(raw['step'])),
             'lr_scale': float(np.asarray(raw.get('lr_scale', 1.0))),
             'model': from_jax_variables(raw),
-            'momentum': None if trace is None else _params_to_torch(trace),
-            'mask': _pruning_mask(raw.get('opt_state', {}))}
+            'optimizer': parsed,
+            'momentum': ({k: v for t in traces for k, v in t.items()}
+                         if traces else None),
+            'mask': _pruning_mask(opt_state),
+            'ema': _params_to_torch(ema) if ema else None}

@@ -197,14 +197,20 @@ def test_from_jax_state_finds_the_trace_by_structure(caplog):
     assert with_wd['step'] == 7 and with_wd['lr_scale'] == 0.5
     assert with_wd['momentum']['head.weight'].shape == (4, 2, 3, 3)
     assert from_jax_state({**base, 'opt_state': {'0': count}})['momentum'] is None
-    for opt_state in ({'0': {'count': 1, 'mu': trace, 'nu': trace}, '1': count},
-                      {'0': {'trace': trace}, '1': {'trace': trace}},
-                      {'inner_states': {'a': count}}):
-        with pytest.raises(NotImplementedError):
+    # Adam's and multi_transform's states are found by structure too; two
+    # traces in one group, or a state no optimizer has, raise
+    adam = from_jax_state({**base, 'opt_state': {
+        '0': {'count': 1, 'mu': trace, 'nu': trace}, '1': count}})
+    assert set(adam['optimizer']['groups']['__default__']['buffers']) == {'mu', 'nu'}
+    groups = from_jax_state({**base, 'opt_state': {'inner_states': {
+        'a': {'inner_state': count}}}})['optimizer']['groups']
+    assert groups['a']['counts'] == [7]
+    for opt_state in ({'0': {'trace': trace}, '1': {'trace': trace}},
+                      {'0': {'velocity': trace}}):
+        with pytest.raises(ValueError):
             from_jax_state({**base, 'opt_state': opt_state})
-    with caplog.at_level(logging.INFO):
-        from_jax_state({**base, 'opt_state': {'0': count}, 'ema_params': trace})
-    assert 'dropped 2 ema_params leaves' in caplog.text
+    ema = from_jax_state({**base, 'opt_state': {'0': count}, 'ema_params': trace})
+    assert ema['ema']['head.weight'].shape == (4, 2, 3, 3)
 
 
 # ------------------------------------------- optimizer parity after restore

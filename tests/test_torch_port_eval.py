@@ -309,7 +309,7 @@ def test_experiment_raises_on_what_is_not_ported():
         with pytest.raises(NotImplementedError, match=match):
             Experiment(SMOKE, device='cpu', overrides=over, **kwargs)
     for extra, match in (({'train': {'device_cache': True}}, 'device_cache'),
-                         ({'train': {'ema': 0.99}}, 'ema'),
+                         ({'train': {'zero_sharding': True}}, 'zero_sharding'),
                          ({'train': {'async_checkpoint': True}}, 'async_checkpoint'),
                          ({'model': {'detector': {'num_classes': 5,
                                                   'torch_weight': 'w.pt'}}},

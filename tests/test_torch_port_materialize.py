@@ -386,16 +386,17 @@ def test_pruned_export_is_the_narrow_model(tmp_path):
     path = pt_export.export_model(exp, str(tmp_path / 'narrow'),
                                   with_postprocess=True, with_preprocess=True,
                                   bake_variables=True, batch_size=2)
-    program = torch.export.load(path)
+    # one load: the call's module is the program's graph, unlifted
+    call = pt_export.load_exported(path)
     assert any('nms_keep_batched' in str(n.target)
-               for n in program.graph.nodes if n.op == 'call_function')
-    shapes = sorted(tuple(v.shape) for k, v in program.state_dict.items()
+               for n in call.module.graph.nodes if n.op == 'call_function')
+    shapes = sorted(tuple(v.shape) for k, v in call.module.state_dict().items()
                     if k.endswith('weight'))
     assert shapes == sorted(tuple(v.shape) for k, v in state.items()
                             if k.endswith('weight'))
     images = np.random.RandomState(3).randint(
         0, 256, (2, 128, 128, 3)).astype(np.float32)
-    got = pt_export.load_exported(path)(images)
+    got = call(images)
     fn = pt_export._make_inference_fn_for(exp, bundle.module, True,
                                           with_preprocess=True,
                                           bake_variables=True)

@@ -33,6 +33,7 @@ from single_shot_detection_tpu_torch import cli
 from single_shot_detection_tpu_torch.models import builder as pt_builder
 from single_shot_detection_tpu_torch.train import checkpoint as ckpt
 from single_shot_detection_tpu_torch.train import materialize, pruning
+from single_shot_detection_tpu_torch.train import optimizers as pt_optimizers
 from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.train.state import TrainState
 from single_shot_detection_tpu_torch.train.step import apply_gradients
@@ -93,9 +94,8 @@ def jax_params(variables):
 
 
 def port_state(model, mask=True, **sgd):
-    opt = {k: v for k, v in {**SGD, **sgd}.items() if k != 'name'}
-    return TrainState(model, torch.optim.SGD(model.parameters(), **opt),
-                      mask={} if mask else None)
+    return TrainState(model, pt_optimizers.create_optimizer(
+        {**SGD, **sgd}, model.named_parameters()), mask={} if mask else None)
 
 
 def assert_params_equal(model, params, **tol):

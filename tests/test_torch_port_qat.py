@@ -398,8 +398,8 @@ def test_act_amax_crosses_weights_and_checkpoints(twice, tmp_path, caplog):
         model = PortTwice()
         if qat:
             pq.qat_init(model)
-        optimizer = torch.optim.SGD(model.parameters(), lr=1e-2)
-        return TrainState(model, optimizer)
+        return TrainState(model, pt_optimizers.create_optimizer(
+            {'name': 'SGD', 'lr': 1e-2}, model.parameters()))
 
     caplog.set_level(logging.INFO)
     qat_state, _ = pt_ckpt.restore(path, port_state(True))

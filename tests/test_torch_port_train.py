@@ -213,9 +213,15 @@ def test_multibox_loss_and_gradients_match_jax():
 
 
 def test_build_loss_raises_on_unported_names():
-    with pytest.raises(KeyError,
-                       match='CrossEntropyLoss, SigmoidFocalLoss, SmoothL1Loss'):
-        pt_losses.build_loss('SoftmaxFocalLoss')
+    """Every loss of the JAX package is ported (their parity is
+    ``test_torch_port_losses.py``'s); an unknown name raises with every
+    supported name listed."""
+    assert isinstance(pt_losses.build_loss('SoftmaxFocalLoss'),
+                      pt_losses.SoftmaxFocalLoss)
+    with pytest.raises(KeyError) as err:
+        pt_losses.build_loss('TripletMarginLoss')
+    assert ', '.join(sorted(pt_losses.LOSSES)) in str(err.value)
+    assert len(pt_losses.LOSSES) == 16
 
 
 # -------------------------------------------------------- optimizer, lr
@@ -243,9 +249,7 @@ def test_sgd_multistep_matches_optax_chain():
         p_j = optax.apply_updates(p_j, updates)
         for k, p in p_t.items():
             p.grad = t(g[k])
-        for group in opt.param_groups:
-            group['lr'] = schedule_p(step)
-        opt.step()
+        opt.step(count=step, schedule=schedule_p)
         assert schedule_p(step) == pytest.approx(float(schedule_j(step)))
         for k in params:
             np.testing.assert_allclose(p_t[k].detach().numpy(),
@@ -256,12 +260,15 @@ def test_sgd_multistep_matches_optax_chain():
 
 @pytest.mark.parametrize('name', ['Adam', 'CosineAnnealingLR'])
 def test_unported_optimizers_and_schedules_raise(name):
-    """Adam is not ported yet and raises.  Every schedule of the JAX
-    package is ported (CosineAnnealingLR among them); an unknown name
-    raises."""
+    """Every optimizer of the JAX package is ported (Adam among them; their
+    parity is ``test_torch_port_optim.py``'s), and so is every schedule
+    (CosineAnnealingLR among them); an unknown name raises."""
     if name == 'Adam':
-        with pytest.raises(NotImplementedError, match='not ported yet'):
-            pt_optimizers.create_optimizer({'name': 'Adam', 'lr': 1e-3},
+        opt = pt_optimizers.create_optimizer({'name': 'Adam', 'lr': 1e-3},
+                                             [torch.nn.Parameter(torch.zeros(1))])
+        assert opt.rule_name == 'Adam'
+        with pytest.raises(KeyError, match='unknown optimizer'):
+            pt_optimizers.create_optimizer({'name': 'Lion', 'lr': 1e-3},
                                            [torch.nn.Parameter(torch.zeros(1))])
         return
     schedule, plateau, _ = pt_schedulers.create_lr_schedule(
@@ -426,14 +433,18 @@ def test_trainer_raises_on_what_is_not_ported():
     with pytest.raises(NotImplementedError, match='Unsupported augmentation'):
         Trainer.from_config(SMOKE, device='cpu', overrides={
             'augmentations': [{'name': 'Mosaic'}]})
-    for key, value in (('mixup', {'alpha': 0.2, 'p': 0.5}), ('ema', 0.999),
-                       ('frozen_bn', True), ('fused_steps', 2)):
+    for key in ('tensor_sharding', 'spatial_sharding', 'pipeline_sharding',
+                'zero_sharding'):
         with pytest.raises(NotImplementedError, match=key):
             Trainer.from_config(SMOKE, device='cpu', overrides={
-                'augmentations': [], 'train': {key: value}})
-    with pytest.raises(NotImplementedError, match='accumulation'):
-        Trainer.from_config(SMOKE, device='cpu', overrides={
-            'train': {'accumulation_steps': 2}})
+                'augmentations': [], 'train': {key: 2}})
+    # mixup, EMA, frozen BN, fused steps and accumulation are ported
+    trainer = Trainer.from_config(SMOKE, device='cpu', overrides={
+        'augmentations': [], 'train': {
+            'mixup': {'alpha': 0.2, 'p': 0.5}, 'ema': 0.999, 'frozen_bn': True,
+            'fused_steps': 2, 'accumulation_steps': 2}})
+    assert trainer.state.optimizer.accumulation_steps == 2
+    assert trainer.ema == 0.999 and trainer.fused_steps == 2
     # the config's own CosineAnnealingWithWarmupLR is ported
     assert Trainer.from_config(SMOKE, device='cpu').schedule(0) == pytest.approx(1e-4)
     with pytest.raises(NotImplementedError, match='staging_colorspace'):
