@@ -236,6 +236,32 @@ Phases, each fatal:
     AdamW, EMA on, a micro-step of accumulation 2 and ``fused_steps`` 4
     per step, and the optimizer's and the EMA's launches and host ms per
     step.
+21. the data path and run extras on the flagship at full width (b32,
+    ``fused_bn``) through ``Experiment`` with ``staging_colorspace=
+    'yuv420'``, ``staging_cache``, ``device_cache`` (and so the eval replay
+    cache), ``async_checkpoint`` and ``tensorboard`` at once, over the
+    committed JPEG fixtures (``JPEG_FIXTURES``: 256 train and 64 eval
+    entries), 3 epochs (the first fills the caches, the other two run
+    from the card): each BN kernel 64 launches a step, NMS once an
+    evaluation, the loaders staging the fill epoch's batches and one
+    evaluation's only, and a cached against a streamed epoch in turns; (a) the port's JPEG decoder built
+    from its source, the fixtures staged bit-equal over two calls and at 1
+    and 8 threads (without ``g++`` or ``jpeglib.h`` it prints
+    ``native: unavailable (<the build's error>)``, the ``Experiment`` runs
+    on ``Synthetic`` data of the same counts, and the loader timings
+    decode the fixtures with PIL only); (b) ``yuv420_to_rgb`` on the
+    card bit-equal to the CPU; (c) a cached epoch's batches bit-equal to
+    the streamed loader's and copy's, and no host-to-device copy of image
+    bytes in a cached epoch (the profiler's memcpy rows, against a streamed
+    epoch's); (d) a replayed evaluation: no loader pass, NMS launched as in
+    a streamed one, the same loss and mAP; (e) an async save held back
+    while 8 steps run restores bit-equal to the state at the save; (f) the
+    tensorboard event file's scalars equal ``log.csv``'s rows (or: not
+    installed).  Times: loader img/s at b32, native and Python decode, RGB
+    and YUV420; a batch's bytes and pinned copy ms; a decoding against a
+    staging-cache epoch; the fill against the cached epochs; a streamed
+    against a replayed evaluation, in turns; the loop's blocked ms for a
+    synchronous against an async save; and both decode counts.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -278,7 +304,8 @@ from single_shot_detection_tpu_torch.data import transforms
 from single_shot_detection_tpu_torch.predict import Predictor
 from single_shot_detection_tpu_torch.train import checkpoint as ckpt
 from single_shot_detection_tpu_torch.train import pruning
-from single_shot_detection_tpu_torch.train.engine import Experiment
+from single_shot_detection_tpu_torch.train.engine import (Experiment,
+                                                         prefetch_to_device)
 from single_shot_detection_tpu_torch.train.step import make_train_step
 from single_shot_detection_tpu_torch.trainer import Trainer
 
@@ -4908,6 +4935,567 @@ def run_train_options(smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 21
+
+# The committed JPEG fixtures (tools/make_jpeg_fixtures.py): 16 VOC-like
+# JPEGs, one grayscale, listed 256 times for train and 64 for eval
+JPEG_FIXTURES = REPO / 'single_shot_detection_tpu_torch' / 'data' / 'jpeg_fixtures'
+EXTRAS_SETS = {'train': 'train256', 'eval': 'eval64'}
+EXTRAS_SYNTHETIC = {'train': {'name': 'Synthetic', 'num_images': 256,
+                              'image_size': 500, 'num_classes': 21,
+                              'max_boxes': 6, 'seed': 1},
+                    'eval': {'name': 'Synthetic', 'num_images': 64,
+                             'image_size': 500, 'num_classes': 21,
+                             'max_boxes': 6, 'seed': 2}}
+EXTRAS_EPOCHS = 3
+EXTRAS_STAGING = (300, 300)
+
+
+def extras_dataset(native_ok: bool) -> dict:
+    """The fixtures as Pascal VOC when the native decoder is built, else
+    ``Synthetic`` data of the same counts."""
+    if not native_ok:
+        return EXTRAS_SYNTHETIC
+    return {phase: {'name': 'Voc', 'root': str(JPEG_FIXTURES),
+                    'image_sets': [(2007, image_set)]}
+            for phase, image_set in EXTRAS_SETS.items()}
+
+
+def libjpeg_present() -> dict:
+    """What this machine has of libjpeg, which the native decoder needs to
+    build (the header) and to load (a shared library): ``jpeglib.h`` on the
+    compiler's default include path, the library the dynamic loader finds,
+    whether ``libjpeg.so.62`` loads, and the libjpeg that Pillow bundles (a
+    runtime with no header)."""
+    import ctypes.util
+    import glob
+    import sysconfig
+    headers = [d for d in ('/usr/include', '/usr/local/include',
+                           '/usr/include/x86_64-linux-gnu')
+               if os.path.exists(os.path.join(d, 'jpeglib.h'))]
+    site = sysconfig.get_paths()['purelib']
+    bundled = sorted(os.path.basename(p) for p in
+                     glob.glob(os.path.join(site, 'pillow.libs', 'libjpeg*')))
+    try:
+        from PIL import features
+        pil_jpeg = features.version('jpg')
+    except Exception as exc:  # Pillow missing or built without JPEG
+        pil_jpeg = f'unavailable ({exc})'
+    try:  # the soname the JAX package's prebuilt native/ library links
+        ctypes.CDLL('libjpeg.so.62')
+        so62 = True
+    except OSError:
+        so62 = False
+    return {'jpeglib_h': headers, 'libjpeg_so': ctypes.util.find_library('jpeg'),
+            'libjpeg_so_62_loads': so62, 'pillow_bundled': bundled,
+            'pillow_libjpeg_version': pil_jpeg}
+
+
+def native_decode_check() -> dict:
+    """(a) The port's decoder built from its source: the 16 fixtures staged
+    at 300x300, RGB and YUV420, bit-equal across two calls and at 1 and 8
+    threads, with each image's original size."""
+    from single_shot_detection_tpu_torch.data import datasets, native
+    t = time.perf_counter()
+    if native.get_library() is None:
+        return {'available': False, 'error': native.error,
+                'libjpeg': libjpeg_present()}
+    build_s = time.perf_counter() - t
+    ds = datasets.Voc(str(JPEG_FIXTURES), [(2007, 'all')])
+    paths = [a['image_path'] for a in ds.annotations]
+    want_sizes = np.array([(a['width'], a['height']) for a in ds.annotations])
+    w, h = EXTRAS_STAGING
+    outs = {}
+    for kind, shape, call in (
+            ('rgb', (len(paths), h, w, 3), lambda out, n: native.decode_batch_into(
+                paths, out, num_threads=n)),
+            ('yuv420', (len(paths), w * h * 3 // 2),
+             lambda out, n: native.decode_batch_into_yuv420(
+                 paths, out, EXTRAS_STAGING, num_threads=n))):
+        runs = []
+        for threads in (1, 8, 8):
+            out = np.zeros(shape, np.uint8)
+            sizes = call(out, threads)
+            if sizes is None or not np.array_equal(sizes, want_sizes):
+                fail(f'native {kind} decode gave sizes {sizes}')
+            runs.append(out)
+        if not all(np.array_equal(runs[0], r) for r in runs[1:]):
+            fail(f'native {kind} decode differs between calls or threads')
+        outs[kind] = runs[0]
+    return {'available': True, 'build_or_load_s': build_s,
+            'images': len(paths), 'yuv420_batch': outs['yuv420']}
+
+
+def yuv_card_vs_cpu(packed: np.ndarray) -> dict:
+    """(b) ``yuv420_to_rgb`` on the card against the CPU."""
+    cpu = transforms.yuv420_to_rgb(torch.from_numpy(packed), EXTRAS_STAGING)
+    card = transforms.yuv420_to_rgb(torch.from_numpy(packed).cuda(),
+                                    EXTRAS_STAGING)
+    if not torch.equal(card.cpu(), cpu):
+        fail('yuv420_to_rgb on the card differs from the CPU: '
+             f'{int((card.cpu() != cpu).sum())} values')
+    return {'values': cpu.numel(), 'equal': True}
+
+
+def fixture_train_set():
+    from single_shot_detection_tpu_torch.data.datasets import Voc
+    return Voc(str(JPEG_FIXTURES), [(2007, EXTRAS_SETS['train'])])
+
+
+def loader_times(native_ok: bool, smi: str) -> dict:
+    """Loader img/s at b32 over the fixtures' 256 train entries, native
+    (where it built) and Python decode, RGB and YUV420 staging (staging on
+    the card, as an ``Experiment`` stages); each batch's pinned copy to
+    the card, ms and bytes."""
+    from single_shot_detection_tpu_torch.data.loader import Loader
+
+    class PythonDecode(Loader):
+        def _native_fill(self, idxs, rows_out):
+            return None
+
+    ds = fixture_train_set()
+    paths = (('native', Loader), ('python', PythonDecode)) if native_ok else \
+        (('python', PythonDecode),)
+    out = {}
+    for colorspace in ('rgb', 'yuv420'):
+        for path, cls in paths:
+            loader = cls(ds, 32, EXTRAS_STAGING, staging_colorspace=colorspace,
+                         staging_device=torch.device('cuda'))
+            t = time.perf_counter()
+            batches = list(loader)
+            seconds = time.perf_counter() - t
+            out[f'{colorspace}_{path}_img_per_s'] = len(ds) / seconds
+        image = batches[0]['image']
+
+        def copy():
+            torch.from_numpy(image).pin_memory().to('cuda', non_blocking=True)
+
+        out[f'{colorspace}_batch_bytes'] = image.nbytes
+        out[f'{colorspace}_copy_ms'] = statistics.median(host_times_ms(copy, 10))
+    log(f'  {smi}: loader b32 over the {len(ds)} fixture entries, img/s: '
+        + ', '.join(f'{c} {p} {out[f"{c}_{p}_img_per_s"]:.1f}'
+                    for c in ('rgb', 'yuv420') for p, _ in paths)
+        + ('' if native_ok else ' (native: not built)')
+        + '; a batch\'s pinned copy to the card: '
+        + ', '.join(f'{c} {out[f"{c}_batch_bytes"]} B in '
+                    f'{out[f"{c}_copy_ms"]:.3f} ms' for c in ('rgb', 'yuv420')))
+    return out
+
+
+def staging_cache_times(work: str) -> dict:
+    """A yuv420 loader epoch over the fixtures that decodes and fills the
+    staging cache against one that reads it back (staging on the card)."""
+    from single_shot_detection_tpu_torch.data.loader import Loader
+    ds = fixture_train_set()
+    out = {}
+    for label in ('decode_epoch_s', 'cache_hit_epoch_s'):
+        loader = Loader(ds, 32, EXTRAS_STAGING, staging_colorspace='yuv420',
+                        cache_dir=os.path.join(work, 'timed_cache'),
+                        staging_device=torch.device('cuda'))
+        t = time.perf_counter()
+        for _ in loader:
+            pass
+        out[label] = time.perf_counter() - t
+    if not loader.cache.complete:
+        fail('the staging cache is not complete after an epoch')
+    return out
+
+
+def count_staged(loader) -> list:
+    """Record the size of each batch ``loader`` stages from now on."""
+    staged = []
+    make_batch = loader._make_batch
+
+    def counted(idxs, pool):
+        staged.append(len(idxs))
+        return make_batch(idxs, pool)
+
+    loader._make_batch = counted
+    return staged
+
+
+def htod_copies(run) -> list:
+    """Bytes of each host-to-device copy in the profiler's trace of one
+    call of ``run`` (after a warm-up call), from its memcpy rows."""
+    prof = profile_window(run)
+    with tempfile.NamedTemporaryFile(suffix='.json') as f:
+        prof.export_chrome_trace(f.name)
+        with open(f.name) as g:
+            events = json.load(g)['traceEvents']
+    copies = [e for e in events if e.get('cat') == 'gpu_memcpy'
+              and 'HtoD' in e.get('name', '')]
+    if copies and any('bytes' not in e.get('args', {}) for e in copies):
+        fail('the profiler\'s memcpy rows carry no byte counts')
+    return [int(e['args']['bytes']) for e in copies]
+
+
+def cached_epoch_checks(exp: Experiment, record_bytes: int) -> dict:
+    """(c) The batches a cached epoch gathers against the streamed loader's
+    and copy's, for the same epoch, tensor for tensor; then the
+    host-to-device copies of a cached and of a streamed epoch.  A copy of
+    image bytes is one whose size is a whole number of image records
+    (``record_bytes``): the streamed epoch copies each batch's images in
+    one such copy, the cached one makes none, and its copies (each step's
+    augmentation draws and the epoch's indices) stay under one batch of
+    images in all."""
+    loader = exp.loaders['train']
+    cache = exp.device_cache
+    gathered = list(cache.epoch_batches(loader, 1, 1))
+    loader.epoch = 1
+    streamed = [t for _, t in prefetch_to_device(loader, exp.device, 2)]
+    if len(gathered) != len(streamed) or not all(
+            torch.equal(a, b) for (_, g), s in zip(gathered, streamed)
+            for a, b in zip(g, s)):
+        fail('a cached epoch\'s batches differ from the streamed ones')
+    del gathered, streamed
+    copies = {'cached': htod_copies(lambda: (exp.train_epoch(5),
+                                             torch.cuda.synchronize()))}
+    exp.device_cache = None  # stream the same epoch
+    copies['streamed'] = htod_copies(lambda: (exp.train_epoch(5),
+                                              torch.cuda.synchronize()))
+    exp.device_cache = cache
+    batch_bytes = record_bytes * loader.batch_size
+    image_copies = {k: [b for b in v if b and b % record_bytes == 0]
+                    for k, v in copies.items()}
+    if image_copies['cached'] or sum(copies['cached']) >= batch_bytes:
+        fail(f'a cached epoch copied {copies["cached"]} bytes to the card '
+             f'(an image record is {record_bytes} B, a batch of images '
+             f'{batch_bytes} B)')
+    if len(image_copies['streamed']) < len(loader):
+        fail(f'the profiler saw {len(image_copies["streamed"])} image '
+             f'copies of the streamed epoch\'s {len(loader)}')
+    return {'batches_equal': len(loader),
+            'htod_copies': {k: len(v) for k, v in copies.items()},
+            'htod_bytes': {k: sum(v) for k, v in copies.items()},
+            'htod_largest_bytes': {k: max(v, default=0)
+                                   for k, v in copies.items()},
+            'image_copies': {k: len(v) for k, v in image_copies.items()}}
+
+
+EPOCH_TURNS = ('cached', 'streamed', 'streamed', 'cached')
+
+
+def epoch_turns(exp: Experiment) -> dict:
+    """A device-cached train epoch against a streamed one (the loader
+    reading the staging cache, the batches copied ahead), in turns
+    (``EPOCH_TURNS``), seconds each."""
+    cache = exp.device_cache
+    times = {'cached': [], 'streamed': []}
+    for i, label in enumerate(EPOCH_TURNS):
+        exp.device_cache = cache if label == 'cached' else None
+        t = time.perf_counter()
+        exp.train_epoch(10 + i)  # reads its sums: waits for the card
+        times[label].append(time.perf_counter() - t)
+    exp.device_cache = cache
+    return times
+
+
+EVAL_TURNS = ('replayed', 'streamed', 'streamed', 'replayed', 'replayed',
+              'streamed')
+
+
+def eval_replay_checks(exp: Experiment) -> dict:
+    """(d) A replayed evaluation against a streamed one: no loader batch,
+    the NMS kernel launched alike, the same loss and mAP; their times in
+    turns (``EVAL_TURNS``, medians)."""
+    loader = exp.loaders['eval']
+    cache = exp._eval_cache
+    if cache is None:
+        fail('the eval replay cache is empty after training')
+    exp._eval_replay_cfg = None  # a streamed evaluation keeps nothing
+    staged = count_staged(loader)
+    runs = {}
+    for label in EVAL_TURNS:
+        exp._eval_cache = cache if label == 'replayed' else None
+        staged.clear()
+        zero_launches()
+        t = time.perf_counter()
+        metrics = exp.evaluate()  # reads its sums: waits for the card
+        seconds = time.perf_counter() - t
+        if label in runs:
+            runs[label]['times_s'].append(seconds)
+            if any(metrics[k] != runs[label]['metrics'][k]
+                   for k in ('loss', 'mAP')):
+                fail(f'{label} evaluations differ: {metrics} against '
+                     f'{runs[label]["metrics"]}')
+            continue
+        runs[label] = {'times_s': [seconds], 'metrics': metrics,
+                       'nms_launches': nms_kernel.nms_keep_batched.launches,
+                       'loader_batches': len(staged)}
+    for run in runs.values():
+        run['s'] = statistics.median(run['times_s'])
+    replayed, streamed = runs['replayed'], runs['streamed']
+    if replayed['loader_batches'] != 0 or streamed['loader_batches'] != len(loader):
+        fail(f'eval loader batches: replayed {replayed["loader_batches"]}, '
+             f'streamed {streamed["loader_batches"]}')
+    if not replayed['nms_launches'] == streamed['nms_launches'] == len(loader):
+        fail(f'NMS launches replayed {replayed["nms_launches"]}, streamed '
+             f'{streamed["nms_launches"]}, eval batches {len(loader)}')
+    for key in ('loss', 'mAP'):
+        if replayed['metrics'][key] != streamed['metrics'][key]:
+            fail(f'replayed eval {key} {replayed["metrics"][key]} against '
+                 f'streamed {streamed["metrics"][key]}')
+    return runs
+
+
+def async_save_checks(exp: Experiment, work: str) -> dict:
+    """(e) An async save held back while a cached epoch of 8 steps runs
+    restores bit-equal to the state at the save; and the loop's blocked ms
+    of a synchronous save against an async one."""
+    state = exp.trainer.state
+    want = ckpt._map_tensors(ckpt.saved_dict(state),
+                             lambda t: t.detach().cpu().clone())
+    gate = threading.Event()
+    real_write = ckpt.write
+
+    def held_write(*args):
+        gate.wait(120)
+        return real_write(*args)
+
+    saver = ckpt.AsyncSaver()
+    ckpt.write = held_write
+    try:
+        saver.save(os.path.join(work, 'held'), state, 7)
+        exp.train_epoch(6)  # 8 steps while the write waits
+        torch.cuda.synchronize()
+        in_flight = saver._thread is not None and saver._thread.is_alive()
+        gate.set()
+        saver.wait()
+    finally:
+        ckpt.write = real_write
+        gate.set()
+    if not in_flight:
+        fail('the async write finished before the steps it should overlap')
+    saved = torch.load(saver.path, map_location='cpu', weights_only=True)
+    mismatched = []
+
+    def compare(a, b, name):
+        if isinstance(a, dict):
+            for k in a:
+                compare(a[k], b[k], f'{name}.{k}')
+        elif isinstance(a, torch.Tensor):
+            if not torch.equal(a, b):
+                mismatched.append(name)
+        elif isinstance(a, (list, tuple)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                compare(x, y, f'{name}[{i}]')
+    compare(want, saved, 'ckpt')
+    moved = sum(not torch.equal(v.cpu(), want['model'][k])
+                for k, v in state.model.state_dict().items())
+    if mismatched or not moved:
+        fail(f'the held async save differs from the state at the save in '
+             f'{mismatched[:5]} ({len(mismatched)} tensors); {moved} tensors '
+             'moved since')
+    ckpt.restore(saver.path, state)
+    if not all(torch.equal(v.cpu(), want['model'][k])
+               for k, v in state.model.state_dict().items()):
+        fail('the async checkpoint does not restore the state at the save')
+    blocked = {'sync': [], 'async': [], 'async_wait': []}
+    for i in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt.save(os.path.join(work, 'sync'), state, i)
+        blocked['sync'].append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        saver.save(os.path.join(work, 'async'), state, i)
+        blocked['async'].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        saver.wait()
+        blocked['async_wait'].append((time.perf_counter() - t) * 1e3)
+    return {'tensors': len(ckpt._tensors(want)), 'moved_since': moved,
+            'restored_equal': True,
+            'blocked_ms': {k: statistics.median(v) for k, v in blocked.items()}}
+
+
+def tensorboard_check(run_dir: str) -> dict:
+    """(f) The event file's scalars against ``log.csv``'s rows (float32),
+    under ``train/{key}`` and ``eval/{key}``."""
+    try:
+        from tensorboard.backend.event_processing.event_accumulator import \
+            EventAccumulator
+    except ImportError:
+        return {'installed': False}
+    acc = EventAccumulator(run_dir)
+    acc.Reload()
+    got = {tag: [(e.step, e.value) for e in acc.Scalars(tag)]
+           for tag in acc.Tags()['scalars']}
+    want = {}
+    for row in read_log_csv(os.path.join(run_dir, 'log.csv')):
+        for key, value in row.items():
+            if key != 'epoch' and value != '':
+                tag = ('train/' + key if key.startswith('train_')
+                       else 'eval/' + key[len('eval_'):])
+                want.setdefault(tag, []).append(
+                    (int(row['epoch']), float(np.float32(value))))
+    if got != want:
+        fail(f'tensorboard scalars {got} differ from log.csv {want}')
+    return {'installed': True, 'tags': len(got),
+            'values': sum(len(v) for v in got.values())}
+
+
+def run_data_extras(smi: str) -> dict:
+    """Phase 21: the data path and run extras on the flagship at full width
+    (b32, ``fused_bn``) through ``Experiment`` with every option at once."""
+    from single_shot_detection_tpu_torch.data import native
+    out = {}
+    work = tempfile.mkdtemp(prefix='chip_smoke_extras_')
+    try:
+        t = time.perf_counter()
+        decoded = native_decode_check()
+        native_ok = decoded['available']
+        out['native'] = {k: v for k, v in decoded.items()
+                         if k != 'yuv420_batch'}
+        if native_ok:
+            log(f'[21] {smi}: (a) native: built and loaded in '
+                f'{decoded["build_or_load_s"]:.2f} s; {decoded["images"]} '
+                'fixtures staged at 300x300, RGB and YUV420, bit-equal over '
+                'two calls and at 1 and 8 threads, original sizes right')
+            out['yuv'] = yuv_card_vs_cpu(decoded['yuv420_batch'])
+        else:
+            log(f'[21] {smi}: (a) native: unavailable ({decoded["error"]}); '
+                'the rest runs on Synthetic data of the same counts; libjpeg '
+                f'on this machine: {json.dumps(decoded["libjpeg"])}')
+        dataset_cfg = extras_dataset(native_ok)
+        counts = dict(native.COUNTS)
+        exp = Experiment(FLAGSHIP, phases=('train', 'eval'), device='cuda',
+                         seed=SEED, checkpoint_dir=os.path.join(work, 'run'),
+                         tensorboard=True, overrides={
+                             'dataset': dataset_cfg,
+                             'train': {'epochs': EXTRAS_EPOCHS, 'eval_every': 1,
+                                       'fused_bn': True,
+                                       'staging_colorspace': 'yuv420',
+                                       'staging_cache': os.path.join(work, 'stage'),
+                                       'device_cache': True,
+                                       'async_checkpoint': True}})
+        if not native_ok:
+            packed = next(iter(exp.loaders['eval']))['image']
+            out['yuv'] = yuv_card_vs_cpu(packed)
+        log(f'  (b) yuv420_to_rgb on the card bit-equal to the CPU on '
+            f'{out["yuv"]["values"]} values')
+        n_bn = sum(isinstance(m, BatchNorm) for m in exp.model.modules())
+        steps = len(exp.loaders['train'])
+        epoch_s = []
+        train_epoch = exp.train_epoch
+
+        def timed_epoch(epoch):
+            t0 = time.perf_counter()
+            row = train_epoch(epoch)  # reads its sums: waits for the card
+            epoch_s.append(time.perf_counter() - t0)
+            return row
+
+        exp.train_epoch = timed_epoch
+        staged = {phase: count_staged(loader)
+                  for phase, loader in exp.loaders.items()}
+        zero_launches()
+        t0 = time.perf_counter()
+        rows = exp.train()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        del exp.train_epoch
+        decode_counts = {k: native.COUNTS[k] - counts.get(k, 0)
+                         for k in ('native', 'python')}
+        want = {fn.__name__: n_bn * steps * EXTRAS_EPOCHS
+                for fn in bn_kernel.KERNELS}
+        want['nms_keep_batched'] = EXTRAS_EPOCHS * len(exp.loaders['eval'])
+        if launches != want:
+            fail(f'kernel launches {launches}, expected {want}')
+        if not all(np.isfinite(v) for row in rows for v in row.values()):
+            fail(f'non-finite rows {rows}')
+        if not all(0.0 <= row['eval_mAP'] <= 1.0 for row in rows):
+            fail(f'mAP outside [0, 1]: {rows}')
+        if not exp.device_cache.ready or exp._eval_cache is None:
+            fail('the device cache or the eval replay cache is not filled')
+        for loader in exp.loaders.values():
+            del loader._make_batch
+        # the fill epoch's batches and its top-up, one streamed evaluation
+        want_staged = {'train': steps + -(-exp.device_cache.topped_up // 32),
+                       'eval': len(exp.loaders['eval'])}
+        if {k: len(v) for k, v in staged.items()} != want_staged:
+            fail(f'the loaders staged {staged} over {EXTRAS_EPOCHS} epochs, '
+                 f'expected {want_staged} batches')
+        if native_ok and decode_counts['native'] != 256 + 64:
+            fail(f'decoded {decode_counts}, expected 320 natively')
+        out['experiment'] = {
+            'seconds': seconds, 'epoch_s': epoch_s, 'rows': rows,
+            'launches': launches, 'decoded': decode_counts,
+            'steps_per_epoch': steps, 'n_bn': n_bn,
+            'staged_batches': {k: len(v) for k, v in staged.items()},
+            'topped_up': exp.device_cache.topped_up,
+            'device_cache_bytes': exp.device_cache.total_bytes}
+        images = steps * exp.loaders['train'].batch_size
+        log(f'  Experiment.train(): {EXTRAS_EPOCHS} epochs of {steps} b32 '
+            f'steps (yuv420, staging cache, device cache, eval replay, async '
+            f'checkpoints, tensorboard) in {seconds:.2f} s; epochs '
+            + ', '.join(f'{s:.3f} s = {images / s:.1f} img/s' for s in epoch_s)
+            + f' (fill, then from the card); kernel launches '
+            + json.dumps(launches) + f' ({n_bn} a step for each BN kernel); '
+            f'images decoded {json.dumps(decode_counts)}; device cache '
+            f'{exp.device_cache.total_bytes} B, {exp.device_cache.topped_up} '
+            'rows topped up')
+        for row in rows:
+            log('    ' + json.dumps(row))
+        record_bytes = exp.device_cache.device['image'][0].nbytes
+        batch_bytes = record_bytes * exp.loaders['train'].batch_size
+        out['cached_epoch'] = cached_epoch_checks(exp, record_bytes)
+        c = out['cached_epoch']
+        log(f'  (c) {c["batches_equal"]} cached batches bit-equal to the '
+            'streamed loader\'s and copy\'s; host-to-device copies of an '
+            'epoch (profiler memcpy rows): cached '
+            f'{c["htod_copies"]["cached"]} copies, {c["htod_bytes"]["cached"]} B '
+            f'(largest {c["htod_largest_bytes"]["cached"]} B), streamed '
+            f'{c["htod_copies"]["streamed"]} copies, '
+            f'{c["htod_bytes"]["streamed"]} B ({c["image_copies"]["streamed"]} '
+            f'copies of whole {record_bytes} B image records; a batch of '
+            f'images is {batch_bytes} B)')
+        out['epoch_turns'] = epoch_turns(exp)
+        log(f'  {smi}: train epochs in turns {EPOCH_TURNS}: '
+            + '; '.join(f'{k} ' + ', '.join(f'{t:.3f} s = {images / t:.1f} img/s'
+                                           for t in v)
+                        for k, v in out['epoch_turns'].items()))
+        out['eval_replay'] = eval_replay_checks(exp)
+        r = out['eval_replay']
+        log(f'  (d) {smi}: evaluation in turns {EVAL_TURNS}, medians: '
+            f'replayed {r["replayed"]["s"]:.3f} s '
+            f'({", ".join(f"{t:.3f}" for t in r["replayed"]["times_s"])}), '
+            f'streamed {r["streamed"]["s"]:.3f} s '
+            f'({", ".join(f"{t:.3f}" for t in r["streamed"]["times_s"])}); '
+            f'loader batches '
+            f'{r["replayed"]["loader_batches"]} and '
+            f'{r["streamed"]["loader_batches"]}; NMS launches '
+            f'{r["replayed"]["nms_launches"]} and {r["streamed"]["nms_launches"]}; '
+            f'loss {r["replayed"]["metrics"]["loss"]:.6f}, mAP '
+            f'{r["replayed"]["metrics"]["mAP"]:.6f} both')
+        out['async'] = async_save_checks(exp, work)
+        a = out['async']
+        log(f'  (e) {smi}: an async save held while 8 steps ran restores '
+            f'bit-equal to the state at the save ({a["tensors"]} tensors; '
+            f'{a["moved_since"]} model tensors moved since); the loop blocked '
+            f'{a["blocked_ms"]["sync"]:.1f} ms by a synchronous save, '
+            f'{a["blocked_ms"]["async"]:.1f} ms by an async one (its write '
+            f'{a["blocked_ms"]["async_wait"]:.1f} ms more in the background)')
+        out['tensorboard'] = tensorboard_check(exp.checkpoint_dir)
+        tb = out['tensorboard']
+        log('  (f) ' + (f'tensorboard: {tb["values"]} scalars under {tb["tags"]} '
+                        'tags equal log.csv\'s rows' if tb['installed'] else
+                        'tensorboard is not installed: no event file'))
+        del exp
+        torch.cuda.empty_cache()
+        out['loader'] = loader_times(native_ok, smi)
+        out['staging_cache'] = staging_cache_times(work)
+        s = out['staging_cache']
+        log(f'  {smi}: a yuv420 loader epoch that decodes and fills the '
+            f'staging cache {s["decode_epoch_s"]:.3f} s, one that reads it '
+            f'{s["cache_hit_epoch_s"]:.3f} s; decoded in this process: '
+            + json.dumps(dict(native.COUNTS)) + f'; phase 21 checks in '
+            f'{time.perf_counter() - t:.1f} s')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
@@ -5161,6 +5749,12 @@ def main(argv=None) -> int:
     options = run_train_options(smi)
     log(f'  phase 20 in {time.perf_counter() - t:.1f} s')
 
+    # 21. the data path and run extras: native decode, YUV420 staging, the
+    # staging cache, the device cache, eval replay, async saves, tensorboard
+    t = time.perf_counter()
+    extras = run_data_extras(smi)
+    log(f'  phase 21 in {time.perf_counter() - t:.1f} s')
+
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
         **train_timing,
@@ -5197,7 +5791,8 @@ def main(argv=None) -> int:
         'train_options': {
             **{k: v for k, v in options.items() if k != 'combined'},
             'combined': {k: v for k, v in options['combined'].items()
-                         if k != 'launches'}}}}))
+                         if k != 'launches'}},
+        'data_extras': extras}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -5259,7 +5854,10 @@ def main(argv=None) -> int:
                                  'nms_keep_batched'],
                              # phase 20: the evaluation on the EMA shadow
                              'train_options_experiment': options[
-                                 'combined']['launches']['nms_keep_batched']},
+                                 'combined']['launches']['nms_keep_batched'],
+                             # phase 21: three evaluations, two replayed
+                             'data_extras_experiment': extras['experiment'][
+                                 'launches']['nms_keep_batched']},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
             'shape', 'ms', 'call_ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -5325,7 +5923,11 @@ def main(argv=None) -> int:
                                  'train_options_experiment': options[
                                      'combined']['launches'][name],
                                  'train_options_frozen_bn': options[
-                                     'frozen_bn']['launches'][name]},
+                                     'frozen_bn']['launches'][name],
+                                 # phase 21: the fill epoch and two from
+                                 # the device cache
+                                 'data_extras_experiment': extras[
+                                     'experiment']['launches'][name]},
             'max_abs_err': max(bn_check[name], *(
                 t['bn_max_abs_err'][name] for t in zoo_steps.values())),
             'shape': list(BN_TIMED_SHAPE),

@@ -30,9 +30,12 @@ int8, calibrated on eval batches or from a ``train.qat`` run's scales
 config's backbone at its eval batch; with the ``export`` phase it exports
 an int8 artifact.
 
-Not ported yet, each raising ``NotImplementedError``: ``--tensorboard``,
-the distributed flags, and ``--compilation-cache`` other than ``off`` (the
-port has no XLA cache; its kernels are built once into ``kernels/build/``).
+``--tensorboard`` writes each epoch's ``train/{k}`` and ``eval/{k}``
+scalars beside the checkpoints (``torch.utils.tensorboard``).
+
+Not ported yet, each raising ``NotImplementedError``: the distributed
+flags, and ``--compilation-cache`` other than ``off`` (the port has no XLA
+cache; its kernels are built once into ``kernels/build/``).
 """
 
 from __future__ import annotations
@@ -45,7 +48,6 @@ from typing import Optional, Sequence
 
 # flag -> where ROADMAP.md's Queue 1 lists it
 _UNPORTED_FLAGS = (
-    ('tensorboard', '--tensorboard', 'item 6 (tensorboard)'),
     ('coordinator_address', '--coordinator-address', 'item 8 (multi-GPU)'),
     ('num_processes', '--num-processes', 'item 8 (multi-GPU)'),
     ('process_id', '--process-id', 'item 8 (multi-GPU)'),
@@ -88,7 +90,8 @@ def get_argparser() -> argparse.ArgumentParser:
     parser.add_argument('--video', type=str,
                         help='Video file or image folder for the test phase')
     parser.add_argument('--tensorboard', default=False, action='store_true',
-                        help='Log to tensorboard (not ported yet)')
+                        help='Log train/eval scalars to tensorboard '
+                             '(into the checkpoint directory)')
     parser.add_argument('--profile', type=str, default=None, metavar='DIR',
                         help='Write a torch.profiler trace of the train '
                              'phase into DIR')
@@ -165,7 +168,8 @@ def main(argv: Optional[Sequence[str]] = None):
                                 load_weights=args.load_weights,
                                 debug=args.debug, bf16=args.bf16,
                                 int8=args.int8,
-                                matmul_precision=args.matmul_precision)
+                                matmul_precision=args.matmul_precision,
+                                tensorboard=args.tensorboard)
         if 'embed' in args.phases:
             import code
             code.interact(local={'experiment': experiment, 'cfg': cfg})

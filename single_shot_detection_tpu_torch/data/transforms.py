@@ -33,9 +33,10 @@ selects per image.
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from single_shot_detection_tpu_torch.data.preprocess import Preprocess
 
@@ -47,6 +48,31 @@ Draws = Dict[str, Any]
 # ---------------------------------------------------------------------------
 # photometric ops (float32 [B, H, W, 3] images in [0, 255])
 # ---------------------------------------------------------------------------
+
+def yuv420_to_rgb(packed: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Packed planar YUV420 ``[B, H*W*3//2]`` uint8 -> RGB uint8 ``[B, H, W,
+    3]``: the inverse of the loader's YUV420 staging (``data/native.py``),
+    a bilinear chroma upsample (half-pixel centres, the edge clamped: at
+    this exact 2x enlargement ``jax.image.resize``'s ``linear`` weights)
+    and the BT.601 full-range matrix.  ``size`` is the staging (w, h)."""
+    w, h = size
+    n = h * w
+    q = (h // 2) * (w // 2)
+    y = packed[:, :n].reshape(-1, h, w).float()
+
+    def up(plane):
+        c = plane.reshape(-1, 1, h // 2, w // 2).float()
+        return F.interpolate(c, size=(h, w), mode='bilinear',
+                             align_corners=False)[:, 0] - 128.0
+
+    cb = up(packed[:, n:n + q])
+    cr = up(packed[:, n + q:])
+    r = y + 1.402 * cr
+    g = y - 0.344136 * cb - 0.714136 * cr
+    b = y + 1.772 * cb
+    rgb = torch.stack([r, g, b], dim=-1)
+    return torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
+
 
 def _rgb_to_hsv(rgb):
     """RGB [0,1] -> HSV with h in [0,1)."""
@@ -630,16 +656,21 @@ class Pipeline:
     ``[B, S, S, 3]``, boxes ``[B, G, R>=4]`` in staged pixels, mask ``[B, G]``
     -> normalized float32 model input ``[B, 3, h, w]``, boxes in output
     pixels, mask.  ``__call__(generator, images, boxes, mask)`` draws from
-    ``generator`` (a CPU ``torch.Generator``) and applies.
+    ``generator`` (a CPU ``torch.Generator``) and applies.  With
+    ``staging_yuv`` (the staging (w, h) of a loader at
+    ``staging_colorspace='yuv420'``) images that arrive packed, ``[B,
+    S*S*3/2]``, are turned back into RGB first (:func:`yuv420_to_rgb`).
     """
 
     def __init__(self,
                  augmentations: Sequence[dict] = (),
                  preprocessing: Sequence[dict] = (),
                  input_size: Tuple[int, int] = (300, 300),
-                 train: bool = True):
+                 train: bool = True,
+                 staging_yuv: Optional[Tuple[int, int]] = None):
         self.preprocess = Preprocess(preprocessing, input_size)
         self.input_size = self.preprocess.input_size
+        self.staging_yuv = tuple(staging_yuv) if staging_yuv else None
         # transforms run in config order: photometric entries update the
         # staged image, geometric ones the window/box state
         self.stages: List[Tuple[str, Any]] = []
@@ -722,6 +753,8 @@ class Pipeline:
     def apply(self, draws: list, images: torch.Tensor, boxes: torch.Tensor,
               mask: torch.Tensor):
         """Apply the stages with the given draws (see the class doc)."""
+        if self.staging_yuv is not None and images.dim() == 2:
+            images = yuv420_to_rgb(images, self.staging_yuv)
         img = images.float()
         src_h, src_w = img.shape[1:3]
         state = identity_state(src_w, src_h, boxes, mask)

@@ -23,8 +23,11 @@ flax or msgpack.  Every file is written under a temporary name and renamed,
 so a crash mid-write never leaves a truncated checkpoint that
 :func:`find_latest` would pick.
 
-Not ported: the JAX package's ``AsyncSaver`` (``train.async_checkpoint``
-raises ``NotImplementedError``) and its multi-host gather.
+:class:`AsyncSaver` (``train.async_checkpoint``) writes the same file off
+the train loop: a copy of the state on its device, ordered on the stream
+before the next step's in-place updates, then the copy to the host and the
+write on a background thread.  Not ported: the JAX package's multi-host
+gather.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import logging
 import os
 import re
 import shutil
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -68,11 +72,9 @@ def find_latest(checkpoint_path: str) -> Optional[str]:
     return None
 
 
-def save(checkpoint_dir: str, state: TrainState, epoch: int) -> str:
-    """Write ``ckpt-{step}.pt`` and its ``.meta.json``; returns the path."""
-    os.makedirs(checkpoint_dir, exist_ok=True)
-    path = os.path.join(checkpoint_dir, f'ckpt-{state.step}.pt')
-    tmp = path + '.tmp'
+def saved_dict(state: TrainState) -> dict:
+    """What a ``.pt`` file holds for ``state``: the live tensors, not
+    copies."""
     saved = {'step': int(state.step),
              'model': state.model.state_dict(),
              'optimizer': state.optimizer.state_dict(),
@@ -81,13 +83,110 @@ def save(checkpoint_dir: str, state: TrainState, epoch: int) -> str:
         saved['mask'] = state.mask
     if state.ema_params:
         saved['ema'] = state.ema_params
-    torch.save(saved, tmp)
-    with open(path + '.meta.json.tmp', 'w') as f:
-        json.dump({'epoch': epoch, 'global_step': int(state.step)}, f)
-    os.replace(tmp, path)
-    os.replace(path + '.meta.json.tmp', path + '.meta.json')
+    return saved
+
+
+def write(checkpoint_dir: str, saved: dict, epoch: int) -> str:
+    """Write ``saved`` (:func:`saved_dict`) as ``ckpt-{step}.pt`` and its
+    ``.meta.json``, each under a temporary name renamed into place (removed
+    if the write fails); returns the path."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    step = saved['step']
+    path = os.path.join(checkpoint_dir, f'ckpt-{step}.pt')
+    tmp, meta_tmp = path + '.tmp', path + '.meta.json.tmp'
+    try:
+        torch.save(saved, tmp)
+        with open(meta_tmp, 'w') as f:
+            json.dump({'epoch': epoch, 'global_step': step}, f)
+        os.replace(tmp, path)
+        os.replace(meta_tmp, path + '.meta.json')
+    finally:
+        for name in (tmp, meta_tmp):
+            if os.path.exists(name):
+                os.unlink(name)
     logging.info(f'>> Saved checkpoint {path}')
     return path
+
+
+def save(checkpoint_dir: str, state: TrainState, epoch: int) -> str:
+    """Write ``ckpt-{step}.pt`` and its ``.meta.json``; returns the path."""
+    return write(checkpoint_dir, saved_dict(state), epoch)
+
+
+def _map_tensors(tree, fn):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return type(tree)((k, _map_tensors(v, fn)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return tree
+
+
+class AsyncSaver:
+    """Checkpoint writer off the train loop (``train.async_checkpoint``;
+    port of the JAX package's ``AsyncSaver``).
+
+    ``save`` copies every tensor of the state on its device (cheap, and
+    enqueued on the current stream ahead of the next step's in-place
+    updates, so the copy holds the state at the save) and hands the copy to
+    the host and the write to a background thread, while the loop goes on.
+    One save is in flight at a time (a second ``save`` first waits for the
+    previous one); ``wait()`` joins it and re-raises its failure.  Call
+    ``wait()`` before an emergency synchronous save and before exiting.
+    """
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.path: Optional[str] = None  # the last file written
+
+    def save(self, checkpoint_dir: str, state: TrainState, epoch: int) -> None:
+        self.wait()
+        snapshot = _map_tensors(saved_dict(state),
+                                lambda t: t.detach().clone())
+        devices = {t.device for t in _tensors(snapshot) if t.is_cuda}
+        events = []
+        for device in devices:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            events.append((device, event))
+
+        def run():
+            try:
+                host = snapshot
+                if events:
+                    # the copy to the host runs on a stream of its own after
+                    # the snapshot, not behind the steps queued since
+                    for device, event in events:
+                        stream = torch.cuda.Stream(device)
+                        stream.wait_event(event)
+                        with torch.cuda.stream(stream):
+                            host = _map_tensors(
+                                host, lambda t: t.to('cpu') if t.device == device
+                                else t)
+                self.path = write(checkpoint_dir, host, epoch)
+            except BaseException as exc:  # noqa: BLE001 — raised by wait()
+                self._error = exc
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name='ckpt-async-save')
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the save in flight, if any; re-raise its failure."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+
+def _tensors(tree):
+    out = []
+    _map_tensors(tree, out.append)
+    return out
 
 
 # ---------------------------------------------------------------- migration

@@ -51,10 +51,25 @@ each k batches of an epoch in one ``Trainer.fused_train_step`` call and a
 remainder shorter than k unfused; with ``TaylorExpansion`` pruning, which
 needs each step's gradients, it falls back to 1 with a warning.
 
-Not ported yet, each raising ``NotImplementedError`` when asked for: the
-asynchronous checkpoint writer, the device-resident dataset and the eval
-replay cache, keras ``.h5`` and torch-hub backbones, the reference's whole
-detector (``detector.torch_weight``), tensorboard and multi-host runs.
+The data path's options: ``train.staging_colorspace='yuv420'`` and
+``train.staging_cache`` (``data/loader.py``, ``data/cache.py``),
+``train.device_cache`` (``True`` or ``{'max_bytes': n}``, 4 GiB by
+default: the first epoch streams and keeps its rows, every later epoch
+gathers its batches on the device, ``data/device_cache.py``, the same batch
+stream bit for bit) and the eval replay cache (``eval.device_cache``,
+which defaults to ``train.device_cache``: the first evaluation's batches
+on the device are kept and every later evaluation replays them, within
+what the budget leaves after the train cache; over it, a warning and
+streaming).  ``train.async_checkpoint`` writes the scheduled checkpoints
+on a background thread (``train/checkpoint.py::AsyncSaver``), waited for
+before an emergency save and before :meth:`Experiment.train` returns.
+``tensorboard=True`` writes ``train/{k}`` and ``eval/{k}`` scalars per
+epoch into ``checkpoint_dir`` (``torch.utils.tensorboard``; without the
+``tensorboard`` package a warning, and the run goes on).
+
+Not ported yet, each raising ``NotImplementedError`` when asked for:
+keras ``.h5`` and torch-hub backbones, the reference's whole detector
+(``detector.torch_weight``) and multi-host runs.
 
 ``bf16`` runs the activations in bfloat16 (docs/DESIGN.md §10: parameters, BN
 statistics, SGD momentum and losses stay f32, so checkpoints are f32 and a
@@ -83,6 +98,7 @@ import numpy as np
 import torch
 
 from single_shot_detection_tpu_torch.data.datasets import DATASETS
+from single_shot_detection_tpu_torch.data import device_cache
 from single_shot_detection_tpu_torch.data.loader import create_loaders
 from single_shot_detection_tpu_torch.data.transforms import Pipeline
 from single_shot_detection_tpu_torch.device import resolve_device
@@ -96,7 +112,7 @@ from single_shot_detection_tpu_torch.train import checkpoint as ckpt
 from single_shot_detection_tpu_torch.train import materialize, pruning
 from single_shot_detection_tpu_torch.train.state import reset_shadow
 from single_shot_detection_tpu_torch.train.step import make_eval_step
-from single_shot_detection_tpu_torch.trainer import Trainer
+from single_shot_detection_tpu_torch.trainer import Trainer, staging_yuv
 from single_shot_detection_tpu_torch.utils.config import ConfigWrapper, load_config
 from single_shot_detection_tpu_torch.utils import torch_import
 from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
@@ -230,12 +246,6 @@ def create_datasets(dataset_cfg: dict, phases) -> dict:
 def check_experiment_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for the engine options the port does
     not run yet (the train options are ``trainer.check_ported``'s)."""
-    train = dict(cfg.train or {})
-    for key in ('device_cache', 'staging_cache', 'async_checkpoint'):
-        if train.get(key):
-            raise NotImplementedError(f'train.{key} is not ported yet')
-    if dict(cfg.eval or {}).get('device_cache'):
-        raise NotImplementedError('eval.device_cache is not ported yet')
     model = dict(cfg.model or {})
     if dict(model.get('detector', {})).get('torch_weight'):
         raise NotImplementedError('model.detector.torch_weight is not ported '
@@ -280,10 +290,9 @@ class Experiment:
                  matmul_precision: Optional[str] = None,
                  tensorboard: bool = False,
                  process_count: int = 1):
-        for name, value in (('tensorboard', tensorboard),
-                            ('process_count > 1', process_count != 1)):
-            if value:
-                raise NotImplementedError(f'Experiment {name} is not ported yet')
+        if process_count != 1:
+            raise NotImplementedError('Experiment process_count > 1 is not '
+                                      'ported yet')
         self.device = resolve_device(device)
         self.phases = list(phases)
         if isinstance(cfg, str):
@@ -319,6 +328,8 @@ class Experiment:
                 max_gt=train_cfg.get('max_gt', 100),
                 seed=self.seed,
                 staging_colorspace=str(train_cfg.get('staging_colorspace', 'rgb')),
+                cache_dir=(str(train_cfg['staging_cache'])
+                           if train_cfg.get('staging_cache') else None),
                 staging_device=self.device)
 
         # --- train side: pipeline, model, loss, optimizer, schedule ------
@@ -340,7 +351,7 @@ class Experiment:
 
         # --- eval side ----------------------------------------------------
         self.eval_pipeline = Pipeline((), cfg.preprocessing, input_size,
-                                      train=False)
+                                      train=False, staging_yuv=staging_yuv(cfg))
         box_coder = filter_kwargs(BoxCoder)(**(cfg.box_coder or {}))
         self.postprocessor = filter_kwargs(Postprocessor)(
             box_coder=box_coder, **cfg.postprocess)
@@ -377,6 +388,26 @@ class Experiment:
         self._int8_spatial_limit: Optional[int] = None
         self._predictor: Optional[Predictor] = None
         self._predictor_key = None
+
+        # --- the data path's caches, async saves, tensorboard --------------
+        dc_cfg = train_cfg.get('device_cache')
+        self.device_cache = (device_cache.make_device_cache(
+                                 self.loaders['train'], dc_cfg, self.device)
+                             if dc_cfg and 'train' in self.loaders else None)
+        # eval.device_cache, by default train.device_cache: the first
+        # evaluation's device batches, replayed by every later one
+        self._eval_replay_cfg = dict(cfg.eval or {}).get('device_cache', dc_cfg)
+        self._eval_cache: Optional[list] = None
+        self.async_saver = (ckpt.AsyncSaver()
+                            if train_cfg.get('async_checkpoint') else None)
+        self.writer = None
+        if tensorboard and not self.debug and checkpoint_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self.writer = SummaryWriter(checkpoint_dir)
+            except ImportError:
+                logging.warning('WW tensorboard unavailable: no scalars are '
+                                'written')
 
     def _load_weights(self, model_cfg: dict, resume_from: Optional[str],
                       load_weights: bool) -> None:
@@ -604,12 +635,15 @@ class Experiment:
             return self._train_epochs()
         except KeyboardInterrupt:
             if self.checkpoint_dir and not self.debug:
+                self._drain_async_saves(swallow=True)
                 path = ckpt.save(self.checkpoint_dir, self.trainer.state,
                                  self._current_epoch)
                 logging.warning(f'WW interrupted — emergency checkpoint '
                                 f'saved to {path}')
             raise
         finally:
+            # a save in flight finishes (or reports) however train() exits
+            self._drain_async_saves(swallow=True)
             if installed:
                 # None: the previous handler was not installed from Python
                 signal.signal(signal.SIGTERM, prev_handler
@@ -630,18 +664,50 @@ class Experiment:
             if self.pruner is not None:
                 self.pruner.prune(trainer.state)
             row = self.train_epoch(epoch)
+            self._log_scalars('train', row, epoch)
             if 'eval' in self.phases and (epoch + 1) % self.eval_every == 0:
-                row.update({f'eval_{k}': v for k, v in self.evaluate().items()})
+                metrics = self.evaluate()
+                row.update({f'eval_{k}': v for k, v in metrics.items()})
                 if trainer.plateau is not None:
                     value = row.get(trainer.scheduler_metric)
                     if value is not None:
                         trainer.state.lr_scale = trainer.plateau.update(value)
+                self._log_scalars('eval', metrics, epoch)
             rows.append(row)
             if csv_path:
                 _write_csv(csv_path, earlier + rows)
             if writes and (epoch + 1) % self.save_every == 0:
-                ckpt.save(self.checkpoint_dir, trainer.state, epoch)
+                if self.async_saver is not None:
+                    self.async_saver.save(self.checkpoint_dir, trainer.state,
+                                          epoch)
+                else:
+                    ckpt.save(self.checkpoint_dir, trainer.state, epoch)
+        # the last checkpoint is on disk, or its failure raised, on return
+        self._drain_async_saves(swallow=False)
         return rows
+
+    def _log_scalars(self, group: str, values: Mapping[str, float],
+                     epoch: int) -> None:
+        """``{group}/{key}`` tensorboard scalars (the JAX engine's tags: the
+        train row's keys keep their ``train_`` prefix)."""
+        if self.writer is None:
+            return
+        for k, v in values.items():
+            if k != 'epoch':
+                self.writer.add_scalar(f'{group}/{k}', v, epoch)
+        self.writer.flush()
+
+    def _drain_async_saves(self, swallow: bool) -> None:
+        """Join the async save in flight; ``swallow`` logs its failure
+        instead of raising (before an emergency save, which must run)."""
+        if self.async_saver is None:
+            return
+        try:
+            self.async_saver.wait()
+        except BaseException as exc:  # noqa: BLE001
+            if not swallow:
+                raise
+            logging.warning(f'WW async checkpoint write failed: {exc}')
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """The steps of epoch ``epoch``, each with the draws of its global
@@ -655,13 +721,22 @@ class Experiment:
         sums = None
         count = 0
         k = self.fused_steps
-        batches = self._device_batches(itertools.islice(loader, num_batches))
+        cache = self.device_cache
+        batches = () if cache is not None and cache.ready else \
+            self._device_batches(itertools.islice(loader, num_batches))
 
         def groups():
             """('single', tensors) or, with ``fused_steps`` > 1, ('fused',
-            k tensors); a remainder shorter than k runs unfused."""
+            k tensors); a remainder shorter than k runs unfused.  From the
+            device cache once it is filled, else from the loader (the fill
+            epoch keeps each batch's rows)."""
+            if cache is not None and cache.ready:
+                yield from cache.epoch_batches(loader, epoch, k, num_batches)
+                return
             chunk = []
-            for _, tensors in batches:
+            for batch, tensors in batches:
+                if cache is not None:
+                    cache.observe(batch)
                 if k == 1:
                     yield 'single', tensors
                     continue
@@ -685,6 +760,9 @@ class Experiment:
             stacked = torch.stack([metrics[key] for key in METRIC_KEYS])
             sums = stacked if sums is None else sums + stacked
             count += n
+        if cache is not None and not cache.ready:
+            # the fill epoch is done: stage its drop_last leftovers, upload
+            cache.finalize(loader)
         pulled = sums.tolist() if sums is not None else None
         row = {'epoch': epoch}
         for i, key in enumerate(METRIC_KEYS):
@@ -697,12 +775,45 @@ class Experiment:
         return row
 
     # ------------------------------------------------------------------- eval
+    def _eval_batches(self) -> Iterator[Tuple[np.ndarray, Tuple[torch.Tensor, ...]]]:
+        """``(ids, (image, boxes, box_mask) on the device)`` for each eval
+        batch: replayed from the eval replay cache once it holds the first
+        evaluation's batches, else streamed (and kept, while the budget
+        allows, when the replay cache is on)."""
+        if self._eval_cache is not None:
+            yield from self._eval_cache
+            return
+        filling, budget, filled = None, 0, 0
+        if self._eval_replay_cfg:
+            # the kept batches stay on the device for the run: they charge
+            # against the train cache's budget, less what that cache holds
+            budget = device_cache.budget(self._eval_replay_cfg)
+            if self.device_cache is not None:
+                budget -= self.device_cache.total_bytes
+            filling = []
+        for batch, tensors in self._device_batches(self.loaders['eval']):
+            entry = (batch['ids'], tensors)
+            if filling is not None:
+                filled += batch['ids'].nbytes + sum(t.nbytes for t in tensors)
+                if filled > budget:
+                    logging.warning(
+                        f'WW eval replay cache over budget '
+                        f'({filled / 2**30:.2f} GiB cached + train device '
+                        f'cache > max_bytes) — streaming every eval instead '
+                        f"(raise device_cache['max_bytes'] to override)")
+                    filling = None
+                    self._eval_replay_cfg = None  # not tried again
+                else:
+                    filling.append(entry)
+            yield entry
+        if filling is not None:
+            self._eval_cache = filling
+
     def evaluate(self) -> Dict[str, float]:
         """Loss and mAP over the eval loader (and ``int8``, 1.0 or 0.0, when
         int8 was asked for).  Detections stay on the device until every
         batch has been dispatched."""
         self._ensure_int8()
-        loader = self.loaders['eval']
         start = time.perf_counter()
         sums = None
         count = 0
@@ -710,19 +821,18 @@ class Experiment:
         int8 = (quantize.quant_modes(self.eval_model, self._int8_modes)
                 if self.int8 else contextlib.nullcontext())
         with self.policy.scope(), int8:
-            for batch, (images, boxes, mask) in self._device_batches(loader):
+            for ids, (images, boxes, mask) in self._eval_batches():
                 with torch.no_grad():
                     x, full_boxes, mask = self.eval_pipeline.apply(
                         [], images, boxes, mask)
                 # padding rows of a partial batch carry id -1 and add no loss
-                image_valid = torch.from_numpy(
-                    batch['ids'] >= 0).to(self.device)
+                image_valid = torch.from_numpy(ids >= 0).to(self.device)
                 metrics, dets, valid = self.eval_step(
                     self.eval_model, x, full_boxes[..., :6], mask, image_valid)
                 stacked = torch.stack([metrics[k] for k in METRIC_KEYS])
                 sums = stacked if sums is None else sums + stacked
                 count += 1
-                pending.append((dets, valid, mask, full_boxes, batch['ids']))
+                pending.append((dets, valid, mask, full_boxes, ids))
 
         pulled = sums.tolist() if sums is not None else [0.0] * len(METRIC_KEYS)
         all_preds, all_gts = [], []

@@ -38,9 +38,13 @@ augmentation), ``frozen_bn`` (every BatchNorm in eval mode inside the
 step; with ``group_norm`` it raises) and ``fused_steps`` (k steps in one
 host call, :meth:`Trainer.fused_train_step`).
 
+``train.staging_colorspace='yuv420'`` gives the ``Pipeline``
+``staging_yuv``: a step then also takes packed YUV420 ``[B, S*S*3/2]``
+images (``data/loader.py``) and turns them back into RGB on the device.
+
 What is not ported yet raises ``NotImplementedError`` rather than being
-skipped: the YUV420 staging and the multi-device options; an
-augmentation the ``Pipeline`` does not know raises as well.
+skipped: the multi-device options; an augmentation the ``Pipeline`` does
+not know raises as well.
 
 ``bf16=True`` runs the activations in bfloat16 under docs/DESIGN.md §10's
 policy (parameters, BN statistics, the optimizer's buffers, the EMA
@@ -55,7 +59,7 @@ Runs on ``cuda`` unless the caller passes ``device='cpu'``.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -91,8 +95,15 @@ def check_ported(cfg) -> None:
     for key in _UNPORTED_TRAIN_OPTIONS:
         if train.get(key):
             raise NotImplementedError(f'train.{key} is not ported yet')
-    if str(train.get('staging_colorspace', 'rgb')) != 'rgb':
-        raise NotImplementedError('train.staging_colorspace is not ported yet')
+
+
+def staging_yuv(cfg) -> Optional[Tuple[int, int]]:
+    """The staging (w, h) when ``train.staging_colorspace`` is ``'yuv420'``
+    (the ``Pipeline``'s ``staging_yuv``), else None."""
+    train = dict(cfg.train or {})
+    if str(train.get('staging_colorspace', 'rgb')) != 'yuv420':
+        return None
+    return tuple(train.get('staging_size', cfg.input_size))
 
 
 def ema_from_config(value) -> Optional[float]:
@@ -212,7 +223,8 @@ class Trainer:
         set_fused_bn(model, bool(train_cfg.get('fused_bn', False)))
         set_group_norm(model, groups)
         pipeline = Pipeline(cfg.augmentations or (), cfg.preprocessing,
-                            bundle.input_size, train=True)
+                            bundle.input_size, train=True,
+                            staging_yuv=staging_yuv(cfg))
 
         sampler_cfg = dict(cfg.sampler or {'name': 'naive_sampler'})
         sampler = build_sampler(sampler_cfg.pop('name'), **sampler_cfg)

@@ -158,6 +158,14 @@ def test_cli_evaluates_the_committed_jax_checkpoint_exactly():
     ['--process-id', '0'], ['--compilation-cache', 'cache_dir'],
 ], ids=lambda argv: ' '.join(argv))
 def test_cli_raises_on_what_is_not_ported(argv, tmp_path):
+    """The distributed flags and an XLA cache raise before anything is
+    written; ``--tensorboard`` is ported and passes the check (its run is
+    held to ``log.csv`` in ``test_torch_port_run_extras.py``)."""
+    if argv == ['--tensorboard']:
+        args = cli.get_argparser().parse_args(['--config', SMOKE, *argv])
+        cli.check_ported(args)
+        assert args.tensorboard
+        return
     with pytest.raises(NotImplementedError, match='not ported yet|no XLA'):
         cli.main(['--cpu', '--config', SMOKE, '--save-dir', str(tmp_path), *argv])
     assert not os.listdir(tmp_path)

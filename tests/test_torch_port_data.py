@@ -179,7 +179,10 @@ def test_loader_batches_equal_jax(image_size):
     assert (last['ids'] == -1).sum() == 3 and not last['box_mask'][-3:].any()
 
 
-def test_loader_reraises_errors_and_raises_on_unported():
+def test_loader_reraises_errors_and_raises_on_unported(tmp_path):
+    """A decode error reaches the consumer.  The YUV420 staging and the
+    staging cache, which raised before they were ported, run: their parity
+    with the JAX loader is in ``test_torch_port_data_extras.py``."""
     class Broken(pt_datasets.Synthetic):
         def load_image(self, index):
             raise OSError(f'cannot read {index}')
@@ -189,7 +192,10 @@ def test_loader_reraises_errors_and_raises_on_unported():
     with pytest.raises(OSError, match='cannot read'):
         list(loader)
     ds = pt_datasets.Synthetic(num_images=2, image_size=32)
-    with pytest.raises(NotImplementedError, match='yuv420'):
-        Loader(ds, 2, (32, 32), staging_colorspace='yuv420')
-    with pytest.raises(NotImplementedError, match='staging cache'):
-        create_loaders({'train': ds}, 2, (32, 32), cache_dir='x')
+    batch = next(iter(Loader(ds, 2, (32, 32), staging_colorspace='yuv420')))
+    assert batch['image'].shape == (2, 32 * 32 * 3 // 2)
+    loaders = create_loaders({'train': ds}, 2, (32, 32),
+                             cache_dir=str(tmp_path / 'x'))
+    list(loaders['train'])
+    assert loaders['train'].cache.complete
+    assert (tmp_path / 'x' / 'train' / 'meta.json').exists()

@@ -11,6 +11,9 @@ from the 0.5 threshold (checked, so a rounding difference cannot flip a
 match); learning rates equal.
 """
 
+import sys
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -299,18 +302,16 @@ def test_experiment_train_returns_epoch_rows_with_eval_map():
     assert {'eval_loss', 'eval_mAP@[.5:.95]', 'train_loss'} <= set(rows[1])
 
 
-def test_experiment_raises_on_what_is_not_ported():
+def test_experiment_raises_on_what_is_not_ported(tmp_path, monkeypatch):
     """What the port does not run yet raises; checkpoints, resume,
     ``ReduceLROnPlateau`` and ``detector.weight`` are ported (their tests
-    are in ``test_torch_port_checkpoint.py``)."""
+    are in ``test_torch_port_checkpoint.py``), and so are tensorboard, the
+    device cache and async checkpoints (``test_torch_port_run_extras.py``),
+    which raised before."""
     over = {'train': {'scheduler': MULTISTEP}}
-    for kwargs, match in ((dict(tensorboard=True), 'tensorboard'),
-                          (dict(process_count=2), 'process_count')):
-        with pytest.raises(NotImplementedError, match=match):
-            Experiment(SMOKE, device='cpu', overrides=over, **kwargs)
-    for extra, match in (({'train': {'device_cache': True}}, 'device_cache'),
-                         ({'train': {'zero_sharding': True}}, 'zero_sharding'),
-                         ({'train': {'async_checkpoint': True}}, 'async_checkpoint'),
+    with pytest.raises(NotImplementedError, match='process_count'):
+        Experiment(SMOKE, device='cpu', overrides=over, process_count=2)
+    for extra, match in (({'train': {'zero_sharding': True}}, 'zero_sharding'),
                          ({'model': {'detector': {'num_classes': 5,
                                                   'torch_weight': 'w.pt'}}},
                           'torch_weight')):
@@ -318,6 +319,15 @@ def test_experiment_raises_on_what_is_not_ported():
             Experiment(SMOKE, device='cpu',
                        overrides={**over, **extra} if 'train' not in extra else
                        {'train': {**over['train'], **extra['train']}})
+    # tensorboard's own stand-in for TensorFlow, whose import costs seconds
+    monkeypatch.setitem(sys.modules, 'tensorboard.compat.notf',
+                        types.ModuleType('tensorboard.compat.notf'))
+    ported = Experiment(SMOKE, device='cpu', tensorboard=True,
+                        checkpoint_dir=str(tmp_path), overrides={'train': {
+                            **over['train'], 'device_cache': True,
+                            'async_checkpoint': True}})
+    assert ported.device_cache is not None and ported.async_saver is not None
+    assert ported.writer is not None
     plateau = {'name': 'ReduceLROnPlateau', 'patience': 0}
     exp = Experiment(SMOKE, phases=('eval',), device='cpu',
                      overrides={'train': {'scheduler': plateau}})

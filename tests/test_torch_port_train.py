@@ -447,9 +447,11 @@ def test_trainer_raises_on_what_is_not_ported():
     assert trainer.ema == 0.999 and trainer.fused_steps == 2
     # the config's own CosineAnnealingWithWarmupLR is ported
     assert Trainer.from_config(SMOKE, device='cpu').schedule(0) == pytest.approx(1e-4)
-    with pytest.raises(NotImplementedError, match='staging_colorspace'):
-        Trainer.from_config(SMOKE, device='cpu', overrides={
-            'train': {'staging_colorspace': 'yuv420'}})
+    # the YUV420 staging is ported: the pipeline turns packed batches back
+    # into RGB first (test_torch_port_data_extras.py holds it to JAX's)
+    yuv = Trainer.from_config(SMOKE, device='cpu', overrides={
+        'train': {'staging_colorspace': 'yuv420'}})
+    assert yuv.pipeline.staging_yuv == (128, 128)
 
 
 def test_trainer_without_device_needs_cuda():
