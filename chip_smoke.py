@@ -245,11 +245,13 @@ Phases, each fatal:
     from the card): each BN kernel 64 launches a step, NMS once an
     evaluation, the loaders staging the fill epoch's batches and one
     evaluation's only, and a cached against a streamed epoch in turns; (a) the port's JPEG decoder built
-    from its source, the fixtures staged bit-equal over two calls and at 1
-    and 8 threads (without ``g++`` or ``jpeglib.h`` it prints
-    ``native: unavailable (<the build's error>)``, the ``Experiment`` runs
-    on ``Synthetic`` data of the same counts, and the loader timings
-    decode the fixtures with PIL only); (b) ``yuv420_to_rgb`` on the
+    from its source by the route the machine allows (``-ljpeg``, or the
+    vendored libjpeg headers with Pillow's bundled libjpeg where there is
+    no ``jpeglib.h``; the route printed), the fixtures staged to the
+    committed digest (``data/jpeg_fixtures/staged_sha256.json``: RGB and
+    YUV420 at 300, 150, 64 and 38 px) and bit-equal over two calls and at
+    1 and 8 threads; a decoder that does not build, or a digest that
+    differs, fails the phase; (b) ``yuv420_to_rgb`` on the
     card bit-equal to the CPU; (c) a cached epoch's batches bit-equal to
     the streamed loader's and copy's, and no host-to-device copy of image
     bytes in a cached epoch (the profiler's memcpy rows, against a streamed
@@ -262,6 +264,19 @@ Phases, each fatal:
     staging-cache epoch; the fill against the cached epochs; a streamed
     against a replayed evaluation, in turns; the loop's blocked ms for a
     synchronous against an async save; and both decode counts.
+22. interop, at full width: the flagship's seeded weights written as the
+    reference's torch checkpoint (``utils/torch_import.py``), imported
+    through ``model.detector.torch_weight`` into an ``Experiment`` and
+    served at b32: detections and ``valid`` bit-equal to the source
+    model's, NMS launched; one b32 ``fused_bn`` step from the imported
+    weights, each BN kernel launched once per BN; the committed JAX run
+    through ``tools/export_torch_ckpt.py`` and ``torch_weight`` evaluated
+    by the CLI: loss and mAP equal to phase 11's; a
+    ``torchhub://pytorch/vision:mobilenet_v2`` backbone from a temporary
+    hub cache, bit-equal to what was written; RetinaNet-500 with
+    ``interpolation_mode='bilinear'`` at b2 against the CPU (heads and
+    sources within ``ZOO_FORWARD_RTOL``); a keras ``.h5`` backbone where
+    ``h5py`` imports (else a line says so).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -308,6 +323,7 @@ from single_shot_detection_tpu_torch.train.engine import (Experiment,
                                                          prefetch_to_device)
 from single_shot_detection_tpu_torch.train.step import make_train_step
 from single_shot_detection_tpu_torch.trainer import Trainer
+from single_shot_detection_tpu_torch.utils.config import load_config
 
 FLAGSHIP = 'samples/ssd_mb2_voc.py'
 SEED = 23
@@ -4941,21 +4957,12 @@ def run_train_options(smi: str) -> dict:
 # JPEGs, one grayscale, listed 256 times for train and 64 for eval
 JPEG_FIXTURES = REPO / 'single_shot_detection_tpu_torch' / 'data' / 'jpeg_fixtures'
 EXTRAS_SETS = {'train': 'train256', 'eval': 'eval64'}
-EXTRAS_SYNTHETIC = {'train': {'name': 'Synthetic', 'num_images': 256,
-                              'image_size': 500, 'num_classes': 21,
-                              'max_boxes': 6, 'seed': 1},
-                    'eval': {'name': 'Synthetic', 'num_images': 64,
-                             'image_size': 500, 'num_classes': 21,
-                             'max_boxes': 6, 'seed': 2}}
 EXTRAS_EPOCHS = 3
 EXTRAS_STAGING = (300, 300)
 
 
-def extras_dataset(native_ok: bool) -> dict:
-    """The fixtures as Pascal VOC when the native decoder is built, else
-    ``Synthetic`` data of the same counts."""
-    if not native_ok:
-        return EXTRAS_SYNTHETIC
+def extras_dataset() -> dict:
+    """The fixtures as Pascal VOC."""
     return {phase: {'name': 'Voc', 'root': str(JPEG_FIXTURES),
                     'image_sets': [(2007, image_set)]}
             for phase, image_set in EXTRAS_SETS.items()}
@@ -4992,15 +4999,25 @@ def libjpeg_present() -> dict:
 
 
 def native_decode_check() -> dict:
-    """(a) The port's decoder built from its source: the 16 fixtures staged
-    at 300x300, RGB and YUV420, bit-equal across two calls and at 1 and 8
-    threads, with each image's original size."""
+    """(a) The port's decoder built from its source by the route this
+    machine allows: the 16 fixtures staged to the committed digest (RGB
+    and YUV420 at 300, 150, 64 and 38 px), and at 300x300 bit-equal across
+    two calls and at 1 and 8 threads, with each image's original size.
+    A decoder that does not build fails."""
     from single_shot_detection_tpu_torch.data import datasets, native
+    from single_shot_detection_tpu_torch.tools import make_jpeg_fixtures
     t = time.perf_counter()
-    if native.get_library() is None:
-        return {'available': False, 'error': native.error,
-                'libjpeg': libjpeg_present()}
+    lib = native.get_library()
+    if lib is None:
+        fail(f'the native JPEG decoder did not build or load: {native.error}; '
+             f'libjpeg on this machine: {json.dumps(libjpeg_present())}')
     build_s = time.perf_counter() - t
+    want = json.loads(make_jpeg_fixtures.DIGEST_FILE.read_text())
+    digests = make_jpeg_fixtures.staged_digests(lib)
+    differ = sorted(k for k in want if digests.get(k) != want[k])
+    if differ or digests.keys() != want.keys():
+        fail(f'the {native.route} build stages the fixtures to another digest '
+             f'at {differ}: {digests}')
     ds = datasets.Voc(str(JPEG_FIXTURES), [(2007, 'all')])
     paths = [a['image_path'] for a in ds.annotations]
     want_sizes = np.array([(a['width'], a['height']) for a in ds.annotations])
@@ -5022,7 +5039,8 @@ def native_decode_check() -> dict:
         if not all(np.array_equal(runs[0], r) for r in runs[1:]):
             fail(f'native {kind} decode differs between calls or threads')
         outs[kind] = runs[0]
-    return {'available': True, 'build_or_load_s': build_s,
+    return {'route': native.route, 'build_or_load_s': build_s,
+            'digests_equal': sorted(digests), 'libjpeg': libjpeg_present(),
             'images': len(paths), 'yuv420_batch': outs['yuv420']}
 
 
@@ -5042,9 +5060,9 @@ def fixture_train_set():
     return Voc(str(JPEG_FIXTURES), [(2007, EXTRAS_SETS['train'])])
 
 
-def loader_times(native_ok: bool, smi: str) -> dict:
+def loader_times(smi: str) -> dict:
     """Loader img/s at b32 over the fixtures' 256 train entries, native
-    (where it built) and Python decode, RGB and YUV420 staging (staging on
+    and Python (PIL) decode, RGB and YUV420 staging (staging on
     the card, as an ``Experiment`` stages); each batch's pinned copy to
     the card, ms and bytes."""
     from single_shot_detection_tpu_torch.data.loader import Loader
@@ -5054,8 +5072,7 @@ def loader_times(native_ok: bool, smi: str) -> dict:
             return None
 
     ds = fixture_train_set()
-    paths = (('native', Loader), ('python', PythonDecode)) if native_ok else \
-        (('python', PythonDecode),)
+    paths = (('native', Loader), ('python', PythonDecode))
     out = {}
     for colorspace in ('rgb', 'yuv420'):
         for path, cls in paths:
@@ -5075,7 +5092,6 @@ def loader_times(native_ok: bool, smi: str) -> dict:
     log(f'  {smi}: loader b32 over the {len(ds)} fixture entries, img/s: '
         + ', '.join(f'{c} {p} {out[f"{c}_{p}_img_per_s"]:.1f}'
                     for c in ('rgb', 'yuv420') for p, _ in paths)
-        + ('' if native_ok else ' (native: not built)')
         + '; a batch\'s pinned copy to the card: '
         + ', '.join(f'{c} {out[f"{c}_batch_bytes"]} B in '
                     f'{out[f"{c}_copy_ms"]:.3f} ms' for c in ('rgb', 'yuv420')))
@@ -5343,20 +5359,19 @@ def run_data_extras(smi: str) -> dict:
     try:
         t = time.perf_counter()
         decoded = native_decode_check()
-        native_ok = decoded['available']
         out['native'] = {k: v for k, v in decoded.items()
                          if k != 'yuv420_batch'}
-        if native_ok:
-            log(f'[21] {smi}: (a) native: built and loaded in '
-                f'{decoded["build_or_load_s"]:.2f} s; {decoded["images"]} '
-                'fixtures staged at 300x300, RGB and YUV420, bit-equal over '
-                'two calls and at 1 and 8 threads, original sizes right')
-            out['yuv'] = yuv_card_vs_cpu(decoded['yuv420_batch'])
-        else:
-            log(f'[21] {smi}: (a) native: unavailable ({decoded["error"]}); '
-                'the rest runs on Synthetic data of the same counts; libjpeg '
-                f'on this machine: {json.dumps(decoded["libjpeg"])}')
-        dataset_cfg = extras_dataset(native_ok)
+        log(f'[21] {smi}: (a) native: built by the {decoded["route"]} route '
+            + ('(-ljpeg)' if decoded['route'] == 'system' else
+               '(native/include headers, Pillow\'s '
+               f'{native.pillow_libjpeg().name})')
+            + f' and loaded in {decoded["build_or_load_s"]:.2f} s; the '
+            f'{decoded["images"]} fixtures staged to the committed digest '
+            f'({", ".join(decoded["digests_equal"])}), at 300x300 bit-equal '
+            'over two calls and at 1 and 8 threads, original sizes right; '
+            f'libjpeg on this machine: {json.dumps(decoded["libjpeg"])}')
+        out['yuv'] = yuv_card_vs_cpu(decoded['yuv420_batch'])
+        dataset_cfg = extras_dataset()
         counts = dict(native.COUNTS)
         exp = Experiment(FLAGSHIP, phases=('train', 'eval'), device='cuda',
                          seed=SEED, checkpoint_dir=os.path.join(work, 'run'),
@@ -5368,9 +5383,6 @@ def run_data_extras(smi: str) -> dict:
                                        'staging_cache': os.path.join(work, 'stage'),
                                        'device_cache': True,
                                        'async_checkpoint': True}})
-        if not native_ok:
-            packed = next(iter(exp.loaders['eval']))['image']
-            out['yuv'] = yuv_card_vs_cpu(packed)
         log(f'  (b) yuv420_to_rgb on the card bit-equal to the CPU on '
             f'{out["yuv"]["values"]} values')
         n_bn = sum(isinstance(m, BatchNorm) for m in exp.model.modules())
@@ -5415,7 +5427,7 @@ def run_data_extras(smi: str) -> dict:
         if {k: len(v) for k, v in staged.items()} != want_staged:
             fail(f'the loaders staged {staged} over {EXTRAS_EPOCHS} epochs, '
                  f'expected {want_staged} batches')
-        if native_ok and decode_counts['native'] != 256 + 64:
+        if decode_counts['native'] != 256 + 64:
             fail(f'decoded {decode_counts}, expected 320 natively')
         out['experiment'] = {
             'seconds': seconds, 'epoch_s': epoch_s, 'rows': rows,
@@ -5482,7 +5494,7 @@ def run_data_extras(smi: str) -> dict:
                         'tensorboard is not installed: no event file'))
         del exp
         torch.cuda.empty_cache()
-        out['loader'] = loader_times(native_ok, smi)
+        out['loader'] = loader_times(smi)
         out['staging_cache'] = staging_cache_times(work)
         s = out['staging_cache']
         log(f'  {smi}: a yuv420 loader epoch that decodes and fills the '
@@ -5490,6 +5502,220 @@ def run_data_extras(smi: str) -> dict:
             f'{s["cache_hit_epoch_s"]:.3f} s; decoded in this process: '
             + json.dumps(dict(native.COUNTS)) + f'; phase 21 checks in '
             f'{time.perf_counter() - t:.1f} s')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+INTEROP_DATA = {'train': {**FLAGSHIP_DATA['train'], 'num_images': 64},
+                'eval': {**FLAGSHIP_DATA['eval'], 'num_images': 32}}
+HUB_MODEL = 'torchhub://pytorch/vision:mobilenet_v2'
+
+
+def interop_experiment(model: Optional[dict] = None,
+                       phases=('eval',)) -> Experiment:
+    """The flagship on the card through ``Experiment``, synthetic data,
+    ``fused_bn``, no augmentation, ``model`` merged into its model block."""
+    return Experiment(FLAGSHIP, phases=phases, device='cuda', seed=SEED,
+                      overrides={'dataset': INTEROP_DATA, 'augmentations': [],
+                                 'train': {'fused_bn': True},
+                                 **({'model': model} if model else {})})
+
+
+def states_equal(got: dict, want: dict, label: str) -> int:
+    """Fails unless every tensor of ``want`` but ``num_batches_tracked`` is
+    in ``got`` bit-equal; returns how many were compared."""
+    keys = [k for k in want if not k.endswith('num_batches_tracked')]
+    differ = [k for k in keys if k not in got
+              or not torch.equal(got[k].cpu(), want[k].cpu())]
+    if differ:
+        fail(f'{label}: {len(differ)} of {len(keys)} tensors differ, e.g. '
+             f'{differ[:4]}')
+    return len(keys)
+
+
+def keras_h5_check(work: str, source_state: dict) -> Optional[dict]:
+    """A keras ``.h5`` (whole-model layout) of seeded arrays shaped as the
+    flagship's MobileNetV2, imported into an ``Experiment`` on the card
+    through ``base.weight``: every mapped array lands, transposed to the
+    port's layout.  None where ``h5py`` does not import."""
+    try:
+        import h5py
+    except ImportError:
+        return None
+    from single_shot_detection_tpu_torch.utils import keras_import
+    flagship_model = dict(load_config(FLAGSHIP).model)
+    rng = np.random.RandomState(SEED + 22)
+    path = os.path.join(work, 'mobilenet_v2.h5')
+    want = {}
+    with h5py.File(path, 'w') as f:
+        root = f.create_group('model_weights')
+        for layer, (our_path, kind) in keras_import.keras_mobilenet_v2_mapping().items():
+            grp = root.create_group(layer).create_group(layer)
+            target = '.'.join(('features', 'base') + our_path)
+            shape = tuple(source_state[f'{target}.weight'].shape)
+            if kind == keras_import.BN:
+                for name, leaf in (('gamma:0', 'weight'), ('beta:0', 'bias'),
+                                   ('moving_mean:0', 'running_mean'),
+                                   ('moving_variance:0', 'running_var')):
+                    arr = (rng.rand(*shape) + 0.5).astype(np.float32)
+                    grp.create_dataset(name, data=arr)
+                    want[f'{target}.{leaf}'] = torch.from_numpy(arr)
+            else:  # keras [kh, kw, in, out]; depthwise [kh, kw, ch, 1]
+                axes = (2, 3, 0, 1) if kind == keras_import.DEPTHWISE else (2, 3, 1, 0)
+                arr = rng.randn(*[shape[a] for a in axes]).astype(np.float32)
+                grp.create_dataset('depthwise_kernel:0' if kind == keras_import.DEPTHWISE
+                                   else 'kernel:0', data=arr)
+                back = (2, 3, 0, 1) if kind == keras_import.DEPTHWISE else (3, 2, 0, 1)
+                want[f'{target}.weight'] = torch.from_numpy(
+                    np.ascontiguousarray(arr.transpose(back)))
+    # keras weights map by family name; the flagship's registry name is
+    # ``torchvision_mobilenet_v2``, the same network as ``mobilenet_v2``
+    exp = interop_experiment({'base': {**flagship_model['base'],
+                                       'name': 'mobilenet_v2', 'weight': path}})
+    n = states_equal(exp.model.state_dict(), want, 'keras .h5 import')
+    del exp
+    return {'h5py': h5py.__version__, 'tensors': n}
+
+
+def run_interop(smi: str, jax_card_metrics: dict) -> dict:
+    """Phase 22: the reference's checkpoint both ways, offline torch-hub
+    and keras backbones and a bilinear neck, at full width on the card."""
+    from single_shot_detection_tpu_torch.models import builder
+    from single_shot_detection_tpu_torch.tools import export_torch_ckpt
+    from single_shot_detection_tpu_torch.utils import torch_import
+    flagship_model = dict(load_config(FLAGSHIP).model)
+    out = {}
+    work = tempfile.mkdtemp(prefix='chip_smoke_interop_')
+    try:
+        t = time.perf_counter()
+        # (a) seeded weights -> the reference's checkpoint -> torch_weight
+        source = interop_experiment()
+        perturb_bn(source.model, torch.Generator().manual_seed(SEED + 1))
+        path = os.path.join(work, 'reference.pt')
+        torch_import.export_reference_checkpoint(
+            path, source.model.state_dict(),
+            **torch_import.mapping_args_from_config(flagship_model))
+        imported = interop_experiment(
+            {'detector': {**flagship_model['detector'], 'torch_weight': path}},
+            phases=('train', 'eval'))
+        n_tensors = states_equal(imported.model.state_dict(),
+                                 source.model.state_dict(), 'torch_weight import')
+        images = np.random.RandomState(SEED + 22).randint(
+            0, 256, (32, 300, 300, 3), dtype=np.uint8)
+        want = source.predictor().predict_batch(images)
+        zero_launches()
+        got = imported.predictor().predict_batch(images)
+        torch.cuda.synchronize()
+        serving = read_launches()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail('serving the imported weights differs from the source model: '
+                 f'{int((got[0] != want[0]).sum())} detection values, '
+                 f'{int((got[1] != want[1]).sum())} valid flags')
+        if serving['nms_keep_batched'] < 1 or any(
+                serving[fn.__name__] for fn in bn_kernel.KERNELS):
+            fail(f'serving the imported weights launched {serving}')
+        out['serving'] = {'tensors': n_tensors, 'launches': serving,
+                          'valid': int(want[1].sum())}
+        log(f'[22] {smi}: (a) {FLAGSHIP}\'s seeded weights written as the '
+            f'reference\'s checkpoint and imported by torch_weight: '
+            f'{n_tensors} tensors bit-equal; b32 predict_batch bit-equal to '
+            f'the source model ({out["serving"]["valid"]} valid detections), '
+            f'launches {json.dumps(serving)}')
+        del source
+        # (b) one fused_bn step from the imported weights
+        n_bn = sum(isinstance(m, BatchNorm) for m in imported.model.modules())
+        batch = train_batch(np.random.RandomState(SEED + 23))
+        zero_launches()
+        metrics = imported.trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        step = read_launches()
+        loss = metrics['loss'].item()
+        if not math.isfinite(loss) or step['nms_keep_batched'] or any(
+                step[fn.__name__] != n_bn for fn in bn_kernel.KERNELS):
+            fail(f'the step from the imported weights: loss {loss}, launches '
+                 f'{step}, expected {n_bn} of each BN kernel')
+        out['train_step'] = {'loss': loss, 'launches': step, 'n_bn': n_bn}
+        log(f'  (b) one b32 fused_bn step from them: loss {loss:.6f}, '
+            f'launches {json.dumps(step)} ({n_bn} BNs)')
+        del imported, metrics
+        torch.cuda.empty_cache()
+        # (c) the committed JAX run -> export_torch_ckpt -> torch_weight -> CLI
+        exported = os.path.join(work, 'jax_run.pt')
+        t_tool = time.perf_counter()
+        export_torch_ckpt.main(['--config', f'{JAX_RUN}/config.py',
+                                '--checkpoint', JAX_RUN, '--output', exported])
+        tool_s = time.perf_counter() - t_tool
+        config = Path(work) / 'jax_run_torch_weight.py'
+        config.write_text((REPO / JAX_RUN / 'config.py').read_text()
+                          + '\n# chip_smoke.py phase 22: the run as the '
+                          'reference\'s checkpoint\n'
+                          + f"model['detector']['torch_weight'] = {exported!r}\n")
+        zero_launches()
+        _, metrics = cli.main(['--config', str(config), '--phases', 'eval'])
+        cli_launches = read_launches()
+        if (metrics['loss'] != jax_card_metrics['loss']
+                or metrics['mAP'] != jax_card_metrics['mAP']
+                or cli_launches['nms_keep_batched'] < 1):
+            fail(f'the exported JAX run evaluated through torch_weight: loss '
+                 f'{metrics["loss"]!r} mAP {metrics["mAP"]!r}, launches '
+                 f'{cli_launches}; phase 11 loss {jax_card_metrics["loss"]!r} '
+                 f'mAP {jax_card_metrics["mAP"]!r}')
+        out['jax_run'] = {'tool_s': tool_s, 'loss': metrics['loss'],
+                          'mAP': metrics['mAP'], 'launches': cli_launches}
+        log(f'  (c) {JAX_RUN} through tools/export_torch_ckpt.py ({tool_s:.2f} s) '
+            f'and torch_weight, the CLI\'s eval: loss {metrics["loss"]!r} mAP '
+            f'{metrics["mAP"]!r}, equal to phase 11\'s; launches '
+            f'{json.dumps(cli_launches)}')
+        # (d) a torchhub:// backbone from a temporary hub cache
+        hub = Path(work) / 'hub'
+        (hub / 'checkpoints').mkdir(parents=True)
+        mapping = torch_import.mobilenet_v2_mapping()
+        g = torch.Generator().manual_seed(SEED + 24)
+        template = builder.from_config(load_config(FLAGSHIP), None,
+                                       SEED).module.state_dict()
+        written = torch_import.export_state_dict(
+            {k: torch.rand(v.shape, generator=g) + 0.5 if v.is_floating_point()
+             else v for k, v in template.items()},
+            mapping, ('features', 'base'))
+        torch.save(written, hub / 'checkpoints' / 'mobilenet_v2-seeded.pth')
+        exp = interop_experiment({'base': {**flagship_model['base'],
+                                           'name': HUB_MODEL,
+                                           'hub_dir': str(hub)}})
+        got = torch_import.export_state_dict(exp.model.state_dict(), mapping,
+                                             ('features', 'base'))
+        out['torchhub'] = {'tensors': states_equal(got, written,
+                                                   'torchhub backbone')}
+        log(f'  (d) {HUB_MODEL} from a temporary hub cache: '
+            f'{out["torchhub"]["tensors"]} backbone tensors bit-equal to the '
+            'file written')
+        del exp
+        # (e) RetinaNet-500 with bilinear necks, the card against the CPU
+        cfg = load_config(RETINA)
+        cfg.config.model['detector']['features']['interpolation_mode'] = 'bilinear'
+        model = builder.from_config(cfg, None, SEED).module
+        perturb_bn(model, torch.Generator().manual_seed(SEED + 25))
+        model = model.cuda().eval()
+        x = torch.randn(2, 3, 500, 500,
+                        generator=torch.Generator().manual_seed(SEED + 26)).cuda()
+        out['bilinear_retina'] = {
+            'forward_vs_cpu': forward_vs_cpu(model, x, 'bilinear RetinaNet-500'),
+            'mode': model.features.interpolation_mode}
+        log(f'  (e) {RETINA} with interpolation_mode=bilinear, b2 eval '
+            f'forward on the card against the CPU: heads and sources within '
+            f'{out["bilinear_retina"]["forward_vs_cpu"]:.3g} of their largest '
+            f'value (tol {ZOO_FORWARD_RTOL})')
+        del model, x
+        # (f) a keras .h5 backbone
+        out['keras'] = keras_h5_check(work, template)
+        log('  (f) ' + (f'keras .h5 (h5py {out["keras"]["h5py"]}): '
+                        f'{out["keras"]["tensors"]} backbone tensors imported '
+                        'bit-equal to the file\'s, in the port\'s layout'
+                        if out['keras'] else
+                        'keras .h5: h5py does not import on this machine, '
+                        'not run'))
+        out['seconds'] = time.perf_counter() - t
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -5755,6 +5981,12 @@ def main(argv=None) -> int:
     extras = run_data_extras(smi)
     log(f'  phase 21 in {time.perf_counter() - t:.1f} s')
 
+    # 22. interop: the reference's checkpoint both ways, torch-hub and keras
+    # backbones, bilinear necks
+    t = time.perf_counter()
+    interop = run_interop(smi, card_metrics)
+    log(f'  phase 22 in {time.perf_counter() - t:.1f} s')
+
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
         **train_timing,
@@ -5792,7 +6024,7 @@ def main(argv=None) -> int:
             **{k: v for k, v in options.items() if k != 'combined'},
             'combined': {k: v for k, v in options['combined'].items()
                          if k != 'launches'}},
-        'data_extras': extras}}))
+        'data_extras': extras, 'interop': interop}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -5857,6 +6089,12 @@ def main(argv=None) -> int:
                                  'combined']['launches']['nms_keep_batched'],
                              # phase 21: three evaluations, two replayed
                              'data_extras_experiment': extras['experiment'][
+                                 'launches']['nms_keep_batched'],
+                             # phase 22: b32 serving of the imported
+                             # weights, the exported JAX run's CLI eval
+                             'interop_serving': interop['serving'][
+                                 'launches']['nms_keep_batched'],
+                             'interop_cli_jax_run': interop['jax_run'][
                                  'launches']['nms_keep_batched']},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
@@ -5927,7 +6165,10 @@ def main(argv=None) -> int:
                                  # phase 21: the fill epoch and two from
                                  # the device cache
                                  'data_extras_experiment': extras[
-                                     'experiment']['launches'][name]},
+                                     'experiment']['launches'][name],
+                                 # phase 22: one step from imported weights
+                                 'interop_train_step': interop['train_step'][
+                                     'launches'][name]},
             'max_abs_err': max(bn_check[name], *(
                 t['bn_max_abs_err'][name] for t in zoo_steps.values())),
             'shape': list(BN_TIMED_SHAPE),

@@ -14,14 +14,21 @@ batches equal the JAX package's bit for bit.
 
 The library is the port's own copy of the source, built at first use with
 ``native/Makefile``'s flags (``kernels/_build.py::build_host``: ``g++
--shared -O3 -march=native``, ``-ljpeg -lpthread``) into the git-ignored
-``kernels/build/``; never at import, never into the JAX package's
-``native/``.  When it cannot be built or loaded, a warning with the build's
-error is logged once and the loader decodes with PIL, as the JAX loader
-does without its library (its batches then differ from the native path's:
-another decoder and resize).  :data:`COUNTS` counts the images each path
-staged (``'python'`` includes datasets of inline images, which only
-stage).
+-shared -O3 -march=native``) into the git-ignored ``kernels/build/``;
+never at import, never into the JAX package's ``native/``.  Two routes
+(:func:`build_args`), chosen by what the compiler finds: ``'system'``
+links ``-ljpeg -lpthread`` where ``jpeglib.h`` is on its include path;
+``'vendored'`` compiles against the four libjpeg-turbo 2.1.5 headers in
+``native/include/`` (ABI 62, with their licence) and links Pillow's
+bundled ``pillow.libs/libjpeg-*.so.62*`` by its path, with an rpath to
+its directory, on a machine with no libjpeg headers.  Both stage the
+committed fixtures to the same bytes (``tools/make_jpeg_fixtures.py``'s
+digest).  :data:`route` says which was taken.  When neither builds or
+loads, a warning with the build's error is logged once and the loader
+decodes with PIL, as the JAX loader does without its library (its batches
+then differ from the native path's: another decoder and resize).
+:data:`COUNTS` counts the images each path staged (``'python'`` includes
+datasets of inline images, which only stage).
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from __future__ import annotations
 import collections
 import ctypes
 import logging
+import shutil
+import subprocess
 import threading
 from pathlib import Path
 from typing import List, Optional, Tuple
@@ -37,12 +46,18 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parent.parent / 'native' / 'decode.cpp'
 LIBS = ('-ljpeg', '-lpthread')
+INCLUDE_DIR = SOURCE.parent / 'include'
+HEADERS = tuple(INCLUDE_DIR / name for name in
+                ('jpeglib.h', 'jconfig.h', 'jmorecfg.h', 'jerror.h'))
+ROUTES = ('system', 'vendored')
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 _LOCK = threading.Lock()
 # why the library is unavailable (the build's or the loader's message)
 error: Optional[str] = None
+# the route the loaded library was built by (:data:`ROUTES`)
+route: Optional[str] = None
 # images staged by the native library and by the Python path
 COUNTS: collections.Counter = collections.Counter()
 _COUNT_LOCK = threading.Lock()
@@ -58,30 +73,83 @@ def is_jpeg(path: str) -> bool:
     return path.lower().endswith(('.jpg', '.jpeg'))
 
 
+def system_has_jpeglib() -> bool:
+    """True when the C++ compiler finds ``jpeglib.h`` on its own include
+    path."""
+    cxx = shutil.which('g++') or shutil.which('c++')
+    if not cxx:
+        return False
+    proc = subprocess.run([cxx, '-E', '-x', 'c++', '-', '-o', '/dev/null'],
+                          input='#include <cstdio>\n#include <jpeglib.h>\n',
+                          capture_output=True, text=True)
+    return proc.returncode == 0
+
+
+def pillow_libjpeg() -> Path:
+    """Pillow's bundled libjpeg (``pillow.libs/libjpeg-<hash>.so.62*``,
+    the hash differing between Pillow builds), found from ``PIL.__file__``;
+    ``RuntimeError`` where Pillow bundles none."""
+    import PIL
+    libs = Path(PIL.__file__).resolve().parent.parent / 'pillow.libs'
+    found = sorted(libs.glob('libjpeg*.so.62*'))
+    if not found:
+        raise RuntimeError(f'no jpeglib.h on the include path and no '
+                           f'libjpeg*.so.62* in {libs}')
+    return found[0]
+
+
+def build_args(which: str) -> Tuple[Tuple[str, ...], Tuple[Path, ...]]:
+    """``(libs, headers)`` of ``build_host`` for a route of :data:`ROUTES`."""
+    if which == 'system':
+        return LIBS, ()
+    if which != 'vendored':
+        raise ValueError(f'unknown route {which!r} (routes: {ROUTES})')
+    lib = pillow_libjpeg()
+    return (str(lib), f'-Wl,-rpath,{lib.parent}', '-lpthread'), HEADERS
+
+
+def set_argtypes(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the decoder's two batch entry points on ``lib``."""
+    lib.decode_batch.restype = ctypes.c_int
+    lib.decode_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+    ]
+    lib.decode_batch_yuv420.restype = ctypes.c_int
+    lib.decode_batch_yuv420.argtypes = lib.decode_batch.argtypes
+    return lib
+
+
+def load(which: str) -> ctypes.CDLL:
+    """Build (unless built) and load the decoder by route ``which``."""
+    from single_shot_detection_tpu_torch.kernels import _build
+    libs, headers = build_args(which)
+    return set_argtypes(ctypes.CDLL(str(_build.build_host(SOURCE, libs,
+                                                          headers))))
+
+
 def get_library() -> Optional[ctypes.CDLL]:
-    """The decoder's library, built and loaded at the first call; None when
-    that failed (logged once, the reason in :data:`error`)."""
-    global _LIB, _TRIED, error
+    """The decoder's library, built and loaded at the first call by the
+    route the compiler allows; None when that failed (logged once, the
+    reason in :data:`error`)."""
+    global _LIB, _TRIED, error, route
     with _LOCK:
         if _TRIED:
             return _LIB
         _TRIED = True
+        which = 'system' if system_has_jpeglib() else 'vendored'
         try:
-            from single_shot_detection_tpu_torch.kernels import _build
-            lib = ctypes.CDLL(str(_build.build_host(SOURCE, LIBS)))
-            lib.decode_batch.restype = ctypes.c_int
-            lib.decode_batch.argtypes = [
-                ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-            ]
-            lib.decode_batch_yuv420.restype = ctypes.c_int
-            lib.decode_batch_yuv420.argtypes = lib.decode_batch.argtypes
-            _LIB = lib
-            logging.info('===> native decode library loaded')
+            _LIB = load(which)
+            route = which
+            logging.info(f'===> native decode library loaded ({which}: '
+                         + ('-ljpeg' if which == 'system' else
+                            f'native/include headers, {pillow_libjpeg().name}')
+                         + ')')
         except (OSError, RuntimeError, AttributeError) as exc:
             error = str(exc).strip()
-            logging.warning(f'WW native JPEG decode unavailable ({error}); '
+            logging.warning(f'WW native JPEG decode unavailable ({which} '
+                            f'route: {error}); '
                             'JPEGs decode with PIL, whose staged pixels '
                             'differ from the native path\'s')
         return _LIB

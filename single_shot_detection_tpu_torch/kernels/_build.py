@@ -90,20 +90,36 @@ def _host_cpu() -> str:
     return '|'.join([platform.machine(), *lines])
 
 
-def build_host(source: Path, libs: Sequence[str] = ()) -> Path:
-    """Compile the C++ source ``source`` for this CPU with ``g++ -shared``
-    and ``HOST_FLAGS``, linking ``libs`` (say ``('-ljpeg',)``), into the
-    build directory unless an up-to-date library exists; return its path.
-    Raises ``RuntimeError`` with the compiler's message when it fails."""
+def host_library_path(source: Path, libs: Sequence[str] = (),
+                      headers: Sequence[Path] = ()) -> Path:
+    """Where :func:`build_host` puts its library: the hash covers the
+    source, the flags, ``libs``, the bytes of each of ``headers`` and this
+    CPU, so a changed header never reuses a stale build."""
     source = Path(source).resolve()
     key = (source.read_bytes() + ' '.join((*HOST_FLAGS, *libs)).encode()
+           + b''.join(Path(h).name.encode() + Path(h).read_bytes()
+                      for h in headers)
            + _host_cpu().encode())
-    out = BUILD_DIR / f'lib{source.stem}-{hashlib.sha256(key).hexdigest()[:16]}.so'
+    return BUILD_DIR / f'lib{source.stem}-{hashlib.sha256(key).hexdigest()[:16]}.so'
+
+
+def build_host(source: Path, libs: Sequence[str] = (),
+               headers: Sequence[Path] = ()) -> Path:
+    """Compile the C++ source ``source`` for this CPU with ``g++ -shared``
+    and ``HOST_FLAGS``, with ``-I`` to the directory of each of
+    ``headers`` and linking ``libs`` (say ``('-ljpeg',)``), into the build
+    directory unless an up-to-date library exists; return its path.
+    Raises ``RuntimeError`` with the compiler's message when it fails."""
+    source = Path(source).resolve()
+    out = host_library_path(source, libs, headers)
     if not out.exists():
         cxx = shutil.which('g++') or shutil.which('c++')
         if not cxx:
             raise RuntimeError('no C++ compiler (g++) found')
-        _compile([cxx, *HOST_FLAGS], source, libs, out, Path(cxx).name)
+        includes = [f'-I{d}' for d in
+                    dict.fromkeys(str(Path(h).resolve().parent) for h in headers)]
+        _compile([cxx, *HOST_FLAGS, *includes], source, libs, out,
+                 Path(cxx).name)
     return out
 
 

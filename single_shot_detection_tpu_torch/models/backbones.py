@@ -90,6 +90,10 @@ _REGISTRY: Dict[str, Callable] = {
 }
 
 
+def available() -> list:
+    return sorted(_REGISTRY)
+
+
 def get(name: str) -> Callable:
     if name not in _REGISTRY:
         raise KeyError(f'Unknown backbone: {name!r}. '

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import os
 from typing import Callable, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -59,21 +60,62 @@ def feature_map_sizes(make_module: Callable[[], Detector],
     return [(s.shape[3], s.shape[2]) for s in sources]
 
 
+def _torchhub_cache_dirs(hub_dir=None) -> List[str]:
+    if hub_dir:
+        return [str(hub_dir)]
+    dirs = []
+    if os.environ.get('TORCH_HOME'):
+        dirs.append(os.path.join(os.environ['TORCH_HOME'], 'hub'))
+    dirs.append(os.path.expanduser('~/.cache/torch/hub'))
+    return dirs
+
+
+def resolve_torchhub(name: str, hub_dir=None) -> Tuple[str, Optional[str]]:
+    """Resolve a ``torchhub://repo:model`` backbone offline: ``model`` must
+    be a registry backbone, and its weights, if any, are the first
+    ``<model>*.pth`` or ``.pt`` in the ``checkpoints/`` of a torch-hub cache
+    (``base.hub_dir``, else ``$TORCH_HOME/hub``, then
+    ``~/.cache/torch/hub``).  Returns ``(registry name, weight path or
+    None)``; another model raises ``ValueError``."""
+    spec = name[len('torchhub://'):]
+    model = spec.rsplit(':', 1)[-1].strip()
+    if model not in backbones.available():
+        raise ValueError(
+            f'{name!r}: torch-hub modules are not run by the port; only '
+            f'registry backbones can be resolved offline '
+            f'({", ".join(backbones.available()[:6])}, ...). Either use a '
+            f'registry name directly, or load torch weights from a file '
+            f"via base={{'weight': 'state_dict.pt'}} "
+            f'(utils/torch_import.py).')
+    for d in _torchhub_cache_dirs(hub_dir):
+        ckpt_dir = os.path.join(d, 'checkpoints')
+        if not os.path.isdir(ckpt_dir):
+            continue
+        hits = sorted(f for f in os.listdir(ckpt_dir)
+                      if f.startswith(model) and f.endswith(('.pth', '.pt')))
+        if hits:
+            return model, os.path.join(ckpt_dir, hits[0])
+    return model, None
+
+
 def create_base(name: str, **kwargs):
-    """Instantiate a backbone by registry name.  ``pretrained``/``weight``
+    """Instantiate a backbone by registry name, or a ``torchhub://repo:model``
+    name that :func:`resolve_torchhub` resolves.  ``pretrained``/``weight``
     are not read here: weights come in through ``utils/torch_import.py``.
     ``width_overrides`` reaches the backbones that take it (MobileNetV2,
     MobileNet v1, VGG, ResNet)."""
+    if name.startswith('torchhub://'):
+        name, _ = resolve_torchhub(name, kwargs.get('hub_dir'))
     kwargs = {k: v for k, v in kwargs.items()
               if k not in ('pretrained', 'weight', 'hub_dir')}
     return backbones.get(name)(**kwargs)
 
 
-# ``model.detector`` keys the builder reads; ``weight`` is read by
-# ``train/engine.py``; any other raises
-_DETECTOR_KEYS = ('num_classes', 'use_depthwise', 'features', 'extras',
-                  'predictor', 'heads')
-_ENGINE_KEYS = ('weight',)
+# ``model.detector`` keys the builder reads; ``weight`` and
+# ``torch_weight`` are read by ``train/engine.py``; any other raises
+DETECTOR_KEYS = ('num_classes', 'use_depthwise', 'features', 'extras',
+                 'predictor', 'heads')
+_ENGINE_KEYS = ('weight', 'torch_weight')
 HEAD_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
                'float16': torch.float16}
 
@@ -174,7 +216,7 @@ def from_config(cfg, variables: Optional[Mapping] = None,
     if 'num_classes' not in detector_cfg:
         raise ValueError('model.detector.num_classes is required')
     unread = sorted(k for k, v in detector_cfg.items()
-                    if k not in _DETECTOR_KEYS + _ENGINE_KEYS
+                    if k not in DETECTOR_KEYS + _ENGINE_KEYS
                     and v is not None)
     if unread:
         raise NotImplementedError(f'model.detector.{", ".join(unread)}: not '
@@ -183,7 +225,7 @@ def from_config(cfg, variables: Optional[Mapping] = None,
         base=model_cfg['base'],
         anchor_generator=model_cfg['anchor_generator'],
         input_size=tuple(cfg.input_size), dtype=dtype,
-        **{k: v for k, v in detector_cfg.items() if k in _DETECTOR_KEYS})
+        **{k: v for k, v in detector_cfg.items() if k in DETECTOR_KEYS})
     qat = quantize.qat_options(dict(cfg.train or {}).get('qat'))
     if qat is not None:
         quantize.qat_init(bundle.module, **qat)

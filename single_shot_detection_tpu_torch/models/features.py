@@ -29,21 +29,34 @@ from single_shot_detection_tpu_torch.models.layers import (ConvBn,
                                                            xavier_normal)
 
 
+# the JAX package's modes -> ``F.interpolate``'s
+_MODES = {'nearest': 'nearest-exact', 'bilinear': 'bilinear',
+          'linear': 'bilinear'}
+
+
 def interpolate(x: torch.Tensor, size: Tuple[int, int],
                 mode: str = 'nearest') -> torch.Tensor:
     """Resize ``[B, C, H, W]`` to ``size = (h, w)`` as ``jax.image.resize``
-    does: its ``nearest`` takes source index ``floor((i + 0.5) * in /
+    does.  Its ``nearest`` takes source index ``floor((i + 0.5) * in /
     out)``, which is torch's ``nearest-exact`` (torch's ``nearest`` takes
     ``floor(i * in / out)`` and differs on sizes that are not exact
-    multiples, such as 32 -> 63)."""
+    multiples, such as 32 -> 63).  Its ``linear`` (the modes ``'bilinear'``
+    and ``'linear'``) is torch's ``bilinear`` at half-pixel centres: on an
+    enlargement, the only resize the necks make, neither antialiases, and
+    the edge weights agree (JAX renormalizes the taps inside the map, torch
+    clamps to the edge); the interior weights differ by the rounding of the
+    source coordinate, at most 1e-6 of a weight at 32 -> 63."""
     _check_mode(mode)
+    if _MODES[mode] == 'bilinear':
+        return F.interpolate(x, size=tuple(size), mode='bilinear',
+                             align_corners=False, antialias=False)
     return F.interpolate(x, size=tuple(size), mode='nearest-exact')
 
 
 def _check_mode(mode: str) -> None:
-    if mode != 'nearest':
-        raise NotImplementedError(f'interpolation mode {mode!r} is not '
-                                  'ported yet (ported: nearest)')
+    if mode not in _MODES:
+        raise ValueError(f'interpolation mode {mode!r} is not one of '
+                         f'{sorted(_MODES)}')
 
 
 def _taps(out_layers: Sequence) -> list:

@@ -1,6 +1,8 @@
 """Write the small Pascal VOC-style JPEG fixture set, from a fixed seed.
 
     python -m single_shot_detection_tpu_torch.tools.make_jpeg_fixtures [DIR]
+    python -m single_shot_detection_tpu_torch.tools.make_jpeg_fixtures \
+        --digest native/libssd_decode.so
 
 writes (by default into ``single_shot_detection_tpu_torch/data/
 jpeg_fixtures``) ``VOC2007/JPEGImages/fx00.jpg`` .. ``fx15.jpg`` at
@@ -15,10 +17,19 @@ the tree as it reads Pascal VOC: ``{'name': 'Voc', 'root': DIR,
 machine without an encoder needs none; PIL's encoder may differ between
 versions, so the committed bytes, not this script's output elsewhere,
 are the fixtures.
+
+``--digest LIB`` stages the committed fixtures with the decoder library
+``LIB`` (the C interface of ``native/decode.cpp``; the JAX package's
+``native/libssd_decode.so`` wrote the committed file) and writes the
+sha256 of each staged batch to ``jpeg_fixtures/staged_sha256.json``
+(:func:`staged_digests`): every build of the decoder must reproduce it.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import json
 import os
 import sys
 from pathlib import Path
@@ -26,6 +37,10 @@ from pathlib import Path
 import numpy as np
 
 DEFAULT_DIR = Path(__file__).resolve().parent.parent / 'data' / 'jpeg_fixtures'
+DIGEST_FILE = DEFAULT_DIR / 'staged_sha256.json'
+# the square staging sizes of the digest: libjpeg's 1, 1/2, 1/4 and 1/8
+# DCT scales over the fixtures' 240-640 px sides
+DIGEST_SIZES = (300, 150, 64, 38)
 SEED = 15
 QUALITY = 80
 # (width, height, grayscale)
@@ -99,5 +114,46 @@ def write_fixtures(root: Path) -> list:
     return paths
 
 
+def staged_digests(lib: ctypes.CDLL) -> dict:
+    """``{'rgb_300': sha256, ..., 'yuv420_38': ...}``: the committed
+    fixtures staged by ``lib``'s ``decode_batch`` (``[16, s, s, 3]``) and
+    ``decode_batch_yuv420`` (``[16, s*s*3/2]``) at each of
+    :data:`DIGEST_SIZES`, at the smallest covering DCT scale, with the
+    images' original sizes.  ``lib``'s argument types must be set
+    (``data/native.py::load``)."""
+    paths = sorted(str(p) for p in
+                   (DEFAULT_DIR / 'VOC2007' / 'JPEGImages').glob('*.jpg'))
+    names = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
+    out = {}
+    for kind, fn, row in (('rgb', lib.decode_batch, lambda s: s * s * 3),
+                          ('yuv420', lib.decode_batch_yuv420,
+                           lambda s: s * s * 3 // 2)):
+        for s in DIGEST_SIZES:
+            staged = np.zeros((len(paths), row(s)), np.uint8)
+            sizes = np.zeros((len(paths), 2), np.int32)
+            # 4 threads; fast_scale 1, as the loader passes it
+            rc = fn(names, len(paths),
+                    staged.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), s, s,
+                    sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), 4, 1)
+            if rc < 0 or not sizes.all():
+                raise RuntimeError(f'{kind} staging at {s} px failed (rc {rc}, '
+                                   f'sizes {sizes.tolist()})')
+            out[f'{kind}_{s}'] = hashlib.sha256(
+                staged.tobytes() + sizes.tobytes()).hexdigest()
+    return out
+
+
+def write_digest(library: str) -> dict:
+    from single_shot_detection_tpu_torch.data import native
+    lib = ctypes.CDLL(os.path.abspath(library))
+    native.set_argtypes(lib)
+    digests = staged_digests(lib)
+    DIGEST_FILE.write_text(json.dumps(digests, indent=1, sort_keys=True) + '\n')
+    return digests
+
+
 if __name__ == '__main__':
-    write_fixtures(Path(sys.argv[1]) if len(sys.argv) > 1 else DEFAULT_DIR)
+    if sys.argv[1:2] == ['--digest']:
+        print(json.dumps(write_digest(sys.argv[2]), indent=1))
+    else:
+        write_fixtures(Path(sys.argv[1]) if len(sys.argv) > 1 else DEFAULT_DIR)

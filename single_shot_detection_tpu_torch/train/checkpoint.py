@@ -41,6 +41,7 @@ import shutil
 import threading
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from single_shot_detection_tpu_torch.train import optimizers
@@ -404,21 +405,30 @@ def restore(path: str, state: TrainState, rules=None) -> Tuple[TrainState, dict]
     return state, meta
 
 
+def read_weights(path: str) -> dict:
+    """A ``.pt`` or ``.msgpack`` file's weights without a model: ``{'model':
+    state_dict, 'ema': {parameter name: shadow} or None, 'meta': {'epoch',
+    'global_step'}}`` (the sidecar's, else epoch 0 at the file's step)."""
+    if path.endswith('.msgpack'):
+        raw = flax_msgpack.read(path)
+        ema = raw.get('ema_params') or None
+        if ema:
+            ema = weights.from_jax_variables({'params': ema})
+        return {'model': weights.from_jax_variables(raw), 'ema': ema,
+                'meta': _read_meta(path, int(np.asarray(raw.get('step', 0))))}
+    saved = torch.load(path, map_location='cpu', weights_only=True)
+    return {'model': saved['model'], 'ema': saved.get('ema'),
+            'meta': _read_meta(path, int(saved['step']))}
+
+
 def restore_weights_only(path: str, state: TrainState) -> TrainState:
     """``--load-weights``: the model's parameters and BN statistics from a
     ``.pt`` or ``.msgpack`` file, and the EMA shadow with them (reconciled
     as :func:`restore` does); the optimizer, step and ``lr_scale`` stay as
     they are."""
-    if path.endswith('.msgpack'):
-        raw = flax_msgpack.read(path)
-        model_state = weights.from_jax_variables(raw)
-        ema = raw.get('ema_params') or None
-        ema = weights.from_jax_variables({'params': ema}) if ema else None
-    else:
-        saved = torch.load(path, map_location='cpu', weights_only=True)
-        model_state, ema = saved['model'], saved.get('ema')
-    _load_model(state, model_state)
-    _install_ema(state, ema)
+    saved = read_weights(path)
+    _load_model(state, saved['model'])
+    _install_ema(state, saved['ema'])
     logging.info(f'>> Restored weights from {path}')
     return state
 

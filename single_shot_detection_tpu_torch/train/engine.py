@@ -67,9 +67,14 @@ before an emergency save and before :meth:`Experiment.train` returns.
 epoch into ``checkpoint_dir`` (``torch.utils.tensorboard``; without the
 ``tensorboard`` package a warning, and the run goes on).
 
-Not ported yet, each raising ``NotImplementedError`` when asked for:
-keras ``.h5`` and torch-hub backbones, the reference's whole detector
-(``detector.torch_weight``) and multi-host runs.
+The weights to start from, each over the one before (as the JAX engine
+takes them): ``model.base.weight``, a torchvision ``state_dict``
+(``utils/torch_import.py``) or a keras ``.h5`` (``utils/keras_import.py``),
+which a ``torchhub://repo:model`` backbone finds offline in a torch-hub
+cache (``models/builder.py::resolve_torchhub``); the reference's whole
+detector, ``model.detector.torch_weight``; ``model.detector.weight``;
+``resume_from``.  Not ported yet, raising ``NotImplementedError``:
+multi-host runs.
 
 ``bf16`` runs the activations in bfloat16 (docs/DESIGN.md §10: parameters, BN
 statistics, SGD momentum and losses stay f32, so checkpoints are f32 and a
@@ -103,7 +108,7 @@ from single_shot_detection_tpu_torch.data.loader import create_loaders
 from single_shot_detection_tpu_torch.data.transforms import Pipeline
 from single_shot_detection_tpu_torch.device import resolve_device
 from single_shot_detection_tpu_torch.export import quantize
-from single_shot_detection_tpu_torch.models import norm
+from single_shot_detection_tpu_torch.models import builder, norm
 from single_shot_detection_tpu_torch.ops import metrics as metrics_ops
 from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
 from single_shot_detection_tpu_torch.ops.postprocess import Postprocessor
@@ -114,7 +119,7 @@ from single_shot_detection_tpu_torch.train.state import reset_shadow
 from single_shot_detection_tpu_torch.train.step import make_eval_step
 from single_shot_detection_tpu_torch.trainer import Trainer, staging_yuv
 from single_shot_detection_tpu_torch.utils.config import ConfigWrapper, load_config
-from single_shot_detection_tpu_torch.utils import torch_import
+from single_shot_detection_tpu_torch.utils import keras_import, torch_import
 from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
 
 METRIC_KEYS = ('loss', 'class_loss', 'loc_loss')
@@ -243,21 +248,6 @@ def create_datasets(dataset_cfg: dict, phases) -> dict:
     return out
 
 
-def check_experiment_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for the engine options the port does
-    not run yet (the train options are ``trainer.check_ported``'s)."""
-    model = dict(cfg.model or {})
-    if dict(model.get('detector', {})).get('torch_weight'):
-        raise NotImplementedError('model.detector.torch_weight is not ported '
-                                  'yet')
-    base = dict(model.get('base', {}))
-    if str(base.get('name', '')).startswith('torchhub://'):
-        raise NotImplementedError('torchhub:// backbones are not ported yet')
-    if str(base.get('weight') or '').endswith(('.h5', '.hdf5')):
-        raise NotImplementedError('keras .h5 backbone weights are not ported '
-                                  'yet')
-
-
 class Experiment:
     """Everything assembled from one config, on one device.
 
@@ -301,7 +291,6 @@ class Experiment:
             cfg.set_phases(self.phases)
         if overrides:
             cfg.override(dict(overrides))
-        check_experiment_ported(cfg)
         self.cfg = cfg
         self.seed = int(seed if seed is not None else (cfg.seed or 23))
 
@@ -411,22 +400,45 @@ class Experiment:
 
     def _load_weights(self, model_cfg: dict, resume_from: Optional[str],
                       load_weights: bool) -> None:
-        """``model.base.weight`` (a torchvision backbone ``state_dict``),
-        then ``model.detector.weight`` (weights only), then ``resume_from``,
-        each over the one before."""
+        """``model.base.weight`` (a torchvision backbone ``state_dict`` or a
+        keras ``.h5``; for a ``torchhub://`` backbone without one, the
+        hub cache's), then ``model.detector.torch_weight`` (the reference's
+        whole detector), then ``model.detector.weight`` (weights only), then
+        ``resume_from``, each over the one before."""
         state = self.trainer.state
         base_cfg = dict(model_cfg.get('base', {}))
-        if base_cfg.get('weight'):
-            state.model.load_state_dict(torch_import.import_backbone(
-                torch_import.load_torch_state_dict(base_cfg['weight']),
-                state.model.state_dict(), base_cfg['name']))
+        if str(base_cfg.get('name', '')).startswith('torchhub://'):
+            hub_name, hub_weight = builder.resolve_torchhub(
+                base_cfg['name'], base_cfg.get('hub_dir'))
+            base_cfg['name'] = hub_name
+            if hub_weight and not base_cfg.get('weight'):
+                logging.info(f'>> torchhub: resolved {hub_name!r} weights '
+                             f'from the local hub cache: {hub_weight}')
+                base_cfg['weight'] = hub_weight
+
+        def adopt(model_state: Dict[str, torch.Tensor]) -> None:
+            state.model.load_state_dict(model_state, strict=True)
             reset_shadow(state)  # the shadow was a copy of the random init
+
+        base_weight = str(base_cfg.get('weight') or '')
+        if base_weight.endswith(('.h5', '.hdf5')):
+            adopt(keras_import.import_keras_backbone(
+                base_weight, state.model.state_dict(), base_cfg['name']))
+        elif base_weight:
+            adopt(torch_import.import_backbone(
+                torch_import.load_torch_state_dict(base_weight),
+                state.model.state_dict(), base_cfg['name']))
         elif base_cfg.get('pretrained'):
             logging.warning(
                 'WW base.pretrained=True cannot download torchvision weights; '
                 'set base.weight=<path to a torch state_dict> to load '
                 'pretrained weights (utils/torch_import.py) — training from '
                 'scratch')
+        torch_weight = dict(model_cfg.get('detector', {})).get('torch_weight')
+        if torch_weight:
+            adopt(torch_import.import_reference_checkpoint(
+                torch_weight, state.model.state_dict(),
+                **torch_import.mapping_args_from_config(model_cfg)))
         weight_file = dict(model_cfg.get('detector', {})).get('weight')
         restored_any = False
         if weight_file:
@@ -669,7 +681,7 @@ class Experiment:
                 metrics = self.evaluate()
                 row.update({f'eval_{k}': v for k, v in metrics.items()})
                 if trainer.plateau is not None:
-                    value = row.get(trainer.scheduler_metric)
+                    value = row.get(trainer.scheduler_metric or 'eval_loss')
                     if value is not None:
                         trainer.state.lr_scale = trainer.plateau.update(value)
                 self._log_scalars('eval', metrics, epoch)

@@ -1,24 +1,31 @@
-"""A torchvision backbone's pretrained weights into the port (``model.base.weight``).
+"""Torch checkpoints into the port and out of it.
 
-Port of the backbone part of
-``single_shot_detection_tpu/utils/torch_import.py`` (MobileNetV2, MobileNet
-v1, VGG, ResNet, ResNeXt, SE-ResNet(Xt), ShuffleNetV2):
-:func:`load_torch_state_dict` reads a torch ``state_dict`` file, the
-``*_mapping`` functions name torchvision's (and pretrainedmodels') modules
-after the port's, and :func:`import_backbone` fills the backbone of a
-detector's ``state_dict`` from it.  The port's layout is torch's (OIHW
-kernels, ``running_mean``/``running_var``), so the import is a renaming
-with shape checks.
-
-Keras ``.h5`` files and the full-detector ``detector.torch_weight`` import
-are not ported yet (``train/engine.py`` raises on them).
+Port of ``single_shot_detection_tpu/utils/torch_import.py``.  A
+torchvision backbone's pretrained weights (``model.base.weight``;
+MobileNetV2, MobileNet v1, VGG, ResNet, ResNeXt, SE-ResNet(Xt),
+ShuffleNetV2): :func:`load_torch_state_dict` reads a torch ``state_dict``
+file, the ``*_mapping`` functions name torchvision's (and
+pretrainedmodels') modules after the port's, and :func:`import_backbone`
+fills the backbone of a detector's ``state_dict`` from it.  The
+reference's whole detector (``model.detector.torch_weight``, a
+``ckpt-N.pt`` global_state with ``model_dict``): the ``*_reference_mapping``
+functions, :func:`import_reference_checkpoint` and, the other way,
+:func:`export_state_dict` and :func:`export_reference_checkpoint`
+(``tools/export_torch_ckpt.py``), with :func:`mapping_args_from_config`
+deriving a config's mapping.  A mapping's target is a flax module path,
+which is the port's module path, so it names a key prefix of the port's
+``state_dict``.  The port's layout is torch's (OIHW kernels,
+``running_mean``/``running_var``), so both directions are a renaming with
+shape checks, and a written file has the JAX package's keys, dtypes and
+layout.
 """
 
 from __future__ import annotations
 
 import functools
 import logging
-from typing import Dict, Optional, Sequence, Tuple
+import re
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -266,3 +273,347 @@ def import_backbone(state_dict: Dict[str, torch.Tensor],
     logging.info(f'===> torch import: filled {filled} modules into '
                  f'{".".join(base_path)}')
     return out
+
+
+# ----------------------------------------------- the reference's detector
+
+def mobilenet_v2_reference_mapping() -> Dict[str, Tuple[str, ...]]:
+    """The reference's own MobileNetV2 layout (``features.0.{conv,bn}``,
+    ``features.{1..17}.{expand,depthwise,project}_{conv,bn}``,
+    ``features.18.{conv,bn}``) -> the port's stage names."""
+    m: Dict[str, Tuple[str, ...]] = {
+        'features.0.conv': ('stage0', 'conv'),
+        'features.0.bn': ('stage0', 'bn'),
+        'features.18.conv': ('stage18', 'conv'),
+        'features.18.bn': ('stage18', 'bn'),
+    }
+    for leaf in ('depthwise_conv', 'depthwise_bn',
+                 'project_conv', 'project_bn'):
+        m[f'features.1.{leaf}'] = ('stage1', leaf)
+    for i in range(2, 18):
+        for leaf in ('expand_conv', 'expand_bn', 'depthwise_conv',
+                     'depthwise_bn', 'project_conv', 'project_bn'):
+            m[f'features.{i}.{leaf}'] = (f'stage{i}', leaf)
+    return m
+
+
+def resnet_reference_mapping(layers: Sequence[int]
+                             ) -> Dict[str, Tuple[str, ...]]:
+    """The reference wraps a torchvision ResNet into an index-keyed
+    ``features`` Sequential (conv1, bn1, relu, maxpool, layer1..4 at 0..7),
+    so its keys are ``{idx}.{block}.{leaf}``."""
+    m: Dict[str, Tuple[str, ...]] = {'0': ('conv1',), '1': ('bn1',)}
+    for li, count in enumerate(layers, start=1):
+        idx = li + 3  # layer1 lands at Sequential index 4
+        for b in range(count):
+            base = f'{idx}.{b}'
+            ours = f'layer{li}_{b}'
+            for name in ('conv1', 'bn1', 'conv2', 'bn2', 'conv3', 'bn3'):
+                m[f'{base}.{name}'] = (ours, name)
+            m[f'{base}.downsample.0'] = (ours, 'downsample_conv')
+            m[f'{base}.downsample.1'] = (ours, 'downsample_bn')
+    return m
+
+
+def fpn_reference_mapping(num_laterals: int,
+                          pyramid_layers: int) -> Dict[str, Tuple[str, ...]]:
+    """The ``FeaturePyramid`` neck: plain-conv laterals and conv+BN output
+    convs, keyed relative to the neck (``predictor.features.``)."""
+    m: Dict[str, Tuple[str, ...]] = {}
+    for i in range(num_laterals):
+        m[f'pyramid_lateral.{i}'] = (f'lateral{i}',)
+    for i in range(pyramid_layers):
+        m[f'pyramid_output.{i}.conv'] = (f'output{i}', 'conv')
+        m[f'pyramid_output.{i}.bn'] = (f'output{i}', 'bn')
+    return m
+
+
+def _convbn_entries(torch_prefix: str, our_path: Tuple[str, ...],
+                    use_depthwise: bool = False) -> Dict[str, Tuple[str, ...]]:
+    """The entries of one ``ConvBn`` or ``DepthwiseConvBn`` block."""
+    if use_depthwise:
+        return {f'{torch_prefix}.{leaf}': our_path + (leaf,)
+                for leaf in ('depthwise_conv', 'depthwise_bn',
+                             'pointwise_conv', 'pointwise_bn')}
+    return {f'{torch_prefix}.conv': our_path + ('conv',),
+            f'{torch_prefix}.bn': our_path + ('bn',)}
+
+
+def mlfpn_reference_mapping(num_out_layers: int, num_scales: int,
+                            num_tums: int, use_depthwise: bool = False
+                            ) -> Dict[str, Tuple[str, ...]]:
+    """M2Det's ``MultilevelFeaturePyramid``, keyed relative to the neck:
+    the reference's ``down_layers.{j}``/``up_layers.{j}`` serve scale
+    ``j + 1`` (the port's ``down{i}``/``up{i}``), ``smooth_layers.{j}`` is
+    ``smooth{j}``, ``reducers.{t}`` feeds TUM ``t + 1``."""
+    m: Dict[str, Tuple[str, ...]] = {}
+    for i in range(num_out_layers):
+        m.update(_convbn_entries(f'base_reducers.{i}', (f'base_reducer{i}',)))
+    for t in range(num_tums):
+        for i in range(1, num_scales):
+            m.update(_convbn_entries(f'tums.{t}.down_layers.{i - 1}',
+                                     (f'tum{t}', f'down{i}'), use_depthwise))
+            m.update(_convbn_entries(f'tums.{t}.up_layers.{i - 1}',
+                                     (f'tum{t}', f'up{i}'), use_depthwise))
+        for j in range(num_scales):
+            m.update(_convbn_entries(f'tums.{t}.smooth_layers.{j}',
+                                     (f'tum{t}', f'smooth{j}'), use_depthwise))
+    for t in range(1, num_tums):
+        m.update(_convbn_entries(f'reducers.{t - 1}', (f'reducer{t}',)))
+    for s in range(num_scales):
+        m[f'sfam.fc1.{s}'] = ('sfam', f'fc1_{s}')
+        m[f'sfam.fc2.{s}'] = ('sfam', f'fc2_{s}')
+    return m
+
+
+def shared_predictor_reference_mapping(num_layers: int, num_levels: int,
+                                       use_depthwise: bool = False
+                                       ) -> Dict[str, Tuple[str, ...]]:
+    """``SharedConvPredictor``'s towers: per-head convs shared across
+    levels (``convs.{head}.{l}``) and per-level BNs (``norms.{head}.{l}.{s}``),
+    keyed relative to the predictor (``predictor.predictor.``)."""
+    m: Dict[str, Tuple[str, ...]] = {}
+    for head in ('score', 'loc'):
+        for l in range(num_layers):
+            if use_depthwise:
+                for leaf in ('depthwise_conv', 'pointwise_conv'):
+                    m[f'convs.{head}.{l}.{leaf}'] = (f'{head}_conv{l}', leaf)
+            else:
+                m[f'convs.{head}.{l}.conv'] = (f'{head}_conv{l}', 'conv')
+            for s in range(num_levels):
+                m[f'norms.{head}.{l}.{s}'] = (f'{head}_norm{l}_{s}',)
+    return m
+
+
+def reference_detector_mapping(extras_spec, num_scales: int,
+                               use_depthwise: bool = False,
+                               backbone_mapping: Optional[
+                                   Dict[str, Tuple[str, ...]]] = None,
+                               fpn: Optional[dict] = None,
+                               mlfpn: Optional[dict] = None,
+                               predictor: Optional[dict] = None,
+                               ) -> Dict[str, Tuple[str, ...]]:
+    """The whole detector of a reference checkpoint's ``model_dict``:
+    ``predictor.features.base.<backbone>`` (the reference's ``Features``
+    keeps the backbone's ``features`` children as its own ``base``, so one
+    ``features.`` level goes), the neck (``predictor.features.*``: FPN
+    with ``fpn = {'num_laterals', 'pyramid_layers'}``, MLFPN with ``mlfpn
+    = {'num_out_layers', 'num_scales', 'num_tums'}``), the extras
+    (``predictor.extras.{j}.{0,1}``), the shared towers
+    (``predictor.predictor.*``, ``predictor = {'num_layers'}``; levels
+    default to ``num_scales``) and the heads (``predictor.heads.{i}``)."""
+    if backbone_mapping is None:
+        backbone_mapping = mobilenet_v2_reference_mapping()
+    m: Dict[str, Tuple[str, ...]] = {}
+    for k, path in backbone_mapping.items():
+        k = k[len('features.'):] if k.startswith('features.') else k
+        m[f'predictor.features.base.{k}'] = ('features', 'base') + tuple(path)
+    if fpn:
+        for k, path in fpn_reference_mapping(
+                int(fpn['num_laterals']), int(fpn['pyramid_layers'])).items():
+            m[f'predictor.features.{k}'] = ('features',) + tuple(path)
+    if mlfpn:
+        for k, path in mlfpn_reference_mapping(
+                int(mlfpn['num_out_layers']), int(mlfpn['num_scales']),
+                int(mlfpn['num_tums']),
+                bool(mlfpn.get('use_depthwise', use_depthwise))).items():
+            m[f'predictor.features.{k}'] = ('features',) + tuple(path)
+    if predictor:
+        for k, path in shared_predictor_reference_mapping(
+                int(predictor['num_layers']),
+                int(predictor.get('num_levels', num_scales)),
+                bool(predictor.get('use_depthwise', use_depthwise))).items():
+            m[f'predictor.predictor.{k}'] = ('predictor',) + tuple(path)
+    for j, (type_, _out) in enumerate(extras_spec):
+        if type_ == 'm':  # a max pool: no parameters
+            continue
+        m[f'predictor.extras.{j}.0.conv'] = (f'extra{j}', 'reduce', 'conv')
+        m[f'predictor.extras.{j}.0.bn'] = (f'extra{j}', 'reduce', 'bn')
+        if use_depthwise:
+            for leaf in ('depthwise_conv', 'depthwise_bn',
+                         'pointwise_conv', 'pointwise_bn'):
+                m[f'predictor.extras.{j}.1.{leaf}'] = (f'extra{j}', 'expand',
+                                                       leaf)
+        else:
+            m[f'predictor.extras.{j}.1.conv'] = (f'extra{j}', 'expand', 'conv')
+            m[f'predictor.extras.{j}.1.bn'] = (f'extra{j}', 'expand', 'bn')
+    for i in range(num_scales):
+        m[f'predictor.heads.{i}.score'] = (f'score_head{i}',)
+        m[f'predictor.heads.{i}.loc'] = (f'loc_head{i}',)
+    return m
+
+
+def reference_backbone_mapping(backbone: str) -> Dict[str, Tuple[str, ...]]:
+    """The backbone half of a reference checkpoint, by registry name: the
+    reference's own MobileNets, the torchvision VGGs (their ``features``
+    indices) and ResNet/ResNeXt (:func:`resnet_reference_mapping`).
+    SE-ResNet(Xt) (pretrainedmodels' ``layer0`` layout) and any other name
+    raise ``KeyError``."""
+    if backbone.startswith('mobilenet_v2'):
+        return mobilenet_v2_reference_mapping()
+    # v1: 'mobilenet_v1' and the width aliases 'mobilenet_<digits>'; a bare
+    # 'mobilenet_' prefix would catch other families
+    if backbone.startswith('mobilenet_v1') or (
+            backbone.startswith('mobilenet_')
+            and backbone[len('mobilenet_'):].isdigit()):
+        return mobilenet_v1_mapping()
+    if 'vgg' in backbone:
+        depth = int(''.join(ch for ch in backbone if ch.isdigit()))
+        return vgg_mapping(VGG_CONFIGS[depth], bn=backbone.endswith('_bn'))
+    # anchored, so 'se_resnet50' / 'se_resnext50_32x4d' do not match
+    m = re.match(r'(?:torchvision_)?(?:resnet|resnext)(\d+)', backbone)
+    if m:
+        return resnet_reference_mapping(RESNET_CONFIGS[int(m[1])]['layers'])
+    raise KeyError(f'No reference-checkpoint mapping for backbone '
+                   f'{backbone!r} (supported: mobilenet v1/v2, vgg, '
+                   f'resnet/resnext)')
+
+
+def import_reference_checkpoint(path: str,
+                                model_state: Dict[str, torch.Tensor],
+                                extras_spec, num_scales: int,
+                                use_depthwise: bool = False,
+                                backbone: str = 'mobilenet_v2',
+                                fpn: Optional[dict] = None,
+                                mlfpn: Optional[dict] = None,
+                                predictor: Optional[dict] = None
+                                ) -> Dict[str, torch.Tensor]:
+    """A copy of the detector's ``model_state`` filled from a reference
+    training checkpoint (a ``ckpt-N.pt`` global_state with
+    ``model_dict``).  Checkpoint modules the mapping does not name are
+    warned about: the model keeps its initialization there."""
+    mapping = reference_detector_mapping(
+        extras_spec, num_scales, use_depthwise,
+        backbone_mapping=reference_backbone_mapping(backbone),
+        fpn=fpn, mlfpn=mlfpn, predictor=predictor)
+    sd = load_torch_state_dict(path)
+    unconsumed = sorted({k.rsplit('.', 1)[0] for k in sd
+                         if k.rsplit('.', 1)[-1] in
+                         ('weight', 'bias', 'running_mean', 'running_var')}
+                        - set(mapping))
+    if unconsumed:
+        logging.warning(
+            f'WW torch import: {len(unconsumed)} checkpoint modules have '
+            f'no mapping entry and were NOT imported (model keeps its '
+            f'init there): {unconsumed[:8]}...')
+    return import_backbone(sd, model_state, 'reference_detector',
+                           base_path=(), mapping=mapping)
+
+
+def export_state_dict(model_state: Mapping[str, torch.Tensor],
+                      mapping: Dict[str, Tuple[str, ...]],
+                      base_path: Tuple[str, ...] = ()
+                      ) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`import_backbone`: a torch ``state_dict`` in the
+    mapping's names from the port's.  A BatchNorm gives ``weight``,
+    ``bias``, ``running_mean``, ``running_var`` and ``num_batches_tracked``
+    = 0 (identity statistics, warned about, where it has none); a conv its
+    ``weight`` (and ``bias``), as f32.  Entries with no source module are
+    skipped and logged."""
+    out: Dict[str, torch.Tensor] = {}
+    missing = []
+    fabricated = []
+
+    def f32(t: torch.Tensor) -> torch.Tensor:
+        return t.detach().to('cpu', torch.float32).contiguous().clone()
+
+    for torch_prefix, our_path in mapping.items():
+        source = '.'.join(base_path + tuple(our_path))
+        weight = model_state.get(f'{source}.weight')
+        if weight is None:
+            missing.append(torch_prefix)
+            continue
+        out[f'{torch_prefix}.weight'] = f32(weight)
+        if weight.ndim == 1:  # BatchNorm
+            out[f'{torch_prefix}.bias'] = f32(model_state[f'{source}.bias'])
+            mean = model_state.get(f'{source}.running_mean')
+            var = model_state.get(f'{source}.running_var')
+            if mean is None:
+                fabricated.append(torch_prefix)
+                mean, var = torch.zeros_like(weight), torch.ones_like(weight)
+            out[f'{torch_prefix}.running_mean'] = f32(mean)
+            out[f'{torch_prefix}.running_var'] = f32(var)
+            out[f'{torch_prefix}.num_batches_tracked'] = torch.tensor(
+                0, dtype=torch.int64)
+        elif f'{source}.bias' in model_state:
+            out[f'{torch_prefix}.bias'] = f32(model_state[f'{source}.bias'])
+    if missing:
+        logging.warning(f'WW torch export: no source leaf for '
+                        f'{missing[:5]}... ({len(missing)} total)')
+    if fabricated:
+        logging.warning(
+            f'WW torch export: fabricated identity running stats '
+            f'(mean=0/var=1) for BatchNorms with no batch_stats leaf: '
+            f'{fabricated[:5]}... ({len(fabricated)} total) '
+            f'— the exported model will normalize differently in eval mode')
+    logging.info(f'===> torch export: emitted {len(out)} tensors')
+    return out
+
+
+def export_reference_checkpoint(path: str,
+                                model_state: Mapping[str, torch.Tensor],
+                                extras_spec, num_scales: int,
+                                use_depthwise: bool = False,
+                                backbone: str = 'mobilenet_v2',
+                                epoch: int = 0, global_step: int = 0,
+                                fpn: Optional[dict] = None,
+                                mlfpn: Optional[dict] = None,
+                                predictor: Optional[dict] = None) -> str:
+    """The inverse of :func:`import_reference_checkpoint`: ``torch.save``
+    of ``{'model_dict', 'epoch', 'global_step'}`` as the reference writes
+    and loads its checkpoints, for SSD, RetinaNet and M2Det over the
+    backbones :func:`reference_backbone_mapping` knows."""
+    mapping = reference_detector_mapping(
+        extras_spec, num_scales, use_depthwise,
+        backbone_mapping=reference_backbone_mapping(backbone),
+        fpn=fpn, mlfpn=mlfpn, predictor=predictor)
+    sd = export_state_dict(model_state, mapping, base_path=())
+    torch.save({'model_dict': sd, 'epoch': int(epoch),
+                'global_step': int(global_step)}, path)
+    logging.info(f'===> wrote reference-format checkpoint {path} '
+                 f'({len(sd)} tensors)')
+    return path
+
+
+def mapping_args_from_config(model_cfg: dict) -> dict:
+    """The keyword arguments of :func:`import_reference_checkpoint` and
+    :func:`export_reference_checkpoint` from a config's ``model`` dict.
+    A neck without a mapping (``DepthwiseFeaturePyramid``) raises
+    ``KeyError`` rather than leave the neck at its initialization."""
+    detector_cfg = dict(model_cfg.get('detector', {}))
+    base_name = dict(model_cfg.get('base', {})).get('name', 'mobilenet_v2')
+    backbone = base_name[len('torchvision_'):] \
+        if base_name.startswith('torchvision_') else base_name
+    extras_spec = tuple(dict(detector_cfg.get('extras', {}))
+                        .get('layers', ()))
+    features_cfg = dict(detector_cfg.get('features', {}))
+    fpn = None
+    mlfpn = None
+    features_name = features_cfg.get('name', 'Features')
+    if features_name == 'FeaturePyramid':
+        fpn = {'num_laterals': len(features_cfg.get('out_layers', ())),
+               'pyramid_layers': int(features_cfg['pyramid_layers'])}
+    elif features_name == 'MultilevelFeaturePyramid':
+        mlfpn = {'num_out_layers': len(features_cfg.get('out_layers', ())),
+                 'num_scales': int(features_cfg['num_scales']),
+                 'num_tums': int(features_cfg['num_tums'])}
+    elif features_name not in (None, '', 'Features'):
+        raise KeyError(
+            f'No reference-checkpoint mapping for neck {features_name!r} '
+            f"(supported: Features, FeaturePyramid, "
+            f"MultilevelFeaturePyramid)")
+    predictor_cfg = detector_cfg.get('predictor')
+    predictor = ({'num_layers': int(predictor_cfg.get('num_layers', 0))}
+                 if predictor_cfg else None)
+    if fpn:
+        num_sources = fpn['pyramid_layers']
+    elif mlfpn:
+        num_sources = mlfpn['num_scales']
+    else:
+        num_sources = len(features_cfg.get('out_layers', ()))
+    num_scales = int(dict(model_cfg.get('anchor_generator', {})).get(
+        'num_scales', num_sources + len(extras_spec)))
+    return dict(extras_spec=extras_spec, num_scales=num_scales,
+                use_depthwise=bool(detector_cfg.get('use_depthwise', False)),
+                backbone=backbone, fpn=fpn, mlfpn=mlfpn,
+                predictor=predictor)

@@ -35,7 +35,8 @@ from single_shot_detection_tpu_torch.train import schedulers
 from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.train.step import apply_gradients
 from single_shot_detection_tpu_torch.trainer import Trainer
-from single_shot_detection_tpu_torch.utils import flax_msgpack, torch_import
+from single_shot_detection_tpu_torch.utils import (flax_msgpack, keras_import,
+                                                   torch_import)
 from single_shot_detection_tpu_torch.utils.weights import (from_jax_state,
                                                            from_jax_variables)
 
@@ -622,17 +623,14 @@ def test_base_weight_import_matches_jax(tmp_path, caplog):
 def test_weight_files_not_ported_raise():
     """Every registry backbone has its mapping now; a name outside the
     registry has none, as in the JAX package.  torch-hub backbones, keras
-    ``.h5`` files and the reference's whole-detector checkpoints are not
-    ported yet."""
+    ``.h5`` files and the reference's whole-detector checkpoints are
+    ported (``test_torch_port_interop*.py``); what JAX refuses there the
+    port refuses too: a torch-hub model outside the registry, keras
+    weights for a backbone keras has none for."""
     with pytest.raises(KeyError, match='No torch mapping'):
         torch_import.resolve_mapping('torchvision_mobilenet_v3_large')
-    for model, match in (({'base': {'name': 'torchhub://pytorch/vision:'
-                                            'mobilenet_v2'}}, 'torchhub'),
-                         ({'base': {'name': 'mobilenet_v2', 'weight': 'w.h5'}},
-                          'h5'),
-                         ({'detector': {'num_classes': 5,
-                                        'torch_weight': 'ckpt.pt'}},
-                          'torch_weight')):
-        with pytest.raises(NotImplementedError, match=match):
-            Experiment(SMOKE, phases=('eval',), device='cpu',
-                       overrides={'model': model})
+    with pytest.raises(ValueError, match='torch-hub'):
+        Experiment(SMOKE, phases=('eval',), device='cpu', overrides={
+            'model': {'base': {'name': 'torchhub://some/repo:not_a_backbone'}}})
+    with pytest.raises(KeyError, match='keras'):
+        keras_import.keras_backbone_mapping('torchvision_vgg16_bn')

@@ -306,19 +306,15 @@ def test_experiment_raises_on_what_is_not_ported(tmp_path, monkeypatch):
     """What the port does not run yet raises; checkpoints, resume,
     ``ReduceLROnPlateau`` and ``detector.weight`` are ported (their tests
     are in ``test_torch_port_checkpoint.py``), and so are tensorboard, the
-    device cache and async checkpoints (``test_torch_port_run_extras.py``),
-    which raised before."""
+    device cache and async checkpoints (``test_torch_port_run_extras.py``)
+    and ``detector.torch_weight`` (``test_torch_port_interop.py``), which
+    raised before."""
     over = {'train': {'scheduler': MULTISTEP}}
     with pytest.raises(NotImplementedError, match='process_count'):
         Experiment(SMOKE, device='cpu', overrides=over, process_count=2)
-    for extra, match in (({'train': {'zero_sharding': True}}, 'zero_sharding'),
-                         ({'model': {'detector': {'num_classes': 5,
-                                                  'torch_weight': 'w.pt'}}},
-                          'torch_weight')):
-        with pytest.raises(NotImplementedError, match=match):
-            Experiment(SMOKE, device='cpu',
-                       overrides={**over, **extra} if 'train' not in extra else
-                       {'train': {**over['train'], **extra['train']}})
+    with pytest.raises(NotImplementedError, match='zero_sharding'):
+        Experiment(SMOKE, device='cpu', overrides={
+            'train': {**over['train'], 'zero_sharding': True}})
     # tensorboard's own stand-in for TensorFlow, whose import costs seconds
     monkeypatch.setitem(sys.modules, 'tensorboard.compat.notf',
                         types.ModuleType('tensorboard.compat.notf'))

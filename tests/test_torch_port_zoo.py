@@ -388,10 +388,11 @@ def test_every_jax_backbone_name_of_the_slice_is_registered():
 
 def test_builder_raises_on_what_it_does_not_read():
     """A MobileNetV2 config with an unknown ``model.detector`` key, VGG's
-    ``packed_stem`` or a bilinear MLFPN raises rather than building another
-    model (``heads.dtype`` is read: ``test_torch_port_bf16.py``); the FPN's
-    ``width_overrides`` (pruning's narrow widths) is read, as the JAX
-    builder passes it to the neck."""
+    ``packed_stem`` or an MLFPN with an interpolation mode JAX does not
+    have raises rather than building another model (``heads.dtype`` is
+    read: ``test_torch_port_bf16.py``); the FPN's ``width_overrides``
+    (pruning's narrow widths) and a bilinear neck are read, as the JAX
+    builder passes them to the neck."""
     cfg = load_config('samples/synthetic_smoke.py')
     cfg.config.model['detector']['frobnicate'] = 3
     with pytest.raises(NotImplementedError, match='frobnicate'):
@@ -402,14 +403,16 @@ def test_builder_raises_on_what_it_does_not_read():
         pt_builder.from_config(cfg)
     cfg = load_config('samples/retina_rn50_500_voc.py')
     cfg.config.model['detector']['features']['width_overrides'] = {'lateral': 8}
+    cfg.config.model['detector']['features']['interpolation_mode'] = 'bilinear'
     cfg.config.input_size = (64, 64)
     narrow = pt_builder.from_config(cfg).module.features
     assert [narrow.get_submodule(f'lateral{i}').out_channels
             for i in range(3)] == [8] * 3
     assert narrow.output0.conv.in_channels == 8
+    assert narrow.interpolation_mode == 'bilinear'
     cfg = load_config('samples/m2det_512_vgg16_voc.py')
-    cfg.config.model['detector']['features']['interpolation_mode'] = 'bilinear'
-    with pytest.raises(NotImplementedError, match='bilinear'):
+    cfg.config.model['detector']['features']['interpolation_mode'] = 'bicubic'
+    with pytest.raises(ValueError, match='bicubic'):
         pt_builder.from_config(cfg)
     cfg = load_config('samples/synthetic_smoke.py')
     cfg.config.model['detector']['heads'] = {'dtype': 'float32'}
