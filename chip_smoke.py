@@ -277,6 +277,25 @@ Phases, each fatal:
     ``interpolation_mode='bilinear'`` at b2 against the CPU (heads and
     sources within ``ZOO_FORWARD_RTOL``); a keras ``.h5`` backbone where
     ``h5py`` imports (else a line says so).
+23. data parallelism over processes (``parallel/mesh.py``), the flagship
+    at full width, 300 px, seeded weights, in two rank processes
+    (``chip_smoke.py --dp-worker``): NCCL with a card each where there are
+    two cards, else gloo with both ranks on the one card (the line says
+    which).  (a) one 2 x b16 step, the flagship's augmentation drawn for the
+    global batch, against this process's 1 x b32 step on the same batch:
+    the loss within 1e-4 relative, every parameter's update within
+    ``DP_UPDATE_TOL`` of the step's largest, the BN running statistics
+    within ``DP_STATS_RTOL``/``DP_STATS_ATOL``, the ranks bit-equal; (b)
+    ``Experiment(process_count=2)`` for a short epoch on the committed JPEG
+    fixtures and an evaluation: the NMS kernel launched on each rank
+    (counted per rank), both ranks the same loss and mAP; (c) ZeRO-1 for
+    one step with cuDNN deterministic, against the plain 2-rank step on the
+    same batch: bit-equal, each rank's optimizer bytes against the plain
+    run's; (d) the step's wall ms at 2 ranks, at 1 (b16 and b32), the
+    gradient all-reduce's ms and share of the 2-rank step, and one BN's
+    forward and backward at ``[16, 96, 150, 150]``, synchronised against
+    PyTorch's.  A rank's failure, or a rank still running at
+    ``DP_WALL_S``, ends the run.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -311,7 +330,7 @@ import torch
 
 from single_shot_detection_tpu_torch import cli
 from single_shot_detection_tpu_torch.kernels import _build
-from single_shot_detection_tpu_torch.models.layers import BatchNorm
+from single_shot_detection_tpu_torch.models.layers import BatchNorm, set_sync_bn
 from single_shot_detection_tpu_torch.ops import bn_kernel
 from single_shot_detection_tpu_torch.ops import nms as nms_ops
 from single_shot_detection_tpu_torch.ops import nms_kernel
@@ -5722,6 +5741,382 @@ def run_interop(smi: str, jax_card_metrics: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 23
+
+DP_RANKS = 2
+DP_BATCH = 16  # per rank; the one-process reference takes the global 32
+DP_TIMED_STEPS = 5
+DP_COLLECTIVE_TIMEOUT_S = 120
+DP_WALL_S = 300
+# Phase 23 (a): each parameter's update against the one-process step's, as
+# a share of the step's largest update (the backward through 64 BNs
+# amplifies the reduction order of the ranks' partial sums and cuDNN's own
+# order; 2.3 % on the CPU, tests/test_torch_port_distributed.py), and the
+# running statistics, direct reductions over the global batch
+DP_UPDATE_TOL = 5e-2
+DP_STATS_RTOL = 1e-3
+DP_STATS_ATOL = 1e-4
+DP_EXPERIMENT_STEPS = 2
+DP_TOP_OPS = 6
+
+
+def dp_trainer(device, rank: int, count: int, zero: bool = False) -> Trainer:
+    """The flagship as shipped (its augmentation, SGD with momentum),
+    seeded weights, rank ``rank`` of ``count``."""
+    return Trainer.from_config(FLAGSHIP, device=device, seed=SEED, overrides={
+        'train': {'zero_sharding': zero}}, process_count=count,
+        process_index=rank)
+
+
+def dp_batch():
+    """Phase 23's global b32 batch."""
+    return train_batch(np.random.RandomState(SEED + 23), b=DP_RANKS * DP_BATCH)
+
+
+def cpu_state(model: torch.nn.Module) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def optimizer_bytes(trainer: Trainer) -> int:
+    return sum(t.numel() * t.element_size()
+               for state in trainer.state.optimizer.state.values()
+               for t in state.values() if isinstance(t, torch.Tensor))
+
+
+def wall_ms(fn, iters: int) -> float:
+    """Median wall ms of ``fn`` (synchronized) over ``iters`` calls after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def dp_worker(rank: int, port: int, backend: str, out: str) -> int:
+    """One rank of phase 23; writes its results to ``out/rank{rank}.pt``."""
+    from single_shot_detection_tpu_torch import parallel
+    device = parallel.initialize_distributed(
+        f'127.0.0.1:{port}', DP_RANKS, rank,
+        device=f'cuda:{rank % torch.cuda.device_count()}', backend=backend,
+        timeout=DP_COLLECTIVE_TIMEOUT_S)
+    try:
+        for module in (nms_kernel, bn_kernel):
+            module.build()  # the parent's builds, found by their hash
+        images, boxes, mask = dp_batch()
+        own = slice(rank * DP_BATCH, (rank + 1) * DP_BATCH)
+        batch = (images[own], boxes[own], mask[own])
+        result = {'device': str(device), 'backend': backend}
+
+        # (a) and (d): the 2-rank step, then its times
+        trainer = dp_trainer(device, rank, DP_RANKS)
+        metrics = trainer.train_step(*batch, step=0)
+        result['a'] = {'metrics': {k: v.item() for k, v in metrics.items()},
+                       'state': cpu_state(trainer.model)}
+        result['d'] = {'step_ms': wall_ms(lambda: trainer.train_step(*batch),
+                                          DP_TIMED_STEPS),
+                       'profile': dp_step_profile(trainer, batch)}
+        # timing only: the same step with each rank's own BN statistics
+        # (PyTorch's batch norm), the synchronised BN's cost end to end
+        set_sync_bn(trainer.model, False)
+        result['d']['own_bn_step_ms'] = wall_ms(
+            lambda: trainer.train_step(*batch), DP_TIMED_STEPS)
+        set_sync_bn(trainer.model, True)
+        params = list(trainer.model.parameters())
+        result['d']['all_reduce_ms'] = wall_ms(
+            lambda: parallel.all_reduce_grads(params), DP_TIMED_STEPS)
+        result['d']['grad_bytes'] = sum(p.numel() * 4 for p in params)
+        del trainer
+        result['d'].update(bn_forward_backward_ms(device))
+
+        # (c): ZeRO-1 against the plain step, cuDNN deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs = {}
+            for key, zero in (('plain', False), ('zero', True)):
+                t = dp_trainer(device, rank, DP_RANKS, zero=zero)
+                m = t.train_step(*batch, step=0)
+                runs[key] = {'metrics': {k: v.item() for k, v in m.items()},
+                             'state': cpu_state(t.model),
+                             'optimizer_bytes': optimizer_bytes(t),
+                             'sliced': (sum(a is not None for a in
+                                            t.state.zero.axes.values())
+                                        if t.state.zero else 0)}
+                del t
+        finally:
+            torch.backends.cudnn.deterministic = False
+        result['c'] = runs
+
+        # (b): Experiment on the JPEG fixtures, NMS counted on this rank
+        exp = Experiment(FLAGSHIP, phases=('train', 'eval'), device=device,
+                         seed=SEED, process_count=DP_RANKS, process_index=rank,
+                         overrides={'dataset': extras_dataset(), 'train': {
+                             'epochs': 1, 'eval_every': 1,
+                             'num_batches_per_epoch': DP_EXPERIMENT_STEPS}})
+        nms_kernel.nms_keep_batched.launches = 0
+        t0 = time.perf_counter()
+        rows = exp.train()
+        torch.cuda.synchronize()
+        result['b'] = {'rows': rows, 's': time.perf_counter() - t0,
+                       'nms_launches': nms_kernel.nms_keep_batched.launches,
+                       'eval_batches': len(exp.loaders['eval']),
+                       'train_batch': exp.loaders['train'].batch_size}
+        torch.save(result, os.path.join(out, f'rank{rank}.pt'))
+    finally:
+        parallel.destroy()
+    return 0
+
+
+def dp_step_profile(trainer: Trainer, batch) -> dict:
+    """One profiled train step (after a warm-up one): its host ms under
+    the profiler, the device's busy ms outside NCCL's kernels and NCCL's
+    kernels' ms (which include waiting for the other rank), their idle
+    share, the host's operator calls and device launches, and the largest
+    host operators by self time."""
+    def step():
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+
+    prof = profile_window(step)
+    events = prof.key_averages()
+    wall_us = sum(e.cpu_time_total for e in events
+                  if e.key.startswith('ProfilerStep'))
+    nccl = [e for e in events if 'nccl' in e.key.lower()
+            and e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)]
+    nccl_us = sum(e.self_device_time_total for e in nccl)
+    busy = busy_us(prof) - nccl_us
+    host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+            and not e.key.startswith('ProfilerStep')]
+    top = sorted(host, key=lambda e: -e.self_cpu_time_total)[:DP_TOP_OPS]
+    return {'wall_ms': wall_us / 1e3, 'busy_ms': busy / 1e3,
+            'nccl_ms': nccl_us / 1e3, 'nccl_launches': sum(e.count for e in nccl),
+            'idle_share': 1.0 - busy / wall_us if wall_us else None,
+            'aten_calls': sum(e.count for e in host if e.key.startswith('aten::')),
+            'launches': busy_launches(prof),
+            'top_host_ms': {e.key: [e.self_cpu_time_total / 1e3, e.count]
+                            for e in top}}
+
+
+def profile_line(p: dict) -> str:
+    return (f'{p["wall_ms"]:.2f} ms on the host under the profiler, device '
+            f'busy {p["busy_ms"]:.2f} ms outside NCCL (idle '
+            f'{p["idle_share"]:.1%}), NCCL kernels {p["nccl_ms"]:.2f} ms in '
+            f'{p["nccl_launches"]} launches; {p["aten_calls"]} aten calls, '
+            f'{p["launches"]} device launches; largest host self times: '
+            + ', '.join(f'{k} {ms:.2f} ms x{n}'
+                        for k, (ms, n) in p['top_host_ms'].items()))
+
+
+def bn_forward_backward_ms(device) -> dict:
+    """A train-mode BN's forward and backward at the flagship's largest BN
+    input of a b16 rank: the synchronised one (its two all-reduces
+    included) against PyTorch's batch norm on this rank alone."""
+    from single_shot_detection_tpu_torch.models.layers import SyncBatchNormFunction
+    shape = (DP_BATCH, 96, 150, 150)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn(shape, device=device, generator=g).requires_grad_()
+    dz = torch.randn(shape, device=device, generator=g)
+    w = torch.ones(shape[1], device=device, requires_grad=True)
+    b = torch.zeros(shape[1], device=device, requires_grad=True)
+
+    def synced():
+        z, _, _ = SyncBatchNormFunction.apply(x, w, b, 1e-5)
+        torch.autograd.backward(z, dz)
+
+    def alone():
+        z, _, _ = torch.native_batch_norm(x, w, b, None, None, True, 0.0, 1e-5)
+        torch.autograd.backward(z, dz)
+
+    return {'bn_shape': list(shape), 'sync_bn_ms': cuda_ms(synced, 10),
+            'native_bn_ms': cuda_ms(alone, 10)}
+
+
+def start_dp_ranks(work: str, backend: str):
+    """Start phase 23's rank processes; returns them with their logs."""
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for rank in range(DP_RANKS):
+        logs.append(os.path.join(work, f'rank{rank}.log'))
+        with open(logs[-1], 'w') as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / 'chip_smoke.py'), '--dp-worker',
+                 str(rank), str(port), backend, work], stdout=log,
+                stderr=subprocess.STDOUT, cwd=str(REPO)))
+    return procs, logs
+
+
+def wait_dp_ranks(procs, logs) -> None:
+    """Wait for every rank under ``DP_WALL_S``; kill them all and fail on a
+    rank's failure or on the limit, with its log."""
+    deadline = time.monotonic() + DP_WALL_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            log(f'--- phase 23 rank {r} (exit {procs[r].returncode}):\n'
+                + open(logs[r]).read()[-8000:])
+        fail(f'phase 23: ranks {bad} failed or passed {DP_WALL_S} s')
+
+
+def dp_compare(got: dict, want: dict, before: dict) -> dict:
+    """Phase 23 (a): the 2-rank step against the one-process one."""
+    loss_rel = abs(got['metrics']['loss'] - want['metrics']['loss']) / abs(
+        want['metrics']['loss'])
+    if not loss_rel <= 1e-4:
+        fail(f'phase 23 (a): loss {got["metrics"]["loss"]} against '
+             f'{want["metrics"]["loss"]} (rel {loss_rel:.3g} > 1e-4)')
+    updates = {k: want['state'][k] - before[k] for k in want['state']
+               if k.endswith(('weight', 'bias'))}
+    largest = max(u.abs().max().item() for u in updates.values())
+    update_err = max((got['state'][k] - before[k] - u).abs().max().item()
+                     for k, u in updates.items())
+    if not update_err <= DP_UPDATE_TOL * largest:
+        fail(f'phase 23 (a): an update is {update_err:.3g} off the '
+             f'one-process step\'s, over {DP_UPDATE_TOL} x {largest:.3g}')
+    stats_err = 0.0
+    for k in want['state']:
+        if k.endswith(('running_mean', 'running_var')):
+            g, w = got['state'][k], want['state'][k]
+            excess = ((g - w).abs() - DP_STATS_ATOL - DP_STATS_RTOL * w.abs())
+            if excess.max().item() > 0:
+                fail(f'phase 23 (a): {k} off the one-process step\'s '
+                     f'beyond rtol {DP_STATS_RTOL}, atol {DP_STATS_ATOL}')
+            stats_err = max(stats_err, (g - w).abs().max().item())
+    return {'loss_rel_err': loss_rel, 'largest_update': largest,
+            'update_max_abs_err': update_err,
+            'running_stats_max_abs_err': stats_err}
+
+
+def run_multi_gpu(smi: str) -> dict:
+    """Phase 23: the data-parallel path on two rank processes."""
+    cards = torch.cuda.device_count()
+    backend = 'nccl' if cards >= DP_RANKS else 'gloo'
+    mode = (f'NCCL, ranks on cuda:0 and cuda:1' if backend == 'nccl' else
+            'gloo, both ranks on cuda:0 (one card: NCCL refuses two ranks '
+            'on one card)')
+    log(f'[23] {smi}: 2 rank processes over {mode}; the flagship at 300 px, '
+        f'seeded weights, b{DP_BATCH} a rank')
+    work = tempfile.mkdtemp(prefix='chip_smoke_dp_')
+    try:
+        wait_dp_ranks(*start_dp_ranks(work, backend))
+        ranks = [torch.load(os.path.join(work, f'rank{r}.pt'),
+                            weights_only=False) for r in range(DP_RANKS)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # then, alone on the card: the one-process step on the global batch,
+    # and the one-process step times at b16 and b32
+    images, boxes, mask = dp_batch()
+    single = dp_trainer('cuda', 0, 1)
+    before = cpu_state(single.model)
+    metrics = single.train_step(images, boxes, mask, step=0)
+    want = {'metrics': {k: v.item() for k, v in metrics.items()},
+            'state': cpu_state(single.model)}
+    timing = {
+        'one_b32_step_ms': wall_ms(
+            lambda: single.train_step(images, boxes, mask), DP_TIMED_STEPS),
+        'one_b16_step_ms': wall_ms(
+            lambda: single.train_step(images[:DP_BATCH], boxes[:DP_BATCH],
+                                      mask[:DP_BATCH]), DP_TIMED_STEPS),
+        'one_b16_profile': dp_step_profile(
+            single, (images[:DP_BATCH], boxes[:DP_BATCH], mask[:DP_BATCH]))}
+    del single
+    torch.cuda.empty_cache()
+
+    # (a)
+    for r in range(1, DP_RANKS):
+        if ranks[r]['a']['metrics'] != ranks[0]['a']['metrics'] or any(
+                not torch.equal(v, ranks[0]['a']['state'][k])
+                for k, v in ranks[r]['a']['state'].items()):
+            fail(f'phase 23 (a): rank {r}\'s state differs from rank 0\'s')
+    step = dp_compare(ranks[0]['a'], want, before)
+    log(f'  (a) 2 x b{DP_BATCH} step against 1 x b{DP_RANKS * DP_BATCH}: '
+        f'loss {ranks[0]["a"]["metrics"]["loss"]:.6f} against '
+        f'{want["metrics"]["loss"]:.6f} (rel {step["loss_rel_err"]:.3g}); '
+        f'updates within {step["update_max_abs_err"]:.3g} of the largest '
+        f'{step["largest_update"]:.3g}; running statistics within '
+        f'{step["running_stats_max_abs_err"]:.3g}; the ranks bit-equal')
+    # (b)
+    rows = [r['b']['rows'][-1] for r in ranks]
+    launches = [r['b']['nms_launches'] for r in ranks]
+    if any(n <= 0 for n in launches):
+        fail(f'phase 23 (b): NMS launches per rank {launches}')
+    for key in ('train_loss', 'eval_loss', 'eval_mAP'):
+        if any(row[key] != rows[0][key] for row in rows):
+            fail(f'phase 23 (b): the ranks disagree on {key}: '
+                 f'{[row[key] for row in rows]}')
+        if not np.isfinite(rows[0][key]):
+            fail(f'phase 23 (b): {key} {rows[0][key]}')
+    if not 0.0 <= rows[0]['eval_mAP'] <= 1.0:
+        fail(f'phase 23 (b): mAP {rows[0]["eval_mAP"]}')
+    log(f'  (b) Experiment(process_count=2) on the JPEG fixtures: '
+        f'{DP_EXPERIMENT_STEPS} steps of 2 x b{ranks[0]["b"]["train_batch"]} '
+        f'and an evaluation ({ranks[0]["b"]["eval_batches"]} batch a rank) in '
+        f'{max(r["b"]["s"] for r in ranks):.2f} s; NMS launches per rank '
+        f'{launches}; both ranks: ' + json.dumps(rows[0]))
+    # (c)
+    zero_bytes = []
+    for r, result in enumerate(ranks):
+        plain, zero = result['c']['plain'], result['c']['zero']
+        diff = max((zero['state'][k] - v).abs().max().item()
+                   for k, v in plain['state'].items())
+        if zero['metrics'] != plain['metrics'] or diff != 0.0:
+            fail(f'phase 23 (c): rank {r}: the ZeRO-1 step is {diff:.3g} off '
+                 'the plain one')
+        zero_bytes.append(zero['optimizer_bytes'])
+    plain_bytes = ranks[0]['c']['plain']['optimizer_bytes']
+    log(f'  (c) ZeRO-1: the step bit-equal to the plain 2-rank step '
+        f'(cuDNN deterministic); {ranks[0]["c"]["zero"]["sliced"]} leaves '
+        f'sliced; optimizer bytes per rank {zero_bytes} against '
+        f'{plain_bytes} plain')
+    # (d)
+    two = [r['d'] for r in ranks]
+    step_ms = max(d['step_ms'] for d in two)
+    reduce_ms = max(d['all_reduce_ms'] for d in two)
+    timing.update({'two_rank_step_ms': step_ms, 'all_reduce_ms': reduce_ms,
+                   'all_reduce_share': reduce_ms / step_ms,
+                   'grad_bytes': two[0]['grad_bytes'], 'backend': backend})
+    log(f'  (d) {smi}: step wall ms (median of {DP_TIMED_STEPS}): 2 ranks x '
+        f'b{DP_BATCH} {step_ms:.2f} (slower rank), 1 process b32 '
+        f'{timing["one_b32_step_ms"]:.2f}, b16 {timing["one_b16_step_ms"]:.2f}; '
+        f'the gradient all-reduce ({timing["grad_bytes"]} bytes, {backend}) '
+        f'{reduce_ms:.2f} ms = {timing["all_reduce_share"]:.1%} of the step; '
+        f'one BN forward and backward at {two[0]["bn_shape"]}: synchronised '
+        f'{max(d["sync_bn_ms"] for d in two):.3f} ms (its all-reduces in), '
+        f'PyTorch\'s batch norm alone {max(d["native_bn_ms"] for d in two):.3f}')
+    timing.update({key: max(d[key] for d in two)
+                   for key in ('sync_bn_ms', 'native_bn_ms', 'own_bn_step_ms')})
+    timing['two_rank_profiles'] = [d['profile'] for d in two]
+    log(f'      the same 2-rank step with each rank\'s own BN statistics '
+        f'(timing only): {timing["own_bn_step_ms"]:.2f} ms')
+    for r, d in enumerate(two):
+        log(f'      profiled 2-rank step, rank {r}: '
+            + profile_line(d['profile']))
+    log(f'      profiled 1-process b{DP_BATCH} step: '
+        + profile_line(timing['one_b16_profile']))
+    return {'mode': mode, 'a': step, 'b': {'rows': rows, 'nms_launches': launches},
+            'c': {'optimizer_bytes_per_rank': zero_bytes,
+                  'plain_optimizer_bytes': plain_bytes},
+            'd': timing}
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
@@ -5734,6 +6129,13 @@ def parse_args(argv):
              'from a git archive of an earlier commit) whose K2 and K4 are '
              'built and timed in turns beside this one in the profiled '
              'train steps and in phase 14')
+    parser.add_argument(
+        '--data-parallel-only', action='store_true',
+        help='build the kernels and run phase 23 alone (two rank processes; '
+             'NCCL with two cards or more), then print its results as JSON; '
+             'the smoke test\'s last line is not printed')
+    parser.add_argument('--dp-worker', nargs=4, help=argparse.SUPPRESS,
+                        metavar=('RANK', 'PORT', 'BACKEND', 'OUT'))
     return parser.parse_args(argv)
 
 
@@ -5743,10 +6145,26 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print('FAIL: CUDA is not available', file=sys.stderr)
         return 1
+    if args.dp_worker:  # a rank process of phase 23
+        rank, port, backend, out = args.dp_worker
+        return dp_worker(int(rank), int(port), backend, out)
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[0]
+    if args.data_parallel_only:
+        from single_shot_detection_tpu_torch.data import native
+        t = time.perf_counter()
+        for module in (nms_kernel, bn_kernel):
+            module.build()
+        native.get_library()  # the ranks load the one build
+        log(f'[2] built the kernels and the JPEG decoder in '
+            f'{time.perf_counter() - t:.2f} s')
+        t = time.perf_counter()
+        result = run_multi_gpu(smi)
+        log(f'phase 23 in {time.perf_counter() - t:.2f} s')
+        log(json.dumps(result, default=str))
+        return 0
     card = torch.cuda.get_device_name(0)
     log(f'[1] card: {smi} | torch {torch.__version__} | CUDA '
         f'{torch.version.cuda} | python {sys.version.split()[0]}')
@@ -5987,6 +6405,11 @@ def main(argv=None) -> int:
     interop = run_interop(smi, card_metrics)
     log(f'  phase 22 in {time.perf_counter() - t:.1f} s')
 
+    # 23. data parallelism over two rank processes
+    t = time.perf_counter()
+    multi_gpu = run_multi_gpu(smi)
+    log(f'  phase 23 in {time.perf_counter() - t:.1f} s')
+
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
         **train_timing,
@@ -6024,7 +6447,8 @@ def main(argv=None) -> int:
             **{k: v for k, v in options.items() if k != 'combined'},
             'combined': {k: v for k, v in options['combined'].items()
                          if k != 'launches'}},
-        'data_extras': extras, 'interop': interop}}))
+        'data_extras': extras, 'interop': interop,
+        'multi_gpu': multi_gpu}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -6095,7 +6519,10 @@ def main(argv=None) -> int:
                              'interop_serving': interop['serving'][
                                  'launches']['nms_keep_batched'],
                              'interop_cli_jax_run': interop['jax_run'][
-                                 'launches']['nms_keep_batched']},
+                                 'launches']['nms_keep_batched'],
+                             # phase 23: each rank's evaluation
+                             **{f'multi_gpu_rank{r}': n for r, n in enumerate(
+                                 multi_gpu['b']['nms_launches'])}},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
             'shape', 'ms', 'call_ms', 'plain_ms', 'bound_ms', 'bound_by',

@@ -6,6 +6,7 @@ Port of the JAX package's ``main.py``, flag for flag::
         --phases train eval [--save-dir DIR] [--checkpoint FILE_OR_DIR]
         [--new-checkpoint] [--load-weights] [--debug] [--cpu] [--profile DIR]
         [--bf16] [--int8] [--matmul-precision NAME] [--video PATH]
+        [--coordinator-address HOST:PORT --num-processes N --process-id I]
 
 ``train`` runs the epochs (checkpoints, ``log.csv``, ``train.log`` and a
 copy of the config go to a timestamped directory under ``--save-dir``, or
@@ -33,9 +34,20 @@ an int8 artifact.
 ``--tensorboard`` writes each epoch's ``train/{k}`` and ``eval/{k}``
 scalars beside the checkpoints (``torch.utils.tensorboard``).
 
-Not ported yet, each raising ``NotImplementedError``: the distributed
-flags, and ``--compilation-cache`` other than ``off`` (the port has no XLA
-cache; its kernels are built once into ``kernels/build/``).
+``--num-processes N`` with ``--coordinator-address HOST:PORT`` (process
+0's) and ``--process-id I`` runs process ``I`` of a data-parallel run of
+N processes, one card each (``cuda:{I % cards}``; gloo on the CPU with
+``--cpu``), started once per process: ``config.batch_size`` is each
+process's batch (``train/engine.py``).  Process 0 picks and creates the
+run directory and hands its name to the others; only it writes the
+checkpoints, ``log.csv``, ``train.log``, tensorboard scalars and an
+export, and runs the ``test`` phase.
+
+Not ported, raising ``NotImplementedError`` before anything is written:
+``--compilation-cache`` other than ``off`` (the port has no XLA cache; its
+kernels are built once into ``kernels/build/``), and a config whose
+``train.tensor_sharding``, ``spatial_sharding`` or ``pipeline_sharding``
+partitions the model axis (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -45,14 +57,6 @@ import logging
 import os
 import sys
 from typing import Optional, Sequence
-
-# flag -> where ROADMAP.md's Queue 1 lists it
-_UNPORTED_FLAGS = (
-    ('coordinator_address', '--coordinator-address', 'item 8 (multi-GPU)'),
-    ('num_processes', '--num-processes', 'item 8 (multi-GPU)'),
-    ('process_id', '--process-id', 'item 8 (multi-GPU)'),
-)
-
 
 def get_argparser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog='python -m single_shot_detection_tpu_torch')
@@ -100,20 +104,16 @@ def get_argparser() -> argparse.ArgumentParser:
                         help='The JAX package\'s XLA cache; the port has '
                              'none: only "off"')
 
-    dist = parser.add_argument_group('distributed (multi-host, not ported yet)')
-    dist.add_argument('--coordinator-address', type=str, default=None)
+    dist = parser.add_argument_group('distributed (one process a card)')
+    dist.add_argument('--coordinator-address', type=str, default=None,
+                      help='HOST:PORT of process 0')
     dist.add_argument('--num-processes', type=int, default=None)
     dist.add_argument('--process-id', type=int, default=None)
     return parser
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for a flag not ported yet."""
-    for attr, flag, item in _UNPORTED_FLAGS:
-        value = getattr(args, attr)
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f'{flag} is not ported yet (ROADMAP.md Queue 1 {item})')
+    """Raise ``NotImplementedError`` for a flag the port does not run."""
     if args.compilation_cache not in (None, 'off'):
         raise NotImplementedError(
             '--compilation-cache: the port has no XLA compilation cache; its '
@@ -145,31 +145,48 @@ def main(argv: Optional[Sequence[str]] = None):
         format='%(message)s', stream=sys.stdout, force=True)
     check_ported(args)
 
+    from single_shot_detection_tpu_torch import parallel
     from single_shot_detection_tpu_torch.train import checkpoint as ckpt_utils
     from single_shot_detection_tpu_torch.train.engine import Experiment
+    from single_shot_detection_tpu_torch.trainer import check_ported as check_train
     from single_shot_detection_tpu_torch.utils.config import load_config
 
     cfg = load_config(args.config, phases=args.phases)
-    train = 'train' in args.phases
-    checkpoint_dir = ckpt_utils.prepare_checkpoint_dir(
-        args.save_dir, args.checkpoint, args.config, args.debug, train,
-        args.new_checkpoint)
-
+    processes = int(args.num_processes or 1)
+    check_train(cfg, processes)  # before anything is written
+    device = 'cpu' if args.cpu else 'cuda'
+    joined = processes > 1
+    if joined:
+        device = parallel.initialize_distributed(
+            args.coordinator_address, processes, args.process_id,
+            device=device)
     handler = None
-    if not args.debug and train:  # the file logger next to the checkpoints
-        handler = logging.FileHandler(os.path.join(checkpoint_dir, 'train.log'))
-        handler.setFormatter(logging.Formatter('%(asctime)s %(message)s'))
-        logging.getLogger().addHandler(handler)
     try:
-        experiment = Experiment(cfg, phases=args.phases,
-                                device='cpu' if args.cpu else 'cuda',
+        index = parallel.process_index()
+        train = 'train' in args.phases
+        checkpoint_dir = None
+        if index == 0:
+            checkpoint_dir = ckpt_utils.prepare_checkpoint_dir(
+                args.save_dir, args.checkpoint, args.config, args.debug,
+                train, args.new_checkpoint)
+        if joined:  # one run directory, process 0's
+            checkpoint_dir = parallel.broadcast_object(checkpoint_dir)
+
+        if not args.debug and train and index == 0:
+            # the file logger next to the checkpoints
+            handler = logging.FileHandler(os.path.join(checkpoint_dir,
+                                                       'train.log'))
+            handler.setFormatter(logging.Formatter('%(asctime)s %(message)s'))
+            logging.getLogger().addHandler(handler)
+        experiment = Experiment(cfg, phases=args.phases, device=device,
                                 checkpoint_dir=checkpoint_dir,
                                 resume_from=args.checkpoint,
                                 load_weights=args.load_weights,
                                 debug=args.debug, bf16=args.bf16,
                                 int8=args.int8,
                                 matmul_precision=args.matmul_precision,
-                                tensorboard=args.tensorboard)
+                                tensorboard=args.tensorboard,
+                                process_count=processes, process_index=index)
         if 'embed' in args.phases:
             import code
             code.interact(local={'experiment': experiment, 'cfg': cfg})
@@ -183,13 +200,19 @@ def main(argv: Optional[Sequence[str]] = None):
                 result = experiment.train()
         elif 'eval' in args.phases:
             result = experiment.evaluate()
+        experiment.trainer.gather_shadow()  # ZeRO-1 with EMA: every rank
         if 'test' in args.phases:
-            from single_shot_detection_tpu_torch.utils.video_viewer import VideoViewer
-            VideoViewer(args.video, experiment).run()
-        if 'export' in args.phases:
+            # every rank: an int8 calibration takes the ranks' maximum
+            experiment.predictor()
+            if index == 0:
+                from single_shot_detection_tpu_torch.utils.video_viewer import VideoViewer
+                VideoViewer(args.video, experiment).run()
+        if 'export' in args.phases:  # every rank traces, process 0 writes
             experiment.export(int8=args.int8)
         return experiment, result
     finally:
         if handler is not None:
             logging.getLogger().removeHandler(handler)
             handler.close()
+        if joined:
+            parallel.destroy()

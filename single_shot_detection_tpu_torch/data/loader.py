@@ -24,8 +24,13 @@ and every batch when the library is unavailable, take the path above.
 ``staging_colorspace='yuv420'`` stages packed planar YUV420 ``[B,
 H*W*3/2]`` (1.5 bytes a pixel; even staging sizes only), which the
 ``Pipeline`` turns back into RGB on the device; ``cache_dir`` keeps the
-staged records in an on-disk ``StagingCache`` (``data/cache.py``).  Not
-ported: the per-host sharding of multi-host runs.
+staged records in an on-disk ``StagingCache`` (``data/cache.py``).
+
+A run of several processes (``process_count``, ``process_index``) shards
+the order as the JAX loader does, in place of torch's
+``DistributedSampler``: the global order is wrap-padded to a multiple of
+``process_count`` and process ``r`` takes ``order[r::process_count]``, so
+every process emits the same number of batches.
 """
 
 from __future__ import annotations
@@ -65,8 +70,12 @@ class Loader:
                  prefetch: int = 2,
                  staging_colorspace: str = 'rgb',
                  cache_dir: Optional[str] = None,
-                 staging_device: Optional[torch.device] = None):
+                 staging_device: Optional[torch.device] = None,
+                 process_count: int = 1,
+                 process_index: int = 0):
         self.staging_device = torch.device(staging_device or 'cpu')
+        self.process_count = int(process_count)
+        self.process_index = int(process_index)
         self._stream = None  # the staging stream on a CUDA staging device
         self.dataset = dataset
         self.batch_size = batch_size
@@ -89,16 +98,25 @@ class Loader:
         self.cache = (StagingCache(cache_dir, dataset, self.staging_size,
                                    staging_colorspace) if cache_dir else None)
 
-    def _indices(self) -> np.ndarray:
-        """The (seed + epoch)-deterministic permutation of the dataset."""
+    def _global_order(self) -> np.ndarray:
+        """The (seed + epoch)-deterministic permutation of the dataset,
+        wrap-padded to a multiple of ``process_count`` (the device cache
+        builds every rank's batches from it)."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(order)
+        pad = (-len(order)) % self.process_count
+        if pad:
+            order = np.concatenate([order, order[:pad]])
         return order
 
+    def _indices(self) -> np.ndarray:
+        """This process's rows of :meth:`_global_order`."""
+        return self._global_order()[self.process_index::self.process_count]
+
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self._indices())
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -268,10 +286,12 @@ def create_loaders(datasets: dict, batch_size: int, staging_size,
                    max_gt: int = 100, seed: int = 23,
                    staging_colorspace: str = 'rgb',
                    cache_dir: Optional[str] = None,
-                   staging_device: Optional[torch.device] = None) -> dict:
+                   staging_device: Optional[torch.device] = None,
+                   process_count: int = 1, process_index: int = 0) -> dict:
     """Per-phase loaders: the eval batch twice the train batch, ``drop_last``
     and shuffling for train only.  ``cache_dir`` turns on the on-disk
-    staging cache, one subdirectory per phase."""
+    staging cache, one subdirectory per phase.  ``process_count`` and
+    ``process_index``: this process's shard (the module doc)."""
     return {phase: Loader(
         dataset,
         batch_size=batch_size * 2 if phase == 'eval' else batch_size,
@@ -283,4 +303,5 @@ def create_loaders(datasets: dict, batch_size: int, staging_size,
         num_workers=num_workers,
         staging_colorspace=staging_colorspace,
         cache_dir=os.path.join(cache_dir, phase) if cache_dir else None,
-        staging_device=staging_device) for phase, dataset in datasets.items()}
+        staging_device=staging_device, process_count=process_count,
+        process_index=process_index) for phase, dataset in datasets.items()}

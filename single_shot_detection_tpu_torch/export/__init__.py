@@ -197,10 +197,8 @@ def _int8_amax(experiment, model: nn.Module, batch_size: Optional[int]):
             logging.info(f'>> int8 export: using {len(amax)} QAT-learned conv '
                          'scales')
     if amax is None:
-        with experiment.policy.scope():
-            images = experiment._calibration_images(
-                int(opts.get('calibration_batches', 2)))
-            amax = quantize.calibrate(model, images)
+        amax = experiment.calibrate_int8(
+            model, int(opts.get('calibration_batches', 2)))
         logging.info(f'>> int8 export: calibrated {len(amax)} convs')
     return amax, opts.get('spatial_limit')
 
@@ -243,8 +241,10 @@ def export_model(experiment, path: str, with_postprocess: bool = False,
     with_preprocess=True, bake_variables=True``: the ``export =
     {'standalone': True}`` config shorthand, which
     ``tools/infer_exported.py`` and ``tools/serve.py`` consume.
+
+    In a run of several processes every rank traces the program (an int8
+    calibration takes its maximum over the ranks) and process 0 writes it.
     """
-    os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
     model, state = _deploy_model(experiment)
     infer = _make_inference_fn_for(experiment, model, with_postprocess,
                                    int8=int8, with_preprocess=with_preprocess,
@@ -273,6 +273,9 @@ def export_model(experiment, path: str, with_postprocess: bool = False,
             'with_preprocess': bool(with_preprocess),
             'bake_variables': bool(bake_variables), 'int8': bool(int8)}
     out_path = path + SUFFIX
+    if experiment.process_index != 0:
+        return out_path
+    os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
     torch.export.save(program, out_path,
                       extra_files={META_FILE: json.dumps(meta)})
     logging.info(f'>> Exported the program to {out_path} '

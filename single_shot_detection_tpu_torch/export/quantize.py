@@ -35,6 +35,7 @@ from typing import Callable, Dict, Iterable, Iterator, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from single_shot_detection_tpu_torch import parallel
 from single_shot_detection_tpu_torch.models.layers import Conv2d
 
 QMAX = 127.0
@@ -398,7 +399,9 @@ class QatConv:
     """QAT's mode of a conv: in train mode the conv's ``act_amax`` is
     seeded by the first batch's max |input| and then follows an EMA of
     ``decay`` (once per application, in order); in eval mode it is read
-    only.  A call on an input beyond ``spatial_limit`` stays float."""
+    only.  A call on an input beyond ``spatial_limit`` stays float.  In a
+    run of several processes the batch's max |input| is over every rank's
+    rows, the JAX step's global batch."""
 
     def __init__(self, decay: float = QAT_DECAY,
                  spatial_limit: Optional[int] = None):
@@ -411,7 +414,8 @@ class QatConv:
         act = conv.act_amax
         if conv.training:
             with torch.no_grad():
-                batch_amax = x.abs().amax().to(torch.float32)
+                batch_amax = parallel.all_reduce_(
+                    x.abs().amax().to(torch.float32).reshape(1), 'max')[0]
                 # Python-float factors taken as f32, as JAX takes them
                 act.copy_(torch.where(
                     act > 0, self.decay * act + (1.0 - self.decay) * batch_amax,

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from single_shot_detection_tpu_torch import parallel
 from single_shot_detection_tpu_torch.models import norm
 from single_shot_detection_tpu_torch.ops.bn_fused import fused_bn_train
 
@@ -80,11 +81,19 @@ class BatchNorm(nn.BatchNorm2d):
     (flax's rule): the kernels' ``out_dtype``, and PyTorch's batch norm,
     which takes bf16 activations with f32 parameters and computes in f32.
     The running statistics are updated from the f32 batch statistics.
+
+    ``sync`` (set for every BatchNorm of a run of several processes,
+    ``parallel/mesh.py``) takes the train-mode statistics over the global
+    batch, the rows of every rank, as the JAX engine's one SPMD program
+    does: :class:`SyncBatchNormFunction`, in plain PyTorch with two
+    all-reduces.  It wins over ``fused`` (the JAX engine keeps flax's BN
+    under several devices too); eval mode and ``group_norm`` need no sync.
     """
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
         self.fused = False
+        self.sync = False
         self.group_norm: Optional[int] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -93,7 +102,10 @@ class BatchNorm(nn.BatchNorm2d):
                                    self.group_norm, self.eps)
         if not self.training:
             return super().forward(x)
-        if self.fused:
+        if self.sync:
+            z, mean, var = SyncBatchNormFunction.apply(x, self.weight,
+                                                       self.bias, self.eps)
+        elif self.fused:
             z, mean, var = fused_bn_train(x, self.weight, self.bias, self.eps)
         else:
             z, mean, invstd = torch.native_batch_norm(
@@ -108,8 +120,66 @@ class BatchNorm(nn.BatchNorm2d):
         return z
 
 
+class SyncBatchNormFunction(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of all the ranks.
+
+    Forward: each rank's f32 per-channel ``[Σx, Σx², count]`` summed over
+    the ranks in one all-reduce, then flax's fast variance ``max(0, E[x²] -
+    E[x]²)`` (``nn.BatchNorm``'s ``use_fast_variance``) and ``z = (x -
+    mean) * rsqrt(var + eps) * weight + bias`` in f32, returned in ``x``'s
+    dtype with the f32 ``mean`` and biased ``var`` (the running statistics'
+    update).  Backward: ``[Σdz, Σdz·x̂]`` summed over the ranks in one
+    all-reduce, ``dx = weight * rstd / n * (n dz - Σdz - x̂ Σdz·x̂)`` over
+    the global count ``n``; the weight's and bias's gradients are this
+    rank's own sums, which the step's gradient all-reduce adds up."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        xf = x.float()
+        c = xf.shape[1]
+        dims = [0] + list(range(2, xf.dim()))
+        count = torch.full((1,), xf.numel() // c, dtype=torch.float32,
+                           device=xf.device)
+        sums = parallel.all_reduce_(torch.cat(
+            [xf.sum(dims), (xf * xf).sum(dims), count]))
+        n = sums[-1]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        shape = [1, c] + [1] * (xf.dim() - 2)
+        xhat = (xf - mean.view(shape)) * rstd.view(shape)
+        z = xhat * weight.view(shape) + bias.view(shape)
+        ctx.save_for_backward(xhat, weight, rstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        ctx.in_dtype = x.dtype
+        return z.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dz, _dmean, _dvar):
+        xhat, weight, rstd, n = ctx.saved_tensors
+        dz = dz.float()
+        c = dz.shape[1]
+        dims = [0] + list(range(2, dz.dim()))
+        local = torch.cat([dz.sum(dims), (dz * xhat).sum(dims)])
+        sums = parallel.all_reduce_(local.clone())
+        sum_dz, sum_dz_xhat = sums[:c], sums[c:]
+        shape = [1, c] + [1] * (dz.dim() - 2)
+        dx = (weight * rstd / n).view(shape) * (
+            n * dz - sum_dz.view(shape) - xhat * sum_dz_xhat.view(shape))
+        return dx.to(ctx.in_dtype), local[c:], local[:c], None
+
+
 def batch_norm(channels: int) -> BatchNorm:
     return BatchNorm(channels)
+
+
+def set_sync_bn(model: nn.Module, sync: bool) -> int:
+    """Set every :class:`BatchNorm`'s ``sync`` flag (the global-batch
+    statistics of a run of several processes); returns their count."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in layers:
+        m.sync = sync
+    return len(layers)
 
 
 def set_fused_bn(model: nn.Module, fused: bool) -> int:

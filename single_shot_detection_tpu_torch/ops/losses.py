@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from single_shot_detection_tpu_torch import parallel
 from single_shot_detection_tpu_torch.ops import boxes as box_ops
 from single_shot_detection_tpu_torch.ops.matching import (CLASS_INDEX, IGNORE_CLASS,
                                                           LOC_INDEX_END,
@@ -362,6 +363,11 @@ class MultiboxLoss:
       target  ``[B, A, 6]`` assigned targets (raw corner loc, class, score)
     returns ``(loss, class_loss, loc_loss)``, each divided by the clamped
     positive count.
+
+    In a run of several processes (``parallel/mesh.py``) the positive
+    count is summed over the ranks: each rank's loss is then its share of
+    the global batch's loss, the JAX engine's, and the ranks' gradients
+    add up to that loss's gradient.
     """
 
     def __init__(self, sampler, box_coder, classification_loss: dict,
@@ -427,7 +433,8 @@ class MultiboxLoss:
             loc_loss = self.localization_loss(locs, encoded_target,
                                               positive_mask)
 
-        divider = torch.clamp(positive_mask.sum(), min=1).to(scores.dtype)
+        positives = parallel.all_reduce_(positive_mask.sum().to(scores.dtype))
+        divider = torch.clamp(positives, min=1)
         loc_loss = loc_loss * self.localization_weight / divider
         class_loss = class_loss * self.classification_weight / divider
         return class_loss + loc_loss, class_loss, loc_loss

@@ -26,8 +26,14 @@ so a crash mid-write never leaves a truncated checkpoint that
 :class:`AsyncSaver` (``train.async_checkpoint``) writes the same file off
 the train loop: a copy of the state on its device, ordered on the stream
 before the next step's in-place updates, then the copy to the host and the
-write on a background thread.  Not ported: the JAX package's multi-host
-gather.
+write on a background thread.
+
+A run of several processes saves from process 0 only; under ZeRO-1 the
+sliced optimizer buffers and EMA shadow are first made whole by
+:func:`gather_for_save`, a collective every rank enters, as the JAX
+engine's ``gather_for_save`` runs before its rank gate.  A restore slices
+them again (``Optimizer.shard_state``), so a ZeRO checkpoint restores into
+a plain run and the other way round.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ import numpy as np
 import torch
 
 from single_shot_detection_tpu_torch.train import optimizers
-from single_shot_detection_tpu_torch.train.state import TrainState
+from single_shot_detection_tpu_torch.train.state import TrainState, gather_shadow
 from single_shot_detection_tpu_torch.utils import flax_msgpack, weights
 
 _CKPT_RE = re.compile(r'^ckpt-([0-9]+)\.(pt|msgpack)$')
@@ -75,7 +81,7 @@ def find_latest(checkpoint_path: str) -> Optional[str]:
 
 def saved_dict(state: TrainState) -> dict:
     """What a ``.pt`` file holds for ``state``: the live tensors, not
-    copies."""
+    copies (under ZeRO-1 take :func:`gather_for_save`'s instead)."""
     saved = {'step': int(state.step),
              'model': state.model.state_dict(),
              'optimizer': state.optimizer.state_dict(),
@@ -84,6 +90,19 @@ def saved_dict(state: TrainState) -> dict:
         saved['mask'] = state.mask
     if state.ema_params:
         saved['ema'] = state.ema_params
+    return saved
+
+
+def gather_for_save(state: TrainState) -> dict:
+    """:func:`saved_dict` with ZeRO-1's slices made whole: the optimizer's
+    buffers gathered and the EMA shadow refreshed from every rank's slice.
+    Under ZeRO a collective every rank must enter; otherwise the plain
+    :func:`saved_dict`."""
+    if state.zero is None:
+        return saved_dict(state)
+    gather_shadow(state)
+    saved = saved_dict(state)
+    saved['optimizer'] = state.optimizer.full_state_dict()
     return saved
 
 
@@ -395,6 +414,7 @@ def restore(path: str, state: TrainState, rules=None) -> Tuple[TrainState, dict]
         restored = torch.load(path, map_location='cpu', weights_only=True)
         _load_model(state, restored['model'], rules)
         _load_optimizer(state, restored['optimizer'], int(restored['step']))
+    state.optimizer.shard_state()  # ZeRO-1: this rank's slices
     _install_mask(state, restored.get('mask'))
     _install_ema(state, restored.get('ema'), rules)
     state.step = int(restored['step'])

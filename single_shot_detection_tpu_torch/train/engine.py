@@ -1,7 +1,8 @@
 """``Experiment``: a config's datasets, loaders, model and steps, run as the
-``train`` and ``eval`` phases on one device.
+``train`` and ``eval`` phases on one device, or as one rank of a run of
+several processes.
 
-Port of the JAX package's ``train/engine.py::Experiment`` for one card:
+Port of the JAX package's ``train/engine.py::Experiment``:
 datasets and loaders from the config, the train ``Trainer`` (augmentation
 ``Pipeline``, model, loss, optimizer and schedule, with milestones counted
 in epochs of the train loader), the eval pipeline and the config-exact
@@ -73,8 +74,24 @@ takes them): ``model.base.weight``, a torchvision ``state_dict``
 which a ``torchhub://repo:model`` backbone finds offline in a torch-hub
 cache (``models/builder.py::resolve_torchhub``); the reference's whole
 detector, ``model.detector.torch_weight``; ``model.detector.weight``;
-``resume_from``.  Not ported yet, raising ``NotImplementedError``:
-multi-host runs.
+``resume_from``.
+
+``process_count`` > 1 runs this experiment as rank ``process_index`` of a
+data-parallel run (``parallel/mesh.py``; the caller joins the process
+group first, the CLI does it for ``--num-processes``): one card a process
+(``cuda:{process_index % cards}``), the loaders' per-process shards (the
+staging cache in a ``p{index}`` subdirectory, the device cache's row
+block, no eval replay cache), the global-batch train step of
+``trainer.py``, and an evaluation in which each rank runs the NMS kernel
+on its own rows and every rank gathers every rank's detections, so every
+rank computes the same mAP and the same plateau decision.  Only process
+0 writes checkpoints, ``log.csv``, tensorboard scalars and progress
+lines; the gather a save needs (ZeRO-1) runs on every rank before that
+gate, and ``train.async_checkpoint`` turns into synchronous saves, with
+the JAX engine's warning.  ``batch_size`` is each process's batch, as in
+the JAX engine's multi-host runs: the global batch is ``process_count``
+times it.  int8 calibration takes each conv's maximum over every rank's
+calibration batches.
 
 ``bf16`` runs the activations in bfloat16 (docs/DESIGN.md §10: parameters, BN
 statistics, SGD momentum and losses stay f32, so checkpoints are f32 and a
@@ -102,6 +119,7 @@ from typing import Dict, Iterable, Iterator, List, Mapping, Optional, Tuple, Uni
 import numpy as np
 import torch
 
+from single_shot_detection_tpu_torch import parallel
 from single_shot_detection_tpu_torch.data.datasets import DATASETS
 from single_shot_detection_tpu_torch.data import device_cache
 from single_shot_detection_tpu_torch.data.loader import create_loaders
@@ -279,11 +297,13 @@ class Experiment:
                  int8: bool = False,
                  matmul_precision: Optional[str] = None,
                  tensorboard: bool = False,
-                 process_count: int = 1):
-        if process_count != 1:
-            raise NotImplementedError('Experiment process_count > 1 is not '
-                                      'ported yet')
-        self.device = resolve_device(device)
+                 process_count: int = 1,
+                 process_index: int = 0):
+        parallel.check_group(process_count, process_index)
+        self.process_count = int(process_count)
+        self.process_index = int(process_index)
+        self.device = (parallel.process_device(process_index, device)
+                       if process_count > 1 else resolve_device(device))
         self.phases = list(phases)
         if isinstance(cfg, str):
             cfg = load_config(cfg, phases=self.phases)
@@ -317,9 +337,10 @@ class Experiment:
                 max_gt=train_cfg.get('max_gt', 100),
                 seed=self.seed,
                 staging_colorspace=str(train_cfg.get('staging_colorspace', 'rgb')),
-                cache_dir=(str(train_cfg['staging_cache'])
-                           if train_cfg.get('staging_cache') else None),
-                staging_device=self.device)
+                cache_dir=_staging_cache_dir(train_cfg.get('staging_cache'),
+                                             process_count, process_index),
+                staging_device=self.device,
+                process_count=process_count, process_index=process_index)
 
         # --- train side: pipeline, model, loss, optimizer, schedule ------
         self.epochs = int(train_cfg.get('epochs', 1))
@@ -332,7 +353,8 @@ class Experiment:
                                or len(self.loaders['train']))
         self.trainer = Trainer.from_cfg(cfg, variables, self.device, self.seed,
                                         steps_per_epoch, bf16,
-                                        matmul_precision)
+                                        matmul_precision, process_count,
+                                        process_index)
         self.policy = self.trainer.policy
         self.matmul_precision = self.policy.matmul_precision
         self.bundle = self.trainer.bundle
@@ -384,13 +406,21 @@ class Experiment:
                                  self.loaders['train'], dc_cfg, self.device)
                              if dc_cfg and 'train' in self.loaders else None)
         # eval.device_cache, by default train.device_cache: the first
-        # evaluation's device batches, replayed by every later one
-        self._eval_replay_cfg = dict(cfg.eval or {}).get('device_cache', dc_cfg)
+        # evaluation's device batches, replayed by every later one (one
+        # process only, as in the JAX engine)
+        self._eval_replay_cfg = (dict(cfg.eval or {}).get('device_cache', dc_cfg)
+                                 if process_count == 1 else None)
         self._eval_cache: Optional[list] = None
-        self.async_saver = (ckpt.AsyncSaver()
-                            if train_cfg.get('async_checkpoint') else None)
+        self.async_saver = None
+        if train_cfg.get('async_checkpoint'):
+            if process_count > 1:
+                logging.warning('WW train.async_checkpoint is single-process '
+                                'only; falling back to synchronous saves')
+            else:
+                self.async_saver = ckpt.AsyncSaver()
         self.writer = None
-        if tensorboard and not self.debug and checkpoint_dir:
+        if (tensorboard and not self.debug and checkpoint_dir
+                and self.process_index == 0):
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self.writer = SummaryWriter(checkpoint_dir)
@@ -486,7 +516,9 @@ class Experiment:
     def _observe(self, tensors) -> None:
         """Feed the pruner's data-dependent criterion after a step: the
         step's loss gradients beside the parameters after it, or the
-        per-channel activation means of the batch's eval preprocessing."""
+        per-channel activation means of the batch's eval preprocessing
+        (with several processes, the global batch's: the gradients are
+        summed over the ranks already, the means are averaged here)."""
         if isinstance(self.pruner.criterion, pruning.TaylorExpansion):
             params = pruning.param_tree(self.model)
             self.pruner.observe_grads(params, {k: p.grad
@@ -494,7 +526,15 @@ class Experiment:
         if self._observe_means:
             with torch.no_grad(), self.policy.scope():
                 x, _, _ = self.eval_pipeline.apply([], *tensors)
-                self.pruner.observe(pruning.activation_means(self.model, x))
+                means = pruning.activation_means(self.model, x)
+            # the global batch's means: every rank's batch is b rows
+            keys = list(means)
+            flat = parallel.all_reduce_(torch.from_numpy(np.concatenate(
+                [means[k].ravel() for k in keys])).to(self.device))
+            parts = np.split((flat / self.process_count).cpu().numpy(),
+                             np.cumsum([means[k].size for k in keys])[:-1])
+            means = dict(zip(keys, parts))
+            self.pruner.observe(means)
 
     def materialize_pruned(self):
         """The physically narrow model of a pruned run: ``(bundle,
@@ -538,6 +578,20 @@ class Experiment:
             images.append(x)
         return images
 
+    def calibrate_int8(self, model: torch.nn.Module,
+                       n_batches: int) -> Dict[str, float]:
+        """Each conv's int8 activation maximum ``{key: amax}`` of ``model``
+        over ``n_batches`` eval batches of every rank: the maximum over
+        the ranks is a collective, so every rank calls it."""
+        with self.policy.scope():
+            images = self._calibration_images(n_batches)
+            amax = quantize.calibrate(model, images)
+        keys = sorted(amax)
+        maxima = parallel.all_reduce_(torch.tensor(
+            [amax[k] for k in keys], dtype=torch.float64, device=self.device),
+            'max').tolist()
+        return dict(zip(keys, maxima))
+
     def _ensure_int8(self) -> None:
         """Calibrate on eval batches and switch the evaluation to int8
         (port of the JAX engine's ``_ensure_int8``); calibrate again when
@@ -562,10 +616,8 @@ class Experiment:
             how = 'QAT-learned scales for'
         else:
             n_batches = int(opts.get('calibration_batches', 2))
-            with self.policy.scope():
-                images = self._calibration_images(n_batches)
-                self._int8_amax = quantize.calibrate(self.eval_model, images)
-            how = f'calibrated ({len(images)} batches)'
+            self._int8_amax = self.calibrate_int8(self.eval_model, n_batches)
+            how = f'calibrated (at most {n_batches} batches)'
         self._int8_calib_step = step
         self._int8_spatial_limit = opts.get('spatial_limit')
         self._int8_modes = quantize.make_interceptor(
@@ -646,7 +698,8 @@ class Experiment:
         try:
             return self._train_epochs()
         except KeyboardInterrupt:
-            if self.checkpoint_dir and not self.debug:
+            if (self.checkpoint_dir and not self.debug
+                    and self.process_index == 0 and self._emergency_saveable()):
                 self._drain_async_saves(swallow=True)
                 path = ckpt.save(self.checkpoint_dir, self.trainer.state,
                                  self._current_epoch)
@@ -661,8 +714,23 @@ class Experiment:
                 signal.signal(signal.SIGTERM, prev_handler
                               if prev_handler is not None else signal.SIG_DFL)
 
+    def _emergency_saveable(self) -> bool:
+        """An emergency save runs on one rank, so it cannot gather ZeRO-1's
+        slices (a collective): with them sharded over several processes it
+        is skipped with a pointer to the last scheduled save, as in the JAX
+        engine."""
+        if self.trainer.state.zero is None:
+            return True
+        logging.warning(
+            'WW state has cross-host-sharded leaves (train.zero_sharding '
+            'over multiple processes): emergency checkpoint skipped '
+            '(gathering is a collective, unsafe from one rank mid-failure) '
+            '— resume from the last scheduled save')
+        return False
+
     def _train_epochs(self) -> List[Dict[str, float]]:
-        writes = self.checkpoint_dir and not self.debug
+        saves = bool(self.checkpoint_dir and not self.debug)
+        writes = saves and self.process_index == 0
         csv_path = None
         if writes:
             os.makedirs(self.checkpoint_dir, exist_ok=True)
@@ -688,12 +756,15 @@ class Experiment:
             rows.append(row)
             if csv_path:
                 _write_csv(csv_path, earlier + rows)
-            if writes and (epoch + 1) % self.save_every == 0:
+            if saves and (epoch + 1) % self.save_every == 0:
                 if self.async_saver is not None:
                     self.async_saver.save(self.checkpoint_dir, trainer.state,
                                           epoch)
                 else:
-                    ckpt.save(self.checkpoint_dir, trainer.state, epoch)
+                    # every rank gathers (ZeRO-1), process 0 writes
+                    saved = ckpt.gather_for_save(trainer.state)
+                    if writes:
+                        ckpt.write(self.checkpoint_dir, saved, epoch)
         # the last checkpoint is on disk, or its failure raised, on return
         self._drain_async_saves(swallow=False)
         return rows
@@ -780,10 +851,13 @@ class Experiment:
         for i, key in enumerate(METRIC_KEYS):
             row[f'train_{key}'] = pulled[i] / max(count, 1) if pulled else 0.0
         elapsed = time.perf_counter() - start
-        logging.info(f'[train] epoch {epoch}: {count} steps in {elapsed:.2f} s '
-                     f'({count * loader.batch_size / max(elapsed, 1e-9):.1f} '
-                     'img/s) ' + ' '.join(f'{k}={v:.4f}' for k, v in row.items()
-                                          if k != 'epoch'))
+        if self.process_index == 0:
+            images = count * loader.batch_size * self.process_count
+            logging.info(
+                f'[train] epoch {epoch}: {count} steps in {elapsed:.2f} s '
+                f'({images / max(elapsed, 1e-9):.1f} img/s) '
+                + ' '.join(f'{k}={v:.4f}' for k, v in row.items()
+                           if k != 'epoch'))
         return row
 
     # ------------------------------------------------------------------- eval
@@ -825,6 +899,7 @@ class Experiment:
         """Loss and mAP over the eval loader (and ``int8``, 1.0 or 0.0, when
         int8 was asked for).  Detections stay on the device until every
         batch has been dispatched."""
+        self.trainer.gather_shadow()  # ZeRO-1 with EMA: every rank
         self._ensure_int8()
         start = time.perf_counter()
         sums = None
@@ -846,17 +921,17 @@ class Experiment:
                 count += 1
                 pending.append((dets, valid, mask, full_boxes, ids))
 
+        if sums is not None:
+            parallel.all_reduce_(sums)  # each rank's share of each batch
         pulled = sums.tolist() if sums is not None else [0.0] * len(METRIC_KEYS)
         all_preds, all_gts = [], []
-        for dets, valid, mask, gt, ids in pending:
-            dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
-            mask, gt = mask.cpu().numpy(), gt.cpu().numpy()
-            for i in range(dets.shape[0]):
-                if ids[i] < 0:
-                    continue  # padding rows of the last partial batch
-                for row in dets[i][valid[i]]:
-                    all_preds.append([len(all_gts), *row])
-                all_gts.append(gt[i][mask[i]])
+        rows = self._gather_eval_rows(pending)
+        for i in range(len(rows['ids'])):
+            if rows['ids'][i] < 0:
+                continue  # padding rows of the last partial batch
+            for row in rows['dets'][i][rows['valid'][i]]:
+                all_preds.append([len(all_gts), *row])
+            all_gts.append(rows['gt'][i][rows['mask'][i]])
 
         result = {k: v / max(count, 1) for k, v in zip(METRIC_KEYS, pulled)}
         if all_gts:
@@ -876,9 +951,41 @@ class Experiment:
             # 1.0: the int8 forward served this evaluation; 0.0: the gate
             # refused it and the evaluation ran in float
             result['int8'] = float(self.int8)
-        logging.info(f'[eval] {count} batches in {time.perf_counter() - start:.2f} s: '
-                     + ' '.join(f'{k}={v:.4f}' for k, v in result.items()))
+        if self.process_index == 0:
+            logging.info(f'[eval] {count} batches in '
+                         f'{time.perf_counter() - start:.2f} s: '
+                         + ' '.join(f'{k}={v:.4f}' for k, v in result.items()))
         return result
+
+    def _gather_eval_rows(self, pending) -> Dict[str, np.ndarray]:
+        """The evaluation's rows on the host, ``dets``, ``valid``,
+        ``mask``, ``gt`` and ``ids``, batch by batch; with several
+        processes every rank's, gathered in the JAX engine's order (each
+        batch's rows rank after rank) on every rank."""
+        keys = ('dets', 'valid', 'mask', 'gt', 'ids')
+        rows = {k: [] for k in keys + ('batch',)}
+        for b, entry in enumerate(pending):
+            for k, value in zip(keys, entry):
+                rows[k].append(value.cpu().numpy()
+                               if isinstance(value, torch.Tensor) else value)
+            rows['batch'].append(np.full(len(entry[-1]), b, np.int64))
+        if not pending:
+            return {k: np.zeros((0,)) for k in keys}
+        rows = {k: np.concatenate(v) for k, v in rows.items()}
+        rows = parallel.all_gather_host(rows)
+        order = np.argsort(rows.pop('batch'), kind='stable')
+        return {k: v[order] for k, v in rows.items()}
+
+
+def _staging_cache_dir(cache_dir, process_count: int,
+                       process_index: int) -> Optional[str]:
+    """The staging cache's directory: one subdirectory ``p{index}`` a
+    process when there are several (the cache has one writer)."""
+    if not cache_dir:
+        return None
+    if process_count > 1:
+        return os.path.join(str(cache_dir), f'p{process_index}')
+    return str(cache_dir)
 
 
 def _read_csv(path: str, before_epoch: int) -> List[Dict[str, str]]:

@@ -191,7 +191,7 @@ _BACKBONE_OVERRIDES = {'MobileNetV2': _mobilenet_v2_overrides,
 def _copy_modes(old: torch.nn.Module, new: torch.nn.Module) -> None:
     """The old model's per-layer modes on the narrow one: each conv's
     quantization mode (and a QAT ``act_amax`` buffer to load into), each
-    BatchNorm's fused path and GroupNorm."""
+    BatchNorm's fused path, global statistics and GroupNorm."""
     from single_shot_detection_tpu_torch.models.layers import BatchNorm, Conv2d
     modules = dict(new.named_modules())
     for name, module in old.named_modules():
@@ -203,6 +203,7 @@ def _copy_modes(old: torch.nn.Module, new: torch.nn.Module) -> None:
                                        torch.zeros_like(module.act_amax))
         elif isinstance(module, BatchNorm) and isinstance(target, BatchNorm):
             target.fused = module.fused
+            target.sync = module.sync
             target.group_norm = module.group_norm
 
 

@@ -49,6 +49,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from single_shot_detection_tpu_torch import parallel
 from single_shot_detection_tpu_torch.utils import weights
 
 DEFAULT_LABEL = weights.DEFAULT_LABEL
@@ -310,11 +311,67 @@ class Optimizer(torch.optim.Optimizer):
             raise ValueError(f'accumulation_steps must be >= 1, got '
                              f'{accumulation_steps}')
 
+        # ZeRO-1 (train.zero_sharding, :meth:`shard`): None, or the layout
+        # and each parameter's name
+        self.zero: Optional[parallel.ZeroLayout] = None
+        self._names: Dict[torch.Tensor, str] = {}
+
     def buffer_names(self, group) -> List[str]:
         """The per-parameter buffers ``group`` keeps (``acc_grad`` too
         under accumulation)."""
         names = self.rule.buffer_names(group)
         return names + ['acc_grad'] if self.accumulation_steps > 1 else names
+
+    def shard(self, layout: 'parallel.ZeroLayout',
+              named_params: Iterable) -> None:
+        """ZeRO-1: from now on this rank keeps each parameter's buffers only
+        for its slice of ``layout`` and updates only that slice of the
+        parameter, whose whole is then gathered from every rank's slice.
+        Every rule is elementwise, so the update is the unsliced one;
+        clipping takes the global norm of the whole gradient.  Buffers
+        already held whole are sliced (:meth:`shard_state`)."""
+        self.zero = layout
+        self._names = {p: name for name, p in named_params}
+        self.shard_state()
+
+    def _slice(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        if self.zero is None:
+            return t
+        return self.zero.slice(self._names[p], t)
+
+    def _sliced(self, p: torch.Tensor) -> bool:
+        return (self.zero is not None
+                and self.zero.axes.get(self._names[p]) is not None)
+
+    def shard_state(self) -> None:
+        """Slice every buffer still held whole (a restored checkpoint's)
+        down to this rank's slice; nothing without ZeRO."""
+        if self.zero is None:
+            return
+        for p, state in self.state.items():
+            if not self._sliced(p):
+                continue
+            for name, buf in state.items():
+                if isinstance(buf, torch.Tensor) and buf.shape == p.shape:
+                    state[name] = self._slice(p, buf).clone()
+
+    def full_state_dict(self) -> dict:
+        """``state_dict()`` with every sliced buffer gathered whole (under
+        ZeRO a collective every rank must enter, in the same order)."""
+        saved = self.state_dict()
+        if self.zero is None:
+            return saved
+        params = [p for g in self.param_groups for p in g['params']]
+        for i, p in enumerate(params):
+            if not self._sliced(p) or i not in saved['state']:
+                continue
+            axis = self.zero.axes[self._names[p]]
+            # state_dict() shares each entry with the live state
+            entry = saved['state'][i] = dict(saved['state'][i])
+            for name in sorted(entry):
+                if isinstance(entry[name], torch.Tensor):
+                    entry[name] = parallel.all_gather_slices(entry[name], axis)
+        return saved
 
     def _buffers(self, group) -> Dict[str, List[torch.Tensor]]:
         out = {}
@@ -326,8 +383,9 @@ class Optimizer(torch.optim.Optimizer):
                 if name not in state:
                     fill = 0.0 if init == 'zeros' else float(group[init])
                     state[name] = torch.full_like(
-                        p, fill, dtype=torch.float32,
-                        memory_format=torch.preserve_format)
+                        self._slice(p, p), fill, dtype=torch.float32,
+                        memory_format=torch.contiguous_format
+                        if self.zero is not None else torch.preserve_format)
                 lst.append(state[name])
             out[name] = lst
         return out
@@ -343,6 +401,11 @@ class Optimizer(torch.optim.Optimizer):
         groups = [(g, self._buffers(g)) for g in self.param_groups]
         grads = [[p.grad if p.grad is not None else torch.zeros_like(p)
                   for p in g['params']] for g, _ in groups]
+        if k == 1 and self.clip_grad_norm is not None:
+            # the whole gradient, on every rank under ZeRO
+            grads = clip_by_global_norm(grads, self.clip_grad_norm)
+        grads = [[self._slice(p, t) for p, t in zip(g['params'], gs)]
+                 for (g, _), gs in zip(groups, grads)]
         if k > 1:
             # optax.MultiSteps(use_grad_mean=True): the running mean
             for (_, bufs), g in zip(groups, grads):
@@ -353,30 +416,55 @@ class Optimizer(torch.optim.Optimizer):
             if window != k - 1:
                 return False
             grads = [bufs['acc_grad'] for _, bufs in groups]
-        if self.clip_grad_norm is not None:
-            grads = clip_by_global_norm(grads, self.clip_grad_norm)
+            if self.clip_grad_norm is not None:
+                grads = clip_by_global_norm(grads, self.clip_grad_norm,
+                                            self._sliced_mask(groups))
         for (group, bufs), g in zip(groups, grads):
             lr = (float(group['lr']) if group['lr_constant'] else
                   float(schedule(updates + self.rule.lr_offset)))
-            self.rule.update(group, group['params'], g, bufs, updates, lr,
+            params = [self._slice(p, p) for p in group['params']]
+            self.rule.update(group, params, g, bufs, updates, lr,
                              float(lr_scale))
+        if self.zero is not None:
+            for group in self.param_groups:
+                for p in group['params']:
+                    self.zero.gather_(self._names[p], p)
         return True
+
+    def _sliced_mask(self, groups) -> Optional[List[List[bool]]]:
+        """Which of the groups' leaves are slices (ZeRO), for the global
+        norm; None without ZeRO."""
+        if self.zero is None:
+            return None
+        return [[self._sliced(p) for p in g['params']] for g, _ in groups]
 
 
 def clip_by_global_norm(grads: List[List[torch.Tensor]],
-                        max_norm: float) -> List[List[torch.Tensor]]:
+                        max_norm: float,
+                        sliced: Optional[List[List[bool]]] = None
+                        ) -> List[List[torch.Tensor]]:
     """optax's ``clip_by_global_norm`` over the groups' gradient lists:
     each scaled by ``max_norm / norm`` when the global norm is ``>=
     max_norm``, unchanged below it; out of place, without a host sync.
     The norm accumulates in f64: an f32 sum of a detector's millions of
     squares drifts by parts in a million with its order (6e-6 on the
     flagship's 4.4M gradients on the CPU), which would move every update
-    by as much between devices."""
+    by as much between devices.  ``sliced`` (ZeRO-1) marks the leaves that
+    are this rank's slices: their squares are summed over the ranks, the
+    whole leaves' counted once."""
     flat = [t for g in grads for t in g]
     if not flat:
         return grads
-    norm = torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm(flat, 2, dtype=torch.float64)))
+    norms = torch.stack(torch._foreach_norm(flat, 2, dtype=torch.float64))
+    if sliced is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        mask = torch.tensor([m for g in sliced for m in g],
+                            device=norms.device)
+        squares = norms * norms
+        own = parallel.all_reduce_(torch.where(mask, squares, 0.0).sum()
+                                   .reshape(1))[0]
+        norm = torch.sqrt(own + torch.where(mask, 0.0, squares).sum())
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm).to(flat[0].dtype)
     return [torch._foreach_mul(g, factor) if g else g for g in grads]

@@ -18,6 +18,12 @@ optimizer wrapper: None without ``train.pruner``; with it, ``{parameter
 name: 0/1 tensor}`` (``[C, 1, 1, 1]`` for a conv weight, ``[C]`` for a
 vector; an absent parameter is all ones), applied after each optimizer
 step (``train/pruning.py``).
+
+``zero`` is ZeRO-1's layout (``train.zero_sharding`` over several
+processes, ``parallel/mesh.py::ZeroLayout``), None without it: the
+optimizer keeps only this rank's slices of its buffers, and the EMA update
+runs on this rank's slice of each shadow leaf; :func:`gather_shadow` makes
+the shadow whole again before it is evaluated or saved.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from typing import Dict, Optional
 
 import torch
 
+from single_shot_detection_tpu_torch.parallel import ZeroLayout
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -37,6 +45,7 @@ class TrainState:
     lr_scale: float = 1.0
     ema_params: dict = dataclasses.field(default_factory=dict)
     mask: Optional[Dict[str, torch.Tensor]] = None
+    zero: Optional[ZeroLayout] = None
 
 
 def shadow_module(model: torch.nn.Module) -> torch.nn.Module:
@@ -60,3 +69,13 @@ def reset_shadow(state: TrainState) -> None:
     names = list(state.ema_params)
     torch._foreach_copy_([state.ema_params[n] for n in names],
                          [params[n].detach() for n in names])
+
+
+def gather_shadow(state: TrainState) -> None:
+    """Under ZeRO-1, make every EMA shadow leaf whole from every rank's
+    slice (a collective every rank must enter); nothing otherwise."""
+    if state.zero is None or not state.ema_params:
+        return
+    with torch.no_grad():
+        for name in sorted(state.ema_params):
+            state.zero.gather_(name, state.ema_params[name])

@@ -3,7 +3,8 @@
 Port of ``single_shot_detection_tpu/train/step.py``: ``apply_mixup``,
 ``make_train_step`` (the pruning mask, the EMA shadow, mixup and
 ``frozen_bn``; QAT runs inside the model's convs, ``export/quantize.py``;
-the pipeline-parallel pinning is not ported), ``make_fused_train_step``,
+the global-batch step of several processes, ``parallel/mesh.py``; the
+pipeline-parallel pinning is not ported), ``make_fused_train_step``,
 ``make_eval_step`` and ``make_predict_step``.
 """
 
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from single_shot_detection_tpu_torch import parallel
 from single_shot_detection_tpu_torch.ops.matching import SCORE_INDEX
 from single_shot_detection_tpu_torch.train.pruning import apply_mask
 from single_shot_detection_tpu_torch.train.state import TrainState
@@ -46,8 +48,10 @@ def update_ema(state: TrainState, ema: float) -> None:
     t = np.float32(state.step)
     decay = min(np.float32(ema), (np.float32(1.0) + t) / (np.float32(10.0) + t))
     weight = float(np.float32(1.0) - decay)
-    torch._foreach_lerp_([state.ema_params[n] for n in names],
-                         [params[n].detach() for n in names], weight)
+    # ZeRO-1: this rank's slice of each leaf (``state.zero``)
+    cut = ((lambda n, x: x) if state.zero is None else state.zero.slice)
+    torch._foreach_lerp_([cut(n, state.ema_params[n]) for n in names],
+                         [cut(n, params[n].detach()) for n in names], weight)
 
 
 def sample_mixup(generator: torch.Generator, batch: int, alpha: float,
@@ -101,6 +105,14 @@ def make_update_step(criterion, assigner, anchors: torch.Tensor,
     stays in train mode.  ``state`` is updated in place; the metrics
     ``{'loss', 'class_loss', 'loc_loss'}`` are 0-dim tensors on the device
     (reading them waits for the step).
+
+    In a run of several processes each rank holds its rows of the global
+    batch, and the step is the JAX engine's global-batch step: the
+    criterion divides by the global positive count, the BNs take global
+    statistics (``layers.BatchNorm.sync``, set by the ``Trainer``), the
+    gradients are summed over the ranks in one bucketed all-reduce before
+    the optimizer (its clipping sees the global gradient), and the metrics
+    are the global batch's, summed over the ranks, on every rank.
     """
     frozen: Dict[int, List[nn.Module]] = {}
 
@@ -120,11 +132,13 @@ def make_update_step(criterion, assigner, anchors: torch.Tensor,
                                                anchors, target)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        parallel.all_reduce_grads(list(state.model.parameters()))
         apply_gradients(state, schedule)
         if ema is not None:
             update_ema(state, ema)
-        return {'loss': loss.detach(), 'class_loss': class_loss.detach(),
-                'loc_loss': loc_loss.detach()}
+        metrics = parallel.all_reduce_(
+            torch.stack([loss, class_loss, loc_loss]).detach())
+        return dict(zip(('loss', 'class_loss', 'loc_loss'), metrics.unbind()))
 
     return update
 
@@ -132,12 +146,19 @@ def make_update_step(criterion, assigner, anchors: torch.Tensor,
 def make_train_step(criterion, assigner, anchors: torch.Tensor,
                     schedule: Callable[[int], float], pipeline,
                     ema: Optional[float] = None,
-                    frozen_bn: bool = False) -> Callable:
+                    frozen_bn: bool = False,
+                    process_index: int = 0) -> Callable:
     """Build ``train_step(state, images, boxes, box_mask, draws,
     mixup_draws=None) -> metrics``: the augmentation ``pipeline.apply(draws,
     ...)`` on staged uint8 images and ``[B, G, R>=6]`` boxes in staged
     pixels, then :func:`apply_mixup` with ``mixup_draws`` (None: no mixup),
-    then :func:`make_update_step`'s update on ``boxes[..., :6]``."""
+    then :func:`make_update_step`'s update on ``boxes[..., :6]``.
+
+    In a run of several processes the batch is this rank's rows of the
+    global batch (rank ``process_index`` holds rows ``[index * b, (index +
+    1) * b)``) and ``mixup_draws`` are the global batch's: mixup pairs rows
+    over the global batch, as the JAX step does, so the augmented rows of
+    every rank are gathered first and this rank keeps its own mixed rows."""
     update = make_update_step(criterion, assigner, anchors, schedule, ema,
                               frozen_bn)
 
@@ -149,8 +170,12 @@ def make_train_step(criterion, assigner, anchors: torch.Tensor,
             x, boxes, box_mask = pipeline.apply(draws, images, boxes, box_mask)
             boxes = boxes[..., :6]
             if mixup_draws is not None:
-                x, boxes, box_mask = apply_mixup(mixup_draws, x, boxes,
-                                                 box_mask)
+                rows = slice(process_index * x.shape[0],
+                             (process_index + 1) * x.shape[0])
+                x, boxes, box_mask = (
+                    t[rows] for t in apply_mixup(
+                        mixup_draws, *(parallel.all_gather_rows(t)
+                                       for t in (x, boxes, box_mask))))
         return update(state, x, boxes, box_mask)
 
     return train_step

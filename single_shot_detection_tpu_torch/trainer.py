@@ -42,9 +42,23 @@ host call, :meth:`Trainer.fused_train_step`).
 ``staging_yuv``: a step then also takes packed YUV420 ``[B, S*S*3/2]``
 images (``data/loader.py``) and turns them back into RGB on the device.
 
+``process_count`` > 1 (``parallel/mesh.py``; one process a card, in a
+``torch.distributed`` group the caller has joined) makes the step the JAX
+engine's data-parallel step over the global batch of every rank's ``b``
+rows: global BN statistics (``models/layers.py::BatchNorm.sync``; with
+``train.fused_bn`` the JAX engine's warning, and these), the global
+positive count as the loss's divider, the gradients summed over the ranks
+before the optimizer, QAT's activation maximum over the global batch, and
+the augmentation and mixup draws of the global batch of the step, of which
+rank ``i`` takes rows ``[i * b, (i + 1) * b)`` (mixup pairs rows across
+ranks).  ``train.zero_sharding`` then slices the optimizer's buffers and
+the EMA update over the ranks (ZeRO-1, ``parallel.zero_state_sharding``);
+with one process it changes nothing, as in the JAX engine.
+
 What is not ported yet raises ``NotImplementedError`` rather than being
-skipped: the multi-device options; an augmentation the ``Pipeline`` does
-not know raises as well.
+skipped: the model axis (``tensor_sharding``, ``spatial_sharding``,
+``pipeline_sharding``; ROADMAP.md Queue 1 item 9); an augmentation the
+``Pipeline`` does not know raises as well.
 
 ``bf16=True`` runs the activations in bfloat16 under docs/DESIGN.md §10's
 policy (parameters, BN statistics, the optimizer's buffers, the EMA
@@ -59,11 +73,13 @@ Runs on ``cuda`` unless the caller passes ``device='cpu'``.
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from single_shot_detection_tpu_torch import parallel
 from single_shot_detection_tpu_torch.data.transforms import Pipeline, draws_to
 from single_shot_detection_tpu_torch.device import (NumericPolicy,
                                                     numeric_policy,
@@ -71,30 +87,60 @@ from single_shot_detection_tpu_torch.device import (NumericPolicy,
 from single_shot_detection_tpu_torch.export import quantize
 from single_shot_detection_tpu_torch.models import builder, norm
 from single_shot_detection_tpu_torch.models.layers import (set_fused_bn,
-                                                           set_group_norm)
+                                                           set_group_norm,
+                                                           set_sync_bn)
 from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
 from single_shot_detection_tpu_torch.ops.losses import MultiboxLoss
 from single_shot_detection_tpu_torch.ops.matching import TargetAssigner
 from single_shot_detection_tpu_torch.ops.sampling import build_sampler
 from single_shot_detection_tpu_torch.train import optimizers, schedulers
-from single_shot_detection_tpu_torch.train.state import TrainState, shadow_module
+from single_shot_detection_tpu_torch.train.state import (TrainState,
+                                                         gather_shadow,
+                                                         shadow_module)
 from single_shot_detection_tpu_torch.train.step import (make_fused_train_step,
                                                         make_train_step,
                                                         sample_mixup)
 from single_shot_detection_tpu_torch.utils.config import load_config
 from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
 
-# train options of the JAX engine not ported yet: each raises when set
-_UNPORTED_TRAIN_OPTIONS = ('tensor_sharding', 'spatial_sharding',
-                           'pipeline_sharding', 'zero_sharding')
+# the JAX engine's warning when train.fused_bn meets several devices
+FUSED_BN_MULTI_DEVICE_WARNING = (
+    'WW train.fused_bn is single-device only (pallas has no GSPMD '
+    'partitioning rule); keeping flax BN')
 
 
-def check_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    train = dict(cfg.train or {})
-    for key in _UNPORTED_TRAIN_OPTIONS:
-        if train.get(key):
-            raise NotImplementedError(f'train.{key} is not ported yet')
+def _model_axis_owners(train: Mapping) -> list:
+    """The ``train`` options that would partition the model axis, as the
+    JAX engine counts them: ``tensor_sharding`` or ``spatial_sharding``
+    above 1, ``pipeline_sharding`` with microbatches."""
+    owners = [key for key in ('tensor_sharding', 'spatial_sharding')
+              if int(train.get(key) or 1) > 1]
+    pipeline = train.get('pipeline_sharding')
+    micro = (int(pipeline.get('microbatches', 2)) if isinstance(pipeline, dict)
+             else int(pipeline or 0))
+    if micro > 0:
+        owners.append('pipeline_sharding')
+    return owners
+
+
+def check_ported(cfg, process_count: int = 1) -> None:
+    """Raise for what the port does not run: two model-axis options at
+    once, or one with several processes, raise ``ValueError`` as in the
+    JAX engine; one alone raises ``NotImplementedError``."""
+    owners = _model_axis_owners(dict(cfg.train or {}))
+    if len(owners) > 1:
+        raise ValueError(
+            'train.tensor_sharding / spatial_sharding / pipeline_sharding '
+            'all partition the model axis — enable at most one')
+    if owners and process_count > 1:
+        raise ValueError(
+            'train.tensor_sharding/spatial_sharding/pipeline_sharding are '
+            'single-process only: the model axis must ride one node\'s '
+            'links, not the network across hosts')
+    if owners:
+        raise NotImplementedError(
+            f'train.{owners[0]} is not ported yet (ROADMAP.md Queue 1 item '
+            '9, the model axis)')
 
 
 def staging_yuv(cfg) -> Optional[Tuple[int, int]]:
@@ -120,6 +166,16 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(mixed))
 
 
+def draw_rows(draws, rows: slice):
+    """The draws of rows ``rows`` of a batch: every tensor leaf of a draws
+    tree leads with the batch axis."""
+    if isinstance(draws, torch.Tensor):
+        return draws[rows]
+    if isinstance(draws, dict):
+        return {k: draw_rows(v, rows) for k, v in draws.items()}
+    return [draw_rows(v, rows) for v in draws]
+
+
 class Trainer:
     """A detector, its augmentation and its optimizer, ready to take train
     steps on one device.  Build it with :meth:`from_config`."""
@@ -131,7 +187,8 @@ class Trainer:
                  plateau: Optional[schedulers.ReduceLROnPlateau] = None,
                  scheduler_metric: Optional[str] = None,
                  ema: Optional[float] = None, mixup: Optional[dict] = None,
-                 frozen_bn: bool = False, fused_steps: int = 1):
+                 frozen_bn: bool = False, fused_steps: int = 1,
+                 process_count: int = 1, process_index: int = 0):
         self.bundle = bundle
         self.policy = policy
         self.state = state
@@ -150,12 +207,15 @@ class Trainer:
         self.mixup = dict(mixup) if mixup else None
         self.frozen_bn = frozen_bn
         self.fused_steps = int(fused_steps)
+        self.process_count = int(process_count)
+        self.process_index = int(process_index)
         self._shadow = None
         if ema is not None:
             self._shadow = shadow_module(state.model)
             state.ema_params = dict(self._shadow.named_parameters())
         self._train_step = make_train_step(criterion, assigner, self.anchors,
-                                           schedule, pipeline, ema, frozen_bn)
+                                           schedule, pipeline, ema, frozen_bn,
+                                           self.process_index)
         self._fused_train_step = make_fused_train_step(self._train_step,
                                                        self.fused_steps)
 
@@ -177,7 +237,9 @@ class Trainer:
                     overrides: Optional[Mapping] = None,
                     steps_per_epoch: Optional[int] = None,
                     bf16: bool = False,
-                    matmul_precision: Optional[str] = None) -> 'Trainer':
+                    matmul_precision: Optional[str] = None,
+                    process_count: int = 1,
+                    process_index: int = 0) -> 'Trainer':
         """Build from a ``samples/*.py`` config.
 
         ``variables`` and ``seed`` as in ``Predictor.from_config``; ``seed``
@@ -187,13 +249,16 @@ class Trainer:
         (the train loader's length; ``train.num_batches_per_epoch`` wins,
         and without either an epoch is one step) turns per-epoch schedule
         milestones into steps.  ``bf16`` and ``matmul_precision`` as
-        ``device.py::numeric_policy`` takes them.
+        ``device.py::numeric_policy`` takes them.  ``process_count`` and
+        ``process_index``: this rank of a run of several processes (the
+        class doc); its process group must be joined.
         """
         cfg = load_config(path, phases=('train',))
         if overrides:
             cfg.override(dict(overrides))
         return cls.from_cfg(cfg, variables, device, seed, steps_per_epoch,
-                            bf16, matmul_precision)
+                            bf16, matmul_precision, process_count,
+                            process_index)
 
     @classmethod
     def from_cfg(cls, cfg, variables: Optional[Mapping] = None,
@@ -201,10 +266,13 @@ class Trainer:
                  seed: Optional[int] = None,
                  steps_per_epoch: Optional[int] = None,
                  bf16: bool = False,
-                 matmul_precision: Optional[str] = None) -> 'Trainer':
+                 matmul_precision: Optional[str] = None,
+                 process_count: int = 1,
+                 process_index: int = 0) -> 'Trainer':
         """Build from a loaded config (``utils/config.py::ConfigWrapper``)."""
         device = resolve_device(device)
-        check_ported(cfg)
+        check_ported(cfg, process_count)
+        parallel.check_group(process_count, process_index)
         seed = int(seed if seed is not None else (cfg.seed or 23))
 
         train_cfg = dict(cfg.train or {})
@@ -220,7 +288,12 @@ class Trainer:
         quantize.check_composes(train_cfg)
         bundle = builder.from_config(cfg, variables, seed, policy.dtype)
         model = bundle.module.to(device)
-        set_fused_bn(model, bool(train_cfg.get('fused_bn', False)))
+        fused_bn = bool(train_cfg.get('fused_bn', False))
+        if fused_bn and process_count > 1:
+            logging.warning(FUSED_BN_MULTI_DEVICE_WARNING)
+            fused_bn = False
+        set_fused_bn(model, fused_bn)
+        set_sync_bn(model, process_count > 1)
         set_group_norm(model, groups)
         pipeline = Pipeline(cfg.augmentations or (), cfg.preprocessing,
                             bundle.input_size, train=True,
@@ -252,11 +325,22 @@ class Trainer:
         # train.pruner: the masked optimizer, its mask all ones until the
         # first prune
         mask = {} if train_cfg.get('pruner') else None
-        return cls(bundle, TrainState(model, optimizer, mask=mask), pipeline,
+        state = TrainState(model, optimizer, mask=mask)
+        if train_cfg.get('zero_sharding') and process_count > 1:
+            named = list(model.named_parameters())
+            state.zero = parallel.ZeroLayout(
+                parallel.zero_state_sharding(named, process_count),
+                process_count, process_index)
+            optimizer.shard(state.zero, named)
+            sliced = sum(axis is not None for axis in state.zero.axes.values())
+            logging.info(f'II ZeRO-1 sharding: {sliced} optimizer/EMA '
+                         f'leaves sharded over {process_count} processes')
+        return cls(bundle, state, pipeline,
                    schedule, criterion, assigner, device, seed, policy,
                    plateau, metric, ema_from_config(train_cfg.get('ema')),
                    train_cfg.get('mixup'), bool(train_cfg.get('frozen_bn')),
-                   int(train_cfg.get('fused_steps', 1)))
+                   int(train_cfg.get('fused_steps', 1)), process_count,
+                   process_index)
 
     def draws(self, step: int, batch: int) -> list:
         """The augmentation draws of global step ``step`` (on the CPU)."""
@@ -265,14 +349,26 @@ class Trainer:
     def step_draws(self, step: int, batch: int):
         """``(augmentation draws, mixup draws or None)`` of global step
         ``step``, on the CPU: both from the step's generator, the mixup's
-        after the augmentation's."""
+        after the augmentation's.  With several processes the draws are
+        the global batch's (``batch`` rows a rank): this rank's rows of the
+        augmentation draws, and the mixup draws whole."""
         generator = step_generator(self.seed, step)
-        draws = self.pipeline.sample_draws(generator, batch)
+        total = batch * self.process_count
+        draws = self.pipeline.sample_draws(generator, total)
         mixup = None
         if self.mixup is not None:
-            mixup = sample_mixup(generator, batch, float(self.mixup['alpha']),
+            mixup = sample_mixup(generator, total, float(self.mixup['alpha']),
                                  float(self.mixup['p']))
+        if self.process_count > 1:
+            draws = draw_rows(draws, slice(self.process_index * batch,
+                                           (self.process_index + 1) * batch))
         return draws, mixup
+
+    def gather_shadow(self) -> None:
+        """Under ZeRO-1 with EMA, make the shadow (``eval_model``'s
+        parameters) whole from every rank's slice: a collective every rank
+        must enter before the shadow is evaluated, served or saved."""
+        gather_shadow(self.state)
 
     def _device_batch(self, images, boxes, box_mask, step: int):
         images = torch.as_tensor(images).to(self.device, non_blocking=True)

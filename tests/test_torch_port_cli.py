@@ -154,21 +154,32 @@ def test_cli_evaluates_the_committed_jax_checkpoint_exactly():
 
 @pytest.mark.parametrize('argv', [
     ['--tensorboard'],
-    ['--coordinator-address', 'localhost:1234'], ['--num-processes', '2'],
-    ['--process-id', '0'], ['--compilation-cache', 'cache_dir'],
+    ['train.tensor_sharding'], ['train.spatial_sharding'],
+    ['train.pipeline_sharding'], ['--compilation-cache', 'cache_dir'],
 ], ids=lambda argv: ' '.join(argv))
 def test_cli_raises_on_what_is_not_ported(argv, tmp_path):
-    """The distributed flags and an XLA cache raise before anything is
-    written; ``--tensorboard`` is ported and passes the check (its run is
-    held to ``log.csv`` in ``test_torch_port_run_extras.py``)."""
+    """An XLA cache, and a config whose model-axis option partitions the
+    model (ROADMAP.md Queue 1 item 9), raise before anything is written;
+    ``--tensorboard`` is ported and passes the check (its run is held to
+    ``log.csv`` in ``test_torch_port_run_extras.py``), and so are the three
+    distributed flags since they were retired from here
+    (``test_torch_port_multiprocess.py`` starts a run with them)."""
     if argv == ['--tensorboard']:
         args = cli.get_argparser().parse_args(['--config', SMOKE, *argv])
         cli.check_ported(args)
         assert args.tensorboard
         return
+    save = tmp_path / 'runs'
+    save.mkdir()
+    config = SMOKE
+    if argv[0].startswith('train.'):
+        config = str(tmp_path / 'model_axis.py')
+        with open(SMOKE) as f, open(config, 'w') as out:
+            out.write(f.read() + f"\ntrain = {{**train, '{argv[0][6:]}': 2}}\n")
+        argv = []
     with pytest.raises(NotImplementedError, match='not ported yet|no XLA'):
-        cli.main(['--cpu', '--config', SMOKE, '--save-dir', str(tmp_path), *argv])
-    assert not os.listdir(tmp_path)
+        cli.main(['--cpu', '--config', config, '--save-dir', str(save), *argv])
+    assert not os.listdir(save)
 
 
 def test_cli_without_a_gpu_raises(tmp_path):

@@ -303,18 +303,29 @@ def test_experiment_train_returns_epoch_rows_with_eval_map():
 
 
 def test_experiment_raises_on_what_is_not_ported(tmp_path, monkeypatch):
-    """What the port does not run yet raises; checkpoints, resume,
-    ``ReduceLROnPlateau`` and ``detector.weight`` are ported (their tests
-    are in ``test_torch_port_checkpoint.py``), and so are tensorboard, the
-    device cache and async checkpoints (``test_torch_port_run_extras.py``)
-    and ``detector.torch_weight`` (``test_torch_port_interop.py``), which
+    """What the port does not run yet raises: each model-axis option names
+    ROADMAP.md Queue 1 item 9, and two of them at once, or one with several
+    processes, raise ``ValueError`` as in the JAX engine.  Checkpoints,
+    resume, ``ReduceLROnPlateau`` and ``detector.weight`` are ported (their
+    tests are in ``test_torch_port_checkpoint.py``), and so are tensorboard,
+    the device cache and async checkpoints
+    (``test_torch_port_run_extras.py``), ``detector.torch_weight``
+    (``test_torch_port_interop.py``), and ``process_count > 1`` and
+    ``train.zero_sharding`` (``test_torch_port_multiprocess.py``), which
     raised before."""
     over = {'train': {'scheduler': MULTISTEP}}
-    with pytest.raises(NotImplementedError, match='process_count'):
+    for key in ('tensor_sharding', 'spatial_sharding', 'pipeline_sharding'):
+        with pytest.raises(NotImplementedError, match=f'{key}.*item 9'):
+            Experiment(SMOKE, device='cpu', overrides={
+                'train': {**over['train'], key: 2}})
+    with pytest.raises(ValueError, match='enable at most one'):
+        Experiment(SMOKE, device='cpu', overrides={'train': {
+            **over['train'], 'tensor_sharding': 2, 'pipeline_sharding': 2}})
+    with pytest.raises(ValueError, match='process_count=2 needs a process'):
         Experiment(SMOKE, device='cpu', overrides=over, process_count=2)
-    with pytest.raises(NotImplementedError, match='zero_sharding'):
-        Experiment(SMOKE, device='cpu', overrides={
-            'train': {**over['train'], 'zero_sharding': True}})
+    one = Experiment(SMOKE, device='cpu', overrides={
+        'train': {**over['train'], 'zero_sharding': True}})
+    assert one.trainer.state.zero is None  # one process: nothing to slice
     # tensorboard's own stand-in for TensorFlow, whose import costs seconds
     monkeypatch.setitem(sys.modules, 'tensorboard.compat.notf',
                         types.ModuleType('tensorboard.compat.notf'))

@@ -433,11 +433,17 @@ def test_trainer_raises_on_what_is_not_ported():
     with pytest.raises(NotImplementedError, match='Unsupported augmentation'):
         Trainer.from_config(SMOKE, device='cpu', overrides={
             'augmentations': [{'name': 'Mosaic'}]})
-    for key in ('tensor_sharding', 'spatial_sharding', 'pipeline_sharding',
-                'zero_sharding'):
-        with pytest.raises(NotImplementedError, match=key):
+    for key in ('tensor_sharding', 'spatial_sharding', 'pipeline_sharding'):
+        with pytest.raises(NotImplementedError, match=f'{key}.*item 9'):
             Trainer.from_config(SMOKE, device='cpu', overrides={
                 'augmentations': [], 'train': {key: 2}})
+        with pytest.raises(ValueError, match='single-process only'):
+            Trainer.from_config(SMOKE, device='cpu', overrides={
+                'augmentations': [], 'train': {key: 2}}, process_count=2,
+                process_index=0)
+    # train.zero_sharding is ported; one process has nothing to slice
+    assert Trainer.from_config(SMOKE, device='cpu', overrides={
+        'augmentations': [], 'train': {'zero_sharding': True}}).state.zero is None
     # mixup, EMA, frozen BN, fused steps and accumulation are ported
     trainer = Trainer.from_config(SMOKE, device='cpu', overrides={
         'augmentations': [], 'train': {
