@@ -296,6 +296,34 @@ Phases, each fatal:
     forward and backward at ``[16, 96, 150, 150]``, synchronised against
     PyTorch's.  A rank's failure, or a rank still running at
     ``DP_WALL_S``, ends the run.
+24. the model axis (``parallel/tensor.py``, ``pipeline.py``,
+    ``spatial.py``) in rank processes (``chip_smoke.py --ma-worker``):
+    NCCL with a card each where there are four cards, else gloo with
+    every rank on the one card (the line says which); the flagship at
+    full width, 300 px, seeded weights, b32 a model group.  (a)
+    ``tensor_sharding: 2``, one step against this process's one-process
+    b32 step on the same batch: the loss, every update and the BN running
+    statistics within phase 23's tolerances, the ranks' whole states
+    (sliced leaves gathered) bit-equal with cuDNN deterministic, each
+    rank's parameter bytes against the one-process model's, and the
+    sliced-leaf count equal to JAX's rule; (b) ``pipeline_sharding:
+    {'microbatches': 4, 'stages': 2}`` with ``frozen_bn``, one step against
+    the one-process frozen-BN step; then M2Det-512 at full width with 4
+    stages in four ranks at b4 in 2 microbatches: the pipelined forward
+    within ``ZOO_FORWARD_RTOL`` of the one-process forward, and one step;
+    (c) ``spatial_sharding: 2``, one step against the one-process step,
+    every op's input a rank's own rows (``spatial.global_height`` checks
+    it) and its window at most two rows past them; (d)
+    ``Experiment(process_count=2)`` with each option for an epoch of one
+    step on the committed JPEG fixtures and an evaluation: NMS launched on
+    each rank (counted per rank), the ranks' loss and mAP equal, the train
+    loss within 1e-4 and the evaluation's within ``MA_EVAL_RTOL``/
+    ``MA_MAP_ATOL`` of the one-process run; (e) each
+    option's step wall ms at 2 ranks against 1 process, and the bytes each
+    moves a step (all-gathers and all-reduces, boundary buffers, halo
+    rows), counted from the shapes.  A rank's failure, or a rank still
+    running at ``MA_WALL_S``, ends the run.  ``python3 chip_smoke.py
+    --model-axis-only`` builds the kernels and runs phase 24 alone.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -5976,12 +6004,14 @@ def wait_dp_ranks(procs, logs) -> None:
         fail(f'phase 23: ranks {bad} failed or passed {DP_WALL_S} s')
 
 
-def dp_compare(got: dict, want: dict, before: dict) -> dict:
-    """Phase 23 (a): the 2-rank step against the one-process one."""
+def dp_compare(got: dict, want: dict, before: dict,
+               label: str = 'phase 23 (a)') -> dict:
+    """Phase 23 (a): the 2-rank step against the one-process one (and
+    phase 24's steps, ``label`` naming them)."""
     loss_rel = abs(got['metrics']['loss'] - want['metrics']['loss']) / abs(
         want['metrics']['loss'])
     if not loss_rel <= 1e-4:
-        fail(f'phase 23 (a): loss {got["metrics"]["loss"]} against '
+        fail(f'{label}: loss {got["metrics"]["loss"]} against '
              f'{want["metrics"]["loss"]} (rel {loss_rel:.3g} > 1e-4)')
     updates = {k: want['state'][k] - before[k] for k in want['state']
                if k.endswith(('weight', 'bias'))}
@@ -5989,7 +6019,7 @@ def dp_compare(got: dict, want: dict, before: dict) -> dict:
     update_err = max((got['state'][k] - before[k] - u).abs().max().item()
                      for k, u in updates.items())
     if not update_err <= DP_UPDATE_TOL * largest:
-        fail(f'phase 23 (a): an update is {update_err:.3g} off the '
+        fail(f'{label}: an update is {update_err:.3g} off the '
              f'one-process step\'s, over {DP_UPDATE_TOL} x {largest:.3g}')
     stats_err = 0.0
     for k in want['state']:
@@ -5997,7 +6027,7 @@ def dp_compare(got: dict, want: dict, before: dict) -> dict:
             g, w = got['state'][k], want['state'][k]
             excess = ((g - w).abs() - DP_STATS_ATOL - DP_STATS_RTOL * w.abs())
             if excess.max().item() > 0:
-                fail(f'phase 23 (a): {k} off the one-process step\'s '
+                fail(f'{label}: {k} off the one-process step\'s '
                      f'beyond rtol {DP_STATS_RTOL}, atol {DP_STATS_ATOL}')
             stats_err = max(stats_err, (g - w).abs().max().item())
     return {'loss_rel_err': loss_rel, 'largest_update': largest,
@@ -6117,6 +6147,392 @@ def run_multi_gpu(smi: str) -> dict:
             'd': timing}
 
 
+# --------------------------------------------------------------- phase 24
+
+MA_BATCH = 32  # one model group's batch, the flagship's
+MA_TIMED_STEPS = 3
+MA_WALL_S = 420
+MA_COLLECTIVE_TIMEOUT_S = 180
+MA_EXPERIMENT_STEPS = 1
+# the options of the 2-rank group, as train overrides
+MA_OPTIONS = {
+    'tensor': {'tensor_sharding': 2},
+    'pipeline': {'pipeline_sharding': {'microbatches': 4, 'stages': 2},
+                 'frozen_bn': True},
+    'spatial': {'spatial_sharding': 2},
+}
+# M2Det-512 at full width, 4 stages in 4 ranks, b4 in 2 microbatches
+MA_M2DET_RANKS = 4
+MA_M2DET_BATCH = 4
+MA_M2DET_TRAIN = {'pipeline_sharding': {'microbatches': 2, 'stages': 4},
+                  'frozen_bn': True}
+# Tolerances against the one-process runs on the card: the step's loss
+# rel 1e-4, each update within DP_UPDATE_TOL of the largest and the BN
+# statistics within DP_STATS_RTOL/ATOL (phase 23's: the backward through
+# the BNs amplifies the reduction order, here of a channel's or a row
+# block's partial sums and cuDNN's own); a pipelined forward within
+# ZOO_FORWARD_RTOL of its largest output; an Experiment's one step: its
+# train loss rel 1e-4 (the step's own), its evaluation's loss rel
+# MA_EVAL_RTOL and mAP within MA_MAP_ATOL (the weights after a step whose
+# updates sit up to ~1 % of the largest update apart; a 2-step epoch's
+# mean train loss was 2.0e-3 apart under tensor sharding, rel, on the card)
+MA_EVAL_RTOL = 1e-3
+MA_MAP_ATOL = 1e-2
+
+
+def ma_trainer(device, rank: int, count: int, train: dict,
+               config: str = FLAGSHIP) -> Trainer:
+    """``config`` as shipped with ``train`` overrides, seeded weights,
+    rank ``rank`` of ``count``."""
+    return Trainer.from_config(config, device=device, seed=SEED,
+                               overrides={'train': train},
+                               process_count=count, process_index=rank)
+
+
+def ma_batch(b: int = MA_BATCH, size: int = 300):
+    """Phase 24's batch: one model group's, every rank's."""
+    return train_batch(np.random.RandomState(SEED + 24), b=b, size=size)
+
+
+def whole_cpu_state(trainer: Trainer) -> dict:
+    """The model's state on the CPU, tensor-sharded entries gathered."""
+    from single_shot_detection_tpu_torch.parallel import tensor
+    axes = trainer.state.tensor or {}
+    return {k: tensor.gather_leaf(v.detach(), axes.get(k)).cpu().clone()
+            for k, v in trainer.model.state_dict().items()}
+
+
+def reset_moved() -> None:
+    from single_shot_detection_tpu_torch.parallel import pipeline, spatial, tensor
+    for stats in (tensor.STATS, pipeline.STATS, spatial.STATS):
+        for key in stats:
+            stats[key] = 0
+
+
+def read_moved() -> dict:
+    from single_shot_detection_tpu_torch.parallel import pipeline, spatial, tensor
+    return {'tensor': dict(tensor.STATS), 'pipeline': dict(pipeline.STATS),
+            'spatial': dict(spatial.STATS)}
+
+
+def ma_experiment(device, rank: int, count: int, train: dict) -> Experiment:
+    return Experiment(FLAGSHIP, phases=('train', 'eval'), device=device,
+                      seed=SEED, process_count=count, process_index=rank,
+                      overrides={'dataset': extras_dataset(), 'train': {
+                          'epochs': 1, 'eval_every': 1,
+                          'num_batches_per_epoch': MA_EXPERIMENT_STEPS,
+                          **train}})
+
+
+def ma_run_experiment(exp: Experiment) -> dict:
+    zero_launches()
+    t0 = time.perf_counter()
+    rows = exp.train()
+    torch.cuda.synchronize()
+    return {'rows': rows, 's': time.perf_counter() - t0,
+            'launches': read_launches()}
+
+
+def ma_worker(group: str, rank: int, count: int, port: int, backend: str,
+              out: str) -> int:
+    """One rank of phase 24's ``group`` (``'two'``: the three options on
+    the flagship; ``'four'``: M2Det's 4 stages); writes its results to
+    ``out/{group}{rank}.pt``."""
+    from single_shot_detection_tpu_torch import parallel
+    from single_shot_detection_tpu_torch.parallel import pipeline, spatial
+    device = parallel.initialize_distributed(
+        f'127.0.0.1:{port}', count, rank,
+        device=f'cuda:{rank % torch.cuda.device_count()}', backend=backend,
+        timeout=MA_COLLECTIVE_TIMEOUT_S)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for module in (nms_kernel, bn_kernel):
+            module.build()  # the parent's builds, found by their hash
+        result = {'device': str(device), 'backend': backend}
+        if group == 'four':
+            trainer = ma_trainer(device, rank, count, MA_M2DET_TRAIN, M2DET)
+            x = torch.randn((MA_M2DET_BATCH, 3, 512, 512), generator=torch
+                            .Generator().manual_seed(SEED)).to(device)
+            trainer.model.eval()
+            scores, locs, _ = pipeline.pipeline_apply(trainer.model, x, 2)
+            result['forward'] = (scores.detach().cpu(), locs.detach().cpu())
+            batch = ma_batch(MA_M2DET_BATCH, 512)
+            reset_moved()
+            metrics = trainer.train_step(*batch, step=0)
+            result['moved'] = read_moved()
+            result['step'] = {'metrics': {k: v.item() for k, v in
+                                          metrics.items()},
+                              'state': whole_cpu_state(trainer)}
+            result['step_ms'] = wall_ms(lambda: trainer.train_step(*batch),
+                                        MA_TIMED_STEPS)
+            torch.save(result, os.path.join(out, f'{group}{rank}.pt'))
+            return 0
+        batch = ma_batch()
+        for key, train in MA_OPTIONS.items():
+            trainer = ma_trainer(device, rank, count, train)
+            reset_moved()
+            metrics = trainer.train_step(*batch, step=0)
+            moved = read_moved()
+            axes = trainer.state.tensor or {}
+            state = whole_cpu_state(trainer)
+            full = {k: v.shape for k, v in state.items()}
+            result[key] = {
+                'metrics': {k: v.item() for k, v in metrics.items()},
+                'state': state, 'moved': moved,
+                'param_bytes': sum(p.numel() * p.element_size()
+                                   for p in trainer.model.parameters()),
+                'sliced': sum(v.shape != full[k] for k, v in
+                              trainer.model.state_dict().items()),
+                'rule_sliced': sum(a is not None for a in axes.values()),
+                'replicated': sorted(k for k in full if axes.get(k) is None),
+                'step_ms': wall_ms(lambda: trainer.train_step(*batch),
+                                   MA_TIMED_STEPS)}
+            del trainer
+            torch.cuda.empty_cache()
+        for key, train in MA_OPTIONS.items():
+            exp = ma_experiment(device, rank, count, train)
+            result[f'experiment_{key}'] = ma_run_experiment(exp)
+            del exp
+        torch.save(result, os.path.join(out, f'{group}{rank}.pt'))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        parallel.destroy()
+    return 0
+
+
+def start_ma_ranks(work: str, group: str, count: int, backend: str):
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for rank in range(count):
+        logs.append(os.path.join(work, f'{group}{rank}.log'))
+        with open(logs[-1], 'w') as log_file:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / 'chip_smoke.py'), '--ma-worker',
+                 group, str(rank), str(count), str(port), backend, work],
+                stdout=log_file, stderr=subprocess.STDOUT, cwd=str(REPO)))
+    return procs, logs
+
+
+def wait_ma_ranks(procs, logs) -> None:
+    """Wait for every rank under ``MA_WALL_S``; kill them all and fail on a
+    rank's failure or on the limit, with its log."""
+    deadline = time.monotonic() + MA_WALL_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            log(f'--- phase 24 rank {r} (exit {procs[r].returncode}):\n'
+                + open(logs[r]).read()[-8000:])
+        fail(f'phase 24: ranks {bad} failed or passed {MA_WALL_S} s')
+
+
+def ma_ranks(group: str, count: int, backend: str) -> list:
+    work = tempfile.mkdtemp(prefix=f'chip_smoke_ma_{group}_')
+    try:
+        wait_ma_ranks(*start_ma_ranks(work, group, count, backend))
+        return [torch.load(os.path.join(work, f'{group}{r}.pt'),
+                           weights_only=False) for r in range(count)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def ma_ranks_equal(ranks: list, key: Optional[str], label: str) -> None:
+    get = (lambda r: r[key]) if key else (lambda r: r['step'])
+    for r in range(1, len(ranks)):
+        a, b = get(ranks[0]), get(ranks[r])
+        if a['metrics'] != b['metrics'] or any(
+                not torch.equal(v, a['state'][k]) for k, v in b['state'].items()):
+            fail(f'phase 24 {label}: rank {r}\'s state differs from rank 0\'s')
+
+
+def ma_one_process(train: dict, batch, config: str = FLAGSHIP) -> dict:
+    """The one-process step on the same batch, and its wall ms."""
+    trainer = ma_trainer('cuda', 0, 1, train, config)
+    before = cpu_state(trainer.model)
+    metrics = trainer.train_step(*batch, step=0)
+    out = {'before': before,
+           'want': {'metrics': {k: v.item() for k, v in metrics.items()},
+                    'state': cpu_state(trainer.model)},
+           'step_ms': wall_ms(lambda: trainer.train_step(*batch),
+                              MA_TIMED_STEPS)}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def ma_experiment_check(ranks: list, key: str, want: dict) -> dict:
+    rows = [r[f'experiment_{key}']['rows'][-1] for r in ranks]
+    launches = [r[f'experiment_{key}']['launches'] for r in ranks]
+    nms = [n['nms_keep_batched'] for n in launches]
+    if any(n <= 0 for n in nms):
+        fail(f'phase 24 (d) {key}: NMS launches per rank {nms}')
+    one = want['rows'][-1]
+    log(f'  (d) {key}: ranks {json.dumps(rows)}; one process '
+        f'{json.dumps(one)}')
+    for k in ('train_loss', 'eval_loss', 'eval_mAP'):
+        if any(row[k] != rows[0][k] for row in rows):
+            fail(f'phase 24 (d) {key}: the ranks disagree on {k}: '
+                 f'{[row[k] for row in rows]}')
+        if not np.isfinite(rows[0][k]):
+            fail(f'phase 24 (d) {key}: {k} {rows[0][k]}')
+    for k, tol in (('train_loss', 1e-4), ('eval_loss', MA_EVAL_RTOL)):
+        rel = abs(rows[0][k] - one[k]) / abs(one[k])
+        if not rel <= tol:
+            fail(f'phase 24 (d) {key}: {k} {rows[0][k]} against one '
+                 f'process\'s {one[k]} (rel {rel:.3g} > {tol})')
+    if not abs(rows[0]['eval_mAP'] - one['eval_mAP']) <= MA_MAP_ATOL:
+        fail(f'phase 24 (d) {key}: mAP {rows[0]["eval_mAP"]} against '
+             f'{one["eval_mAP"]}')
+    return {'rows': rows[0], 'one_process': one, 'nms_launches': nms,
+            'bn_launches': [{k: v for k, v in n.items()
+                             if k != 'nms_keep_batched'} for n in launches],
+            's': max(r[f'experiment_{key}']['s'] for r in ranks)}
+
+
+def moved_bytes(key: str, moved: dict) -> dict:
+    if key == 'tensor':
+        return dict(moved['tensor'])
+    if key == 'pipeline':
+        return {'boundary_bytes': moved['pipeline']['sent_bytes'],
+                'boundary_floats': moved['pipeline']['boundary_floats']}
+    return {'halo_bytes': moved['spatial']['halo_bytes'],
+            'halo_rows': moved['spatial']['rows_received'],
+            'max_extra_rows': moved['spatial']['max_extra_rows'],
+            'largest_whole_map': moved['spatial']['largest_whole']}
+
+
+def run_model_axis(smi: str) -> dict:
+    """Phase 24: tensor, pipeline and spatial sharding in rank processes."""
+    cards = torch.cuda.device_count()
+    backend = 'nccl' if cards >= MA_M2DET_RANKS else 'gloo'
+    mode = (f'NCCL, a card a rank' if backend == 'nccl' else
+            f'gloo, every rank on the one card ({cards} card(s); NCCL '
+            'refuses two ranks on one card)')
+    log(f'[24] {smi}: the model axis in rank processes over {mode}; the '
+        f'flagship at 300 px, seeded weights, b{MA_BATCH} a model group')
+    two = ma_ranks('two', 2, backend)
+    four = ma_ranks('four', MA_M2DET_RANKS, backend)
+    batch = ma_batch()
+    plain = ma_one_process({}, batch)
+    frozen = ma_one_process({'frozen_bn': True}, batch)
+    reference = {'tensor': plain, 'spatial': plain, 'pipeline': frozen}
+    out = {'mode': mode, 'backend': backend, 'options': {}}
+    whole_bytes = sum(v.numel() * v.element_size()
+                      for k, v in plain['before'].items()
+                      if not k.endswith(('running_mean', 'running_var',
+                                         'num_batches_tracked')))
+    for key in MA_OPTIONS:
+        ma_ranks_equal(two, key, f'({key})')
+        ref = reference[key]
+        step = dp_compare(two[0][key], ref['want'], ref['before'],
+                          f'phase 24 ({key})')
+        row = {**step, 'step_ms': max(r[key]['step_ms'] for r in two),
+               'one_process_step_ms': ref['step_ms'],
+               'param_bytes_per_rank': [r[key]['param_bytes'] for r in two],
+               'one_process_param_bytes': whole_bytes,
+               'moved_per_step': [moved_bytes(key, r[key]['moved'])
+                                  for r in two]}
+        if key == 'tensor':
+            if two[0][key]['sliced'] != two[0][key]['rule_sliced']:
+                fail(f'phase 24 (a): {two[0][key]["sliced"]} leaves sliced, '
+                     f'JAX\'s rule gives {two[0][key]["rule_sliced"]}')
+            row['sliced_leaves'] = two[0][key]['sliced']
+            row['replicated_leaves'] = len(two[0][key]['replicated'])
+        if key == 'spatial':
+            for r in two:
+                m = r[key]['moved']['spatial']
+                if not (0 < m['max_extra_rows'] <= 2
+                        and m['largest_whole'] <= 3):
+                    fail(f'phase 24 (c): a window held {m["max_extra_rows"]} '
+                         f'rows past its own, a map of '
+                         f'{m["largest_whole"]} rows whole')
+        out['options'][key] = row
+        label = {'tensor': '(a)', 'pipeline': '(b)', 'spatial': '(c)'}[key]
+        log(f'  {label} {key}: 2 ranks x b{MA_BATCH} against 1 process: loss '
+            f'{two[0][key]["metrics"]["loss"]:.6f} against '
+            f'{ref["want"]["metrics"]["loss"]:.6f} (rel '
+            f'{step["loss_rel_err"]:.3g}); updates within '
+            f'{step["update_max_abs_err"]:.3g} of the largest '
+            f'{step["largest_update"]:.3g}; running statistics within '
+            f'{step["running_stats_max_abs_err"]:.3g}; the ranks bit-equal; '
+            f'parameter bytes a rank {row["param_bytes_per_rank"]} against '
+            f'{whole_bytes}; moved a step (rank 0): '
+            + json.dumps(row['moved_per_step'][0]))
+    # (b) M2Det-512, 4 stages
+    m2det_batch = ma_batch(MA_M2DET_BATCH, 512)
+    single = ma_trainer('cuda', 0, 1, {'frozen_bn': True}, M2DET)
+    x = torch.randn((MA_M2DET_BATCH, 3, 512, 512), generator=torch.Generator()
+                    .manual_seed(SEED)).to('cuda')
+    with torch.inference_mode():
+        want_s, want_l = single.model.eval()(x)
+    forward_err = 0.0
+    for r in four:
+        for got, want in zip(r['forward'], (want_s.cpu(), want_l.cpu())):
+            rel = ((got - want).abs().max().item()
+                   / max(want.abs().max().item(), 1e-30))
+            if not rel <= ZOO_FORWARD_RTOL:
+                fail(f'phase 24 (b): M2Det\'s pipelined forward on rank '
+                     f'{four.index(r)} is {rel:.3g} of its largest output '
+                     'off the one-process forward')
+            forward_err = max(forward_err, rel)
+    del single
+    torch.cuda.empty_cache()
+    m2det = ma_one_process({'frozen_bn': True}, m2det_batch, M2DET)
+    ma_ranks_equal(four, None, '(b) M2Det')
+    m2det_step = dp_compare(four[0]['step'], m2det['want'], m2det['before'],
+                            'phase 24 (b) M2Det')
+    out['m2det_4_stages'] = {
+        **m2det_step, 'forward_max_rel_err': forward_err,
+        'step_ms': max(r['step_ms'] for r in four),
+        'one_process_step_ms': m2det['step_ms'],
+        'moved_per_step': [moved_bytes('pipeline', r['moved']) for r in four]}
+    log(f'  (b) M2Det-512, 4 stages in 4 ranks, b{MA_M2DET_BATCH} in 2 '
+        f'microbatches: forward within {forward_err:.3g} of its largest '
+        f'output; step loss rel {m2det_step["loss_rel_err"]:.3g}, updates '
+        f'within {m2det_step["update_max_abs_err"]:.3g} of the largest '
+        f'{m2det_step["largest_update"]:.3g}')
+    # (d) Experiment with each option against one process
+    ones = {}
+    for label, train in (('plain', {}), ('frozen', {'frozen_bn': True})):
+        exp = ma_experiment('cuda', 0, 1, train)
+        ones[label] = ma_run_experiment(exp)
+        del exp
+        torch.cuda.empty_cache()
+    out['experiments'] = {}
+    for key in MA_OPTIONS:
+        check = ma_experiment_check(
+            two, key, ones['frozen' if key == 'pipeline' else 'plain'])
+        out['experiments'][key] = check
+        log(f'  (d) Experiment(process_count=2), {key}: '
+            f'{MA_EXPERIMENT_STEPS} steps and an evaluation in '
+            f'{check["s"]:.2f} s; NMS launches per rank '
+            f'{check["nms_launches"]}; both ranks {json.dumps(check["rows"])}; '
+            f'one process {json.dumps(check["one_process"])}')
+    # (e) times
+    for key, row in out['options'].items():
+        log(f'  (e) {smi}: {key} step wall ms (median of {MA_TIMED_STEPS}, '
+            f'slower rank) {row["step_ms"]:.2f} at 2 ranks against '
+            f'{row["one_process_step_ms"]:.2f} in 1 process')
+    m = out['m2det_4_stages']
+    log(f'  (e) {smi}: M2Det-512 b{MA_M2DET_BATCH} 4-stage step '
+        f'{m["step_ms"]:.2f} ms at 4 ranks against '
+        f'{m["one_process_step_ms"]:.2f} in 1 process')
+    return out
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
@@ -6136,6 +6552,15 @@ def parse_args(argv):
              'the smoke test\'s last line is not printed')
     parser.add_argument('--dp-worker', nargs=4, help=argparse.SUPPRESS,
                         metavar=('RANK', 'PORT', 'BACKEND', 'OUT'))
+    parser.add_argument(
+        '--model-axis-only', action='store_true',
+        help='build the kernels and run phase 24 alone (tensor, pipeline '
+             'and spatial sharding in rank processes; NCCL with four cards '
+             'or more), then print its results as JSON; the smoke test\'s '
+             'last line is not printed')
+    parser.add_argument('--ma-worker', nargs=6, help=argparse.SUPPRESS,
+                        metavar=('GROUP', 'RANK', 'COUNT', 'PORT', 'BACKEND',
+                                 'OUT'))
     return parser.parse_args(argv)
 
 
@@ -6148,10 +6573,26 @@ def main(argv=None) -> int:
     if args.dp_worker:  # a rank process of phase 23
         rank, port, backend, out = args.dp_worker
         return dp_worker(int(rank), int(port), backend, out)
+    if args.ma_worker:  # a rank process of phase 24
+        group, rank, count, port, backend, out = args.ma_worker
+        return ma_worker(group, int(rank), int(count), int(port), backend, out)
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[0]
+    if args.model_axis_only:
+        from single_shot_detection_tpu_torch.data import native
+        t = time.perf_counter()
+        for module in (nms_kernel, bn_kernel):
+            module.build()
+        native.get_library()
+        log(f'[2] built the kernels and the JPEG decoder in '
+            f'{time.perf_counter() - t:.2f} s')
+        t = time.perf_counter()
+        result = run_model_axis(smi)
+        log(f'phase 24 in {time.perf_counter() - t:.2f} s')
+        log(json.dumps(result, default=str))
+        return 0
     if args.data_parallel_only:
         from single_shot_detection_tpu_torch.data import native
         t = time.perf_counter()
@@ -6410,6 +6851,11 @@ def main(argv=None) -> int:
     multi_gpu = run_multi_gpu(smi)
     log(f'  phase 23 in {time.perf_counter() - t:.1f} s')
 
+    # 24. the model axis: tensor, pipeline and spatial sharding
+    t = time.perf_counter()
+    model_axis = run_model_axis(smi)
+    log(f'  phase 24 in {time.perf_counter() - t:.1f} s')
+
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
         **train_timing,
@@ -6448,7 +6894,7 @@ def main(argv=None) -> int:
             'combined': {k: v for k, v in options['combined'].items()
                          if k != 'launches'}},
         'data_extras': extras, 'interop': interop,
-        'multi_gpu': multi_gpu}}))
+        'multi_gpu': multi_gpu, 'model_axis': model_axis}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -6522,7 +6968,12 @@ def main(argv=None) -> int:
                                  'launches']['nms_keep_batched'],
                              # phase 23: each rank's evaluation
                              **{f'multi_gpu_rank{r}': n for r, n in enumerate(
-                                 multi_gpu['b']['nms_launches'])}},
+                                 multi_gpu['b']['nms_launches'])},
+                             # phase 24: each option's evaluation, per rank
+                             **{f'model_axis_{key}_rank{r}': n
+                                for key, check in model_axis[
+                                    'experiments'].items()
+                                for r, n in enumerate(check['nms_launches'])}},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
             'shape', 'ms', 'call_ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -6595,7 +7046,14 @@ def main(argv=None) -> int:
                                      'experiment']['launches'][name],
                                  # phase 22: one step from imported weights
                                  'interop_train_step': interop['train_step'][
-                                     'launches'][name]},
+                                     'launches'][name],
+                                 # phase 24: each option's run, per rank
+                                 # (fused_bn is off over several processes)
+                                 **{f'model_axis_{key}_rank{r}': n[name]
+                                    for key, check in model_axis[
+                                        'experiments'].items()
+                                    for r, n in enumerate(
+                                        check['bn_launches'])}},
             'max_abs_err': max(bn_check[name], *(
                 t['bn_max_abs_err'][name] for t in zoo_steps.values())),
             'shape': list(BN_TIMED_SHAPE),

@@ -43,11 +43,15 @@ run directory and hands its name to the others; only it writes the
 checkpoints, ``log.csv``, ``train.log``, tensorboard scalars and an
 export, and runs the ``test`` phase.
 
+A config's ``train.tensor_sharding``, ``spatial_sharding`` or
+``pipeline_sharding`` runs over the processes with no flag of its own
+(``--num-processes W`` with the option's ``m``; ``trainer.py``), its
+``ValueError``s raised before anything is written.
+
 Not ported, raising ``NotImplementedError`` before anything is written:
 ``--compilation-cache`` other than ``off`` (the port has no XLA cache; its
-kernels are built once into ``kernels/build/``), and a config whose
-``train.tensor_sharding``, ``spatial_sharding`` or ``pipeline_sharding``
-partitions the model axis (ROADMAP.md Queue 1 item 9).
+kernels are built once into ``kernels/build/``), and the ``test`` and
+``export`` phases of a model-axis run.
 """
 
 from __future__ import annotations
@@ -149,11 +153,17 @@ def main(argv: Optional[Sequence[str]] = None):
     from single_shot_detection_tpu_torch.train import checkpoint as ckpt_utils
     from single_shot_detection_tpu_torch.train.engine import Experiment
     from single_shot_detection_tpu_torch.trainer import check_ported as check_train
+    from single_shot_detection_tpu_torch.trainer import model_axis_options
     from single_shot_detection_tpu_torch.utils.config import load_config
 
     cfg = load_config(args.config, phases=args.phases)
     processes = int(args.num_processes or 1)
     check_train(cfg, processes)  # before anything is written
+    mode = model_axis_options(dict(cfg.train or {}))[0]
+    if mode and {'test', 'export'} & set(args.phases):
+        raise NotImplementedError(
+            f'the test and export phases of a train.{mode}_sharding run are '
+            'not ported (they serve one whole model in one process)')
     device = 'cpu' if args.cpu else 'cuda'
     joined = processes > 1
     if joined:

@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from single_shot_detection_tpu_torch import parallel
-from single_shot_detection_tpu_torch.models.layers import Conv2d
+from single_shot_detection_tpu_torch.models.layers import Conv2d, spatial_size
 
 QMAX = 127.0
 
@@ -153,8 +153,8 @@ def supported_convs(model: nn.Module) -> Iterator[Tuple[str, Conv2d]]:
 
 def _over_limit(x: torch.Tensor, spatial_limit: Optional[int]) -> bool:
     """True when ``x``'s (unpadded) spatial extent exceeds the limit: that
-    conv stays float."""
-    return spatial_limit is not None and max(x.shape[2], x.shape[3]) > spatial_limit
+    conv stays float (the global extent of a height-sharded map)."""
+    return spatial_limit is not None and max(spatial_size(x)) > spatial_limit
 
 
 @contextlib.contextmanager
@@ -414,8 +414,11 @@ class QatConv:
         act = conv.act_amax
         if conv.training:
             with torch.no_grad():
+                # over the world: the data axis's batch, and under a model
+                # axis every rank's rows or channels
                 batch_amax = parallel.all_reduce_(
-                    x.abs().amax().to(torch.float32).reshape(1), 'max')[0]
+                    x.abs().amax().to(torch.float32).reshape(1), 'max',
+                    'world')[0]
                 # Python-float factors taken as f32, as JAX takes them
                 act.copy_(torch.where(
                     act > 0, self.decay * act + (1.0 - self.decay) * batch_amax,

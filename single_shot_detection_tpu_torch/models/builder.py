@@ -20,6 +20,7 @@ from typing import Callable, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from single_shot_detection_tpu_torch import parallel
 from single_shot_detection_tpu_torch.export import quantize
 from single_shot_detection_tpu_torch.models import backbones
 from single_shot_detection_tpu_torch.models.detector import Detector
@@ -52,9 +53,9 @@ class DetectorBundle:
 def feature_map_sizes(make_module: Callable[[], Detector],
                       img_size: Tuple[int, int]) -> List[Tuple[int, int]]:
     """Per-scale ``(w, h)`` feature-map sizes, from a forward of a copy of
-    the model on the ``meta`` device."""
+    the model on the ``meta`` device (a whole model: no model axis)."""
     w, h = img_size
-    with torch.device('meta'):
+    with torch.device('meta'), parallel.model_axis_off():
         probe = make_module().eval()
         _, _, sources = probe(torch.empty(1, 3, h, w), return_sources=True)
     return [(s.shape[3], s.shape[2]) for s in sources]

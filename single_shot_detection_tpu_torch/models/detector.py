@@ -2,8 +2,13 @@
 (NCHW).
 
 Port of ``single_shot_detection_tpu/models/detector.py`` (``ExtraLayer``,
-``SharedConvPredictor``, ``Detector``), without the pipeline-parallel stage
-seam.
+``SharedConvPredictor``, ``Detector``, ``tum_stage_chunks``), with the
+pipeline-parallel stage seam (``Detector.forward``'s ``stage``).
+
+The model axis (``parallel/``): under ``spatial_sharding`` the detector
+keeps this rank's rows of the image at its entry and gathers each head's
+output along the anchor axis; under ``tensor_sharding`` a head whose
+``cout`` is sliced is gathered along channels before its reshape.
 
 Anchor order: the JAX heads are NHWC, and ``[B, H, W, nb*C]`` reshapes to
 ``[B, H*W*nb, C]``, the anchors' ``(H, W, box)`` order.  Here the heads are
@@ -24,6 +29,7 @@ extra) and the predictor's towers to ``dtype``, the heads to
 
 from __future__ import annotations
 
+import itertools
 from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -34,12 +40,15 @@ from single_shot_detection_tpu_torch.models.layers import (ACTIVATIONS,
                                                            DepthwiseConvBn,
                                                            batch_norm, conv2d,
                                                            get_initializer,
-                                                           normal, reset_conv,
+                                                           max_pool2d, normal,
+                                                           reset_conv,
                                                            xavier_normal)
+from single_shot_detection_tpu_torch.parallel import spatial, tensor
 
 # the JAX package's defaults: normal(0.01) towers and heads, xavier-normal
 # extras
 head_kernel_init = normal(0.01)
+_TOKENS = itertools.count()
 
 
 class ExtraLayer(nn.Module):
@@ -63,7 +72,6 @@ class ExtraLayer(nn.Module):
         self.type = type
         self.out_channels = in_channels if type == 'm' else out_channels
         if type == 'm':
-            self.pool = nn.MaxPool2d(3, stride=2, padding=1)
             return
         init = get_initializer(initializer, xavier_normal)
         reduce_f = (out_channels // 2 if reduce_features is None
@@ -78,7 +86,7 @@ class ExtraLayer(nn.Module):
 
     def forward(self, x):
         if self.type == 'm':
-            return self.pool(x)
+            return max_pool2d(x, 3, 2, padding=1)
         return self.expand(self.reduce(x))
 
 
@@ -130,6 +138,28 @@ class SharedConvPredictor(nn.Module):
         return outputs[0], outputs[1]
 
 
+def tum_stage_chunks(num_tums: int, n_stages: int):
+    """Split a TUM chain into per-pipeline-stage ``(a, b)`` segments (the
+    JAX package's): an even spread, the remainder to the early stages
+    (the last also runs SFAM, the extras, the predictor and the heads).
+    The first segment must not be empty (stage 0 prepares the base feature
+    the first TUM reads)."""
+    if n_stages < 2:
+        raise ValueError(f'n_stages must be >= 2, got {n_stages}')
+    base, rem = divmod(num_tums, n_stages)
+    sizes = [base + (1 if i < rem else 0) for i in range(n_stages)]
+    if sizes[0] == 0:
+        raise ValueError(
+            f'{n_stages} pipeline stages need at least {n_stages - 1} TUMs '
+            f'(got {num_tums})')
+    bounds = []
+    start = 0
+    for s in sizes:
+        bounds.append((start, start + s))
+        start += s
+    return bounds
+
+
 class Detector(nn.Module):
     """features -> extras -> [predictor towers] -> per-scale heads ->
     concatenated ``(scores [B, A, C], locs [B, A, 4])``.
@@ -156,6 +186,7 @@ class Detector(nn.Module):
                  head_dtype: Optional[torch.dtype] = None,
                  extras_overrides: Optional[Sequence[Optional[Mapping]]] = None):
         super().__init__()
+        self.token = next(_TOKENS)  # the detector's key of spatial heights
         self.dtype = dtype
         self.head_dtype = dtype if head_dtype is None else head_dtype
         self.features = features
@@ -204,11 +235,48 @@ class Detector(nn.Module):
             elif isinstance(module, nn.BatchNorm2d):
                 module.reset_parameters()
 
-    def forward(self, x, return_sources: bool = False):
+    def forward(self, x, return_sources: bool = False,
+                stage: Optional[int] = None, stage_state=None,
+                n_stages: int = 2):
         """``return_sources`` also returns the maps the loc heads read (the
-        predictor's loc towers, or the neck's and extras' maps)."""
-        sources, x = self.features(x.to(self.dtype))
-        sources = list(sources)
+        predictor's loc towers, or the neck's and extras' maps).
+
+        ``stage`` is the pipeline seam (``parallel/pipeline.py``), as the
+        JAX module's: with ``n_stages=2`` stage 0 runs the backbone and
+        neck and returns ``(sources, x)``, stage 1 takes that as
+        ``stage_state`` and runs the extras, predictor and heads; with
+        more stages (an MLFPN neck) stage 0 is the backbone, the base
+        feature and the first TUM segment, the interior stages are TUM
+        segments, and the last is the final segment, SFAM and the rest.
+        Staged and full application share one ``state_dict``."""
+        if stage is not None and n_stages > 2:
+            num_tums = getattr(self.features, 'num_tums', None)
+            if num_tums is None:
+                raise ValueError(
+                    f'n_stages={n_stages} pipeline stages need a '
+                    f'MultilevelFeaturePyramid neck (a TUM chain to split); '
+                    f'{type(self.features).__name__} supports 2 stages')
+            a, b = tum_stage_chunks(num_tums, n_stages)[stage]
+            if stage == 0:
+                return self.features(x.to(self.dtype), tum_range=(a, b))
+            if stage < n_stages - 1:
+                return self.features(None, tum_range=(a, b),
+                                     stage_state=stage_state)
+            sources, x = self.features(None, tum_range=(a, b),
+                                       stage_state=stage_state)
+            sources = list(sources)
+        elif stage == 1:
+            sources, x = stage_state
+            sources = list(sources)
+        else:
+            x = x.to(self.dtype)
+            if spatial.active():
+                spatial.begin(self.token, x.shape[2])
+                x = spatial.own_rows(x)
+            sources, x = self.features(x)
+            sources = list(sources)
+            if stage == 0:
+                return tuple(sources), x
         for i in range(self.num_extras):
             extra = getattr(self, f'extra{i}')
             x = extra(x if extra.type == 'm' else x.to(self.dtype))
@@ -222,8 +290,17 @@ class Detector(nn.Module):
         batch = x.shape[0]
         scores, locs = [], []
         for i, (ss, ls) in enumerate(zip(score_sources, loc_sources)):
-            s = getattr(self, f'score_head{i}')(ss.to(self.head_dtype))
-            l = getattr(self, f'loc_head{i}')(ls.to(self.head_dtype))
+            s_head = getattr(self, f'score_head{i}')
+            l_head = getattr(self, f'loc_head{i}')
+            s = tensor.full(s_head(ss.to(self.head_dtype)),
+                            s_head.out_channels)
+            l = tensor.full(l_head(ls.to(self.head_dtype)),
+                            l_head.out_channels)
+            if spatial.active():
+                scores.append(spatial.gather_anchors(
+                    s, s.shape[1] // self.num_classes))
+                locs.append(spatial.gather_anchors(l, l.shape[1] // 4))
+                continue
             # NCHW -> NHWC, then [B, H*W*nb, C]: the anchors' order
             scores.append(s.permute(0, 2, 3, 1).reshape(batch, -1,
                                                         self.num_classes))

@@ -8,10 +8,13 @@ Port of ``single_shot_detection_tpu/models/features.py``: ``Features``,
 ``(sources, x)``: the per-scale maps (large -> small) and the map that
 feeds the SSD extras.  Flax infers a conv's input width; here each module
 computes it when it is built, and exposes its outputs' widths as
-``channels`` and ``out_channels``.
+``channels`` and ``out_channels``.  The MLFPN runs in ``tum_range``
+segments for the pipeline's stages (``parallel/pipeline.py``).
 
-Left out: the MLFPN's ``tum_range``/``stage_state`` segments, which serve
-only the JAX package's pipeline parallelism.
+The model axis: a resize's target size is the global one
+(``layers.spatial_size``), and a resize, pool or mean runs height-sharded
+under ``spatial_sharding``; under ``tensor_sharding`` a concat and an
+elementwise op gather a channel-sliced map first (``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +29,10 @@ from single_shot_detection_tpu_torch.models.layers import (ConvBn,
                                                            DepthwiseConvBn,
                                                            conv2d,
                                                            get_initializer,
+                                                           max_pool2d, mean_hw,
+                                                           spatial_size,
                                                            xavier_normal)
+from single_shot_detection_tpu_torch.parallel import spatial, tensor
 
 
 # the JAX package's modes -> ``F.interpolate``'s
@@ -45,8 +51,13 @@ def interpolate(x: torch.Tensor, size: Tuple[int, int],
     enlargement, the only resize the necks make, neither antialiases, and
     the edge weights agree (JAX renormalizes the taps inside the map, torch
     clamps to the edge); the interior weights differ by the rounding of the
-    source coordinate, at most 1e-6 of a weight at 32 -> 63."""
+    source coordinate, at most 1e-6 of a weight at 32 -> 63.  Under
+    ``spatial_sharding`` ``size`` is the global size and ``x`` a height
+    shard (``parallel/spatial.py``)."""
     _check_mode(mode)
+    if spatial.active():
+        return spatial.interpolate(
+            x, size, 'bilinear' if _MODES[mode] == 'bilinear' else 'nearest')
     if _MODES[mode] == 'bilinear':
         return F.interpolate(x, size=tuple(size), mode='bilinear',
                              align_corners=False, antialias=False)
@@ -71,6 +82,17 @@ def _tap_channels(base: nn.Module, layer) -> int:
 
 def _select(stages, aux, out_layers) -> list:
     return [aux[l] if isinstance(l, tuple) else stages[l] for l in out_layers]
+
+
+def _cat(maps, widths) -> torch.Tensor:
+    """Concatenate along channels, each map with all its ``widths``
+    (gathered where tensor sharding holds a slice)."""
+    return torch.cat([tensor.full(m, c) for m, c in zip(maps, widths)], dim=1)
+
+
+def _add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = tensor.align(a, b)
+    return a + b
 
 
 class Features(nn.Module):
@@ -164,8 +186,8 @@ class FeaturePyramid(nn.Module):
         sources = _select(stages, aux, self.out_layers)
         feats = [getattr(self, f'lateral{i}')(s) for i, s in enumerate(sources)]
         for i in reversed(range(len(feats) - 1)):
-            feats[i] = feats[i] + interpolate(feats[i + 1], feats[i].shape[2:],
-                                              self.interpolation_mode)
+            feats[i] = _add(feats[i], interpolate(
+                feats[i + 1], spatial_size(feats[i]), self.interpolation_mode))
         outputs = []
         for i in range(self.pyramid_layers):
             inp = outputs[-1] if i >= len(feats) else feats[i]
@@ -203,6 +225,7 @@ class DepthwiseFeaturePyramid(nn.Module):
                 _tap_channels(base, layer), pyramid_channels, 1, bias=True,
                 kernel_init=init))
         half = pyramid_channels // 2
+        self.half = half
         for i in range(self.num_down):
             self.add_module(f'down{i}_pool_conv', ConvBn(
                 pyramid_channels, half, kernel_size=1, **common))
@@ -222,17 +245,18 @@ class DepthwiseFeaturePyramid(nn.Module):
         feats = [getattr(self, f'lateral{i}')(s) for i, s in enumerate(sources)]
         for i in range(self.num_down):
             prev = feats[-1]
+            height, width = spatial_size(prev)
             # F.pad's widths: (left, right) of W, then (top, bottom) of H
-            pad = (0, int(prev.shape[3] > 2), 0, int(prev.shape[2] > 2))
-            pooled = F.max_pool2d(F.pad(prev, pad, value=float('-inf')), 2, 2)
-            feats.append(torch.cat([
-                getattr(self, f'down{i}_pool_conv')(pooled),
-                getattr(self, f'down{i}_dw')(prev)], dim=1))
+            pad = (0, int(width > 2), 0, int(height > 2))
+            pooled = max_pool2d(prev, 2, 2, pad=pad)
+            feats.append(_cat([getattr(self, f'down{i}_pool_conv')(pooled),
+                               getattr(self, f'down{i}_dw')(prev)],
+                              (self.half, self.half)))
         output = [feats[-1]]
         for i in reversed(range(len(feats) - 1)):
-            up = interpolate(output[-1], feats[i].shape[2:],
+            up = interpolate(output[-1], spatial_size(feats[i]),
                              self.interpolation_mode)
-            output.append(getattr(self, f'up{i}')(up) + feats[i])
+            output.append(_add(getattr(self, f'up{i}')(up), feats[i]))
         output.reverse()
         return output, output[-1]
 
@@ -282,8 +306,9 @@ class ThinnedUshapeModule(nn.Module):
         up_path = [x]
         for i in reversed(range(1, self.num_scales)):
             skip = down_path[i - 1]
-            x = interpolate(getattr(self, f'up{i}')(x), skip.shape[2:],
-                            self.interpolation_mode) + skip
+            x = _add(interpolate(getattr(self, f'up{i}')(x),
+                                 spatial_size(skip), self.interpolation_mode),
+                     skip)
             up_path.append(x)
         return [getattr(self, f'smooth{self.num_scales - 1 - i}')(feat)
                 for i, feat in enumerate(up_path)]
@@ -317,9 +342,10 @@ class ScalewiseFeatureAggregationModule(nn.Module):
                              'scales')
         result = []
         for i, feature in enumerate(features):
-            g = feature.mean(dim=(2, 3), keepdim=True).float()
+            g = mean_hw(feature).float()
             g = F.relu(getattr(self, f'fc1_{i}')(g))
             g = torch.sigmoid(getattr(self, f'fc2_{i}')(g))
+            feature, g = tensor.align(feature, g)
             result.append(feature * g)
         return result
 
@@ -378,6 +404,8 @@ class MultilevelFeaturePyramid(nn.Module):
                 base_width, reduced_channels, kernel_size=1, **common))
             self.add_module(f'tum{i}', ThinnedUshapeModule(
                 out + reduced_channels, **tum_kw))
+        self.base_widths = list(base_reduced_channels)
+        self.tum_widths = (out, reduced_channels)
         self.channels = [out * num_tums] * num_scales
         self.out_channels = out * num_tums
         self.sfam = ScalewiseFeatureAggregationModule(
@@ -385,21 +413,40 @@ class MultilevelFeaturePyramid(nn.Module):
             reduction_ratio=dict(sfam or {}).get('reduction_ratio', 16),
             initializer=initializer)
 
-    def forward(self, x):
-        stages, aux = self.base(x, max_stage=self.last_feature_layer)
-        sources = _select(stages, aux, self.out_layers)
-        reduced = [getattr(self, f'base_reducer{i}')(s)
-                   for i, s in enumerate(sources)]
-        base_features = torch.cat([reduced[0]] + [
-            interpolate(r, reduced[0].shape[2:], self.interpolation_mode)
-            for r in reduced[1:]], dim=1)
-        per_scale = [[f] for f in self.tum0(base_features)]
-        for i in range(1, self.num_tums):
+    def forward(self, x, tum_range: Optional[Tuple[int, int]] = None,
+                stage_state=None):
+        """``tum_range=(a, b)`` runs a segment for the pipeline's stages,
+        as the JAX module does: ``a == 0`` includes the backbone and the
+        base feature, ``b == num_tums`` the final concat and SFAM
+        (returning ``(features, last)``); an interior segment takes and
+        returns the chain's state ``(base feature, per-scale outputs so
+        far)``."""
+        a, b = (0, self.num_tums) if tum_range is None else tum_range
+        if a == 0:
+            stages, aux = self.base(x, max_stage=self.last_feature_layer)
+            sources = _select(stages, aux, self.out_layers)
+            reduced = [getattr(self, f'base_reducer{i}')(s)
+                       for i, s in enumerate(sources)]
+            size = spatial_size(reduced[0])
+            base_features = _cat([reduced[0]] + [
+                interpolate(r, size, self.interpolation_mode)
+                for r in reduced[1:]], self.base_widths)
+            per_scale = None
+        else:
+            base_features, per_scale_t = stage_state
+            per_scale = [list(fs) for fs in per_scale_t]
+        out, red_width = self.tum_widths
+        for i in range(a, b):
+            if i == 0:
+                per_scale = [[f] for f in self.tum0(base_features)]
+                continue
             red = getattr(self, f'reducer{i}')(base_features)
-            tum_in = torch.cat([per_scale[-1][-1], red], dim=1)
+            tum_in = _cat([per_scale[-1][-1], red], (out, red_width))
             for s, feat in enumerate(getattr(self, f'tum{i}')(tum_in)):
                 per_scale[s].append(feat)
-        features = self.sfam([torch.cat(fs, dim=1)
+        if tum_range is not None and b < self.num_tums:
+            return base_features, tuple(tuple(fs) for fs in per_scale)
+        features = self.sfam([_cat(fs, [out] * len(fs))
                               for fs in reversed(per_scale)])
         return features, features[-1]
 

@@ -16,6 +16,14 @@ computes in f32 and returns its input's dtype, as flax's
 ``nn.BatchNorm(dtype=...)`` does.  A bf16 detector casts its image once at
 its entry (``models/detector.py``) and every layer below follows.
 
+The model axis (``parallel/``): :meth:`Conv2d.conv_with`, every conv's one
+path, runs a tensor-sharded conv (``parallel/tensor.py``) or a
+height-sharded one (``parallel/spatial.py``) when that option owns the
+axis; :func:`max_pool2d`, :func:`spatial_size` and :func:`mean_hw` are
+the models' pools, target sizes and global means, height-sharded under
+``spatial_sharding``.  A BatchNorm's synced statistics reduce over the
+data group, and over the world (model and data) under spatial sharding.
+
 Initializers: :func:`conv2d` builds a :class:`Conv2d` that carries its own
 ``kernel_init`` (flax's ``lecun_normal`` by default, or a config's
 ``{'name': ..., 'args': ...}`` through :func:`get_initializer`), drawn from
@@ -33,6 +41,7 @@ from torch import nn
 
 from single_shot_detection_tpu_torch import parallel
 from single_shot_detection_tpu_torch.models import norm
+from single_shot_detection_tpu_torch.parallel import spatial, tensor
 from single_shot_detection_tpu_torch.ops.bn_fused import fused_bn_train
 
 ACTIVATIONS = {
@@ -98,8 +107,7 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.group_norm is not None:
-            return norm.group_norm(x, self.weight, self.bias,
-                                   self.group_norm, self.eps)
+            return self._group_norm(x)
         if not self.training:
             return super().forward(x)
         if self.sync:
@@ -119,6 +127,24 @@ class BatchNorm(nn.BatchNorm2d):
                 var * self.momentum)
         return z
 
+    def _group_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """GroupNorm; a group spans channels, so a tensor-sharded map and
+        its parameters are gathered and the output cut back to this
+        rank's channels, and a height-sharded map's moments are summed
+        over the model group."""
+        if spatial.active():
+            return spatial.group_norm(x, self.weight, self.bias,
+                                      self.group_norm, self.eps,
+                                      norm.num_groups)
+        if tensor.active() and x.shape[1] != self.num_features:
+            gather = tensor.gather_channels
+            z = norm.group_norm(
+                gather(x), gather(self.weight[None])[0],
+                gather(self.bias[None])[0], self.group_norm, self.eps)
+            return tensor.slice_channels(z)
+        return norm.group_norm(x, self.weight, self.bias, self.group_norm,
+                               self.eps)
+
 
 class SyncBatchNormFunction(torch.autograd.Function):
     """Train-mode batch norm over the global batch of all the ranks.
@@ -131,7 +157,10 @@ class SyncBatchNormFunction(torch.autograd.Function):
     update).  Backward: ``[Σdz, Σdz·x̂]`` summed over the ranks in one
     all-reduce, ``dx = weight * rstd / n * (n dz - Σdz - x̂ Σdz·x̂)`` over
     the global count ``n``; the weight's and bias's gradients are this
-    rank's own sums, which the step's gradient all-reduce adds up."""
+    rank's own sums, which the step's gradient all-reduce adds up.
+
+    The ranks are those of :func:`bn_axis`: the data group, or the world
+    under spatial sharding (each rank holds some rows of each image)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
@@ -140,8 +169,9 @@ class SyncBatchNormFunction(torch.autograd.Function):
         dims = [0] + list(range(2, xf.dim()))
         count = torch.full((1,), xf.numel() // c, dtype=torch.float32,
                            device=xf.device)
+        ctx.axis = bn_axis()
         sums = parallel.all_reduce_(torch.cat(
-            [xf.sum(dims), (xf * xf).sum(dims), count]))
+            [xf.sum(dims), (xf * xf).sum(dims), count]), axis=ctx.axis)
         n = sums[-1]
         mean = sums[:c] / n
         var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
@@ -161,12 +191,19 @@ class SyncBatchNormFunction(torch.autograd.Function):
         c = dz.shape[1]
         dims = [0] + list(range(2, dz.dim()))
         local = torch.cat([dz.sum(dims), (dz * xhat).sum(dims)])
-        sums = parallel.all_reduce_(local.clone())
+        sums = parallel.all_reduce_(local.clone(), axis=ctx.axis)
         sum_dz, sum_dz_xhat = sums[:c], sums[c:]
         shape = [1, c] + [1] * (dz.dim() - 2)
         dx = (weight * rstd / n).view(shape) * (
             n * dz - sum_dz.view(shape) - xhat * sum_dz_xhat.view(shape))
         return dx.to(ctx.in_dtype), local[c:], local[:c], None
+
+
+def bn_axis() -> str:
+    """The ranks a synced BN reduces over: ``'world'`` under spatial
+    sharding, else ``'data'`` (a tensor-sharded channel's statistics are
+    its owner's, over the model group's whole batch)."""
+    return 'world' if spatial.active() else 'data'
 
 
 def batch_norm(channels: int) -> BatchNorm:
@@ -326,10 +363,46 @@ class Conv2d(nn.Conv2d):
     def conv_with(self, x: torch.Tensor, weight: torch.Tensor,
                   bias: Optional[torch.Tensor]) -> torch.Tensor:
         """This conv's geometry (``pad``, stride, padding, groups) on
-        ``x`` with another ``weight`` and ``bias``."""
+        ``x`` with another ``weight`` and ``bias``: height-sharded under
+        ``spatial_sharding``, on this rank's channels under
+        ``tensor_sharding``."""
+        mode = parallel.model_mode()
+        if mode == 'spatial':
+            return spatial.conv2d(self, x, weight, bias)
         if self.pad is not None:
             x = F.pad(x, self.pad)
+        if mode == 'tensor':
+            return tensor.conv(self, x, weight, bias)
         return self._conv_forward(x, weight, bias)
+
+
+def max_pool2d(x: torch.Tensor, kernel: int, stride: int, padding: int = 0,
+               pad: Optional[Tuple[int, int, int, int]] = None
+               ) -> torch.Tensor:
+    """``F.max_pool2d`` (symmetric ``padding``, then ``F.pad``-style
+    ``pad`` widths of ``-inf``), height-sharded under
+    ``spatial_sharding``."""
+    widths = tuple(p + padding for p in (pad or (0, 0, 0, 0)))
+    if spatial.active():
+        return spatial.max_pool2d(x, kernel, stride, widths)
+    if pad is not None:
+        x = F.pad(x, pad, value=float('-inf'))
+    return F.max_pool2d(x, kernel, stride, padding=padding)
+
+
+def spatial_size(x: torch.Tensor) -> Tuple[int, int]:
+    """``(H, W)`` of a map: its global height under ``spatial_sharding``."""
+    if spatial.active():
+        return spatial.global_height(x), x.shape[3]
+    return tuple(x.shape[2:])
+
+
+def mean_hw(x: torch.Tensor) -> torch.Tensor:
+    """The spatial mean ``[B, C, 1, 1]``, over the global map under
+    ``spatial_sharding``."""
+    if spatial.active():
+        return spatial.mean_hw(x)
+    return x.mean(dim=(2, 3), keepdim=True)
 
 
 def conv2d(in_channels: int, out_channels: int, kernel_size: int,

@@ -43,17 +43,17 @@ class _SeparableBlock(nn.Module):
 
     def __init__(self, in_channels: int, features: int, stride: int = 1):
         super().__init__()
-        self.pad = tf_same_pad(3, stride)
         self.depthwise_conv = conv2d(in_channels, in_channels, 3,
                                      stride=stride, groups=in_channels,
-                                     kernel_init=xavier_uniform)
+                                     kernel_init=xavier_uniform,
+                                     pad=tf_same_pad(3, stride))
         self.depthwise_bn = batch_norm(in_channels)
         self.pointwise_conv = conv2d(in_channels, features, 1,
                                      kernel_init=xavier_uniform)
         self.pointwise_bn = batch_norm(features)
 
     def forward(self, x):
-        x = _relu6(self.depthwise_bn(self.depthwise_conv(F.pad(x, self.pad))))
+        x = _relu6(self.depthwise_bn(self.depthwise_conv(x)))
         return _relu6(self.pointwise_bn(self.pointwise_conv(x)))
 
 

@@ -71,9 +71,9 @@ class InvertedResidual(nn.Module):
             self.expand_conv = conv2d(in_channels, inner, 1,
                                       kernel_init=xavier_uniform)
             self.expand_bn = batch_norm(inner)
-        self.pad = tf_same_pad(3, stride)
         self.depthwise_conv = conv2d(inner, inner, 3, stride=stride,
-                                     groups=inner, kernel_init=xavier_uniform)
+                                     groups=inner, kernel_init=xavier_uniform,
+                                     pad=tf_same_pad(3, stride))
         self.depthwise_bn = batch_norm(inner)
         self.project_conv = conv2d(inner, out_channels, 1,
                                    kernel_init=xavier_uniform)
@@ -86,7 +86,7 @@ class InvertedResidual(nn.Module):
         if self.expand:
             h = _relu6(self.expand_bn(self.expand_conv(h)))
             aux['expand_relu'] = h
-        h = _relu6(self.depthwise_bn(self.depthwise_conv(F.pad(h, self.pad))))
+        h = _relu6(self.depthwise_bn(self.depthwise_conv(h)))
         h = self.project_bn(self.project_conv(h))
         return (x + h if self.residual else h), aux
 

@@ -23,7 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from single_shot_detection_tpu_torch.models.layers import batch_norm, conv2d
+from single_shot_detection_tpu_torch.models.layers import (batch_norm, conv2d,
+                                                           max_pool2d,
+                                                           mean_hw)
+from single_shot_detection_tpu_torch.parallel import tensor
 
 
 class BasicBlock(nn.Module):
@@ -50,7 +53,8 @@ class BasicBlock(nn.Module):
     def forward(self, x):
         identity = (self.downsample_bn(self.downsample_conv(x))
                     if self.downsample else x)
-        return F.relu(self.residual(x) + identity)
+        residual, identity = tensor.align(self.residual(x), identity)
+        return F.relu(residual + identity)
 
 
 class Bottleneck(BasicBlock):
@@ -97,8 +101,9 @@ class SEBlock(nn.Module):
         self.fc2 = conv2d(channels // reduction, channels, 1, bias=True)
 
     def forward(self, x):
-        g = x.mean(dim=(2, 3), keepdim=True)
-        return x * torch.sigmoid(self.fc2(F.relu(self.fc1(g))))
+        g = torch.sigmoid(self.fc2(F.relu(self.fc1(mean_hw(x)))))
+        x, g = tensor.align(x, g)
+        return x * g
 
 
 class SEBottleneck(Bottleneck):
@@ -173,7 +178,7 @@ class ResNet(nn.Module):
     def forward(self, x, max_stage: Optional[int] = None):
         last = self.num_stages - 1 if max_stage is None else max_stage
         stem = (self.conv1, self.bn1, F.relu,
-                lambda h: F.max_pool2d(h, 3, 2, padding=1))
+                lambda h: max_pool2d(h, 3, 2, padding=1))
         stages = []
         for i in range(last + 1):
             x = stem[i](x) if i < 4 else _run_layer(self, i - 4, x)
@@ -206,7 +211,7 @@ class SEResNet(nn.Module):
 
     def forward(self, x, max_stage: Optional[int] = None):
         last = self.num_stages - 1 if max_stage is None else max_stage
-        x = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, 2, padding=1)
+        x = max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, 2, padding=1)
         stages = [x]
         for i in range(last):
             x = _run_layer(self, i, x)

@@ -18,7 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from single_shot_detection_tpu_torch.models.layers import batch_norm, conv2d
+from single_shot_detection_tpu_torch.models.layers import (batch_norm, conv2d,
+                                                           max_pool2d)
+from single_shot_detection_tpu_torch.parallel import tensor
 
 SHUFFLENET_WIDTHS = {
     0.5: (48, 96, 192, 1024),
@@ -50,6 +52,7 @@ class ShuffleUnit(nn.Module):
         super().__init__()
         branch = features // 2
         self.stride = stride
+        self.widths = (in_channels, branch)
         if stride == 1:
             if in_channels != features:
                 raise ValueError(f'a stride-1 unit keeps its width: '
@@ -72,8 +75,10 @@ class ShuffleUnit(nn.Module):
         self.branch2_pw2_bn = batch_norm(branch)
 
     def forward(self, x):
+        in_channels, branch = self.widths
         if self.stride == 1:
-            x1, x2 = x.chunk(2, dim=1)
+            # halves of the whole map (a tensor-sharded one is gathered)
+            x1, x2 = tensor.full(x, in_channels).chunk(2, dim=1)
         else:
             x1 = self.branch1_dw_bn(self.branch1_dw(x))
             x1 = F.relu(self.branch1_pw_bn(self.branch1_pw(x1)))
@@ -81,7 +86,8 @@ class ShuffleUnit(nn.Module):
         out = F.relu(self.branch2_pw1_bn(self.branch2_pw1(x2)))
         out = self.branch2_dw_bn(self.branch2_dw(out))
         out = F.relu(self.branch2_pw2_bn(self.branch2_pw2(out)))
-        return channel_shuffle(torch.cat([x1, out], dim=1), 2)
+        return channel_shuffle(torch.cat([tensor.full(x1, branch),
+                                          tensor.full(out, branch)], dim=1), 2)
 
 
 class ShuffleNetV2(nn.Module):
@@ -120,7 +126,7 @@ class ShuffleNetV2(nn.Module):
         x = F.relu(self.conv1_bn(self.conv1(x)))
         stages = [x]
         if last >= 1:
-            x = F.max_pool2d(x, 3, stride=2, padding=1)
+            x = max_pool2d(x, 3, 2, padding=1)
             stages.append(x)
         for i, names in enumerate(self.units):
             if last < 2 + i:

@@ -21,7 +21,8 @@ from typing import List, Optional, Sequence, Union
 import torch.nn.functional as F
 from torch import nn
 
-from single_shot_detection_tpu_torch.models.layers import batch_norm, conv2d
+from single_shot_detection_tpu_torch.models.layers import (batch_norm, conv2d,
+                                                           max_pool2d)
 
 VGG_CONFIGS = {
     11: (64, 'M', 128, 'M', 256, 256, 'M', 512, 512, 'M', 512, 512, 'M'),
@@ -76,7 +77,7 @@ class VGG(nn.Module):
         stages = []
         for layer in self.layers[:last + 1]:
             if layer == 'pool':
-                x = F.max_pool2d(x, 2, 2)
+                x = max_pool2d(x, 2, 2)
             elif layer == 'relu':
                 x = F.relu(x)
             else:

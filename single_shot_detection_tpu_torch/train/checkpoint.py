@@ -50,6 +50,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from single_shot_detection_tpu_torch.parallel import tensor
 from single_shot_detection_tpu_torch.train import optimizers
 from single_shot_detection_tpu_torch.train.state import TrainState, gather_shadow
 from single_shot_detection_tpu_torch.utils import flax_msgpack, weights
@@ -94,15 +95,21 @@ def saved_dict(state: TrainState) -> dict:
 
 
 def gather_for_save(state: TrainState) -> dict:
-    """:func:`saved_dict` with ZeRO-1's slices made whole: the optimizer's
-    buffers gathered and the EMA shadow refreshed from every rank's slice.
-    Under ZeRO a collective every rank must enter; otherwise the plain
-    :func:`saved_dict`."""
-    if state.zero is None:
+    """:func:`saved_dict` with ZeRO-1's slices made whole (the optimizer's
+    buffers gathered and the EMA shadow refreshed from every rank's slice)
+    and tensor sharding's too (``parallel/tensor.py::gather_saved_``: the
+    whole state, in today's format).  Under either a collective every rank
+    must enter; otherwise the plain :func:`saved_dict`."""
+    if state.zero is None and state.tensor is None:
         return saved_dict(state)
     gather_shadow(state)
     saved = saved_dict(state)
-    saved['optimizer'] = state.optimizer.full_state_dict()
+    if state.zero is not None:
+        saved['optimizer'] = state.optimizer.full_state_dict()
+    if state.tensor is not None:
+        if state.zero is None:
+            saved['optimizer'] = state.optimizer.state_dict()
+        saved = tensor.gather_saved_(saved, state, state.tensor)
     return saved
 
 

@@ -93,6 +93,17 @@ the JAX engine's multi-host runs: the global batch is ``process_count``
 times it.  int8 calibration takes each conv's maximum over every rank's
 calibration batches.
 
+With a model axis (``train.tensor_sharding``, ``spatial_sharding`` or
+``pipeline_sharding``; ``trainer.py``) ``batch_size`` is one model
+group's batch and the global batch ``batch_size * process_count / m``:
+the loaders shard over the data axis (the ranks of a model group load the
+same rows), a tensor-sharded state is cut after the weights to start
+from are loaded and gathered whole for each save, and the evaluation
+runs on the sharded model (the NMS kernel on every rank), its rows
+gathered over the data axis.  The int8 gate refuses a model-axis run
+(the evaluation stays float, ``int8: 0.0``); ``train.pruner`` with tensor
+or spatial sharding is not ported.
+
 ``bf16`` runs the activations in bfloat16 (docs/DESIGN.md §10: parameters, BN
 statistics, SGD momentum and losses stay f32, so checkpoints are f32 and a
 bf16 run resumes an f32 one and the reverse) and ``matmul_precision`` sets
@@ -135,7 +146,9 @@ from single_shot_detection_tpu_torch.train import checkpoint as ckpt
 from single_shot_detection_tpu_torch.train import materialize, pruning
 from single_shot_detection_tpu_torch.train.state import reset_shadow
 from single_shot_detection_tpu_torch.train.step import make_eval_step
-from single_shot_detection_tpu_torch.trainer import Trainer, staging_yuv
+from single_shot_detection_tpu_torch.trainer import (Trainer, check_ported,
+                                                     model_axis_options,
+                                                     staging_yuv)
 from single_shot_detection_tpu_torch.utils.config import ConfigWrapper, load_config
 from single_shot_detection_tpu_torch.utils import keras_import, torch_import
 from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
@@ -299,11 +312,6 @@ class Experiment:
                  tensorboard: bool = False,
                  process_count: int = 1,
                  process_index: int = 0):
-        parallel.check_group(process_count, process_index)
-        self.process_count = int(process_count)
-        self.process_index = int(process_index)
-        self.device = (parallel.process_device(process_index, device)
-                       if process_count > 1 else resolve_device(device))
         self.phases = list(phases)
         if isinstance(cfg, str):
             cfg = load_config(cfg, phases=self.phases)
@@ -312,6 +320,12 @@ class Experiment:
         if overrides:
             cfg.override(dict(overrides))
         self.cfg = cfg
+        check_ported(cfg, process_count)  # the model axis's checks first
+        parallel.check_group(process_count, process_index)
+        self.process_count = int(process_count)
+        self.process_index = int(process_index)
+        self.device = (parallel.process_device(process_index, device)
+                       if process_count > 1 else resolve_device(device))
         self.seed = int(seed if seed is not None else (cfg.seed or 23))
 
         # --- datasets & loaders -----------------------------------------
@@ -323,6 +337,15 @@ class Experiment:
             cfg.override({'model': {'detector': detector}})
         train_cfg = dict(cfg.train or {})
         quantize.check_composes(train_cfg, int8)
+        # the model axis before the loaders: they shard over the data axis
+        mode, axis_size, _ = model_axis_options(train_cfg)
+        if train_cfg.get('pruner') and mode in ('tensor', 'spatial'):
+            raise NotImplementedError(
+                f'train.pruner with train.{mode}_sharding is not ported '
+                '(the pruner reads whole parameters and activations)')
+        parallel.set_model_axis(mode, axis_size)
+        self.data_count = parallel.data_count()
+        self.data_index = parallel.data_index()
         self.transfer_ahead = int(train_cfg.get('transfer_ahead', 2) or 0)
         input_size = tuple(cfg.input_size)
         self.input_size = input_size
@@ -340,7 +363,7 @@ class Experiment:
                 cache_dir=_staging_cache_dir(train_cfg.get('staging_cache'),
                                              process_count, process_index),
                 staging_device=self.device,
-                process_count=process_count, process_index=process_index)
+                process_count=self.data_count, process_index=self.data_index)
 
         # --- train side: pipeline, model, loss, optimizer, schedule ------
         self.epochs = int(train_cfg.get('epochs', 1))
@@ -354,7 +377,7 @@ class Experiment:
         self.trainer = Trainer.from_cfg(cfg, variables, self.device, self.seed,
                                         steps_per_epoch, bf16,
                                         matmul_precision, process_count,
-                                        process_index)
+                                        process_index, shard=False)
         self.policy = self.trainer.policy
         self.matmul_precision = self.policy.matmul_precision
         self.bundle = self.trainer.bundle
@@ -380,6 +403,7 @@ class Experiment:
         self.debug = bool(debug)
         self.start_epoch = 0
         self._load_weights(dict(cfg.model or {}), resume_from, load_weights)
+        self.trainer.shard_model_axis()
         self._current_epoch = self.start_epoch  # the emergency save's epoch
         self._build_pruner(train_cfg.get('pruner'))
         self.fused_steps = self.trainer.fused_steps
@@ -531,7 +555,7 @@ class Experiment:
             keys = list(means)
             flat = parallel.all_reduce_(torch.from_numpy(np.concatenate(
                 [means[k].ravel() for k in keys])).to(self.device))
-            parts = np.split((flat / self.process_count).cpu().numpy(),
+            parts = np.split((flat / self.data_count).cpu().numpy(),
                              np.cumsum([means[k].size for k in keys])[:-1])
             means = dict(zip(keys, parts))
             self.pruner.observe(means)
@@ -607,6 +631,11 @@ class Experiment:
                          if 'eval' in self.loaders else None)
         enabled, opts = quantize.resolve_int8_opts(self.cfg,
                                                    batch_size=serving_batch)
+        if enabled and parallel.model_mode() is not None:
+            logging.warning(f'WW int8: the evaluation of a '
+                            f'train.{parallel.model_mode()}_sharding run stays '
+                            'float (the int8 convs are not sharded)')
+            enabled = False
         if not enabled:
             self.int8 = False
             return
@@ -719,11 +748,12 @@ class Experiment:
         slices (a collective): with them sharded over several processes it
         is skipped with a pointer to the last scheduled save, as in the JAX
         engine."""
-        if self.trainer.state.zero is None:
+        if self.trainer.state.zero is None and self.trainer.state.tensor is None:
             return True
         logging.warning(
             'WW state has cross-host-sharded leaves (train.zero_sharding '
-            'over multiple processes): emergency checkpoint skipped '
+            'or tensor_sharding over multiple processes): emergency '
+            'checkpoint skipped '
             '(gathering is a collective, unsafe from one rank mid-failure) '
             '— resume from the last scheduled save')
         return False
@@ -852,7 +882,7 @@ class Experiment:
             row[f'train_{key}'] = pulled[i] / max(count, 1) if pulled else 0.0
         elapsed = time.perf_counter() - start
         if self.process_index == 0:
-            images = count * loader.batch_size * self.process_count
+            images = count * loader.batch_size * self.data_count
             logging.info(
                 f'[train] epoch {epoch}: {count} steps in {elapsed:.2f} s '
                 f'({images / max(elapsed, 1e-9):.1f} img/s) '

@@ -315,6 +315,10 @@ class Optimizer(torch.optim.Optimizer):
         # and each parameter's name
         self.zero: Optional[parallel.ZeroLayout] = None
         self._names: Dict[torch.Tensor, str] = {}
+        # tensor sharding (:meth:`shard_model`): the parameters that hold
+        # a model slice, whose squares the clipping norm sums over the
+        # model group
+        self.model_sliced: set = set()
 
     def buffer_names(self, group) -> List[str]:
         """The per-parameter buffers ``group`` keeps (``acc_grad`` too
@@ -333,6 +337,12 @@ class Optimizer(torch.optim.Optimizer):
         self.zero = layout
         self._names = {p: name for name, p in named_params}
         self.shard_state()
+
+    def shard_model(self, sliced_params: Iterable) -> None:
+        """Tensor sharding: ``sliced_params`` hold this rank's model
+        slices (the clipping norm counts each slice once over the model
+        group, a whole parameter once)."""
+        self.model_sliced = set(sliced_params)
 
     def _slice(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         if self.zero is None:
@@ -403,7 +413,8 @@ class Optimizer(torch.optim.Optimizer):
                   for p in g['params']] for g, _ in groups]
         if k == 1 and self.clip_grad_norm is not None:
             # the whole gradient, on every rank under ZeRO
-            grads = clip_by_global_norm(grads, self.clip_grad_norm)
+            grads = clip_by_global_norm(grads, self.clip_grad_norm,
+                                        model_sliced=self._model_mask(groups))
         grads = [[self._slice(p, t) for p, t in zip(g['params'], gs)]
                  for (g, _), gs in zip(groups, grads)]
         if k > 1:
@@ -418,7 +429,8 @@ class Optimizer(torch.optim.Optimizer):
             grads = [bufs['acc_grad'] for _, bufs in groups]
             if self.clip_grad_norm is not None:
                 grads = clip_by_global_norm(grads, self.clip_grad_norm,
-                                            self._sliced_mask(groups))
+                                            self._sliced_mask(groups),
+                                            self._model_mask(groups))
         for (group, bufs), g in zip(groups, grads):
             lr = (float(group['lr']) if group['lr_constant'] else
                   float(schedule(updates + self.rule.lr_offset)))
@@ -438,10 +450,18 @@ class Optimizer(torch.optim.Optimizer):
             return None
         return [[self._sliced(p) for p in g['params']] for g, _ in groups]
 
+    def _model_mask(self, groups) -> Optional[List[List[bool]]]:
+        """Which leaves are model slices (tensor sharding); None without."""
+        if not self.model_sliced:
+            return None
+        return [[p in self.model_sliced for p in g['params']]
+                for g, _ in groups]
+
 
 def clip_by_global_norm(grads: List[List[torch.Tensor]],
                         max_norm: float,
-                        sliced: Optional[List[List[bool]]] = None
+                        sliced: Optional[List[List[bool]]] = None,
+                        model_sliced: Optional[List[List[bool]]] = None
                         ) -> List[List[torch.Tensor]]:
     """optax's ``clip_by_global_norm`` over the groups' gradient lists:
     each scaled by ``max_norm / norm`` when the global norm is ``>=
@@ -451,20 +471,32 @@ def clip_by_global_norm(grads: List[List[torch.Tensor]],
     flagship's 4.4M gradients on the CPU), which would move every update
     by as much between devices.  ``sliced`` (ZeRO-1) marks the leaves that
     are this rank's slices: their squares are summed over the ranks, the
-    whole leaves' counted once."""
+    whole leaves' counted once.  ``model_sliced`` (tensor sharding) marks
+    the model slices, summed over the model group (over the world for a
+    leaf sliced on both axes)."""
     flat = [t for g in grads for t in g]
     if not flat:
         return grads
     norms = torch.stack(torch._foreach_norm(flat, 2, dtype=torch.float64))
-    if sliced is None:
+    if sliced is None and model_sliced is None:
         norm = torch.linalg.vector_norm(norms)
     else:
-        mask = torch.tensor([m for g in sliced for m in g],
-                            device=norms.device)
+        def flags(marks):
+            return [m for g in marks for m in g] if marks else [False] * len(flat)
+
         squares = norms * norms
-        own = parallel.all_reduce_(torch.where(mask, squares, 0.0).sum()
-                                   .reshape(1))[0]
-        norm = torch.sqrt(own + torch.where(mask, 0.0, squares).sum())
+        total = squares.new_zeros(())
+        for axis, on in ((None, (False, False)), ('data', (True, False)),
+                         ('model', (False, True)), ('world', (True, True))):
+            keep = [pair == on for pair in zip(flags(sliced),
+                                               flags(model_sliced))]
+            if not any(keep):
+                continue
+            part = torch.where(torch.tensor(keep, device=norms.device),
+                               squares, 0.0).sum().reshape(1)
+            total = total + (part[0] if axis is None else
+                             parallel.all_reduce_(part, axis=axis)[0])
+        norm = torch.sqrt(total)
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm).to(flat[0].dtype)
     return [torch._foreach_mul(g, factor) if g else g for g in grads]

@@ -24,6 +24,11 @@ processes, ``parallel/mesh.py::ZeroLayout``), None without it: the
 optimizer keeps only this rank's slices of its buffers, and the EMA update
 runs on this rank's slice of each shadow leaf; :func:`gather_shadow` makes
 the shadow whole again before it is evaluated or saved.
+
+``tensor`` is tensor sharding's placement (``train.tensor_sharding``,
+``parallel/tensor.py``), None without it: ``{state_dict key: axis or
+None}``; the model, the optimizer's buffers, the shadow and the mask hold
+this rank's model slice of each sliced leaf, and a save gathers them.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ class TrainState:
     ema_params: dict = dataclasses.field(default_factory=dict)
     mask: Optional[Dict[str, torch.Tensor]] = None
     zero: Optional[ZeroLayout] = None
+    tensor: Optional[Dict[str, Optional[int]]] = None
 
 
 def shadow_module(model: torch.nn.Module) -> torch.nn.Module:

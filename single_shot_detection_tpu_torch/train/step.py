@@ -4,8 +4,8 @@ Port of ``single_shot_detection_tpu/train/step.py``: ``apply_mixup``,
 ``make_train_step`` (the pruning mask, the EMA shadow, mixup and
 ``frozen_bn``; QAT runs inside the model's convs, ``export/quantize.py``;
 the global-batch step of several processes, ``parallel/mesh.py``; the
-pipeline-parallel pinning is not ported), ``make_fused_train_step``,
-``make_eval_step`` and ``make_predict_step``.
+model axis's forward and gradient reduction, ``parallel/``),
+``make_fused_train_step``, ``make_eval_step`` and ``make_predict_step``.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from single_shot_detection_tpu_torch import parallel
+from single_shot_detection_tpu_torch.parallel import pipeline
 from single_shot_detection_tpu_torch.ops.matching import SCORE_INDEX
 from single_shot_detection_tpu_torch.train.pruning import apply_mask
 from single_shot_detection_tpu_torch.train.state import TrainState
@@ -91,7 +92,9 @@ def apply_mixup(draws: Dict[str, torch.Tensor], images: torch.Tensor,
 def make_update_step(criterion, assigner, anchors: torch.Tensor,
                      schedule: Callable[[int], float],
                      ema: Optional[float] = None,
-                     frozen_bn: bool = False) -> Callable:
+                     frozen_bn: bool = False,
+                     grad_axis: str = 'data',
+                     microbatches: int = 0) -> Callable:
     """Build ``update(state, x, boxes, box_mask) -> metrics`` on model input
     ``x [B, 3, h, w]`` and boxes ``[B, G, 6]`` in its pixels.
 
@@ -113,12 +116,30 @@ def make_update_step(criterion, assigner, anchors: torch.Tensor,
     gradients are summed over the ranks in one bucketed all-reduce before
     the optimizer (its clipping sees the global gradient), and the metrics
     are the global batch's, summed over the ranks, on every rank.
+
+    With a model axis (``parallel/``) the ranks of a model group hold one
+    batch; ``grad_axis`` is what the gradients are summed over (``'data'``
+    under tensor sharding, ``'world'``, the model group then the data
+    axis, under spatial and pipeline sharding), and ``microbatches`` (the
+    pipeline's) runs the forward as ``parallel/pipeline.py``'s GPipe
+    schedule, in eval mode, with each stage's backward driven after the
+    loss's.  The loss and metrics reduce over the data axis only.
     """
     frozen: Dict[int, List[nn.Module]] = {}
 
     def update(state: TrainState, x: torch.Tensor, boxes: torch.Tensor,
                box_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
         target = assigner(boxes, box_mask, anchors)
+        if microbatches:
+            state.model.eval()
+            scores, locs, stages_backward = pipeline.pipeline_apply(
+                state.model, x, microbatches)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, class_loss, loc_loss = criterion(
+                scores.float(), locs.float(), anchors, target)
+            loss.backward()
+            stages_backward()
+            return finish(state, loss, class_loss, loc_loss)
         state.model.train()
         if frozen_bn:
             key = id(state.model)
@@ -132,7 +153,10 @@ def make_update_step(criterion, assigner, anchors: torch.Tensor,
                                                anchors, target)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        parallel.all_reduce_grads(list(state.model.parameters()))
+        return finish(state, loss, class_loss, loc_loss)
+
+    def finish(state, loss, class_loss, loc_loss):
+        parallel.all_reduce_grads(list(state.model.parameters()), grad_axis)
         apply_gradients(state, schedule)
         if ema is not None:
             update_ema(state, ema)
@@ -147,7 +171,8 @@ def make_train_step(criterion, assigner, anchors: torch.Tensor,
                     schedule: Callable[[int], float], pipeline,
                     ema: Optional[float] = None,
                     frozen_bn: bool = False,
-                    process_index: int = 0) -> Callable:
+                    process_index: int = 0, grad_axis: str = 'data',
+                    microbatches: int = 0) -> Callable:
     """Build ``train_step(state, images, boxes, box_mask, draws,
     mixup_draws=None) -> metrics``: the augmentation ``pipeline.apply(draws,
     ...)`` on staged uint8 images and ``[B, G, R>=6]`` boxes in staged
@@ -158,9 +183,12 @@ def make_train_step(criterion, assigner, anchors: torch.Tensor,
     global batch (rank ``process_index`` holds rows ``[index * b, (index +
     1) * b)``) and ``mixup_draws`` are the global batch's: mixup pairs rows
     over the global batch, as the JAX step does, so the augmented rows of
-    every rank are gathered first and this rank keeps its own mixed rows."""
+    every rank are gathered first and this rank keeps its own mixed rows.
+    With a model axis ``process_index`` is the data index, and the rows
+    are gathered over the data axis; ``grad_axis`` and ``microbatches`` as
+    :func:`make_update_step` takes them."""
     update = make_update_step(criterion, assigner, anchors, schedule, ema,
-                              frozen_bn)
+                              frozen_bn, grad_axis, microbatches)
 
     def train_step(state: TrainState, images: torch.Tensor,
                    boxes: torch.Tensor, box_mask: torch.Tensor,

@@ -55,10 +55,23 @@ ranks).  ``train.zero_sharding`` then slices the optimizer's buffers and
 the EMA update over the ranks (ZeRO-1, ``parallel.zero_state_sharding``);
 with one process it changes nothing, as in the JAX engine.
 
-What is not ported yet raises ``NotImplementedError`` rather than being
-skipped: the model axis (``tensor_sharding``, ``spatial_sharding``,
-``pipeline_sharding``; ROADMAP.md Queue 1 item 9); an augmentation the
-``Pipeline`` does not know raises as well.
+The model axis (``parallel/``; one of ``train.tensor_sharding: m``,
+``train.spatial_sharding: m``, ``train.pipeline_sharding: M`` or
+``{'microbatches': M, 'stages': S}``) runs over the processes: with ``W``
+of them and a model-axis size ``m``, rank ``r`` is model rank ``r % m`` of
+data rank ``r // m`` (the JAX package's ``create_mesh`` order).
+``batch_size`` is one model group's batch, so the global batch is
+``batch_size * W / m`` (with ``W = m`` the JAX engine's one-process global
+batch); the ranks of a model group draw the same augmentation of the same
+rows.  Tensor sharding slices each ``cout``-divisible leaf (the
+optimizer's buffers, the EMA shadow and the mask follow, ZeRO-1 then
+slicing a remaining axis over the data axis), its BN statistics and
+gradients reducing over the data axis; pipeline sharding runs the GPipe
+forward in eval mode (``frozen_bn`` or ``group_norm``), its gradients
+summed over the world; spatial sharding slices image heights, its BN
+statistics and gradients reducing over the world.  :func:`check_ported`
+raises the JAX engine's ``ValueError``s; an augmentation the ``Pipeline``
+does not know raises too.
 
 ``bf16=True`` runs the activations in bfloat16 under docs/DESIGN.md §10's
 policy (parameters, BN statistics, the optimizer's buffers, the EMA
@@ -80,6 +93,7 @@ import numpy as np
 import torch
 
 from single_shot_detection_tpu_torch import parallel
+from single_shot_detection_tpu_torch.parallel import tensor
 from single_shot_detection_tpu_torch.data.transforms import Pipeline, draws_to
 from single_shot_detection_tpu_torch.device import (NumericPolicy,
                                                     numeric_policy,
@@ -123,24 +137,69 @@ def _model_axis_owners(train: Mapping) -> list:
     return owners
 
 
-def check_ported(cfg, process_count: int = 1) -> None:
-    """Raise for what the port does not run: two model-axis options at
-    once, or one with several processes, raise ``ValueError`` as in the
-    JAX engine; one alone raises ``NotImplementedError``."""
-    owners = _model_axis_owners(dict(cfg.train or {}))
+def model_axis_options(train: Mapping) -> Tuple[Optional[str], int, int]:
+    """``(mode, model-axis size, microbatches)`` of the ``train`` options:
+    ``('tensor', m, 0)``, ``('spatial', m, 0)``, ``('pipeline', S, M)``
+    (S stages, 2 by default) or ``(None, 1, 0)``; two owners raise the
+    JAX engine's ``ValueError``."""
+    owners = _model_axis_owners(train)
     if len(owners) > 1:
         raise ValueError(
             'train.tensor_sharding / spatial_sharding / pipeline_sharding '
             'all partition the model axis — enable at most one')
-    if owners and process_count > 1:
-        raise ValueError(
-            'train.tensor_sharding/spatial_sharding/pipeline_sharding are '
-            'single-process only: the model axis must ride one node\'s '
-            'links, not the network across hosts')
-    if owners:
-        raise NotImplementedError(
-            f'train.{owners[0]} is not ported yet (ROADMAP.md Queue 1 item '
-            '9, the model axis)')
+    if not owners:
+        return None, 1, 0
+    if owners[0] == 'pipeline_sharding':
+        pipeline = train['pipeline_sharding']
+        if isinstance(pipeline, dict):
+            return ('pipeline', int(pipeline.get('stages', 2)),
+                    int(pipeline.get('microbatches', 2)))
+        return 'pipeline', 2, int(pipeline)
+    key = owners[0]
+    return key.split('_')[0], int(train[key]), 0
+
+
+def check_ported(cfg, process_count: int = 1) -> None:
+    """The JAX engine's checks of the model axis, as ``ValueError``s:
+    at most one owner; processes take the place of its devices, so fewer
+    processes than the axis, or a count it does not divide, has no grid
+    (``parallel.check_model_axis``; the JAX engine shrinks its data axis
+    instead); spatial sharding with YUV420 staging or a staged height it
+    does not divide; pipeline sharding with QAT, without ``frozen_bn`` or
+    ``group_norm``, or with microbatches that do not divide the batch
+    (``batch_size``, one model group's)."""
+    train = dict(cfg.train or {})
+    mode, size, micro = model_axis_options(train)
+    if mode is None:
+        return
+    parallel.check_model_axis(size, process_count)
+    if mode == 'spatial':
+        if str(train.get('staging_colorspace', 'rgb')) == 'yuv420':
+            raise ValueError(
+                'train.spatial_sharding cannot shard packed YUV420 staging '
+                'buffers (plane boundaries); use rgb staging')
+        staged_h = tuple(train.get('staging_size', cfg.input_size))[1]
+        if staged_h % size:
+            raise ValueError(
+                f'train.spatial_sharding={size} must divide the staged '
+                f'image height ({staged_h})')
+    if mode == 'pipeline':
+        if quantize.qat_options(train.get('qat')) is not None:
+            raise ValueError(
+                'train.pipeline_sharding does not compose with train.qat '
+                '(activation scales mutate in-forward)')
+        if not (train.get('frozen_bn')
+                or norm.groups_from_config(train.get('group_norm'))):
+            raise ValueError(
+                'train.pipeline_sharding trains with a non-mutating forward '
+                '(batch statistics cannot update inside the scanned, staged '
+                'program) — set train.frozen_bn (the fine-tune recipe) or '
+                'train.group_norm')
+        batch = int(cfg.batch_size or 32)
+        if batch % micro:
+            raise ValueError(
+                f'train.pipeline_sharding={micro} microbatches must divide '
+                f'the per-device batch ({batch})')
 
 
 def staging_yuv(cfg) -> Optional[Tuple[int, int]]:
@@ -188,7 +247,9 @@ class Trainer:
                  scheduler_metric: Optional[str] = None,
                  ema: Optional[float] = None, mixup: Optional[dict] = None,
                  frozen_bn: bool = False, fused_steps: int = 1,
-                 process_count: int = 1, process_index: int = 0):
+                 process_count: int = 1, process_index: int = 0,
+                 tensor_axes: Optional[Dict[str, Optional[int]]] = None,
+                 microbatches: int = 0):
         self.bundle = bundle
         self.policy = policy
         self.state = state
@@ -209,13 +270,21 @@ class Trainer:
         self.fused_steps = int(fused_steps)
         self.process_count = int(process_count)
         self.process_index = int(process_index)
+        # the data axis: the world without a model axis
+        self.data_count = parallel.data_count()
+        self.data_index = parallel.data_index()
+        # tensor sharding's placement, applied by shard_model_axis
+        self.tensor_axes = tensor_axes
         self._shadow = None
         if ema is not None:
             self._shadow = shadow_module(state.model)
             state.ema_params = dict(self._shadow.named_parameters())
-        self._train_step = make_train_step(criterion, assigner, self.anchors,
-                                           schedule, pipeline, ema, frozen_bn,
-                                           self.process_index)
+        self._train_step = make_train_step(
+            criterion, assigner, self.anchors, schedule, pipeline, ema,
+            frozen_bn, self.data_index,
+            'world' if parallel.model_mode() in ('spatial', 'pipeline')
+            else 'data',
+            microbatches)
         self._fused_train_step = make_fused_train_step(self._train_step,
                                                        self.fused_steps)
 
@@ -239,7 +308,8 @@ class Trainer:
                     bf16: bool = False,
                     matmul_precision: Optional[str] = None,
                     process_count: int = 1,
-                    process_index: int = 0) -> 'Trainer':
+                    process_index: int = 0,
+                    shard: bool = True) -> 'Trainer':
         """Build from a ``samples/*.py`` config.
 
         ``variables`` and ``seed`` as in ``Predictor.from_config``; ``seed``
@@ -251,14 +321,16 @@ class Trainer:
         milestones into steps.  ``bf16`` and ``matmul_precision`` as
         ``device.py::numeric_policy`` takes them.  ``process_count`` and
         ``process_index``: this rank of a run of several processes (the
-        class doc); its process group must be joined.
+        class doc); its process group must be joined.  ``shard=False``
+        leaves a tensor-sharded state whole until
+        :meth:`shard_model_axis` (weights loaded in between are whole).
         """
         cfg = load_config(path, phases=('train',))
         if overrides:
             cfg.override(dict(overrides))
         return cls.from_cfg(cfg, variables, device, seed, steps_per_epoch,
                             bf16, matmul_precision, process_count,
-                            process_index)
+                            process_index, shard)
 
     @classmethod
     def from_cfg(cls, cfg, variables: Optional[Mapping] = None,
@@ -268,7 +340,8 @@ class Trainer:
                  bf16: bool = False,
                  matmul_precision: Optional[str] = None,
                  process_count: int = 1,
-                 process_index: int = 0) -> 'Trainer':
+                 process_index: int = 0,
+                 shard: bool = True) -> 'Trainer':
         """Build from a loaded config (``utils/config.py::ConfigWrapper``)."""
         device = resolve_device(device)
         check_ported(cfg, process_count)
@@ -276,6 +349,9 @@ class Trainer:
         seed = int(seed if seed is not None else (cfg.seed or 23))
 
         train_cfg = dict(cfg.train or {})
+        mode, axis_size, microbatches = model_axis_options(train_cfg)
+        parallel.set_model_axis(mode, axis_size)
+        data_count, data_index = parallel.data_count(), parallel.data_index()
         policy = numeric_policy(bf16, matmul_precision, train_cfg)
         groups = norm.groups_from_config(train_cfg.get('group_norm'))
         if groups is not None and train_cfg.get('fused_bn'):
@@ -326,21 +402,48 @@ class Trainer:
         # first prune
         mask = {} if train_cfg.get('pruner') else None
         state = TrainState(model, optimizer, mask=mask)
-        if train_cfg.get('zero_sharding') and process_count > 1:
+        tensor_axes = (parallel.tensor_state_sharding(
+            model.state_dict().items(), axis_size) if mode == 'tensor'
+            else None)
+        if train_cfg.get('zero_sharding') and data_count > 1:
             named = list(model.named_parameters())
             state.zero = parallel.ZeroLayout(
-                parallel.zero_state_sharding(named, process_count),
-                process_count, process_index)
+                parallel.zero_state_sharding(named, data_count, tensor_axes),
+                data_count, data_index)
             optimizer.shard(state.zero, named)
             sliced = sum(axis is not None for axis in state.zero.axes.values())
             logging.info(f'II ZeRO-1 sharding: {sliced} optimizer/EMA '
-                         f'leaves sharded over {process_count} processes')
-        return cls(bundle, state, pipeline,
-                   schedule, criterion, assigner, device, seed, policy,
-                   plateau, metric, ema_from_config(train_cfg.get('ema')),
-                   train_cfg.get('mixup'), bool(train_cfg.get('frozen_bn')),
-                   int(train_cfg.get('fused_steps', 1)), process_count,
-                   process_index)
+                         f'leaves sharded over {data_count} data-axis '
+                         'processes')
+        trainer = cls(bundle, state, pipeline,
+                      schedule, criterion, assigner, device, seed, policy,
+                      plateau, metric, ema_from_config(train_cfg.get('ema')),
+                      train_cfg.get('mixup'), bool(train_cfg.get('frozen_bn')),
+                      int(train_cfg.get('fused_steps', 1)), process_count,
+                      process_index, tensor_axes, microbatches)
+        if mode == 'pipeline':
+            logging.info(
+                f'II pipeline parallelism: {axis_size} stages x '
+                f'{microbatches} microbatches (bubble fraction '
+                f'{(axis_size - 1) / (microbatches + axis_size - 1):.0%})')
+        if shard:
+            trainer.shard_model_axis()
+        return trainer
+
+    def shard_model_axis(self) -> None:
+        """Under tensor sharding, cut the whole state to this rank's model
+        slices (``parallel/tensor.py::shard_state_``; once, after the
+        weights to start from are loaded); nothing otherwise."""
+        if self.tensor_axes is None or self.state.tensor is not None:
+            return
+        count = tensor.shard_state_(self.state, self.tensor_axes)
+        self.state.tensor = self.tensor_axes
+        self.state.optimizer.shard_model(
+            p for n, p in self.model.named_parameters()
+            if self.tensor_axes.get(n) is not None)
+        logging.info(f'II tensor sharding: {count} leaves sharded over '
+                     f'{parallel.axis_size("model")} model-axis processes'
+                     + (' (+ZeRO-1 over data)' if self.state.zero else ''))
 
     def draws(self, step: int, batch: int) -> list:
         """The augmentation draws of global step ``step`` (on the CPU)."""
@@ -351,17 +454,19 @@ class Trainer:
         ``step``, on the CPU: both from the step's generator, the mixup's
         after the augmentation's.  With several processes the draws are
         the global batch's (``batch`` rows a rank): this rank's rows of the
-        augmentation draws, and the mixup draws whole."""
+        augmentation draws, and the mixup draws whole.  With a model axis
+        the global batch is the data axis's (``batch`` rows a model group),
+        and the ranks of a model group take the same rows."""
         generator = step_generator(self.seed, step)
-        total = batch * self.process_count
+        total = batch * self.data_count
         draws = self.pipeline.sample_draws(generator, total)
         mixup = None
         if self.mixup is not None:
             mixup = sample_mixup(generator, total, float(self.mixup['alpha']),
                                  float(self.mixup['p']))
-        if self.process_count > 1:
-            draws = draw_rows(draws, slice(self.process_index * batch,
-                                           (self.process_index + 1) * batch))
+        if self.data_count > 1:
+            draws = draw_rows(draws, slice(self.data_index * batch,
+                                           (self.data_index + 1) * batch))
         return draws, mixup
 
     def gather_shadow(self) -> None:

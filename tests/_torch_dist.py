@@ -142,7 +142,8 @@ def small_step(rank, n, inputs):
     """One SGD step of the small detector on this rank's rows, with the
     global-batch semantics."""
     from single_shot_detection_tpu_torch.models import builder
-    from single_shot_detection_tpu_torch.models.layers import set_sync_bn
+    from single_shot_detection_tpu_torch.models.layers import (set_group_norm,
+                                                               set_sync_bn)
     from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
     from single_shot_detection_tpu_torch.ops.losses import MultiboxLoss
     from single_shot_detection_tpu_torch.ops.matching import TargetAssigner
@@ -351,6 +352,231 @@ def s_pruner(rank, n, inputs, tmp):
     return {'dead': {k: sorted(v) for k, v in exp.pruner.dead.items()},
             'mask': {k: v.clone() for k, v in exp.trainer.state.mask.items()},
             'ema': dict(exp.pruner.criterion.ema)}
+
+
+# ------------------------------------------------------------ the model axis
+# JAX tests/test_pipeline.py's small M2Det (MLFPN, 4 TUMs, 3 scales)
+SMALL_M2DET = {**SMALL,
+               'anchor_generator': {'type': 'ssd', 'num_scales': 3,
+                                    'min_scale': 0.2, 'max_scale': 0.9,
+                                    'aspect_ratios': [[1.0]] * 3},
+               'features': {'name': 'MultilevelFeaturePyramid',
+                            'out_layers': (13, 18), 'num_scales': 3,
+                            'num_tums': 4, 'base_reduced_channels': (64, 128),
+                            'reduced_channels': 32,
+                            'tum': {'inner_channels': 32, 'out_channels': 16}}}
+
+
+def whole_state(model, axes=None) -> dict:
+    """The model's ``state_dict``, its tensor-sharded entries gathered."""
+    from single_shot_detection_tpu_torch.parallel import tensor
+    return {k: tensor.gather_leaf(v, (axes or {}).get(k)).clone()
+            for k, v in model.state_dict().items()}
+
+
+def world_normaliser():
+    """The planted fault of the model axis: the loss's positive count
+    summed over the world (each model group's count ``m`` times) instead
+    of the data axis."""
+    from single_shot_detection_tpu_torch import parallel
+    from single_shot_detection_tpu_torch.ops import losses
+    real = losses.parallel
+    losses.parallel = types.SimpleNamespace(
+        all_reduce_=lambda t, op='sum': parallel.all_reduce_(t, op, 'world'))
+    return lambda: setattr(losses, 'parallel', real)
+
+
+def axis_step(rank, n, inputs, mode, m, spec=SMALL, planted=False,
+              microbatches=0, group_norm=None):
+    """One SGD step of a small detector from ``inputs``'s weights with
+    ``mode`` owning a model axis of ``m`` over ``n`` ranks (None: the data
+    axis only), on this data rank's rows of ``inputs``'s global batch;
+    the eval-mode forward of those rows first.  Pipeline steps run frozen
+    BN, as the option requires; ``group_norm`` makes every BN a GroupNorm
+    of that many groups."""
+    from single_shot_detection_tpu_torch import parallel
+    from single_shot_detection_tpu_torch.models import builder
+    from single_shot_detection_tpu_torch.models.layers import (set_group_norm,
+                                                               set_sync_bn)
+    from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
+    from single_shot_detection_tpu_torch.ops.losses import MultiboxLoss
+    from single_shot_detection_tpu_torch.ops.matching import TargetAssigner
+    from single_shot_detection_tpu_torch.ops.sampling import naive_sampler
+    from single_shot_detection_tpu_torch.parallel import spatial, tensor
+    from single_shot_detection_tpu_torch.train import optimizers
+    from single_shot_detection_tpu_torch.train.state import TrainState
+    from single_shot_detection_tpu_torch.train.step import make_update_step
+
+    bundle = builder.build(**spec)
+    model = bundle.module
+    model.load_state_dict(inputs['state_dict'])
+    parallel.set_model_axis(mode, m)
+    set_sync_bn(model, n > 1)
+    set_group_norm(model, group_norm)
+    state = TrainState(model, optimizers.create_optimizer(
+        {'name': 'SGD', 'lr': SMALL_LR}, model.named_parameters()))
+    axes = None
+    if mode == 'tensor':
+        axes = parallel.tensor_state_sharding(model.state_dict().items(), m)
+        tensor.shard_state_(state, axes)
+        state.tensor = axes
+    own = rows(parallel.data_index(), parallel.data_count(),
+               len(inputs['image']))
+    x = torch.from_numpy(inputs['image'][own].transpose(0, 3, 1, 2).copy())
+    out = {'bytes': sum(p.numel() * p.element_size()
+                        for p in model.parameters())}
+    spatial.STATS.update(max_extra_rows=0, largest_whole=0, rows_received=0,
+                         halo_bytes=0)
+    if mode != 'pipeline':
+        with torch.no_grad():
+            scores, locs = model.eval()(x)
+        out['forward'] = (scores.clone(), locs.clone())
+    criterion = MultiboxLoss(naive_sampler, BoxCoder(10.0, 5.0),
+                             {'name': 'CrossEntropyLoss'},
+                             {'name': 'SmoothL1Loss'})
+    update = make_update_step(
+        criterion, TargetAssigner(0.5), torch.from_numpy(bundle.anchors),
+        lambda count: SMALL_LR, frozen_bn=mode == 'pipeline',
+        grad_axis='world' if mode in ('spatial', 'pipeline') else 'data',
+        microbatches=microbatches)
+    restore = world_normaliser() if planted else (lambda: None)
+    try:
+        metrics = update(state, x, torch.from_numpy(inputs['boxes'][own]),
+                         torch.from_numpy(inputs['box_mask'][own]))
+    finally:
+        restore()
+    out.update(metrics={k: v.item() for k, v in metrics.items()},
+               state_dict=whole_state(model, axes),
+               windows=dict(spatial.STATS),
+               sliced=sum(a is not None for a in (axes or {}).values()))
+    parallel.set_model_axis(None)
+    return out
+
+
+def pipeline_grads(rank, n, inputs, spec, microbatches):
+    """The pipelined forward of this data rank's rows and the gradient of
+    JAX ``test_pipeline.py``'s ``sum(s ** 2) + sum(|l|)`` over the global
+    batch, summed over the world (every rank holds it whole)."""
+    from single_shot_detection_tpu_torch import parallel
+    from single_shot_detection_tpu_torch.models import builder
+    from single_shot_detection_tpu_torch.parallel import pipeline
+
+    model = builder.build(**spec).module
+    model.load_state_dict(inputs['state_dict'])
+    parallel.set_model_axis('pipeline', inputs['stages'])
+    own = rows(parallel.data_index(), parallel.data_count(),
+               len(inputs['image']))
+    x = torch.from_numpy(inputs['image'][own].transpose(0, 3, 1, 2).copy())
+    model.eval()
+    scores, locs, backward = pipeline.pipeline_apply(model, x, microbatches)
+    loss = (scores ** 2).sum() + locs.abs().sum()
+    loss.backward()
+    backward()
+    params = list(model.parameters())
+    parallel.all_reduce_grads(params, 'world')
+    grads = {name: p.grad.clone() for name, p in model.named_parameters()}
+    parallel.set_model_axis(None)
+    return {'forward': (scores.detach().clone(), locs.detach().clone()),
+            'grads': grads, 'bytes': dict(pipeline.STATS)}
+
+
+def assert_matches_step(result, want, before, update_tol=1e-4):
+    """``result`` against another port step ``want`` from the same
+    weights: the loss, each update as a share of the largest, the BN
+    statistics."""
+    np.testing.assert_allclose(result['metrics']['loss'],
+                               want['metrics']['loss'], rtol=1e-5)
+    got, after = result['state_dict'], want['state_dict']
+    updates = {name: (after[name] - before[name]).numpy()
+               for name in after if name.endswith(('weight', 'bias'))}
+    largest = max(np.abs(u).max() for u in updates.values())
+    errs = {name: np.abs((got[name] - before[name]).numpy() - u).max()
+            for name, u in updates.items()}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= update_tol * largest, (worst, errs[worst], largest)
+    for name in after:
+        if name.endswith(('running_mean', 'running_var')):
+            np.testing.assert_allclose(got[name].numpy(),
+                                       after[name].numpy(), atol=1e-5)
+
+
+def s_tensor_step(rank, n, inputs, tmp):
+    return axis_step(rank, n, inputs, 'tensor', n)
+
+
+def s_tensor_planted(rank, n, inputs, tmp):
+    return axis_step(rank, n, inputs, 'tensor', n, planted=True)
+
+
+def s_spatial_step(rank, n, inputs, tmp):
+    return axis_step(rank, n, inputs, 'spatial', n)
+
+
+def s_tensor_group_norm(rank, n, inputs, tmp):
+    return axis_step(rank, n, inputs, 'tensor', n, group_norm=8)
+
+
+def s_spatial_group_norm(rank, n, inputs, tmp):
+    return axis_step(rank, n, inputs, 'spatial', n, group_norm=8)
+
+
+def s_spatial_planted(rank, n, inputs, tmp):
+    return axis_step(rank, n, inputs, 'spatial', n, planted=True)
+
+
+def s_pipeline_grads(rank, n, inputs, tmp):
+    """At 2 stages over 2 data ranks, and at 4 over the 4 ranks."""
+    out = {}
+    for stages, micro in ((2, 2), (4, 2)):
+        out[stages] = pipeline_grads(rank, n, {**inputs['m2det'],
+                                               'stages': stages},
+                                     SMALL_M2DET, micro)
+    return out
+
+
+def s_pipeline_step(rank, n, inputs, tmp):
+    return axis_step(rank, n, inputs['m2det'], 'pipeline', 2, SMALL_M2DET,
+                     microbatches=2)
+
+
+def s_pipeline_planted(rank, n, inputs, tmp):
+    return axis_step(rank, n, inputs['m2det'], 'pipeline', 2, SMALL_M2DET,
+                     planted=True, microbatches=2)
+
+
+def experiment_result(exp, rows_) -> dict:
+    """An experiment's last row and its whole parameters' digest."""
+    state = exp.trainer.state
+    whole = whole_state(exp.model, state.tensor)
+    names = dict(exp.model.named_parameters())
+    return {'rows': rows_,
+            'digest': float(sum(whole[k].abs().sum().item() for k in names))}
+
+
+def s_experiment_axis(rank, n, inputs, tmp):
+    """``Experiment`` with the file's model-axis option, a short epoch and
+    an evaluation."""
+    exp = experiment(rank, n, inputs['axis_cfg'], debug=True)
+    return experiment_result(exp, exp.train())
+
+
+def s_tensor_checkpoints(rank, n, inputs, tmp):
+    """A tensor-sharded run resumes a one-process run's checkpoint, and
+    saves its own (rank 0 writes the whole state)."""
+    resumed = experiment(rank, n, inputs['axis_cfg'], phases=('train',),
+                         resume_from=inputs['one_process_dir'])
+    out = {'resumed': {'step': resumed.trainer.state.step,
+                       'state': whole_state(resumed.model,
+                                            resumed.trainer.state.tensor)}}
+    directory = os.path.join(tmp, 'tensor_run')
+    exp = experiment(rank, n, inputs['axis_cfg'], phases=('train',),
+                     checkpoint_dir=directory)
+    exp.train()
+    from single_shot_detection_tpu_torch.train import checkpoint
+    saved = checkpoint.gather_for_save(exp.trainer.state)
+    out['saved'] = {'dir': directory, 'model': saved['model'],
+                    'optimizer': saved['optimizer']['state']}
+    return out
 
 
 SCENARIOS = {name[2:]: fn for name, fn in dict(globals()).items()

@@ -303,9 +303,10 @@ def test_experiment_train_returns_epoch_rows_with_eval_map():
 
 
 def test_experiment_raises_on_what_is_not_ported(tmp_path, monkeypatch):
-    """What the port does not run yet raises: each model-axis option names
-    ROADMAP.md Queue 1 item 9, and two of them at once, or one with several
-    processes, raise ``ValueError`` as in the JAX engine.  Checkpoints,
+    """What the port does not run raises.  The model axis is ported: what
+    remains of it are the JAX engine's ``ValueError``s (one process for a
+    model axis of 2, two options at once, spatial sharding with YUV420
+    staging or a staged height it does not divide).  Checkpoints,
     resume, ``ReduceLROnPlateau`` and ``detector.weight`` are ported (their
     tests are in ``test_torch_port_checkpoint.py``), and so are tensorboard,
     the device cache and async checkpoints
@@ -315,9 +316,17 @@ def test_experiment_raises_on_what_is_not_ported(tmp_path, monkeypatch):
     raised before."""
     over = {'train': {'scheduler': MULTISTEP}}
     for key in ('tensor_sharding', 'spatial_sharding', 'pipeline_sharding'):
-        with pytest.raises(NotImplementedError, match=f'{key}.*item 9'):
+        with pytest.raises(ValueError, match='needs at least 2 processes'):
             Experiment(SMOKE, device='cpu', overrides={
                 'train': {**over['train'], key: 2}})
+    with pytest.raises(ValueError, match='cannot shard packed YUV420'):
+        Experiment(SMOKE, device='cpu', process_count=2, overrides={
+            'train': {**over['train'], 'spatial_sharding': 2,
+                      'staging_colorspace': 'yuv420'}})
+    with pytest.raises(ValueError, match=r'must divide the staged image '
+                                         r'height \(128\)'):
+        Experiment(SMOKE, device='cpu', process_count=3, overrides={
+            'train': {**over['train'], 'spatial_sharding': 3}})
     with pytest.raises(ValueError, match='enable at most one'):
         Experiment(SMOKE, device='cpu', overrides={'train': {
             **over['train'], 'tensor_sharding': 2, 'pipeline_sharding': 2}})

@@ -433,14 +433,33 @@ def test_trainer_raises_on_what_is_not_ported():
     with pytest.raises(NotImplementedError, match='Unsupported augmentation'):
         Trainer.from_config(SMOKE, device='cpu', overrides={
             'augmentations': [{'name': 'Mosaic'}]})
+    # the model axis is ported: what remains are the JAX engine's
+    # ValueErrors, with processes in place of its devices
     for key in ('tensor_sharding', 'spatial_sharding', 'pipeline_sharding'):
-        with pytest.raises(NotImplementedError, match=f'{key}.*item 9'):
+        with pytest.raises(ValueError, match='needs at least 2 processes, '
+                                             'have 1'):
             Trainer.from_config(SMOKE, device='cpu', overrides={
                 'augmentations': [], 'train': {key: 2}})
-        with pytest.raises(ValueError, match='single-process only'):
+        with pytest.raises(ValueError, match=r'must divide the process '
+                                             r'count \(3\)'):
             Trainer.from_config(SMOKE, device='cpu', overrides={
-                'augmentations': [], 'train': {key: 2}}, process_count=2,
+                'augmentations': [], 'train': {key: 2}}, process_count=3,
                 process_index=0)
+    pipeline = {'augmentations': [], 'train': {'pipeline_sharding': 2}}
+    with pytest.raises(ValueError, match='set train.frozen_bn'):
+        Trainer.from_config(SMOKE, device='cpu', overrides=pipeline,
+                            process_count=2, process_index=0)
+    with pytest.raises(ValueError, match='does not compose with train.qat'):
+        Trainer.from_config(SMOKE, device='cpu', overrides={
+            'augmentations': [], 'train': {'pipeline_sharding': 2,
+                                           'frozen_bn': True, 'qat': True}},
+            process_count=2, process_index=0)
+    with pytest.raises(ValueError, match=r'3 microbatches must divide the '
+                                         r'per-device batch \(32\)'):
+        Trainer.from_config(SMOKE, device='cpu', overrides={
+            'augmentations': [], 'batch_size': 32, 'train': {
+                'pipeline_sharding': 3, 'frozen_bn': True}},
+            process_count=2, process_index=0)
     # train.zero_sharding is ported; one process has nothing to slice
     assert Trainer.from_config(SMOKE, device='cpu', overrides={
         'augmentations': [], 'train': {'zero_sharding': True}}).state.zero is None
