@@ -324,6 +324,26 @@ Phases, each fatal:
     rows), counted from the shapes.  A rank's failure, or a rank still
     running at ``MA_WALL_S``, ends the run.  ``python3 chip_smoke.py
     --model-axis-only`` builds the kernels and runs phase 24 alone.
+25. the model axis's other phases in two rank processes (phase 24's
+    ``--ma-worker``, NCCL with two cards, else gloo on one; the line says
+    which): for each option of phase 24, ``Experiment(process_count=2)``
+    on the flagship at full width (b32 a model group, seeded weights, the
+    committed JPEG fixtures) with ``train.pruner`` (``MinL1Norm``, 4
+    channels) and int8 forced, against one process in this one with cuDNN
+    deterministic: (a) one step: every rank's dead set equal to one
+    process's, the whole parameters and mask after the prune bit-equal,
+    the dead entries still 0 after the step; (b) its int8 evaluation:
+    ``int8: 1.0``, the ranks' loss and mAP equal and within
+    ``MA_EVAL_RTOL``/``MA_MAP_ATOL`` of one process's, NMS counted per
+    rank; (c) the export (standalone, int8, b32): only process 0 writes,
+    and its artifact's outputs equal, bit for bit, those of one process's
+    artifact exported from the run's gathered checkpoint with the same
+    dead set (the same int8 amax first), NMS once a call; (d) the test
+    phase on 3 fixture frames: NMS 3 times on process 0, 0 on the other;
+    (e) each part's seconds.  K1-K4 stay at 0 on every rank.  A rank's
+    failure, or a rank still running at ``MA_WALL_S``, ends the run.
+    ``python3 chip_smoke.py --model-axis-phases-only`` builds the kernels
+    and runs phase 25 alone.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -481,11 +501,21 @@ def kernels_device_ms(fn, groups, iters: int) -> float:
     return sum(groups_device_ms(fn, groups, iters))
 
 
+def averages(prof):
+    """``prof.key_averages()``, aggregated once per finished profile and
+    kept on it: over a zoo step's trace each aggregation takes a large
+    share of a second, and a step's readings ask for it a dozen times."""
+    kept = getattr(prof, 'chip_smoke_averages', None)
+    if kept is None:
+        kept = prof.chip_smoke_averages = prof.key_averages()
+    return kept
+
+
 def device_us(prof, kernel_name: str):
     """(summed device µs, launches) of the kernels whose name contains
     ``kernel_name`` in a finished profile."""
     total_us, count = 0.0, 0
-    for evt in prof.key_averages():
+    for evt in averages(prof):
         if kernel_name in evt.key:
             us = getattr(evt, 'self_device_time_total', None)
             total_us += evt.self_cuda_time_total if us is None else us
@@ -498,14 +528,14 @@ def busy_us(prof) -> float:
     profile, as its table's "Self CUDA time total" (the window's
     ``ProfilerStep`` annotation spans the step on the device and is left
     out)."""
-    return sum(e.self_device_time_total for e in prof.key_averages()
+    return sum(e.self_device_time_total for e in averages(prof)
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, 'is_user_annotation', False))
 
 
 def busy_launches(prof) -> int:
     """The launches of ``busy_us``'s kernels, copies and fills."""
-    return sum(e.count for e in prof.key_averages()
+    return sum(e.count for e in averages(prof)
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, 'is_user_annotation', False))
 
@@ -1323,7 +1353,7 @@ def profile_b32(pred: Predictor, rng) -> None:
 
     prof = profile_window(run)
     log('  profile of 5 x predict_batch(32):')
-    log(prof.key_averages().table(sort_by='self_cuda_time_total', row_limit=25,
+    log(averages(prof).table(sort_by='self_cuda_time_total', row_limit=25,
                                   max_name_column_width=60))
 
 
@@ -1481,7 +1511,7 @@ def profile_train_step(trainer: Trainer, batch, n_bn: int, card: str,
         f'({busy_ms:.3f} ms of device time in {wall_ms:.3f} ms of wall '
         f'time under the profiler)' + (':' if table else ''))
     if table:
-        log(prof.key_averages().table(sort_by='self_cuda_time_total',
+        log(averages(prof).table(sort_by='self_cuda_time_total',
                                       row_limit=30, max_name_column_width=60))
     return out
 
@@ -1777,7 +1807,7 @@ def time_experiment(exp: Experiment, batch, card: str) -> dict:
     prof = profile_window(augment_5)
     out['pipeline_b32_device_ms'] = busy_us(prof) / 5 / 1e3
     out['pipeline_b32_aten_calls'] = sum(
-        e.count for e in prof.key_averages() if e.key.startswith('aten::')) / 5
+        e.count for e in averages(prof) if e.key.startswith('aten::')) / 5
     out['pipeline_b32_host_ms'] = statistics.median(host_times_ms(augment, 10))
     out['aug_train_step_b32_ms'] = statistics.median(host_times_ms(step, 8))
     # the step on the same batch with the chain and without it (given draws,
@@ -1829,7 +1859,7 @@ def time_experiment(exp: Experiment, batch, card: str) -> dict:
         f'{out["plain_step_given_draws_b32_ms"]:.3f} ms (medians of 12)')
     log(f'  profile of one augmented train_step(32) ({walls[-1]:.3f} ms of '
         f'wall time under the profiler):')
-    log(prof.key_averages().table(sort_by='self_cuda_time_total', row_limit=30,
+    log(averages(prof).table(sort_by='self_cuda_time_total', row_limit=30,
                                   max_name_column_width=60))
     return out
 
@@ -2619,10 +2649,11 @@ def time_elementwise_shape(kernel: str, card: str, parent=None,
             with parent_kernels(parent):
                 return groups_device_ms(call, groups[:1], SHAPE_ITERS)
         sides['parent'] = on_parent
+    # in turns with a parent build; one window of this build's alone
     turns = {side: [] for side in sides}
-    for side in ('parent', 'this', 'this', 'parent'):
-        if side in sides:
-            turns[side].append(sides[side]())
+    for side in (('parent', 'this', 'this', 'parent') if parent is not None
+                 else ('this',)):
+        turns[side].append(sides[side]())
     row['ms'] = statistics.mean(t[0] for t in turns['this'])
     row['floor_ms'] = statistics.mean(t[1] for t in turns['this'])
     if parent is not None:
@@ -3830,7 +3861,7 @@ def artifact_call_split(point: ExportPoint, calls: int = 3) -> dict:
                 fn()
             torch.cuda.synchronize()
         prof = profile_window(run)
-        cpu = [e for e in prof.key_averages()
+        cpu = [e for e in averages(prof)
                if e.device_type == torch.autograd.DeviceType.CPU]
         top = sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:8]
         out[name].update({
@@ -5910,7 +5941,7 @@ def dp_step_profile(trainer: Trainer, batch) -> dict:
         torch.cuda.synchronize()
 
     prof = profile_window(step)
-    events = prof.key_averages()
+    events = averages(prof)
     wall_us = sum(e.cpu_time_total for e in events
                   if e.key.startswith('ProfilerStep'))
     nccl = [e for e in events if 'nccl' in e.key.lower()
@@ -6197,9 +6228,8 @@ def ma_batch(b: int = MA_BATCH, size: int = 300):
 def whole_cpu_state(trainer: Trainer) -> dict:
     """The model's state on the CPU, tensor-sharded entries gathered."""
     from single_shot_detection_tpu_torch.parallel import tensor
-    axes = trainer.state.tensor or {}
-    return {k: tensor.gather_leaf(v.detach(), axes.get(k)).cpu().clone()
-            for k, v in trainer.model.state_dict().items()}
+    return {k: v.cpu().clone() for k, v in tensor.gather_leaves(
+        trainer.model.state_dict(), trainer.state.tensor or {}).items()}
 
 
 def reset_moved() -> None:
@@ -6236,8 +6266,8 @@ def ma_run_experiment(exp: Experiment) -> dict:
 def ma_worker(group: str, rank: int, count: int, port: int, backend: str,
               out: str) -> int:
     """One rank of phase 24's ``group`` (``'two'``: the three options on
-    the flagship; ``'four'``: M2Det's 4 stages); writes its results to
-    ``out/{group}{rank}.pt``."""
+    the flagship; ``'four'``: M2Det's 4 stages) or of phase 25
+    (``'phases'``); writes its results to ``out/{group}{rank}.pt``."""
     from single_shot_detection_tpu_torch import parallel
     from single_shot_detection_tpu_torch.parallel import pipeline, spatial
     device = parallel.initialize_distributed(
@@ -6249,6 +6279,12 @@ def ma_worker(group: str, rank: int, count: int, port: int, backend: str,
         for module in (nms_kernel, bn_kernel):
             module.build()  # the parent's builds, found by their hash
         result = {'device': str(device), 'backend': backend}
+        if group == 'phases':
+            for key in ('DISPLAY', 'WAYLAND_DISPLAY'):  # headless frames
+                os.environ.pop(key, None)
+            result.update(mp_worker(rank, count, device, out))
+            torch.save(result, os.path.join(out, f'{group}{rank}.pt'))
+            return 0
         if group == 'four':
             trainer = ma_trainer(device, rank, count, MA_M2DET_TRAIN, M2DET)
             x = torch.randn((MA_M2DET_BATCH, 3, 512, 512), generator=torch
@@ -6316,7 +6352,7 @@ def start_ma_ranks(work: str, group: str, count: int, backend: str):
     return procs, logs
 
 
-def wait_ma_ranks(procs, logs) -> None:
+def wait_ma_ranks(procs, logs, phase: int = 24) -> None:
     """Wait for every rank under ``MA_WALL_S``; kill them all and fail on a
     rank's failure or on the limit, with its log."""
     deadline = time.monotonic() + MA_WALL_S
@@ -6334,9 +6370,9 @@ def wait_ma_ranks(procs, logs) -> None:
     bad = [r for r, p in enumerate(procs) if p.returncode != 0]
     if bad:
         for r in bad:
-            log(f'--- phase 24 rank {r} (exit {procs[r].returncode}):\n'
+            log(f'--- phase {phase} rank {r} (exit {procs[r].returncode}):\n'
                 + open(logs[r]).read()[-8000:])
-        fail(f'phase 24: ranks {bad} failed or passed {MA_WALL_S} s')
+        fail(f'phase {phase}: ranks {bad} failed or passed {MA_WALL_S} s')
 
 
 def ma_ranks(group: str, count: int, backend: str) -> list:
@@ -6533,6 +6569,250 @@ def run_model_axis(smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 25
+
+# Each option of phase 24 through the phases that serve one whole model:
+# an Experiment of MA_EXPERIMENT_STEPS steps on the committed JPEG fixtures
+# with train.pruner (MinL1Norm, 4 channels of the backbone and extras a
+# prune) and int8 forced (the gate refuses MobileNet below b128), its
+# export (standalone, int8, b32) and the test phase on MP_FRAMES frames
+MP_PRUNER = {'criterion': {'name': 'MinL1Norm'}, 'num': 4,
+             'include_paths': ['features', 'extra']}
+MP_FRAMES = 3
+# one process's train options beside each option's (pipeline: frozen BN)
+MP_ONE_PROCESS = {'tensor': {}, 'spatial': {}, 'pipeline': {'frozen_bn': True}}
+
+
+def mp_experiment(device, rank: int, count: int, train: dict,
+                  **kwargs) -> Experiment:
+    return Experiment(FLAGSHIP, phases=('train', 'eval'), device=device,
+                      seed=SEED, int8=True, process_count=count,
+                      process_index=rank, overrides={
+                          'dataset': extras_dataset(), 'int8': {},
+                          'train': {'epochs': 1, 'eval_every': 1,
+                                    'num_batches_per_epoch':
+                                        MA_EXPERIMENT_STEPS,
+                                    'pruner': MP_PRUNER, **train}}, **kwargs)
+
+
+def whole_mask(exp: Experiment) -> dict:
+    """The pruning mask on the CPU, tensor-sharded entries gathered."""
+    from single_shot_detection_tpu_torch.parallel import tensor
+    return {k: v.cpu().clone() for k, v in tensor.gather_leaves(
+        exp.trainer.state.mask, exp.trainer.state.tensor or {}).items()}
+
+
+def mp_epoch(exp: Experiment) -> dict:
+    """``exp``'s epoch (the prune at its start, its steps and the int8
+    evaluation), the whole state and mask right after the prune, the
+    state after the epoch, its counts and seconds."""
+    pruned = {}
+    prune = exp.pruner.prune
+
+    def snapshot(state):
+        prune(state)
+        pruned.update(state=whole_cpu_state(exp.trainer),
+                      mask=whole_mask(exp))
+        return state
+    exp.pruner.prune = snapshot
+    out = ma_run_experiment(exp)
+    out.update(pruned=pruned, after=whole_cpu_state(exp.trainer),
+               dead={k: sorted(v) for k, v in exp.pruner.dead.items() if v},
+               amax=exp._int8_amax)
+    return out
+
+
+def mp_export(exp: Experiment, path: str) -> Tuple[str, float]:
+    from single_shot_detection_tpu_torch.export import export_model
+    t = time.perf_counter()
+    path = export_model(exp, path, with_postprocess=True, with_preprocess=True,
+                        bake_variables=True, batch_size=MA_BATCH, int8=True)
+    return path, time.perf_counter() - t
+
+
+def mp_worker(rank: int, count: int, device, out: str) -> dict:
+    """Phase 25 on one rank: each option's pruned int8 epoch, its export
+    (process 0 writes) and the test phase (process 0 runs the frames
+    after every rank has built the predictor)."""
+    from single_shot_detection_tpu_torch.utils.video_viewer import VideoViewer
+    result = {}
+    for key, train in MA_OPTIONS.items():
+        exp = mp_experiment(device, rank, count, train,
+                            checkpoint_dir=os.path.join(out, f'ckpt_{key}'))
+        row = mp_epoch(exp)
+        row['path'], row['export_s'] = mp_export(
+            exp, os.path.join(out, f'artifact_{key}_rank{rank}'))
+        t = time.perf_counter()
+        exp.predictor()  # every rank: the whole model and the calibration
+        zero_launches()
+        frames = 0
+        if rank == 0:
+            frames = VideoViewer(os.path.join(out, 'video'), exp, os.path.join(
+                out, f'frames_{key}')).run()
+        torch.cuda.synchronize()
+        row.update(test_launches=read_launches(), frames=frames,
+                   test_s=time.perf_counter() - t)
+        result[key] = row
+        del exp
+        torch.cuda.empty_cache()
+    return result
+
+
+def mp_reference(key: str, dead: dict, directory: str):
+    """One process from the sharded run's gathered checkpoint, with its
+    dead set: the int8 artifact (the export phase's) and the amax."""
+    exp = mp_experiment('cuda', 0, 1, MP_ONE_PROCESS[key],
+                        resume_from=directory)
+    exp.pruner.dead = {tuple(k): set(v) for k, v in dead.items()}
+    exp.evaluate()  # the int8 calibration at the checkpoint's step
+    path, _ = mp_export(exp, os.path.join(directory, 'one_process'))
+    amax = exp._int8_amax
+    del exp
+    torch.cuda.empty_cache()
+    return path, amax
+
+
+def mp_check(key: str, ranks: list, one: dict, work: str) -> dict:
+    """Phase 25's checks (a)-(d) of one option against one process."""
+    from single_shot_detection_tpu_torch.export import load_exported
+    got = [r[key] for r in ranks]
+    label = f'phase 25 ({key})'
+    # (a) the prune: every rank as one process, bit for bit
+    for r, g in enumerate(got):
+        if g['dead'] != one['dead']:
+            fail(f'{label} (a): rank {r}\'s dead set {g["dead"]} against one '
+                 f'process\'s {one["dead"]}')
+        for part in ('state', 'mask'):
+            a, b = g['pruned'][part], one['pruned'][part]
+            if a.keys() != b.keys() or any(not torch.equal(v, b[k])
+                                           for k, v in a.items()):
+                fail(f'{label} (a): rank {r}\'s pruned {part} differs from '
+                     'one process\'s')
+        for name, m in g['pruned']['mask'].items():
+            if g['after'][name][m.reshape(-1) == 0].any():
+                fail(f'{label} (a): rank {r}: a dead entry of {name} moved')
+        bn = {k: v for k, v in g['launches'].items() if k != 'nms_keep_batched'}
+        if any(bn.values()) or any(g['test_launches'][k] for k in bn):
+            fail(f'{label}: BN kernel launches {bn}')
+    channels = sum(len(v) for v in one['dead'].values())
+    # (b) the int8 evaluation
+    rows = [g['rows'][-1] for g in got]
+    want = one['rows'][-1]
+    for k in ('eval_loss', 'eval_mAP', 'eval_int8'):
+        if any(row[k] != rows[0][k] for row in rows):
+            fail(f'{label} (b): the ranks disagree on {k}: '
+                 f'{[row[k] for row in rows]}')
+    if rows[0]['eval_int8'] != 1.0 or want['eval_int8'] != 1.0:
+        fail(f'{label} (b): int8 {rows[0]["eval_int8"]}, one process '
+             f'{want["eval_int8"]}')
+    rel = abs(rows[0]['eval_loss'] - want['eval_loss']) / abs(want['eval_loss'])
+    if not (rel <= MA_EVAL_RTOL and abs(rows[0]['eval_mAP'] - want['eval_mAP'])
+            <= MA_MAP_ATOL):
+        fail(f'{label} (b): loss {rows[0]["eval_loss"]} mAP '
+             f'{rows[0]["eval_mAP"]} against one process\'s '
+             f'{want["eval_loss"]} {want["eval_mAP"]}')
+    nms = [g['launches']['nms_keep_batched'] for g in got]
+    if nms != [one['launches']['nms_keep_batched']] * len(got) or not nms[0]:
+        fail(f'{label} (b): NMS launches per rank {nms}, one process '
+             f'{one["launches"]["nms_keep_batched"]}')
+    # (c) process 0's artifact against one process's from the checkpoint
+    if not os.path.exists(got[0]['path']) or any(
+            os.path.exists(g['path']) for g in got[1:]):
+        fail(f'{label} (c): the artifacts written: '
+             f'{[os.path.exists(g["path"]) for g in got]}')
+    t = time.perf_counter()
+    ref_path, ref_amax = mp_reference(key, got[0]['dead'],
+                                      os.path.join(work, f'ckpt_{key}'))
+    ref_s = time.perf_counter() - t
+    if ref_amax != got[0]['amax']:
+        worst = max(abs(ref_amax[k] - v) / v for k, v in got[0]['amax'].items())
+        fail(f'{label} (c): the int8 amax of one process from the checkpoint '
+             f'differs, rel {worst:.3g}')
+    x = torch.from_numpy(ma_batch()[0]).float().cuda()
+    calls = [load_exported(p) for p in (got[0]['path'], ref_path)]
+    outs = [c(x) for c in calls]
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        fail(f'{label} (c): process 0\'s artifact differs from one process\'s')
+    per_call = artifact_launches(calls[0], x)['nms_keep_batched']
+    if per_call != 1:
+        fail(f'{label} (c): {per_call} NMS launches a call')
+    # (d) the test phase
+    tests = [g['test_launches']['nms_keep_batched'] for g in got]
+    if tests != [MP_FRAMES] + [0] * (len(got) - 1) or got[0]['frames'] != MP_FRAMES:
+        fail(f'{label} (d): NMS launches per rank {tests}, '
+             f'{got[0]["frames"]} frames')
+    return {'dead_channels': channels, 'rows': rows[0], 'one_process': want,
+            'eval_nms_launches': nms, 'export_nms_launches_per_call': per_call,
+            'test_nms_launches': tests,
+            'detections': int(outs[0][1].sum()),
+            # (e) seconds, the slower rank's
+            'epoch_s': max(g['s'] for g in got), 'one_process_epoch_s': one['s'],
+            'export_s': max(g['export_s'] for g in got),
+            'test_s': max(g['test_s'] for g in got),
+            'one_process_reference_s': ref_s}
+
+
+def run_model_axis_phases(smi: str) -> dict:
+    """Phase 25: the model axis's test and export phases, int8 evaluation
+    and pruner, in rank processes, against one process."""
+    cards = torch.cuda.device_count()
+    backend = 'nccl' if cards >= 2 else 'gloo'
+    mode = ('NCCL, a card a rank' if backend == 'nccl' else
+            f'gloo, both ranks on the one card ({cards} card)')
+    log(f'[25] {smi}: the model axis\'s test and export phases, int8 '
+        f'evaluation and train.pruner in 2 rank processes over {mode}; the '
+        f'flagship at 300 px, seeded weights, b{MA_BATCH} a model group, '
+        'the committed JPEG fixtures')
+    work = tempfile.mkdtemp(prefix='chip_smoke_mp_')
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        os.makedirs(os.path.join(work, 'video'))
+        frames = sorted((JPEG_FIXTURES / 'VOC2007' / 'JPEGImages').glob(
+            '*.jpg'))[:MP_FRAMES]
+        if len(frames) != MP_FRAMES:
+            fail(f'phase 25: {len(frames)} fixture frames')
+        for f in frames:
+            shutil.copy(f, os.path.join(work, 'video'))
+        t = time.perf_counter()
+        procs, logs = start_ma_ranks(work, 'phases', 2, backend)
+        ones = {}
+        for key in MA_OPTIONS:  # one process beside the ranks
+            exp = mp_experiment('cuda', 0, 1, MP_ONE_PROCESS[key])
+            ones[key] = mp_epoch(exp)
+            del exp
+            torch.cuda.empty_cache()
+        wait_ma_ranks(procs, logs, 25)
+        ranks = [torch.load(os.path.join(work, f'phases{r}.pt'),
+                            weights_only=False) for r in range(2)]
+        ranks_s = time.perf_counter() - t
+        out = {'mode': mode, 'backend': backend, 'ranks_s': ranks_s,
+               'options': {}}
+        for key in MA_OPTIONS:
+            check = mp_check(key, ranks, ones[key], work)
+            out['options'][key] = check
+            log(f'  {key}: (a) {check["dead_channels"]} channels pruned, '
+                'every rank\'s dead set, pruned parameters and mask equal to '
+                'one process\'s bit for bit; (b) int8 evaluation '
+                + json.dumps(check['rows']) + ' against one process '
+                + json.dumps(check['one_process'])
+                + f'; NMS {check["eval_nms_launches"]} a rank; (c) process '
+                f'0\'s b{MA_BATCH} int8 artifact equal to one process\'s from '
+                f'the gathered checkpoint bit for bit, '
+                f'{check["detections"]} detections, NMS '
+                f'{check["export_nms_launches_per_call"]} a call; (d) '
+                f'{MP_FRAMES} frames, NMS {check["test_nms_launches"]} by '
+                f'rank; (e) {smi}: epoch {check["epoch_s"]:.2f} s (one '
+                f'process {check["one_process_epoch_s"]:.2f}), export '
+                f'{check["export_s"]:.2f} s, test {check["test_s"]:.2f} s, '
+                'one process from the checkpoint '
+                f'{check["one_process_reference_s"]:.2f} s')
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
@@ -6558,6 +6838,12 @@ def parse_args(argv):
              'and spatial sharding in rank processes; NCCL with four cards '
              'or more), then print its results as JSON; the smoke test\'s '
              'last line is not printed')
+    parser.add_argument(
+        '--model-axis-phases-only', action='store_true',
+        help='build the kernels and run phase 25 alone (the model axis\'s '
+             'test and export phases, int8 evaluation and pruner in two rank '
+             'processes; NCCL with two cards or more), then print its '
+             'results as JSON; the smoke test\'s last line is not printed')
     parser.add_argument('--ma-worker', nargs=6, help=argparse.SUPPRESS,
                         metavar=('GROUP', 'RANK', 'COUNT', 'PORT', 'BACKEND',
                                  'OUT'))
@@ -6580,7 +6866,7 @@ def main(argv=None) -> int:
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[0]
-    if args.model_axis_only:
+    if args.model_axis_only or args.model_axis_phases_only:
         from single_shot_detection_tpu_torch.data import native
         t = time.perf_counter()
         for module in (nms_kernel, bn_kernel):
@@ -6589,8 +6875,10 @@ def main(argv=None) -> int:
         log(f'[2] built the kernels and the JPEG decoder in '
             f'{time.perf_counter() - t:.2f} s')
         t = time.perf_counter()
-        result = run_model_axis(smi)
-        log(f'phase 24 in {time.perf_counter() - t:.2f} s')
+        phase, run = ((24, run_model_axis) if args.model_axis_only
+                      else (25, run_model_axis_phases))
+        result = run(smi)
+        log(f'phase {phase} in {time.perf_counter() - t:.2f} s')
         log(json.dumps(result, default=str))
         return 0
     if args.data_parallel_only:
@@ -6856,6 +7144,11 @@ def main(argv=None) -> int:
     model_axis = run_model_axis(smi)
     log(f'  phase 24 in {time.perf_counter() - t:.1f} s')
 
+    # 25. the model axis's test and export phases, int8 evaluation, pruner
+    t = time.perf_counter()
+    axis_phases = run_model_axis_phases(smi)
+    log(f'  phase 25 in {time.perf_counter() - t:.1f} s')
+
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
         **train_timing,
@@ -6894,7 +7187,8 @@ def main(argv=None) -> int:
             'combined': {k: v for k, v in options['combined'].items()
                          if k != 'launches'}},
         'data_extras': extras, 'interop': interop,
-        'multi_gpu': multi_gpu, 'model_axis': model_axis}}))
+        'multi_gpu': multi_gpu, 'model_axis': model_axis,
+        'model_axis_phases': axis_phases}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -6973,7 +7267,19 @@ def main(argv=None) -> int:
                              **{f'model_axis_{key}_rank{r}': n
                                 for key, check in model_axis[
                                     'experiments'].items()
-                                for r, n in enumerate(check['nms_launches'])}},
+                                for r, n in enumerate(check['nms_launches'])},
+                             # phase 25: each option's int8 evaluation and
+                             # test phase per rank, its artifact per call
+                             **{f'model_axis_phases_{key}_{path}_rank{r}': n
+                                for key, check in axis_phases[
+                                    'options'].items()
+                                for path in ('eval', 'test')
+                                for r, n in enumerate(
+                                    check[f'{path}_nms_launches'])},
+                             **{f'model_axis_phases_{key}_export': check[
+                                 'export_nms_launches_per_call']
+                                for key, check in axis_phases[
+                                    'options'].items()}},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
             'shape', 'ms', 'call_ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -7053,7 +7359,10 @@ def main(argv=None) -> int:
                                     for key, check in model_axis[
                                         'experiments'].items()
                                     for r, n in enumerate(
-                                        check['bn_launches'])}},
+                                        check['bn_launches'])},
+                                 # phase 25: checked 0 on every rank
+                                 **{f'model_axis_phases_{key}': 0
+                                    for key in axis_phases['options']}},
             'max_abs_err': max(bn_check[name], *(
                 t['bn_max_abs_err'][name] for t in zoo_steps.values())),
             'shape': list(BN_TIMED_SHAPE),

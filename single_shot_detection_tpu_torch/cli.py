@@ -46,12 +46,14 @@ export, and runs the ``test`` phase.
 A config's ``train.tensor_sharding``, ``spatial_sharding`` or
 ``pipeline_sharding`` runs over the processes with no flag of its own
 (``--num-processes W`` with the option's ``m``; ``trainer.py``), its
-``ValueError``s raised before anything is written.
+``ValueError``s raised before anything is written.  Its ``test`` and
+``export`` phases serve the whole model (``Experiment.whole_model``):
+every rank enters its gather and the int8 calibration, then process 0
+runs the frames and writes the artifact.
 
 Not ported, raising ``NotImplementedError`` before anything is written:
 ``--compilation-cache`` other than ``off`` (the port has no XLA cache; its
-kernels are built once into ``kernels/build/``), and the ``test`` and
-``export`` phases of a model-axis run.
+kernels are built once into ``kernels/build/``).
 """
 
 from __future__ import annotations
@@ -153,17 +155,11 @@ def main(argv: Optional[Sequence[str]] = None):
     from single_shot_detection_tpu_torch.train import checkpoint as ckpt_utils
     from single_shot_detection_tpu_torch.train.engine import Experiment
     from single_shot_detection_tpu_torch.trainer import check_ported as check_train
-    from single_shot_detection_tpu_torch.trainer import model_axis_options
     from single_shot_detection_tpu_torch.utils.config import load_config
 
     cfg = load_config(args.config, phases=args.phases)
     processes = int(args.num_processes or 1)
     check_train(cfg, processes)  # before anything is written
-    mode = model_axis_options(dict(cfg.train or {}))[0]
-    if mode and {'test', 'export'} & set(args.phases):
-        raise NotImplementedError(
-            f'the test and export phases of a train.{mode}_sharding run are '
-            'not ported (they serve one whole model in one process)')
     device = 'cpu' if args.cpu else 'cuda'
     joined = processes > 1
     if joined:
@@ -212,12 +208,13 @@ def main(argv: Optional[Sequence[str]] = None):
             result = experiment.evaluate()
         experiment.trainer.gather_shadow()  # ZeRO-1 with EMA: every rank
         if 'test' in args.phases:
-            # every rank: an int8 calibration takes the ranks' maximum
+            # every rank: an int8 calibration takes the ranks' maximum, and
+            # a model axis's whole model is gathered
             experiment.predictor()
             if index == 0:
                 from single_shot_detection_tpu_torch.utils.video_viewer import VideoViewer
                 VideoViewer(args.video, experiment).run()
-        if 'export' in args.phases:  # every rank traces, process 0 writes
+        if 'export' in args.phases:  # every rank gathers, process 0 writes
             experiment.export(int8=args.int8)
         return experiment, result
     finally:

@@ -58,12 +58,15 @@ def _deploy_model(experiment) -> Tuple[nn.Module, dict]:
     a pruned run (``Experiment.materialize_pruned``,
     ``train/materialize.py``), else the experiment's evaluation model and
     its weights: the EMA shadow under ``train.ema``, as the JAX package
-    exports it."""
+    exports it.  With a model axis the model is whole
+    (``Experiment.whole_model``, a collective every rank enters), as the
+    JAX package's global arrays are."""
     if getattr(experiment, 'pruner', None) is not None and experiment.pruner.dead:
         bundle, state = experiment.materialize_pruned()
         logging.info('>> exporting the materialized (narrow) pruned model')
         return bundle.module, dict(state)
-    return experiment.eval_model, dict(experiment.eval_model.state_dict())
+    model = experiment.whole_model()
+    return model, dict(model.state_dict())
 
 
 class _Forward(nn.Module):
@@ -242,14 +245,22 @@ def export_model(experiment, path: str, with_postprocess: bool = False,
     {'standalone': True}`` config shorthand, which
     ``tools/infer_exported.py`` and ``tools/serve.py`` consume.
 
-    In a run of several processes every rank traces the program (an int8
-    calibration takes its maximum over the ranks) and process 0 writes it.
+    In a run of several processes every rank builds the inference function
+    (the whole model's gather under a model axis, an int8 calibration's
+    maximum over the ranks: collectives) and process 0 alone traces and
+    writes it; it traces the whole model without the model axis, so the
+    program holds no collective and equals one process's export of the
+    same state.  Other ranks return the path process 0 writes.
     """
+    from single_shot_detection_tpu_torch.parallel import model_axis_off
     model, state = _deploy_model(experiment)
     infer = _make_inference_fn_for(experiment, model, with_postprocess,
                                    int8=int8, with_preprocess=with_preprocess,
                                    batch_size=batch_size,
                                    bake_variables=bake_variables)
+    out_path = path + SUFFIX
+    if experiment.process_index != 0:
+        return out_path
     w, h = experiment.input_size
     images = torch.zeros((batch_size, h, w, 3), dtype=torch.float32,
                          device=experiment.device)
@@ -257,7 +268,7 @@ def export_model(experiment, path: str, with_postprocess: bool = False,
     was_training = model.training
     model.eval()
     try:
-        with torch.no_grad(), policy.scope():
+        with torch.no_grad(), policy.scope(), model_axis_off():
             program = torch.export.export(
                 infer, (images,) if bake_variables else (state, images))
     finally:
@@ -272,9 +283,6 @@ def export_model(experiment, path: str, with_postprocess: bool = False,
             'with_postprocess': bool(with_postprocess),
             'with_preprocess': bool(with_preprocess),
             'bake_variables': bool(bake_variables), 'int8': bool(int8)}
-    out_path = path + SUFFIX
-    if experiment.process_index != 0:
-        return out_path
     os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
     torch.export.save(program, out_path,
                       extra_files={META_FILE: json.dumps(meta)})

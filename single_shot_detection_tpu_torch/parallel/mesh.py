@@ -108,7 +108,12 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
 
 def destroy() -> None:
-    """Leave the process group (a no-op without one)."""
+    """Leave the process group (a no-op without one), and drop the model
+    axis and its groups, which belonged to it: a process that joins a new
+    group (a second run) builds them anew."""
+    global _AXIS
+    _AXIS = None
+    _GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 

@@ -30,6 +30,7 @@ over the data group only.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
@@ -184,6 +185,40 @@ def gather_leaf(tensor: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
     return torch.cat(mesh.all_gather(tensor.contiguous(), 'model'), dim=axis)
 
 
+def gather_leaves(named: Dict, axes: Dict) -> Dict:
+    """Every leaf of ``named`` (``{key: tensor}``) whole: each one that
+    ``axes`` slices along an axis gathered over the model group, in one
+    all-gather a dtype (a collective every rank enters with the same
+    keys), the rest as they are."""
+    out = dict(named)
+    sliced = [k for k, v in named.items() if axes.get(k) is not None]
+    for dtype in sorted({named[k].dtype for k in sliced}, key=str):
+        keys = [k for k in sliced if named[k].dtype == dtype]
+        parts = [named[k].detach().reshape(-1) for k in keys]
+        ranks = mesh.all_gather(torch.cat(parts), 'model')
+        sizes = [p.numel() for p in parts]
+        pieces = [torch.split(r, sizes) for r in ranks]
+        for i, k in enumerate(keys):
+            out[k] = torch.cat([p[i].view(named[k].shape) for p in pieces],
+                               dim=axes[k])
+    return out
+
+
+def whole_copy(module: torch.nn.Module,
+               axes: Dict[str, Optional[int]]) -> torch.nn.Module:
+    """A copy of a tensor-sharded ``module`` holding every ``state_dict``
+    entry whole (:func:`gather_leaves`, a collective every rank enters);
+    its parameters take no gradient.  It computes the one-process model's
+    forward when run without the model axis (``mesh.model_axis_off``)."""
+    whole = {k: v.clone() for k, v in
+             gather_leaves(module.state_dict(), axes).items()}
+    memo = {id(p): torch.nn.Parameter(whole[n], requires_grad=False)
+            for n, p in module.named_parameters()}
+    memo.update({id(b): whole[n] for n, b in module.named_buffers()
+                 if n in whole})
+    return copy.deepcopy(module, memo)
+
+
 def shard_tensors_(tensors: Iterable[Tuple[str, torch.Tensor]],
                    axes: Dict[str, Optional[int]]) -> int:
     """Cut each named tensor (a parameter or buffer, its ``.data``
@@ -228,8 +263,7 @@ def gather_saved_(saved: dict, state, axes: Dict[str, Optional[int]]) -> dict:
     made whole (a collective over the model group, every rank in one
     order): the model's entries, the optimizer's buffers of sliced
     parameters, the EMA shadow and the mask."""
-    saved['model'] = {k: gather_leaf(v, axes.get(k))
-                      for k, v in saved['model'].items()}
+    saved['model'] = gather_leaves(saved['model'], axes)
     params = [p for g in state.optimizer.param_groups for p in g['params']]
     names = {p: n for n, p in state.model.named_parameters()}
     opt = saved['optimizer']
@@ -244,10 +278,7 @@ def gather_saved_(saved: dict, state, axes: Dict[str, Optional[int]]) -> dict:
             if (isinstance(t, torch.Tensor) and t.dim() == p.dim()
                     and t.shape[axis] == p.shape[axis]):
                 entry[key] = gather_leaf(t, axis)
-    if 'ema' in saved:
-        saved['ema'] = {k: gather_leaf(v, axes.get(k))
-                        for k, v in saved['ema'].items()}
-    if 'mask' in saved:
-        saved['mask'] = {k: gather_leaf(v, axes.get(k))
-                         for k, v in saved['mask'].items()}
+    for key in ('ema', 'mask'):
+        if key in saved:
+            saved[key] = gather_leaves(saved[key], axes)
     return saved

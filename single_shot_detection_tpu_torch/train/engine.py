@@ -100,9 +100,20 @@ the loaders shard over the data axis (the ranks of a model group load the
 same rows), a tensor-sharded state is cut after the weights to start
 from are loaded and gathered whole for each save, and the evaluation
 runs on the sharded model (the NMS kernel on every rank), its rows
-gathered over the data axis.  The int8 gate refuses a model-axis run
-(the evaluation stays float, ``int8: 0.0``); ``train.pruner`` with tensor
-or spatial sharding is not ported.
+gathered over the data axis.  What serves one whole model (the int8
+evaluation and its calibration, :meth:`Experiment.predictor`,
+:meth:`Experiment.predict`, the export and
+:meth:`Experiment.materialize_pruned`) runs :meth:`Experiment.whole_model`
+under ``parallel.model_axis_off()``: the evaluation model whole on every
+rank (under tensor sharding gathered over the model group, once per train
+step reached; spatial and pipeline sharding hold whole parameters), so a
+sharded run serves, calibrates and exports what one process does from the
+same state.  The int8 evaluation's ranks each take their data-axis rows
+and gather their detections over the data axis, as the float one's do.
+``train.pruner`` runs under every option: its channel spaces are traced
+before the state is sliced, the pruner scores and picks on whole
+parameters (``train/pruning.py``), and the activation means of
+``MeanActivation`` come from the whole model's forward.
 
 ``bf16`` runs the activations in bfloat16 (docs/DESIGN.md §10: parameters, BN
 statistics, SGD momentum and losses stay f32, so checkpoints are f32 and a
@@ -141,6 +152,7 @@ from single_shot_detection_tpu_torch.models import builder, norm
 from single_shot_detection_tpu_torch.ops import metrics as metrics_ops
 from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
 from single_shot_detection_tpu_torch.ops.postprocess import Postprocessor
+from single_shot_detection_tpu_torch.parallel import tensor
 from single_shot_detection_tpu_torch.predict import Predictor
 from single_shot_detection_tpu_torch.train import checkpoint as ckpt
 from single_shot_detection_tpu_torch.train import materialize, pruning
@@ -339,10 +351,6 @@ class Experiment:
         quantize.check_composes(train_cfg, int8)
         # the model axis before the loaders: they shard over the data axis
         mode, axis_size, _ = model_axis_options(train_cfg)
-        if train_cfg.get('pruner') and mode in ('tensor', 'spatial'):
-            raise NotImplementedError(
-                f'train.pruner with train.{mode}_sharding is not ported '
-                '(the pruner reads whole parameters and activations)')
         parallel.set_model_axis(mode, axis_size)
         self.data_count = parallel.data_count()
         self.data_index = parallel.data_index()
@@ -403,9 +411,10 @@ class Experiment:
         self.debug = bool(debug)
         self.start_epoch = 0
         self._load_weights(dict(cfg.model or {}), resume_from, load_weights)
+        self._whole: Dict[bool, tuple] = {}  # whole_model's, by shadow
+        self._build_pruner(train_cfg.get('pruner'))  # on the whole model
         self.trainer.shard_model_axis()
         self._current_epoch = self.start_epoch  # the emergency save's epoch
-        self._build_pruner(train_cfg.get('pruner'))
         self.fused_steps = self.trainer.fused_steps
         if self.fused_steps > 1 and isinstance(
                 getattr(self.pruner, 'criterion', None), pruning.TaylorExpansion):
@@ -420,6 +429,7 @@ class Experiment:
         self._int8_amax: Optional[Dict[str, float]] = None
         self._int8_calib_step: Optional[int] = None
         self._int8_modes: Dict[str, quantize.QuantizedConv] = {}
+        self._int8_model: Optional[torch.nn.Module] = None
         self._int8_spatial_limit: Optional[int] = None
         self._predictor: Optional[Predictor] = None
         self._predictor_key = None
@@ -522,13 +532,16 @@ class Experiment:
 
     def _build_pruner(self, pruner_cfg) -> None:
         """``train.pruner``: the ``Pruner`` over the channel spaces of the
-        model's traced graph (port of the JAX engine's set-up)."""
+        model's traced graph (port of the JAX engine's set-up), traced and
+        sized on the whole model before a tensor-sharded state is sliced."""
         self.pruner: Optional[pruning.Pruner] = None
         self._observe_means = False
         if not pruner_cfg:
             return
         pruner_cfg = dict(pruner_cfg)
-        spaces = materialize.build_channel_spaces(self.model, self.input_size)
+        with parallel.model_axis_off():
+            spaces = materialize.build_channel_spaces(self.model,
+                                                      self.input_size)
         self.pruner = pruning.Pruner(
             pruning.param_tree(self.model),
             criterion=pruner_cfg.get('criterion', {'name': 'MinL1Norm'}),
@@ -542,15 +555,23 @@ class Experiment:
         step's loss gradients beside the parameters after it, or the
         per-channel activation means of the batch's eval preprocessing
         (with several processes, the global batch's: the gradients are
-        summed over the ranks already, the means are averaged here)."""
+        summed over the ranks already, the means are averaged here).  With
+        a model axis both come from whole tensors: the parameters and
+        gradients gathered under tensor sharding, the means from the whole
+        model's forward on the model group's batch."""
+        axes = self.trainer.state.tensor
         if isinstance(self.pruner.criterion, pruning.TaylorExpansion):
             params = pruning.param_tree(self.model)
-            self.pruner.observe_grads(params, {k: p.grad
-                                               for k, p in params.items()})
+            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for k, p in params.items()}
+            self.pruner.observe_grads(pruning.whole_leaves(params, axes),
+                                      pruning.whole_leaves(grads, axes))
         if self._observe_means:
-            with torch.no_grad(), self.policy.scope():
+            model = self.whole_model(shadow=False)
+            with (torch.no_grad(), self.policy.scope(),
+                  parallel.model_axis_off()):
                 x, _, _ = self.eval_pipeline.apply([], *tensors)
-                means = pruning.activation_means(self.model, x)
+                means = pruning.activation_means(model, x)
             # the global batch's means: every rank's batch is b rows
             keys = list(means)
             flat = parallel.all_reduce_(torch.from_numpy(np.concatenate(
@@ -563,12 +584,34 @@ class Experiment:
     def materialize_pruned(self):
         """The physically narrow model of a pruned run: ``(bundle,
         state_dict)``, the bundle's module loaded, on this experiment's
-        device (``train/materialize.py``)."""
+        device (``train/materialize.py``); with a model axis from
+        :meth:`whole_model`, a collective every rank enters."""
         if self.pruner is None or not self.pruner.dead:
             raise ValueError('nothing pruned to materialize')
-        return materialize.materialize_bundle(
-            self.bundle, self.eval_model.state_dict(), self.pruner.dead,
-            spaces=self.pruner.spaces)
+        whole = self.whole_model()
+        with parallel.model_axis_off():
+            return materialize.materialize_bundle(
+                self.bundle, whole.state_dict(), self.pruner.dead,
+                spaces=self.pruner.spaces)
+
+    def whole_model(self, shadow: bool = True) -> torch.nn.Module:
+        """The evaluation model (``shadow``; else the trained model) whole
+        on this rank, to run under ``parallel.model_axis_off()``: the
+        module itself without tensor sharding (spatial and pipeline
+        sharding hold whole parameters); under it a copy whose sliced
+        leaves are gathered over the model group, a collective every rank
+        enters, built once per train step and prune reached."""
+        model = self.eval_model if shadow else self.model
+        axes = self.trainer.state.tensor
+        if axes is None:
+            return model
+        dead = self.pruner and sum(map(len, self.pruner.dead.values()))
+        key = (int(self.trainer.state.step), dead)
+        if self._whole.get(shadow, (None,))[0] != key:
+            if shadow:
+                self.trainer.gather_shadow()  # ZeRO-1 with EMA: every rank
+            self._whole[shadow] = (key, tensor.whole_copy(model, axes))
+        return self._whole[shadow][1]
 
     @property
     def model(self) -> torch.nn.Module:
@@ -604,16 +647,18 @@ class Experiment:
 
     def calibrate_int8(self, model: torch.nn.Module,
                        n_batches: int) -> Dict[str, float]:
-        """Each conv's int8 activation maximum ``{key: amax}`` of ``model``
-        over ``n_batches`` eval batches of every rank: the maximum over
-        the ranks is a collective, so every rank calls it."""
+        """Each conv's int8 activation maximum ``{key: amax}`` of the whole
+        ``model`` (run without a model axis) over ``n_batches`` eval
+        batches of every rank: the maximum over the world is a
+        collective, so every rank calls it."""
         with self.policy.scope():
             images = self._calibration_images(n_batches)
-            amax = quantize.calibrate(model, images)
+            with parallel.model_axis_off():
+                amax = quantize.calibrate(model, images)
         keys = sorted(amax)
         maxima = parallel.all_reduce_(torch.tensor(
             [amax[k] for k in keys], dtype=torch.float64, device=self.device),
-            'max').tolist()
+            'max', 'world').tolist()
         return dict(zip(keys, maxima))
 
     def _ensure_int8(self) -> None:
@@ -621,36 +666,35 @@ class Experiment:
         (port of the JAX engine's ``_ensure_int8``); calibrate again when
         training has advanced since.  The serving gate is judged at the
         eval loader's batch; a ``train.qat`` run's learned scales are taken
-        in place of a calibration."""
+        in place of a calibration.  With a model axis the int8 convs run
+        on :meth:`whole_model`: every rank calls this."""
         if not self.int8:
             return
         step = int(self.trainer.state.step)
-        if self._int8_amax is not None and self._int8_calib_step == step:
+        model = self.whole_model()
+        if (self._int8_amax is not None and self._int8_calib_step == step
+                and self._int8_model is model):
             return
         serving_batch = (self.loaders['eval'].batch_size
                          if 'eval' in self.loaders else None)
         enabled, opts = quantize.resolve_int8_opts(self.cfg,
                                                    batch_size=serving_batch)
-        if enabled and parallel.model_mode() is not None:
-            logging.warning(f'WW int8: the evaluation of a '
-                            f'train.{parallel.model_mode()}_sharding run stays '
-                            'float (the int8 convs are not sharded)')
-            enabled = False
         if not enabled:
             self.int8 = False
             return
-        qat_amax = quantize.amax_from_batch_stats(self.eval_model.state_dict())
+        qat_amax = quantize.amax_from_batch_stats(model.state_dict())
         if qat_amax:
             self._int8_amax = qat_amax
             how = 'QAT-learned scales for'
         else:
             n_batches = int(opts.get('calibration_batches', 2))
-            self._int8_amax = self.calibrate_int8(self.eval_model, n_batches)
+            self._int8_amax = self.calibrate_int8(model, n_batches)
             how = f'calibrated (at most {n_batches} batches)'
         self._int8_calib_step = step
+        self._int8_model = model
         self._int8_spatial_limit = opts.get('spatial_limit')
         self._int8_modes = quantize.make_interceptor(
-            self.eval_model, self._int8_amax, opts.get('spatial_limit'))
+            model, self._int8_amax, opts.get('spatial_limit'))
         logging.info(f'>> int8: {how} {len(self._int8_amax)} convs')
 
     # ---------------------------------------------------------------- serving
@@ -658,12 +702,15 @@ class Experiment:
         """The serving ``Predictor`` on this experiment's model: its serving
         postprocessor, eval preprocessing and numeric policy, int8 on the
         scales of ``_ensure_int8`` when the gate allows.  Built once, and
-        again when the int8 calibration step changes."""
+        again when the int8 calibration step or :meth:`whole_model`
+        changes; with a model axis every rank calls it first (the whole
+        model's gather, the calibration), then any rank may serve."""
         self._ensure_int8()
-        key = (self.int8, self._int8_calib_step)
+        model = self.whole_model()
+        key = (self.int8, self._int8_calib_step, model)
         if self._predictor is None or self._predictor_key != key:
             self._predictor = Predictor(
-                dataclasses.replace(self.bundle, module=self.eval_model),
+                dataclasses.replace(self.bundle, module=model),
                 self.serving_postprocessor,
                 self.eval_pipeline.preprocess, self.device, self.policy,
                 self._int8_amax if self.int8 else None,
@@ -674,10 +721,12 @@ class Experiment:
     def predict(self, image: np.ndarray) -> np.ndarray:
         """One uint8 ``[H, W, 3]`` RGB image of any size -> ``[n, 6]`` valid
         detections ``[x0, y0, x1, y1, class, score]`` in its own pixels
-        (port of the JAX engine's ``predict``), through :meth:`predictor`."""
+        (port of the JAX engine's ``predict``), through :meth:`predictor`,
+        whose whole model runs without the model axis."""
         predictor = self.predictor()
-        self.eval_model.eval()
-        return predictor.predict(image)
+        predictor.model.eval()
+        with parallel.model_axis_off():
+            return predictor.predict(image)
 
     def export(self, int8: bool = False) -> str:
         """The export phase on the config's ``export`` block (``main.py``'s):
@@ -935,8 +984,15 @@ class Experiment:
         sums = None
         count = 0
         pending = []
-        int8 = (quantize.quant_modes(self.eval_model, self._int8_modes)
-                if self.int8 else contextlib.nullcontext())
+        model, int8 = self.eval_model, contextlib.nullcontext()
+        if self.int8:
+            # the int8 convs on the whole model; with a model axis it runs
+            # whole on each rank (the loss and the rows still reduce and
+            # gather over the data axis)
+            model = self.whole_model()
+            int8 = quantize.quant_modes(model, self._int8_modes)
+            if parallel.model_mode() is not None:
+                model = _AxisOff(model)
         with self.policy.scope(), int8:
             for ids, (images, boxes, mask) in self._eval_batches():
                 with torch.no_grad():
@@ -945,7 +1001,7 @@ class Experiment:
                 # padding rows of a partial batch carry id -1 and add no loss
                 image_valid = torch.from_numpy(ids >= 0).to(self.device)
                 metrics, dets, valid = self.eval_step(
-                    self.eval_model, x, full_boxes[..., :6], mask, image_valid)
+                    model, x, full_boxes[..., :6], mask, image_valid)
                 stacked = torch.stack([metrics[k] for k in METRIC_KEYS])
                 sums = stacked if sums is None else sums + stacked
                 count += 1
@@ -1005,6 +1061,18 @@ class Experiment:
         rows = parallel.all_gather_host(rows)
         order = np.argsort(rows.pop('batch'), kind='stable')
         return {k: v[order] for k, v in rows.items()}
+
+
+class _AxisOff(torch.nn.Module):
+    """A whole model whose forward runs without the model axis."""
+
+    def __init__(self, module: torch.nn.Module):
+        super().__init__()
+        self.module = module
+
+    def forward(self, x):
+        with parallel.model_axis_off():
+            return self.module(x)
 
 
 def _staging_cache_dir(cache_dir, process_count: int,

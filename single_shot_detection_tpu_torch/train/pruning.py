@@ -26,6 +26,14 @@ and scores compare one to one with the JAX ``Pruner``'s and the log lines
 read the same; :func:`param_tree` maps them to the model's tensors, in the
 sorted order of the JAX engine's state (its pytree round trips sort every
 dict's keys), which is the order ``RandomSampling`` draws in.
+
+Under tensor sharding (``TrainState.tensor``) a rank holds a slice of each
+``cout``-divisible leaf, where the JAX ``Pruner`` reads global arrays.
+:meth:`Pruner.prune` scores and picks on the whole parameters, gathered
+over the model group (:func:`whole_leaves`), so every rank picks the same
+global ``(path, channel)`` list; each rank then zeroes and masks a global
+channel only where it falls in its own block of a sliced leaf
+(:func:`local_index`), and ``Pruner.dead`` holds global indices.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from single_shot_detection_tpu_torch.parallel import mesh, tensor
 from single_shot_detection_tpu_torch.utils.weights import (state_name,
                                                            variable_path)
 
@@ -58,6 +67,32 @@ def param_tree(model: torch.nn.Module) -> Dict[Path, torch.Tensor]:
 def param_name(path: Path) -> str:
     """The ``state_dict`` name of a parameter's variable path."""
     return state_name(('params',) + tuple(path))
+
+
+def whole_leaves(tree: Mapping[Path, torch.Tensor],
+                 axes: Optional[Mapping[str, Optional[int]]]
+                 ) -> Dict[Path, torch.Tensor]:
+    """``tree`` (:func:`param_tree`'s, or its gradients) with every leaf
+    whole: under tensor sharding (``axes``, ``TrainState.tensor``) each
+    sliced leaf gathered over the model group (``tensor.gather_leaves``,
+    a collective every rank enters); the tree itself otherwise."""
+    if not axes:
+        return dict(tree)
+    return tensor.gather_leaves(tree, {k: axes.get(param_name(k))
+                                       for k in tree})
+
+
+def local_index(axes: Optional[Mapping[str, Optional[int]]], path: Path,
+                axis: int, index: int, local_size: int) -> Optional[int]:
+    """Where global channel ``index`` of axis ``axis`` of leaf ``path``
+    lies in this rank's tensor: ``index`` itself for a leaf held whole or
+    sliced on another axis; for one sliced along ``axis`` under tensor
+    sharding, its offset in the rank's block of ``local_size``, or None
+    when another rank holds it."""
+    if (axes or {}).get(param_name(path)) != axis:
+        return index
+    lo = mesh.model_axis().index * local_size
+    return index - lo if lo <= index < lo + local_size else None
 
 
 def conv_kernel_paths(params: Mapping[Path, torch.Tensor]) -> List[Path]:
@@ -392,9 +427,12 @@ class Pruner:
     @torch.no_grad()
     def prune(self, state):
         """Zero the selected channels in ``state.model`` and mask them in
-        ``state.mask``; returns ``state`` (updated in place)."""
+        ``state.mask``; returns ``state`` (updated in place).  Under tensor
+        sharding a collective: every rank of the model group gathers the
+        whole parameters and picks from them."""
         params = param_tree(state.model)
-        picked = self.select(params)
+        whole = whole_leaves(params, state.tensor)
+        picked = self.select(whole)
         if not picked:
             logging.info('Pruned channels: Nothing!')
             return state
@@ -411,10 +449,13 @@ class Pruner:
                                   for p, a in _companions(params, member)]
                 for path, axis, index in companions:
                     arr = params[path]
-                    arr.select(axis, index).zero_()
+                    own = local_index(state.tensor, path, axis, index,
+                                      arr.shape[axis])
+                    if own is not None:
+                        arr.select(axis, own).zero_()
                     m = mask_updates.get(path)
                     if m is None:
-                        m = np.ones(arr.shape[axis], np.float32)
+                        m = np.ones(whole[path].shape[axis], np.float32)
                     m[index] = 0.0
                     mask_updates[path] = m
         self._apply_mask_updates(state, params, mask_updates)
@@ -422,7 +463,9 @@ class Pruner:
 
     @staticmethod
     def _apply_mask_updates(state, params, mask_updates) -> None:
-        """Fold per-channel masks into ``state.mask``."""
+        """Fold per-channel masks (whole, along axis 0) into
+        ``state.mask``: this rank's block of a leaf sliced under tensor
+        sharding."""
         if state.mask is None:
             logging.warning('WW the train state has no optimizer mask — '
                             'pruned channels may regrow; build the Trainer '
@@ -430,6 +473,10 @@ class Pruner:
             return
         for path, m in mask_updates.items():
             target = params[path]
+            n = target.shape[0]
+            if len(m) != n:  # a sliced leaf: the rank's block
+                k = mesh.model_axis().index
+                m = m[k * n:(k + 1) * n]
             shape = [1] * target.ndim
             shape[0] = target.shape[0]
             new = torch.from_numpy(m).to(target.device).reshape(shape)

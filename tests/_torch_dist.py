@@ -1,5 +1,7 @@
-"""Runs of the port's data-parallel path in several processes on the CPU,
-for ``test_torch_port_distributed.py`` and ``test_torch_port_multiprocess.py``.
+"""Runs of the port's data-parallel path and model axis in several
+processes on the CPU, for ``test_torch_port_distributed.py``,
+``test_torch_port_multiprocess.py``, the model axis's files and
+``test_torch_port_model_axis_phases.py``.
 
 :func:`launch` starts one process per rank running this file, which joins
 a gloo process group (``parallel.initialize_distributed``, a 60 s timeout
@@ -370,8 +372,8 @@ SMALL_M2DET = {**SMALL,
 def whole_state(model, axes=None) -> dict:
     """The model's ``state_dict``, its tensor-sharded entries gathered."""
     from single_shot_detection_tpu_torch.parallel import tensor
-    return {k: tensor.gather_leaf(v, (axes or {}).get(k)).clone()
-            for k, v in model.state_dict().items()}
+    return {k: v.clone() for k, v in tensor.gather_leaves(
+        model.state_dict(), axes or {}).items()}
 
 
 def world_normaliser():
@@ -579,6 +581,125 @@ def s_tensor_checkpoints(rank, n, inputs, tmp):
     return out
 
 
+# -------------------------------------------- the model axis's other phases
+PRUNE_CRITERIA = ('MinL1Norm', 'TaylorExpansion', 'MeanActivation')
+
+
+def _planted_local_index(axes, path, axis, index, size):
+    """The planted fault of the sharded pruner: a global channel taken
+    as an index into the rank's slice (wrapped into its range, so it
+    zeroes a wrong channel instead of raising)."""
+    from single_shot_detection_tpu_torch.train import pruning
+    if (axes or {}).get(pruning.param_name(path)) == axis:
+        return index % size
+    return index
+
+
+def given_grads(shapes: dict, seed: int) -> dict:
+    """A gradient of each ``{name: whole shape}``, in its order, drawn
+    with numpy from ``seed``."""
+    rng = np.random.RandomState(seed)
+    return {k: torch.from_numpy((0.1 * rng.randn(*shape)).astype(np.float32))
+            for k, shape in shapes.items()}
+
+
+def s_axis_pruner(rank, n, inputs, tmp):
+    """The sharded ``Pruner`` of an ``Experiment`` under tensor and spatial
+    sharding at its seeded weights: for each criterion, from that state,
+    one prune's dead set and the whole parameters and mask after it
+    (``TaylorExpansion`` observes the gradients ``inputs`` gives,
+    ``MeanActivation`` the means of ``inputs``' batch); under tensor
+    sharding once more with the planted fault, and first the int8
+    evaluation, the standalone artifact (process 0 writes it and calls it
+    on ``inputs``' images) and the gathered checkpoint."""
+    from single_shot_detection_tpu_torch.export import (export_model,
+                                                        load_exported)
+    from single_shot_detection_tpu_torch.parallel import tensor
+    from single_shot_detection_tpu_torch.train import checkpoint, pruning
+    out = {}
+    for mode in ('tensor', 'spatial'):
+        exp = experiment(rank, n, inputs['smoke'], debug=True,
+                         int8=mode == 'tensor', overrides={'train': {
+                             f'{mode}_sharding': 2,
+                             'pruner': {'num': inputs['prune_num']}}})
+        state = exp.trainer.state
+        axes = state.tensor
+        got = {'whole': whole_state(exp.model, axes)}
+        if mode == 'tensor':
+            got['metrics'] = exp.evaluate()
+            got['amax'] = exp._int8_amax
+            path = export_model(exp, os.path.join(tmp, f'artifact_rank{rank}'),
+                                with_postprocess=True, with_preprocess=True,
+                                bake_variables=True, batch_size=2)
+            got['written'] = os.path.exists(path)
+            if rank == 0:
+                got['outputs'] = load_exported(path)(inputs['images'])
+            got['saved'] = checkpoint.gather_for_save(state)['model']
+        grads = given_grads({k: got['whole'][k].shape for k, _ in
+                             exp.model.named_parameters()},
+                            inputs['grads_seed'])
+        for name, p in exp.model.named_parameters():
+            p.grad = tensor.slice_(grads[name], (axes or {}).get(name))
+        runs = [(name, False) for name in PRUNE_CRITERIA]
+        if mode == 'tensor':
+            runs.append(('MinL1Norm', True))
+        before = {k: v.clone() for k, v in exp.model.state_dict().items()}
+        for name, planted in runs:
+            exp.model.load_state_dict(before)
+            state.mask.clear()
+            exp.pruner = pruning.Pruner(
+                pruning.whole_leaves(pruning.param_tree(exp.model), axes),
+                {'name': name}, include_paths=inputs['include_paths'],
+                num=inputs['prune_num'], spaces=exp.pruner.spaces)
+            exp._observe_means = exp.pruner.criterion.needs_activations
+            if name != 'MinL1Norm':
+                exp._observe(inputs['observed'])
+            real = pruning.local_index
+            if planted:
+                pruning.local_index = _planted_local_index
+            try:
+                exp.pruner.prune(state)
+            finally:
+                pruning.local_index = real
+            got[name + ('_planted' if planted else '')] = {
+                'dead': {k: sorted(v) for k, v in exp.pruner.dead.items()},
+                'state': whole_state(exp.model, axes),
+                'mask': {k: v.clone() for k, v in tensor.gather_leaves(
+                    state.mask, axes or {}).items()},
+                'means': dict(getattr(exp.pruner.criterion, 'ema', {}))}
+        out[mode] = got
+    return out
+
+
+def s_axis_cli(rank, n, inputs, tmp):
+    """The CLI in this process, once per run of ``inputs['cli']`` (each a
+    config and flags a rank), through ``--phases train eval test export``:
+    the launch's process group is left first, and each run joins its
+    own."""
+    import tempfile
+    from single_shot_detection_tpu_torch import cli, parallel
+    parallel.destroy()
+    out = {}
+    for key, port, configs, flags in inputs['cli']:
+        root = os.path.dirname(configs[rank])
+        tempfile.tempdir = os.path.join(root, 'tmp')
+        os.makedirs(tempfile.tempdir, exist_ok=True)
+        exp, rows_ = cli.main([
+            '--cpu', '--config', configs[rank], '--save-dir',
+            os.path.join(root, 'runs'), '--phases', 'train', 'eval', 'test',
+            'export', '--video', inputs['video'], *flags,
+            '--coordinator-address', f'127.0.0.1:{port}',
+            '--num-processes', str(n), '--process-id', str(rank)])
+        tempfile.tempdir = None
+        out[key] = {'rows': rows_, 'root': root,
+                    'dead': {k: sorted(v) for k, v in
+                             (exp.pruner.dead if exp.pruner else {}).items()},
+                    'files': sorted(os.path.relpath(os.path.join(d, f), root)
+                                    for d, _, fs in os.walk(root)
+                                    for f in fs)}
+    return out
+
+
 SCENARIOS = {name[2:]: fn for name, fn in dict(globals()).items()
              if name.startswith('s_')}
 
@@ -597,7 +718,10 @@ def main(argv) -> None:
         results = {}
         for name in names:
             np.random.seed(0)
+            started = time.perf_counter()
             results[name] = SCENARIOS[name](rank, n, inputs, tmp)
+            print(f'scenario {name}: {time.perf_counter() - started:.2f} s',
+                  flush=True)
         torch.save(results, os.path.join(tmp, f'rank{rank}.pt'))
     finally:
         parallel.destroy()

@@ -32,22 +32,12 @@ import torch
 from _torch_zoo_slice import JaxSide, nchw, perturb, port_bundle, to_jax_variables
 from single_shot_detection_tpu.ops import bn_pallas
 from single_shot_detection_tpu_torch.ops.bn_fused import fused_bn_train
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
 M2DET = 'samples/m2det_512_vgg16_voc.py'
 SIZE = 128
 BF16_STEP = 2.0 ** -8
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def m2det_model():

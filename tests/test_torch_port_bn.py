@@ -32,6 +32,7 @@ from single_shot_detection_tpu.ops import bn_pallas
 from single_shot_detection_tpu_torch.models.layers import BatchNorm, set_fused_bn
 from single_shot_detection_tpu_torch.ops import bn_kernel
 from single_shot_detection_tpu_torch.ops.bn_fused import fused_bn_train
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

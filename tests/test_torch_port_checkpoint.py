@@ -41,23 +41,13 @@ from single_shot_detection_tpu_torch.utils.weights import (from_jax_state,
                                                            from_jax_variables)
 
 from _torch_helpers import fill_synthetic_state_dict
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
 CKPT_DIR = 'experiments/2026-08-16-225820'   # SMOKE's model, trained
 CKPT = f'{CKPT_DIR}/ckpt-1800.msgpack'
 CKPT_CONFIG = f'{CKPT_DIR}/config.py'
 CKPT_STEPS_PER_EPOCH = 12   # 96 train images in batches of 8
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')

@@ -22,21 +22,11 @@ from flax import serialization
 
 from single_shot_detection_tpu_torch import cli
 from single_shot_detection_tpu_torch.train.engine import Experiment
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
 CKPT_DIR = 'experiments/2026-08-16-225820'
 CKPT_CONFIG = f'{CKPT_DIR}/config.py'
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -160,9 +150,11 @@ def test_cli_evaluates_the_committed_jax_checkpoint_exactly():
 def test_cli_raises_on_what_is_not_ported(argv, tmp_path):
     """An XLA cache raises ``NotImplementedError`` before anything is
     written, and a config whose model-axis option is larger than the
-    process count the JAX engine's ``ValueError`` (the model axis is
-    ported; ``test_torch_port_{tensor_sharding,pipeline,spatial}.py`` run
-    it);
+    process count the JAX engine's ``ValueError``, whatever its phases:
+    the model axis is ported with every phase, ``test`` and ``export``
+    among them (``test_torch_port_{tensor_sharding,pipeline,spatial}.py``
+    run its steps, ``test_torch_port_model_axis_phases.py`` its CLI
+    through every phase);
     ``--tensorboard`` is ported and passes the check (its run is held to
     ``log.csv`` in ``test_torch_port_run_extras.py``), and so are the three
     distributed flags since they were retired from here
@@ -179,7 +171,7 @@ def test_cli_raises_on_what_is_not_ported(argv, tmp_path):
         config = str(tmp_path / 'model_axis.py')
         with open(SMOKE) as f, open(config, 'w') as out:
             out.write(f.read() + f"\ntrain = {{**train, '{argv[0][6:]}': 2}}\n")
-        argv = []
+        argv = ['--phases', 'train', 'eval', 'test', 'export']
     error = ((ValueError, 'needs at least 2 processes, have 1') if
              config != SMOKE else (NotImplementedError, 'no XLA'))
     with pytest.raises(error[0], match=error[1]):

@@ -15,6 +15,7 @@ from single_shot_detection_tpu.data.loader import Loader as JaxLoader
 from single_shot_detection_tpu.data.loader import create_loaders as jax_create_loaders
 from single_shot_detection_tpu_torch.data import datasets as pt_datasets
 from single_shot_detection_tpu_torch.data.loader import Loader, create_loaders
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 
 # ------------------------------------------------------------ datasets

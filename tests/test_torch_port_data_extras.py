@@ -40,6 +40,7 @@ from single_shot_detection_tpu_torch.data.cache import StagingCache
 from single_shot_detection_tpu_torch.data.device_cache import (
     DeviceDatasetCache, budget, make_device_cache)
 from single_shot_detection_tpu_torch.data.loader import Loader, create_loaders
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 FIXTURES = REPO / 'single_shot_detection_tpu_torch' / 'data' / 'jpeg_fixtures'
@@ -47,17 +48,6 @@ FIXTURES = REPO / 'single_shot_detection_tpu_torch' / 'data' / 'jpeg_fixtures'
 # full, 1/2, 1/4 and 1/8 DCT scales, and an uneven one
 STAGING = {'full': (300, 300), 'half': (160, 160), 'quarter': (64, 64),
            'eighth': (40, 40), 'uneven': (128, 96)}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def voc(module, image_set='all'):

@@ -46,20 +46,10 @@ from single_shot_detection_tpu_torch.train.step import make_predict_step
 from single_shot_detection_tpu_torch.utils import image_utils
 from single_shot_detection_tpu_torch.utils.config import load_config
 from test_torch_port_export import SMOKE, eager, jax_stand_in, perturb_bn
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 BATCH = 4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

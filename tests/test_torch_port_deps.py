@@ -23,6 +23,7 @@ from single_shot_detection_tpu_torch.utils.weights import (state_name,
                                                            variable_path)
 
 import test_deps as jax_twins
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SSD2 = {'type': 'ssd', 'num_scales': 2, 'min_scale': 0.2, 'max_scale': 0.9,
         'aspect_ratios': [[1.0, 2.0]] * 2}
@@ -61,17 +62,6 @@ MODELS = {
                   'tum': {'inner_channels': 32, 'out_channels': 16}},
         extras=None, input_size=(64, 64)),
 }
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def port_canon(spaces):

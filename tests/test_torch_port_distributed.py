@@ -45,6 +45,7 @@ from single_shot_detection_tpu_torch.trainer import (FUSED_BN_MULTI_DEVICE_WARNI
                                                      draw_rows)
 from single_shot_detection_tpu_torch.utils.weights import (from_jax_variables,
                                                            to_jax_variables)
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 N = 2
 # each parameter's update against JAX's, as a share of JAX's largest
@@ -52,17 +53,6 @@ N = 2
 JAX_UPDATE_TOL = 1e-3
 SCENARIOS = ['vs_jax', 'planted', 'augmented', 'mixup', 'qat', 'fused_bn',
              'zero']
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def small_inputs():

@@ -38,6 +38,7 @@ from single_shot_detection_tpu_torch.ops import sampling as pt_sampling
 from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.config import load_config
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
 FLAGSHIP = 'samples/ssd_mb2_voc.py'
@@ -46,17 +47,6 @@ CKPT_CONFIG = f'{CKPT_DIR}/config.py'
 MULTISTEP = {'name': 'MultiStepLR', 'milestones': [2, 3], 'gamma': 0.1}
 EVAL_SET = {'name': 'Synthetic', 'num_images': 13, 'image_size': 128,
             'num_classes': 5, 'max_boxes': 3, 'seed': 2}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def t(a) -> torch.Tensor:
@@ -306,7 +296,9 @@ def test_experiment_raises_on_what_is_not_ported(tmp_path, monkeypatch):
     """What the port does not run raises.  The model axis is ported: what
     remains of it are the JAX engine's ``ValueError``s (one process for a
     model axis of 2, two options at once, spatial sharding with YUV420
-    staging or a staged height it does not divide).  Checkpoints,
+    staging or a staged height it does not divide), with ``train.pruner``
+    and ``int8`` too, which are ported under every option
+    (``test_torch_port_model_axis_phases.py`` runs them).  Checkpoints,
     resume, ``ReduceLROnPlateau`` and ``detector.weight`` are ported (their
     tests are in ``test_torch_port_checkpoint.py``), and so are tensorboard,
     the device cache and async checkpoints
@@ -319,6 +311,10 @@ def test_experiment_raises_on_what_is_not_ported(tmp_path, monkeypatch):
         with pytest.raises(ValueError, match='needs at least 2 processes'):
             Experiment(SMOKE, device='cpu', overrides={
                 'train': {**over['train'], key: 2}})
+        with pytest.raises(ValueError, match='needs at least 2 processes'):
+            Experiment(SMOKE, device='cpu', int8=True, overrides={
+                'train': {**over['train'], key: 2,
+                          'pruner': {'num': 2}}})
     with pytest.raises(ValueError, match='cannot shard packed YUV420'):
         Experiment(SMOKE, device='cpu', process_count=2, overrides={
             'train': {**over['train'], 'spatial_sharding': 2,

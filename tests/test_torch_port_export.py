@@ -50,20 +50,10 @@ from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.train.step import make_predict_step
 from single_shot_detection_tpu_torch.utils.config import load_config
 from single_shot_detection_tpu_torch.utils.weights import to_jax_variables
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
 BATCH = 2
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -439,7 +429,6 @@ def test_experiment_predict_equals_predictor(port_exp):
     got = port_exp.predict(img)
     assert len(got) > 0
     np.testing.assert_array_equal(got, want)
-
 
 
 def test_experiment_predictor_follows_the_int8_calibration(int8_exp,

@@ -43,6 +43,7 @@ from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.utils.config import load_config
 from single_shot_detection_tpu_torch.utils.weights import (from_jax_variables,
                                                            to_jax_variables)
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
 CKPT_DIR = 'experiments/2026-08-16-225820'   # SMOKE's model, trained
@@ -53,17 +54,6 @@ MB2 = dict(base={'name': 'mobilenet_v2', 'depth_multiplier': 0.35},
                              'aspect_ratios': [[1.0, 2.0]] * 2},
            num_classes=4, features={'name': 'Features', 'out_layers': (13, 18)},
            input_size=(96, 96))
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def nchw(x) -> torch.Tensor:

@@ -31,6 +31,7 @@ from single_shot_detection_tpu_torch.utils import flax_msgpack, torch_import
 from single_shot_detection_tpu_torch.utils.config import load_config
 from single_shot_detection_tpu_torch.utils.weights import (from_jax_variables,
                                                            to_jax_variables)
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
 CKPT_DIR = 'experiments/2026-08-16-225820'   # SMOKE's model, trained
@@ -40,17 +41,6 @@ CKPT_CONFIG = f'{CKPT_DIR}/config.py'
 # VGG16-BN + Features, ResNet50 + FPN + shared towers, VGG16-BN + MLFPN
 CONFIGS = ('samples/ssd_mb2_voc.py', 'samples/ssd_300_vgg16_voc.py',
            'samples/retina_rn50_500_voc.py', 'samples/m2det_512_vgg16_voc.py')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def seeded_state(config: str, seed: int = 5) -> dict:

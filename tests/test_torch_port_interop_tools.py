@@ -37,6 +37,7 @@ from single_shot_detection_tpu_torch.utils import keras_import, torch_import
 from single_shot_detection_tpu_torch.utils.config import load_config
 from single_shot_detection_tpu_torch.utils.weights import (from_jax_variables,
                                                            to_jax_variables)
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 h5py = pytest.importorskip('h5py')
 
@@ -46,17 +47,6 @@ FIXTURES = os.path.join(REPO, 'single_shot_detection_tpu_torch', 'data',
                         'jpeg_fixtures', 'VOC2007')
 HUB_MODEL = 'torchhub://pytorch/vision:mobilenet_v2'
 BILINEAR_TOL = 2e-6
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def random_state(state: dict, seed: int) -> dict:

@@ -15,25 +15,14 @@ import subprocess
 import sys
 
 import pytest
-import torch
 
 from single_shot_detection_tpu.data import native as jax_native
 from single_shot_detection_tpu_torch.data import native
 from single_shot_detection_tpu_torch.kernels import _build
 from single_shot_detection_tpu_torch.tools import make_jpeg_fixtures
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def committed() -> dict:

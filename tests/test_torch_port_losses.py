@@ -21,17 +21,10 @@ from single_shot_detection_tpu_torch.ops import box_coder as pt_box_coder
 from single_shot_detection_tpu_torch.ops import boxes as pt_boxes
 from single_shot_detection_tpu_torch.ops import losses as pt_losses
 from single_shot_detection_tpu_torch.ops import sampling as pt_sampling
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 B, A, C = 2, 40, 6
 TOL = dict(rtol=1e-6, atol=1e-6)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def corners(rs, shape):

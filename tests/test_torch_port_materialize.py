@@ -41,6 +41,7 @@ from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.train.state import TrainState
 from single_shot_detection_tpu_torch.utils.weights import (from_jax_variables,
                                                            to_jax_variables)
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
 CKPT_DIR = 'experiments/2026-08-16-225820'   # SMOKE's model, trained
@@ -91,17 +92,6 @@ MODELS = {
                   'pyramid_layers': 3, 'pyramid_channels': 32},
         extras=None, input_size=(64, 64)), ['features.base'], 10),
 }
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True, scope='module')

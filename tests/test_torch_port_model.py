@@ -26,21 +26,12 @@ from single_shot_detection_tpu_torch.models import detector as pt_detector
 from single_shot_detection_tpu_torch.models import layers as pt_layers
 from single_shot_detection_tpu_torch.models import mobilenet_v2 as pt_mbv2
 from single_shot_detection_tpu_torch.utils.config import load_config
-from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
+from single_shot_detection_tpu_torch.utils.weights import (from_jax_variables,
+                                                           to_jax_variables)
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 CKPT_DIR = 'experiments/2026-08-16-225820'
 FLAGSHIP = 'samples/ssd_mb2_voc.py'
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def build_both(config_path):
@@ -95,9 +86,10 @@ def test_padding_and_layout_probes(make_jax, make_pt, size):
     rng = np.random.RandomState(0)
     x = rng.randn(2, size, size, 3).astype(np.float32)
     jm = make_jax()
+    # jitted: flax's eager init and apply compile each op on its own
     variables = perturb_batch_stats(
-        jm.init(jax.random.PRNGKey(1), jnp.asarray(x)), rng)
-    want = jm.apply(variables, jnp.asarray(x))
+        jax.jit(jm.init)(jax.random.PRNGKey(1), jnp.asarray(x)), rng)
+    want = jax.jit(jm.apply)(variables, jnp.asarray(x))
     want = want[0] if isinstance(want, tuple) else want
     pm = make_pt().eval()
     pm.load_state_dict(from_jax_variables(variables), strict=True)
@@ -164,7 +156,9 @@ def test_committed_checkpoint_forward_matches_jax():
     pipe = Pipeline((), cfg.preprocessing, tuple(cfg.input_size), train=False)
     x, _, _ = pipe(jax.random.PRNGKey(0), staged,
                    np.zeros((4, 1, 7), np.float32), np.zeros((4, 1), bool))
-    want_s, want_l = jb.module.apply(variables, x, train=False)
+    # jitted: flax's eager apply compiles each op of the model on its own
+    want_s, want_l = jax.jit(lambda v, xx: jb.module.apply(v, xx, train=False))(
+        variables, x)
 
     model = pb.module.eval()
     model.load_state_dict(from_jax_variables(variables), strict=True)
@@ -181,10 +175,12 @@ def test_full_width_flagship_forward_matches_jax():
     jb, pb = build_both(FLAGSHIP)
     rng = np.random.RandomState(2)
     x = rng.randn(1, 300, 300, 3).astype(np.float32)
-    # jitted: flax's eager init and apply of the full model take far longer
-    init = jax.jit(lambda key: jb.module.init(key, jnp.zeros((1, 300, 300, 3)),
-                                              train=False))
-    variables = perturb_batch_stats(init(jax.random.PRNGKey(3)), rng)
+    # the port's seeded weights: JAX's jitted init of the full model would
+    # add a compile of its own (its initializers are held in
+    # test_random_init_is_seeded_and_follows_jax_initializers)
+    pb.module.reset_parameters(torch.Generator().manual_seed(3))
+    variables = perturb_batch_stats(to_jax_variables(pb.module.state_dict()),
+                                    rng)
     want_s, want_l = jax.jit(lambda v, x: jb.module.apply(v, x, train=False))(
         variables, jnp.asarray(x))
     assert want_s.shape == (1, 2006, 21) and want_l.shape == (1, 2006, 4)

@@ -23,6 +23,7 @@ from single_shot_detection_tpu.data.loader import Loader as JaxLoader
 from single_shot_detection_tpu_torch.data.loader import Loader
 from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.utils.config import load_config
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 N = 2
 CFG = """
@@ -76,17 +77,6 @@ def config(tmp, name: str, batch: int = 4, **replace) -> str:
     with open(path, 'w') as f:
         f.write(text)
     return path
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')

@@ -31,6 +31,7 @@ from single_shot_detection_tpu_torch.ops import boxes as pt_boxes
 from single_shot_detection_tpu_torch.ops import nms as pt_nms
 from single_shot_detection_tpu_torch.ops import nms_kernel
 from single_shot_detection_tpu_torch.ops import postprocess as pt_pp
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 FLAGSHIP_ANCHORS = dict(type='ssd', num_scales=6, min_scale=0.1, max_scale=1.05,
                         aspect_ratios=[[1.0, 2.0]] + [[1.0, 2.0, 3.0]] * 3

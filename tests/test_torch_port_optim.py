@@ -31,6 +31,7 @@ from single_shot_detection_tpu_torch.train.state import TrainState
 from single_shot_detection_tpu_torch.train.step import apply_gradients
 from single_shot_detection_tpu_torch.utils.weights import (from_jax_variables,
                                                            parse_opt_state)
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 # lr(0) = 0.02, lr(1) = 0.04, ...: the step each rule reads shows
 WARMUP = {'name': 'LinearGrowthLR', 'cold_lr': 0.02, 'steps': 6,
@@ -38,14 +39,6 @@ WARMUP = {'name': 'LinearGrowthLR', 'cold_lr': 0.02, 'steps': 6,
 BASE_LR = 0.1
 LR_SCALE = 0.5
 RTOL, ATOL = 1e-6, 1e-7
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def make_tree(seed=0):

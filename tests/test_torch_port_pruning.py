@@ -41,6 +41,7 @@ from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.weights import (_pruning_mask,
                                                            from_jax_variables,
                                                            to_jax_variables)
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
 # tests/test_materialize.py's flagship_like
@@ -53,17 +54,6 @@ FLAGSHIP_LIKE = dict(
     extras={'layers': (('s', 64),)}, input_size=(96, 96))
 SGD = {'name': 'SGD', 'lr': 0.1, 'momentum': 0.9, 'weight_decay': 5e-4}
 PRUNER = {'include_paths': ['features', 'extra'], 'num': 12}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')

@@ -54,6 +54,7 @@ from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.weights import (from_jax_variables,
                                                            to_jax_variables)
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
 CKPT_DIR = 'experiments/2026-08-16-225820'   # SMOKE's model, trained
@@ -62,17 +63,6 @@ OPTIMIZER = {'name': 'SGD', 'lr': 0.1, 'momentum': 0.9, 'weight_decay': 1e-4}
 # QAT's forward is chaotic in f32 (module docstring): measured up to 6.2 %
 # on the trained detector's act_amax after one train-mode forward
 CHAOS_REL = 0.1
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def nchw(x) -> torch.Tensor:

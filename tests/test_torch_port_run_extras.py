@@ -30,6 +30,7 @@ from single_shot_detection_tpu_torch.train import checkpoint as ckpt
 from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.config import load_config
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 SMOKE = str(REPO / 'samples' / 'synthetic_smoke.py')
@@ -39,17 +40,6 @@ SYNTHETIC = {'name': 'Synthetic', 'image_size': 128, 'num_classes': 5,
 # 28 train images at b8: 3 batches an epoch, 4 rows the fill epoch never sees
 DATA = {'train': {**SYNTHETIC, 'num_images': 28, 'seed': 1},
         'eval': {**SYNTHETIC, 'num_images': 12, 'seed': 2}}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True, scope='module')

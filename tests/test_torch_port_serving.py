@@ -32,6 +32,7 @@ from single_shot_detection_tpu.train.step import make_predict_step
 from single_shot_detection_tpu.utils.config import load_config as jax_load_config
 from single_shot_detection_tpu_torch.data.preprocess import Preprocess, stage_images
 from single_shot_detection_tpu_torch.predict import Predictor
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / 'single_shot_detection_tpu_torch'
@@ -41,17 +42,6 @@ PREPROCESSING = [
     {'name': 'Normalize',
      'args': {'mean': [0.485, 0.456, 0.406], 'std': [0.229, 0.224, 0.225]}},
 ]
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def jax_eval_pipeline(images, input_size):

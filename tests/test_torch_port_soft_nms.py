@@ -22,22 +22,12 @@ from single_shot_detection_tpu.ops import postprocess as jax_pp
 from single_shot_detection_tpu_torch.ops import box_coder as pt_coder
 from single_shot_detection_tpu_torch.ops import nms as pt_nms
 from single_shot_detection_tpu_torch.ops import postprocess as pt_pp
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 FLAGSHIP_ANCHORS = dict(type='ssd', num_scales=6, min_scale=0.1, max_scale=1.05,
                         aspect_ratios=[[1.0, 2.0]] + [[1.0, 2.0, 3.0]] * 3
                         + [[1.0, 2.0]] * 2)
 FLAGSHIP_FMS = [(18, 18), (9, 9), (5, 5), (3, 3), (2, 2), (1, 1)]
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def clustered_boxes(rng, shape, k):

@@ -42,6 +42,7 @@ from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.utils.weights import to_jax_variables
 from test_torch_port_multiprocess import config
 from test_torch_port_tensor_sharding import small_inputs
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 N = 2
 AXIS_CFG = {"'optimizer': {'name': 'SGD', 'lr': 1e-3, 'momentum': 0.9}":
@@ -68,17 +69,6 @@ SLIDING = [
     ('pool2_dfpn_pad', 2, 2, 1, 0, 1, -np.inf,
      lambda t: F.max_pool2d(t, 2, 2)),
 ]
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize('m', [2, 4])

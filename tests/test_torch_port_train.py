@@ -53,6 +53,7 @@ from single_shot_detection_tpu_torch.train import optimizers as pt_optimizers
 from single_shot_detection_tpu_torch.train import schedulers as pt_schedulers
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
 CKPT_DIR = 'experiments/2026-08-16-225820'   # SMOKE's model, trained
@@ -66,17 +67,6 @@ SCHEDULER = {'name': 'MultiStepLR', 'milestones': [1], 'gamma': 0.1}
 OVERRIDES = {'augmentations': [],
              'train': {'fused_bn': True, 'optimizer': OPTIMIZER,
                        'scheduler': SCHEDULER}}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def t(a) -> torch.Tensor:

@@ -50,6 +50,7 @@ from single_shot_detection_tpu_torch.train import checkpoint as pt_ckpt
 from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
 CKPT = 'experiments/2026-08-16-225820/ckpt-1800.msgpack'
@@ -62,14 +63,6 @@ PREPROCESSING = [
     {'name': 'Normalize',
      'args': {'mean': [0.485, 0.456, 0.406], 'std': [0.229, 0.224, 0.225]}},
 ]
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')
@@ -158,7 +151,6 @@ def assert_updates_close(before, after_p, after_j, names):
         atol = atol + 2 * np.spacing(np.abs(before[name].numpy()))
         gap = np.abs(got - want) / atol
         assert gap.max() <= 1, f'{name}: {gap.max():.3g} of the tolerance'
-
 
 
 # ---------------------------- EMA, accumulation, mixup, frozen BN

@@ -16,21 +16,11 @@ import torch
 from single_shot_detection_tpu_torch.train.engine import (BATCH_KEYS,
                                                           Experiment,
                                                           prefetch_to_device)
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
 CPU = torch.device('cpu')
 TIMEOUT_S = 30
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def within_timeout(fn):

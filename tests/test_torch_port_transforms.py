@@ -30,6 +30,7 @@ from single_shot_detection_tpu_torch.data import transforms as pt
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.train.step import make_update_step
 from single_shot_detection_tpu_torch.utils.config import load_config
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 FLAGSHIP = 'samples/ssd_mb2_voc.py'
 SMOKE = 'samples/synthetic_smoke.py'
@@ -38,17 +39,6 @@ PREPROCESSING = load_config(FLAGSHIP).preprocessing
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 STD = np.array([0.229, 0.224, 0.225], np.float32)
 STAGED, OUT = 64, 48
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ------------------------------------------------- draws from JAX keys
@@ -464,7 +454,6 @@ def test_sampler_distribution(name):
     moved = ((state[2] != torch.eye(2)).flatten(1).any(dim=1)
              | (state[3] != 0).any(dim=1) | (state[0] != 16))
     assert abs(moved.float().mean().item() - p) < tol
-
 
 
 def test_draws_move_to_a_device_in_one_piece():

@@ -49,6 +49,7 @@ from single_shot_detection_tpu_torch.ops import sampling as pt_sampling
 from single_shot_detection_tpu_torch.utils import torch_import
 from single_shot_detection_tpu_torch.utils.config import load_config
 from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 # config -> (parameters, train-mode BNs, feature-map sizes, anchors)
 ZOO = {
@@ -69,17 +70,6 @@ ZOO = {
     'samples/ssd_mb2_coco_pruning.py': (15221302, 64, [18, 9, 5, 3, 2, 1],
                                         2006),
 }
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------------- geometry

@@ -49,21 +49,11 @@ from single_shot_detection_tpu_torch.models import mobilenet as pt_mobilenet
 from single_shot_detection_tpu_torch.models.layers import BatchNorm, reset_conv
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 CONFIG = 'samples/m2det_512_vgg16_voc.py'
 SIZE = 264
 TUMS = 2
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def reduced_model():

@@ -34,20 +34,10 @@ from single_shot_detection_tpu_torch.ops.box_coder import BoxCoder
 from single_shot_detection_tpu_torch.ops.postprocess import Postprocessor
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
+from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 CONFIG = 'samples/retina_rn50_500_voc.py'
 SIZE = 200
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_torch_thread():
-    """One intra-op thread: the suite runs test files in parallel
-    processes, and torch's default of one thread per core makes them
-    contend for the CPU, tens of times slower than alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')
