@@ -344,6 +344,19 @@ Phases, each fatal:
     failure, or a rank still running at ``MA_WALL_S``, ends the run.
     ``python3 chip_smoke.py --model-axis-phases-only`` builds the kernels
     and runs phase 25 alone.
+26. the accuracy protocol's own arm (``tools/parity_run.py``): the
+    low-variance protocol staged by the port's tool (512 train and 64
+    eval synthetic JPEGs at 128 px), seed 23 of SSD-MobileNetV2-0.35
+    trained from scratch through ``cli.main`` with ``train.fused_bn``:
+    each BN kernel launched (BNs x steps) times, NMS once per eval batch,
+    finite epoch losses, the mAP of ``log.csv`` in [0, 1]; the NMS kernel
+    exactly against the plain version on the evaluation's first batch,
+    K1-K4 at ``BN_TOL`` on every distinct b8 BN shape of the model at 128
+    px; the run's minutes and steps per second.  Here the first
+    ``PARITY_SHORT_EPOCHS`` epochs, the last epoch's loss below the
+    first's; ``python3 chip_smoke.py --parity-only`` builds the kernels
+    and runs the protocol's 60 epochs alone (``--parity-seed N``: another
+    seed), its held-out mAP at least ``PARITY_MIN_MAP``.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -6813,6 +6826,123 @@ def run_model_axis_phases(smi: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# --------------------------------------------------------------- phase 26
+
+# The accuracy protocol's own arm (``tools/parity_run.py``): the
+# low-variance protocol staged by the port's tool (512 train and 64 eval
+# synthetic JPEGs at 128 px, SSD-MobileNetV2-0.35 with 5 classes, SGD 2e-3
+# at b8, MultiStepLR at epochs 40 and 52, hflip), seed 23 trained from
+# scratch through ``cli.main`` with ``train.fused_bn``.  ``--parity-only``
+# trains the protocol's 60 epochs and holds the held-out mAP to
+# ``PARITY_MIN_MAP``; the whole script trains ``PARITY_SHORT_EPOCHS`` of
+# them and holds the loss to falling.
+PARITY_TRAIN_N, PARITY_EVAL_N = 512, 64
+PARITY_EPOCHS = 60
+PARITY_SHORT_EPOCHS = 4
+PARITY_MILESTONES = '40,52'
+PARITY_SEED = 23
+# the JAX package's record of this protocol on a TPU (PARITY.md, true f32,
+# seeds 23-27): 0.720-0.754, mean 0.736
+PARITY_MIN_MAP = 0.65
+
+
+def bn_input_shapes(model: torch.nn.Module, x: torch.Tensor) -> dict:
+    """``{(B, C, H, W): count}`` of the inputs of ``model``'s BNs on ``x``
+    (an eval-mode forward: the shapes of a train step's)."""
+    shapes = collections.Counter()
+    hooks = [m.register_forward_pre_hook(
+        lambda _, args: shapes.update([tuple(args[0].shape)]))
+        for m in model.modules() if isinstance(m, BatchNorm)]
+    model.eval()
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return dict(shapes)
+
+
+def run_parity(smi: str, epochs: int, seed: int = PARITY_SEED) -> dict:
+    """Phase 26: ``epochs`` of the accuracy protocol's ``seed`` through
+    the CLI with ``fused_bn``, every kernel counted; NMS exactly and K1-K4
+    at ``BN_TOL`` against their plain versions on the run's own shapes."""
+    from single_shot_detection_tpu_torch.tools import parity_run
+    full = epochs == PARITY_EPOCHS
+    log(f'[26] {smi}: the accuracy protocol (tools/parity_run.py) seed '
+        f'{seed}, {PARITY_TRAIN_N} train and {PARITY_EVAL_N} eval '
+        f'synthetic images at {parity_run.IMG} px, {epochs} of its '
+        f'{PARITY_EPOCHS} epochs from scratch, fused_bn, through cli.main')
+    work = tempfile.mkdtemp(prefix='chip_smoke_parity_')
+    try:
+        parity_run.TRAIN_N, parity_run.EVAL_N = PARITY_TRAIN_N, PARITY_EVAL_N
+        t = time.perf_counter()
+        csvs = parity_run.stage_dataset(work)
+        config = parity_run.write_configs(work, csvs, epochs, seed,
+                                          PARITY_MILESTONES)['ours']
+        with open(config, 'a') as f:
+            f.write("\ntrain['fused_bn'] = True\n")
+        stage_s = time.perf_counter() - t
+        save = os.path.join(work, 'ours_out')
+        exp, rows, launches, seconds, epoch_s = run_cli(
+            ['--config', config, '--save-dir', save])
+        mAP = parity_run.last_eval_map(save)
+        steps = len(exp.loaders['train'])
+        eval_batches = len(exp.loaders['eval'])
+        n_bn = sum(isinstance(m, BatchNorm) for m in exp.model.modules())
+        want = {fn.__name__: n_bn * steps * epochs for fn in bn_kernel.KERNELS}
+        want['nms_keep_batched'] = eval_batches  # one evaluation, at the end
+        if launches != want:
+            fail(f'phase 26: kernel launches {launches}, expected {want}')
+        losses = [row['train_loss'] for row in rows]
+        train_s = sum(epoch_s)
+        log(f'  mAP {mAP:.4f} after {epochs} epochs of {steps} b'
+            f'{exp.loaders["train"].batch_size} steps; staged in '
+            f'{stage_s:.2f} s, the run {seconds / 60:.2f} min, '
+            f'{steps * epochs / train_s:.2f} steps/s over the epochs; train '
+            f'loss {losses[0]:.4f} -> {losses[-1]:.4f}; kernel launches '
+            + json.dumps(launches))
+        if len(rows) != epochs or not all(np.isfinite(losses)):
+            fail(f'phase 26: epoch losses {losses}')
+        if not 0.0 <= mAP <= 1.0:
+            fail(f'phase 26: mAP {mAP} outside [0, 1]')
+
+        # the kernels against their plain versions on this run's inputs
+        boxes, scores = eval_nms_inputs(exp)
+        thr = exp.postprocessor.overlap_threshold
+        got = nms_kernel.nms_keep_batched(boxes, scores, thr)
+        if not torch.equal(got, nms_ops.nms_keep_sorted(boxes, scores, thr)):
+            fail('phase 26: NMS kernel != plain on the evaluation\'s inputs')
+        batch = first_batch(exp.loaders['train'], torch.device('cuda'))
+        x, _, _ = exp.eval_pipeline.apply([], *batch)
+        shapes = bn_input_shapes(exp.model, x)
+        if sum(shapes.values()) != n_bn:
+            fail(f'phase 26: {sum(shapes.values())} BN inputs, {n_bn} BNs')
+        bn_err_worst = check_bn_kernels(
+            [BnCase(f'parity {list(shape)}', shape, torch.float32)
+             for shape in shapes], quiet=True)
+        log(f'  NMS exact on the evaluation\'s first batch '
+            f'(N={scores.shape[0]}, K={scores.shape[1]}, {int(got.sum())} '
+            'kept); K1-K4 within '
+            f'BN_TOL on the {len(shapes)} distinct b{x.shape[0]} BN shapes of '
+            f'{n_bn} BNs')
+        if full and mAP < PARITY_MIN_MAP:
+            fail(f'phase 26: held-out mAP {mAP:.4f} under {PARITY_MIN_MAP} '
+                 f'after {epochs} epochs')
+        if not full and not losses[-1] < losses[0]:
+            fail(f'phase 26: the loss did not fall: {losses}')
+        return {'seed': seed, 'epochs': epochs, 'mAP': mAP,
+                'minutes': seconds / 60,
+                'steps_per_s': steps * epochs / train_s, 'stage_s': stage_s,
+                'epoch_s': epoch_s, 'train_losses': losses,
+                'launches': launches, 'n_bn': n_bn,
+                'bn_shapes': {str(list(k)): v for k, v in shapes.items()},
+                'bn_max_abs_err': bn_err_worst,
+                'nms_shape': list(scores.shape)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
@@ -6844,6 +6974,14 @@ def parse_args(argv):
              'test and export phases, int8 evaluation and pruner in two rank '
              'processes; NCCL with two cards or more), then print its '
              'results as JSON; the smoke test\'s last line is not printed')
+    parser.add_argument(
+        '--parity-only', action='store_true',
+        help='build the kernels and run phase 26 alone at the accuracy '
+             'protocol\'s full 60 epochs (seed 23, the held-out mAP held to '
+             'PARITY_MIN_MAP), then print its results as JSON; the smoke '
+             'test\'s last line is not printed')
+    parser.add_argument('--parity-seed', type=int, default=PARITY_SEED,
+                        help='the seed --parity-only trains')
     parser.add_argument('--ma-worker', nargs=6, help=argparse.SUPPRESS,
                         metavar=('GROUP', 'RANK', 'COUNT', 'PORT', 'BACKEND',
                                  'OUT'))
@@ -6879,6 +7017,20 @@ def main(argv=None) -> int:
                       else (25, run_model_axis_phases))
         result = run(smi)
         log(f'phase {phase} in {time.perf_counter() - t:.2f} s')
+        log(json.dumps(result, default=str))
+        return 0
+    if args.parity_only:
+        from single_shot_detection_tpu_torch.data import native
+        t = time.perf_counter()
+        with ThreadPoolExecutor() as pool:
+            for b in [pool.submit(m.build) for m in (nms_kernel, bn_kernel)]:
+                b.result()
+        native.get_library()
+        log(f'[2] built the kernels and the JPEG decoder in '
+            f'{time.perf_counter() - t:.2f} s')
+        t = time.perf_counter()
+        result = run_parity(smi, PARITY_EPOCHS, args.parity_seed)
+        log(f'phase 26 in {time.perf_counter() - t:.2f} s')
         log(json.dumps(result, default=str))
         return 0
     if args.data_parallel_only:
@@ -7149,6 +7301,11 @@ def main(argv=None) -> int:
     axis_phases = run_model_axis_phases(smi)
     log(f'  phase 25 in {time.perf_counter() - t:.1f} s')
 
+    # 26. the accuracy protocol's own arm, cut to a few epochs
+    t = time.perf_counter()
+    parity = run_parity(smi, PARITY_SHORT_EPOCHS)
+    log(f'  phase 26 in {time.perf_counter() - t:.1f} s')
+
     log(json.dumps({'slice': {
         'card': smi, **timing, 'forward_vs_cpu_max_abs_err': forward_err,
         **train_timing,
@@ -7188,7 +7345,7 @@ def main(argv=None) -> int:
                          if k != 'launches'}},
         'data_extras': extras, 'interop': interop,
         'multi_gpu': multi_gpu, 'model_axis': model_axis,
-        'model_axis_phases': axis_phases}}))
+        'model_axis_phases': axis_phases, 'parity': parity}}))
     # ``launches``: the count on this slice's path (phase 10's CLI run);
     # ``launches_by_path``: each path's own run
     kernels = [{
@@ -7279,7 +7436,9 @@ def main(argv=None) -> int:
                              **{f'model_axis_phases_{key}_export': check[
                                  'export_nms_launches_per_call']
                                 for key, check in axis_phases[
-                                    'options'].items()}},
+                                    'options'].items()},
+                             # phase 26: the protocol's one evaluation
+                             'parity': parity['launches']['nms_keep_batched']},
         'max_abs_err': nms_check['max_abs_err'],
         **{key: nms_time['b32'][key] for key in (
             'shape', 'ms', 'call_ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -7362,9 +7521,12 @@ def main(argv=None) -> int:
                                         check['bn_launches'])},
                                  # phase 25: checked 0 on every rank
                                  **{f'model_axis_phases_{key}': 0
-                                    for key in axis_phases['options']}},
-            'max_abs_err': max(bn_check[name], *(
-                t['bn_max_abs_err'][name] for t in zoo_steps.values())),
+                                    for key in axis_phases['options']},
+                                 # phase 26: the protocol's epochs
+                                 'parity': parity['launches'][name]},
+            'max_abs_err': max(bn_check[name], parity['bn_max_abs_err'][name],
+                               *(t['bn_max_abs_err'][name]
+                                 for t in zoo_steps.values())),
             'shape': list(BN_TIMED_SHAPE),
             **bn_time[name],
             **step_profile[name],

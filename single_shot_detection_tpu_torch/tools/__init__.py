@@ -5,6 +5,11 @@ through ``export/__init__.py``'s loader and import ``torch`` and
 config; ``stage_dataset``, which fills the on-disk staging cache of a
 config's datasets; ``resize_to_smallest``, which shrinks a VOC-layout
 dataset offline; ``export_torch_ckpt``, which writes a checkpoint as the
-reference's torch checkpoint; and ``make_jpeg_fixtures``, which wrote the
-JPEG fixtures under ``data/jpeg_fixtures`` and their staged digest.
+reference's torch checkpoint; ``make_jpeg_fixtures``, which wrote the
+JPEG fixtures under ``data/jpeg_fixtures`` and their staged digest; and
+the accuracy protocol: ``parity_run``, which stages synthetic data, trains
+the port on it from scratch through the CLI and reads the held-out mAP,
+``parity_stats``, which pools such runs, and ``ema_ablation``,
+``gn_ablation`` and ``qat_ablation``, which train each seed with and
+without an option.
 """
