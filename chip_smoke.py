@@ -37,7 +37,10 @@ Phases, each fatal:
    elements, x 1-7 elements off a 16-byte boundary at bf16 and 1-3 at
    f32), at the tolerances stated at ``BN_TOL``, each kernel launched
    twice and bit-equal, K2 and K4 also on each of their paths (vector,
-   lanes, scalar) into an output at x's phase;
+   lanes, scalar) into an output at x's phase; and the JAX package's
+   gradients at a clamp's bound (``check_tie_rules``): ReLU6 at f32 and
+   bf16, a box of zero width, the BCE on logits of 0, each on the card
+   bit for bit against the CPU and against JAX's values;
 4. the serving path: ``Predictor`` on ``samples/ssd_mb2_voc.py`` at full
    width with seeded random weights, answering 3 batches of 32 and 4 single
    requests, with launch counts read around that run; outputs checked for
@@ -6943,6 +6946,52 @@ def run_parity(smi: str, epochs: int, seed: int = PARITY_SEED) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ------------------------------------------------------------ tie rules
+
+def check_tie_rules(device: torch.device) -> None:
+    """Phase 3's last check: the port's gradients at a clamp's bound
+    follow the JAX package's rule on the card (``torch.minimum`` and
+    ``torch.maximum`` against a 0-dim CPU bound pass half the gradient,
+    ``jnp.abs`` passes 1 at 0): ReLU6 half at 6 and none at 0, at f32 and
+    bf16; a box of zero width half its height; the BCE on a logit of 0
+    ``-t``.  Each gradient equals the CPU's bit for bit and the JAX
+    package's value (``tests/test_torch_port_ties.py`` holds the CPU to
+    JAX)."""
+    from single_shot_detection_tpu_torch.models.layers import relu6
+    from single_shot_detection_tpu_torch.ops import boxes as box_ops
+    from single_shot_detection_tpu_torch.ops import losses
+
+    def bce(v):
+        target = torch.tensor([[1.0, 0.0, 1.0]], device=v.device)
+        return losses.BCEWithLogitsLoss(reduction='none')(v, target)
+
+    relu6_x = [-1.0, 0.0, 6.0, 7.0, 3.0]
+    relu6_grad = [0.0, 0.0, 0.5, 0.0, 1.0]
+    cases = {
+        'relu6 f32': (relu6, relu6_x, torch.float32, relu6_grad),
+        'relu6 bf16': (relu6, relu6_x, torch.bfloat16, relu6_grad),
+        'area, zero width': (box_ops.area, [[1.0, 2.0, 1.0, 5.0]],
+                             torch.float32, [[-1.5, 0.0, 1.5, 0.0]]),
+        'BCE, logits 0': (bce, [[0.0, 0.0, 0.0]], torch.float32,
+                          [[-1.0, 0.0, -1.0]]),
+    }
+    out = {}
+    for name, (fn, x, dtype, want) in cases.items():
+        grads = []
+        for dev in (torch.device('cpu'), device):
+            v = torch.tensor(x, dtype=dtype, device=dev).requires_grad_()
+            fn(v).float().sum().backward()
+            grads.append(v.grad.float().cpu())
+        if not torch.equal(grads[0], grads[1]):
+            fail(f'tie rule {name}: card {grads[1].tolist()} != CPU '
+                 f'{grads[0].tolist()}')
+        if not torch.equal(grads[1], torch.tensor(want)):
+            fail(f'tie rule {name}: gradient {grads[1].tolist()}, JAX\'s '
+                 f'{want}')
+        out[name] = grads[1].tolist()
+    log(f'  tie rules on the card as on the CPU and in JAX: {out}')
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument(
@@ -7071,6 +7120,7 @@ def main(argv=None) -> int:
     log('[3] kernels vs plain versions on the card')
     nms_check = check_nms_kernel(device)
     bn_check = check_bn_kernels()
+    check_tie_rules(device)
 
     # 4. the serving path
     t = time.perf_counter()

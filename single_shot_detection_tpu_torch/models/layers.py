@@ -43,10 +43,18 @@ from single_shot_detection_tpu_torch import parallel
 from single_shot_detection_tpu_torch.models import norm
 from single_shot_detection_tpu_torch.parallel import spatial, tensor
 from single_shot_detection_tpu_torch.ops.bn_fused import fused_bn_train
+from single_shot_detection_tpu_torch.ops.ties import SIX
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """``min(relu(x), 6)`` with the gradient of JAX's
+    ``jnp.minimum(nn.relu(x), 6.0)`` at x = 6."""
+    return torch.minimum(F.relu(x), SIX)
+
 
 ACTIVATIONS = {
     'ReLU': F.relu,
-    'ReLU6': lambda x: torch.clamp(F.relu(x), max=6.0),
+    'ReLU6': relu6,
     'LeakyReLU': lambda x: F.leaky_relu(x, 0.01),  # flax's default slope
     'SiLU': F.silu,
     'GELU': lambda x: F.gelu(x, approximate='tanh'),  # flax's default form
@@ -155,9 +163,12 @@ class SyncBatchNormFunction(torch.autograd.Function):
     mean) * rsqrt(var + eps) * weight + bias`` in f32, returned in ``x``'s
     dtype with the f32 ``mean`` and biased ``var`` (the running statistics'
     update).  Backward: ``[Σdz, Σdz·x̂]`` summed over the ranks in one
-    all-reduce, ``dx = weight * rstd / n * (n dz - Σdz - x̂ Σdz·x̂)`` over
-    the global count ``n``; the weight's and bias's gradients are this
-    rank's own sums, which the step's gradient all-reduce adds up.
+    all-reduce, ``dx = weight * rstd / n * (n dz - Σdz - s x̂ Σdz·x̂)`` over
+    the global count ``n``, ``s`` being the slope of flax's ``max(0, E[x²]
+    - E[x]²)`` in autodiff: 1 above 0, 1/2 at 0 and 0 where rounding made
+    the difference negative (``jnp.maximum``'s rule); the weight's and
+    bias's gradients are this rank's own sums, which the step's gradient
+    all-reduce adds up.
 
     The ranks are those of :func:`bn_axis`: the data group, or the world
     under spatial sharding (each rank holds some rows of each image)."""
@@ -174,19 +185,20 @@ class SyncBatchNormFunction(torch.autograd.Function):
             [xf.sum(dims), (xf * xf).sum(dims), count]), axis=ctx.axis)
         n = sums[-1]
         mean = sums[:c] / n
-        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        raw = sums[c:2 * c] / n - mean * mean
+        var = torch.clamp(raw, min=0.0)
         rstd = torch.rsqrt(var + eps)
         shape = [1, c] + [1] * (xf.dim() - 2)
         xhat = (xf - mean.view(shape)) * rstd.view(shape)
         z = xhat * weight.view(shape) + bias.view(shape)
-        ctx.save_for_backward(xhat, weight, rstd, n)
+        ctx.save_for_backward(xhat, weight, rstd, n, (raw.sign() + 1) / 2)
         ctx.mark_non_differentiable(mean, var)
         ctx.in_dtype = x.dtype
         return z.to(x.dtype), mean, var
 
     @staticmethod
     def backward(ctx, dz, _dmean, _dvar):
-        xhat, weight, rstd, n = ctx.saved_tensors
+        xhat, weight, rstd, n, slope = ctx.saved_tensors
         dz = dz.float()
         c = dz.shape[1]
         dims = [0] + list(range(2, dz.dim()))
@@ -195,7 +207,8 @@ class SyncBatchNormFunction(torch.autograd.Function):
         sum_dz, sum_dz_xhat = sums[:c], sums[c:]
         shape = [1, c] + [1] * (dz.dim() - 2)
         dx = (weight * rstd / n).view(shape) * (
-            n * dz - sum_dz.view(shape) - xhat * sum_dz_xhat.view(shape))
+            n * dz - sum_dz.view(shape)
+            - xhat * (slope * sum_dz_xhat).view(shape))
         return dx.to(ctx.in_dtype), local[c:], local[:c], None
 
 

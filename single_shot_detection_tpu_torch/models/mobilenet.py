@@ -18,12 +18,10 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-import torch
-import torch.nn.functional as F
 from torch import nn
 
 from single_shot_detection_tpu_torch.models.layers import (batch_norm, conv2d,
-                                                           tf_same_pad,
+                                                           relu6, tf_same_pad,
                                                            xavier_uniform)
 
 # (features, stride) for the 13 depthwise-separable stages 1..13
@@ -32,10 +30,6 @@ _MBV1_STAGES = [
     (512, 1), (512, 1), (512, 1), (512, 1), (512, 1),
     (1024, 2), (1024, 1),
 ]
-
-
-def _relu6(x):
-    return torch.clamp(F.relu(x), max=6.0)
 
 
 class _SeparableBlock(nn.Module):
@@ -53,8 +47,8 @@ class _SeparableBlock(nn.Module):
         self.pointwise_bn = batch_norm(features)
 
     def forward(self, x):
-        x = _relu6(self.depthwise_bn(self.depthwise_conv(x)))
-        return _relu6(self.pointwise_bn(self.pointwise_conv(x)))
+        x = relu6(self.depthwise_bn(self.depthwise_conv(x)))
+        return relu6(self.pointwise_bn(self.pointwise_conv(x)))
 
 
 class MobileNet(nn.Module):
@@ -88,7 +82,7 @@ class MobileNet(nn.Module):
 
     def forward(self, x, max_stage: Optional[int] = None):
         last = self.num_stages - 1 if max_stage is None else max_stage
-        x = _relu6(self.stage0_bn(self.stage0_conv(x)))
+        x = relu6(self.stage0_bn(self.stage0_conv(x)))
         stages = [x]
         for i in range(1, min(last, self.num_stages - 1) + 1):
             x = getattr(self, f'stage{i}')(x)

@@ -22,16 +22,11 @@ from __future__ import annotations
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from single_shot_detection_tpu_torch.models.layers import (batch_norm, conv2d,
-                                                           tf_same_pad,
+                                                           relu6, tf_same_pad,
                                                            xavier_uniform)
-
-
-def _relu6(x):
-    return torch.clamp(F.relu(x), max=6.0)
 
 
 class _ConvBn(nn.Module):
@@ -46,7 +41,7 @@ class _ConvBn(nn.Module):
         self.bn = batch_norm(out_channels)
 
     def forward(self, x):
-        return _relu6(self.bn(self.conv(x)))
+        return relu6(self.bn(self.conv(x)))
 
 
 class InvertedResidual(nn.Module):
@@ -84,9 +79,9 @@ class InvertedResidual(nn.Module):
         aux = {}
         h = x
         if self.expand:
-            h = _relu6(self.expand_bn(self.expand_conv(h)))
+            h = relu6(self.expand_bn(self.expand_conv(h)))
             aux['expand_relu'] = h
-        h = _relu6(self.depthwise_bn(self.depthwise_conv(h)))
+        h = relu6(self.depthwise_bn(self.depthwise_conv(h)))
         h = self.project_bn(self.project_conv(h))
         return (x + h if self.residual else h), aux
 

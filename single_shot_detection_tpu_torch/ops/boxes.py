@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from single_shot_detection_tpu_torch.ops.ties import ZERO
+
 
 def to_corners(boxes: torch.Tensor) -> torch.Tensor:
     """Centroid ``[cx, cy, w, h]`` -> corner ``[x0, y0, x1, y1]``."""
@@ -28,9 +30,11 @@ def to_centroids(boxes: torch.Tensor) -> torch.Tensor:
 
 def area(boxes: torch.Tensor) -> torch.Tensor:
     """Area of corner-format boxes; degenerate boxes clamp to 0 (NaN stays
-    NaN, as ``jnp.clip`` leaves it)."""
-    w = torch.clamp(boxes[..., 2] - boxes[..., 0], min=0)
-    h = torch.clamp(boxes[..., 3] - boxes[..., 1], min=0)
+    NaN, as ``jnp.clip`` leaves it).  The clamp is ``torch.maximum``, which
+    passes half the gradient at a zero width as ``jnp.clip`` does
+    (``torch.clamp`` passes all of it)."""
+    w = torch.maximum(boxes[..., 2] - boxes[..., 0], ZERO)
+    h = torch.maximum(boxes[..., 3] - boxes[..., 1], ZERO)
     return w * h
 
 

@@ -21,6 +21,7 @@ from single_shot_detection_tpu_torch.ops.matching import (CLASS_INDEX, IGNORE_CL
                                                           LOC_INDEX_START,
                                                           NEGATIVE_CLASS,
                                                           SCORE_INDEX)
+from single_shot_detection_tpu_torch.ops.ties import ZERO
 from single_shot_detection_tpu_torch.utils.misc import filter_kwargs
 
 
@@ -70,10 +71,18 @@ class _Loss:
         return _masked_reduce(per_row, mask, self.reduction)
 
 
+_LOG_FLOOR = torch.tensor(-100.0)  # a clamp's bound, as in ops/ties.py
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` with ``jnp.abs``'s gradient at 0: 1 (``torch.abs`` gives 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _bce_with_logits(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """``max(x, 0) - x t + log1p(exp(-|x|))``, elementwise."""
-    return (torch.clamp(logits, min=0) - logits * target
-            + torch.log1p(torch.exp(-torch.abs(logits))))
+    return (torch.maximum(logits, ZERO) - logits * target
+            + torch.log1p(torch.exp(-_abs(logits))))
 
 
 class CrossEntropyLoss(_Loss):
@@ -114,7 +123,7 @@ class L1Loss(_Loss):
     """Plain L1 summed over the last axis per row."""
 
     def __call__(self, pred, target, mask=None):
-        return self._reduce_rows(torch.abs(pred - target).sum(dim=-1), mask)
+        return self._reduce_rows(_abs(pred - target).sum(dim=-1), mask)
 
 
 class MSELoss(_Loss):
@@ -184,8 +193,8 @@ class BCELoss(_Loss):
     -100 as torch clamps it."""
 
     def __call__(self, probs, target, mask=None):
-        log_p = torch.clamp(torch.log(probs), min=-100.0)
-        log_1p = torch.clamp(torch.log1p(-probs), min=-100.0)
+        log_p = torch.maximum(torch.log(probs), _LOG_FLOOR)
+        log_1p = torch.maximum(torch.log1p(-probs), _LOG_FLOOR)
         per_elem = -(target * log_p + (1.0 - target) * log_1p)
         return self._reduce_rows(per_elem.sum(dim=-1), mask)
 

@@ -487,7 +487,11 @@ def analyze_program(program: torch.export.ExportedProgram,
 
     for node in program.graph.nodes:
         if node.op == 'placeholder':
-            env[node] = None
+            val = node.meta.get('val')
+            # a 0-dim input (a weight, or a lifted constant such as
+            # relu6's bound) is uniform along every axis
+            env[node] = (_UNIFORM if isinstance(val, torch.Tensor)
+                         and val.dim() == 0 else None)
             if node.name in named:
                 ndim = len(shape(node))
                 path = variable_path(named[node.name], ndim)
@@ -496,10 +500,6 @@ def analyze_program(program: torch.export.ExportedProgram,
                     if ndim == 1 and shape(node)[0] > 1:
                         env[node] = VecAnn(axis=0, size=shape(node)[0],
                                            paths=frozenset([path]))
-                    elif ndim == 0:
-                        env[node] = _UNIFORM
-                elif ndim == 0:
-                    env[node] = _UNIFORM
             continue
         if node.op == 'output':
             # model outputs are user-visible: freeze any space still
@@ -533,8 +533,7 @@ def analyze_program(program: torch.export.ExportedProgram,
             env[node] = first
             if args and args[0] in provenance:
                 provenance[node] = provenance[args[0]]
-        elif name in _UNARY or (name == 'clamp' and not any(
-                isinstance(bound, torch.fx.Node) for bound in args[1:])):
+        elif name in _UNARY:
             env[node] = first
         elif name in _BINARY and len(args) >= 2:
             env[node] = interp._combine(first, read(args[1]), shape(node))

@@ -18,3 +18,13 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+def jax_train_state(variables, tx, ema: bool = False):
+    """The JAX package's ``create_train_state(variables, tx, ema)`` under
+    one ``jax.jit``: the same state, in one compile instead of one eager
+    compile for each parameter shape."""
+    import jax
+
+    from single_shot_detection_tpu.train.state import create_train_state
+    return jax.jit(lambda v: create_train_state(v, tx, ema=ema))(variables)

@@ -19,7 +19,6 @@ from single_shot_detection_tpu.ops import matching as jax_matching
 from single_shot_detection_tpu.ops import sampling as jax_sampling
 from single_shot_detection_tpu.train import optimizers as jax_optimizers
 from single_shot_detection_tpu.train import schedulers as jax_schedulers
-from single_shot_detection_tpu.train.state import create_train_state
 from single_shot_detection_tpu.train.step import make_train_step
 from single_shot_detection_tpu.utils.config import load_config as jax_load_config
 from single_shot_detection_tpu_torch.models import builder as pt_builder
@@ -27,6 +26,7 @@ from single_shot_detection_tpu_torch.models.layers import xavier_normal
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.config import load_config
 from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
+from _torch_port_fixtures import jax_train_state
 
 OPTIMIZER = {'name': 'SGD', 'lr': 0.01, 'momentum': 0.9, 'weight_decay': 1e-4}
 SCHEDULER = {'name': 'MultiStepLR', 'milestones': [10], 'gamma': 0.1}
@@ -152,7 +152,7 @@ class JaxSide:
         step = make_train_step(self.bundle.module, criterion, assigner,
                                self.bundle.anchors(), tx, pipeline=pipeline,
                                donate=False, apply_fn=apply_fn)
-        return step, create_train_state(self.variables, tx)
+        return step, jax_train_state(self.variables, tx)
 
 
 def port_overrides(size: int, fused_bn: bool = True, model=None,

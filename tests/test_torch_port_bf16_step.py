@@ -38,7 +38,6 @@ from single_shot_detection_tpu.ops import matching as jax_matching
 from single_shot_detection_tpu.ops import sampling as jax_sampling
 from single_shot_detection_tpu.train import optimizers as jax_optimizers
 from single_shot_detection_tpu.train import schedulers as jax_schedulers
-from single_shot_detection_tpu.train.state import create_train_state
 from single_shot_detection_tpu.train.step import make_train_step
 from single_shot_detection_tpu.utils.config import load_config as jax_load_config
 from single_shot_detection_tpu_torch import device
@@ -46,6 +45,7 @@ from single_shot_detection_tpu_torch.ops import bn_kernel
 from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
+from _torch_port_fixtures import jax_train_state
 from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
@@ -94,7 +94,7 @@ def jax_bf16_step(variables):
     pipeline = Pipeline((), cfg.preprocessing, tuple(cfg.input_size), train=True)
     step = make_train_step(bundle.module, criterion, assigner, bundle.anchors(),
                            tx, pipeline=pipeline, donate=False)
-    return step, create_train_state(variables, tx)
+    return step, jax_train_state(variables, tx)
 
 
 def step_batch():

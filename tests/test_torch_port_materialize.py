@@ -33,7 +33,6 @@ from single_shot_detection_tpu.train import deps as jax_deps
 from single_shot_detection_tpu.train import pruning as jax_pruning
 from single_shot_detection_tpu.train.materialize import (
     materialize as jax_materialize, materialize_bundle as jax_materialize_bundle)
-from single_shot_detection_tpu.train.state import create_train_state
 from single_shot_detection_tpu_torch import export as pt_export
 from single_shot_detection_tpu_torch.models import builder as pt_builder
 from single_shot_detection_tpu_torch.train import deps, materialize, pruning
@@ -41,6 +40,7 @@ from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.train.state import TrainState
 from single_shot_detection_tpu_torch.utils.weights import (from_jax_variables,
                                                            to_jax_variables)
+from _torch_port_fixtures import jax_train_state
 from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
@@ -114,6 +114,21 @@ def spaces_traced_once():
     materialize.build_channel_spaces = build
 
 
+JAX_SPACES = {}
+
+
+def jax_spaces_once(module, variables, input_shape):
+    """JAX's channel spaces of ``module``, traced once for each
+    architecture and input shape (``flagship_like``'s serve two tests)."""
+    key = (repr(module), tuple(input_shape), tuple(
+        (tuple(str(k) for k in path), np.shape(v)) for path, v in
+        jax.tree_util.tree_flatten_with_path(variables)[0]))
+    if key not in JAX_SPACES:
+        JAX_SPACES[key] = jax_deps.analyze_module(module, variables,
+                                                  input_shape)
+    return JAX_SPACES[key]
+
+
 def seeded_bundle(kw, seed=0):
     """The port's model, seeded, its BN statistics and affine parameters
     perturbed so that no BN is the identity."""
@@ -146,7 +161,7 @@ def prune_port(bundle, jax_bundle, include, num):
     model = bundle.module
     w, h = bundle.input_size
     spaces = materialize.build_channel_spaces(model, bundle.input_size)
-    jax_spaces = jax_deps.analyze_module(
+    jax_spaces = jax_spaces_once(
         jax_bundle.module, to_jax_variables(model.state_dict()), (1, h, w, 3))
     assert canon(spaces, True) == canon(jax_spaces, False)
     pruner = pruning.Pruner(pruning.param_tree(model), {'name': 'MinL1Norm'},
@@ -344,9 +359,9 @@ def test_committed_checkpoint_prunes_like_jax():
                             'batch_stats': raw['batch_stats']},
         (1, 128, 128, 3))
     params = jax.tree_util.tree_map(jnp.asarray, raw['params'])
-    jstate = create_train_state({'params': params,
-                                 'batch_stats': raw['batch_stats']},
-                                jax_pruning.masked(optax.sgd(1e-3)))
+    jstate = jax_train_state({'params': params,
+                              'batch_stats': raw['batch_stats']},
+                             jax_pruning.masked(optax.sgd(1e-3)))
     jpruner = jax_pruning.Pruner(jstate.params, {'name': 'MinL1Norm'},
                                  spaces=jax_spaces, **pruner_cfg)
     jpruner.prune(jstate)

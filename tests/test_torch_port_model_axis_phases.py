@@ -37,12 +37,12 @@ import torch
 from PIL import Image
 
 from _torch_dist import SMOKE, free_port, given_grads, start
+from _torch_port_fixtures import jax_train_state
 from _torch_port_fixtures import one_torch_thread  # noqa: F401
 from single_shot_detection_tpu.export import quantize as jq
 from single_shot_detection_tpu.models import builder as jax_builder
 from single_shot_detection_tpu.train import deps as jax_deps
 from single_shot_detection_tpu.train import pruning as jax_pruning
-from single_shot_detection_tpu.train.state import create_train_state
 from single_shot_detection_tpu_torch.export import export_model, load_exported
 from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.utils.config import load_config
@@ -163,7 +163,7 @@ def jax_prune(variables: dict, jax_side: dict, name: str, grads: dict):
         pruner.observe_grads(params, jax_variables(grads)['params'])
     if name == 'MeanActivation':
         pruner.observe(jax_side['means'])
-    state = pruner.prune(create_train_state(
+    state = pruner.prune(jax_train_state(
         {'params': params}, jax_pruning.masked(optax.sgd(1e-2))))
     mask = _pruning_mask({'inner': state.opt_state['inner'],
                           'mask': jax.tree_util.tree_map(

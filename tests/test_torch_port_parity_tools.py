@@ -1,10 +1,14 @@
 """The accuracy protocol's tools in the port
 (``single_shot_detection_tpu_torch/tools/{parity_run,parity_stats,
-ema_ablation,gn_ablation,qat_ablation}.py``) against the JAX package's
-``tools/`` modules, on the CPU.
+ema_ablation,gn_ablation,qat_ablation,hflip_injection}.py``) against the
+JAX package's ``tools/`` modules and engine, on the CPU.
 
 The JAX tools' functions called here use numpy and PIL only: no JAX model
-is built.  Tolerances: the staged JPEGs and Csv files byte for byte, the
+is built.  ``hflip_injection``'s draws are held against the JAX
+``Pipeline`` itself: the committed flips of seed 23, injected into the
+port's ``Trainer.step_draws``, flip exactly the images and boxes JAX's
+pipeline flips under the engine's keys of the same steps (pixels within
+1e-4, the resample's rounding; boxes and masks equal).  Tolerances: the staged JPEGs and Csv files byte for byte, the
 configs' text, each ablation's arm configs, ``results.json`` and printed
 table, and ``parity_stats``'s output all exactly equal (the ablations'
 training runs stubbed with the same fixed mAPs in both packages).  One
@@ -18,15 +22,23 @@ import ast
 import json
 import os
 import sys
+import types
 
+import jax
+import numpy as np
 import pytest
+import torch
 
 from single_shot_detection_tpu.data.datasets import Csv as JaxCsv
+from single_shot_detection_tpu.data.transforms import Pipeline as JaxPipeline
 from single_shot_detection_tpu_torch.data.datasets import Csv
+from single_shot_detection_tpu_torch.data.transforms import Pipeline
 from single_shot_detection_tpu_torch.tools import (ema_ablation, gn_ablation,
-                                                   parity_run, parity_stats,
-                                                   qat_ablation)
+                                                   hflip_injection, parity_run,
+                                                   parity_stats, qat_ablation)
+from single_shot_detection_tpu_torch.trainer import Trainer
 from _torch_port_fixtures import one_torch_thread  # noqa: F401
+from _torch_protocol import FLIPS, STEPS, jax_flips
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)  # the root tools/, the JAX package's
@@ -38,7 +50,7 @@ from tools import parity_stats as jax_parity_stats  # noqa: E402
 from tools import qat_ablation as jax_qat_ablation  # noqa: E402
 
 TOOLS = ('parity_run', 'parity_stats', 'ema_ablation', 'gn_ablation',
-         'qat_ablation')
+         'qat_ablation', 'hflip_injection')
 ABLATIONS = {'ema': (jax_ema_ablation, ema_ablation, ['--decay', '0.99']),
              'gn': (jax_gn_ablation, gn_ablation, ['--groups', '4']),
              'qat': (jax_qat_ablation, qat_ablation, [])}
@@ -263,3 +275,65 @@ def test_parity_run_without_skip_reference(tmp_path):
     with pytest.raises(SystemExit, match='reference arm is not ported'):
         parity_run.main(['--workdir', str(workdir), '--epochs', '1'])
     assert not workdir.exists()
+
+
+def test_hflip_injection_flips_as_the_jax_engine():
+    """The committed flips are the JAX engine's, and injected into the
+    port's step draws they flip what JAX's ``Pipeline`` flips."""
+    flips = hflip_injection.read_flips(FLIPS, 23)
+    assert flips.shape == (STEPS, 8)
+    np.testing.assert_array_equal(flips, jax_flips(23, STEPS))
+    augs = [{'name': 'RandomHorizontalFlip'}]
+    preprocessing = [{'name': 'ToFloatTensor', 'args': {'normalize': True}}]
+    size = 24
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (8, size, size, 3)).astype(np.uint8)
+    xy = rng.uniform(0, size / 2, (8, 2, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(2, size / 2, (8, 2, 2)),
+                            np.ones((8, 2, 2))], -1).astype(np.float32)
+    mask = np.ones((8, 2), bool)
+    jax_pipeline = JaxPipeline(augs, preprocessing, (size, size), train=True)
+    # the attributes Trainer.step_draws reads, of a one-process trainer
+    trainer = types.SimpleNamespace(
+        seed=23, pipeline=Pipeline(augs, preprocessing, (size, size)),
+        mixup=None, data_count=1, data_index=0)
+    original = Trainer.step_draws
+    restore = hflip_injection.inject(flips)
+    try:
+        for step in (0, 1, STEPS - 1):
+            assert flips[step].any() and not flips[step].all(), step
+            key = jax.random.split(
+                jax.random.fold_in(jax.random.PRNGKey(23), step))[0]
+            want = [np.asarray(a) for a in jax_pipeline(key, images, boxes,
+                                                        mask)]
+            draws, mixup = Trainer.step_draws(trainer, step, 8)
+            assert mixup is None
+            got = trainer.pipeline.apply(draws, *map(torch.from_numpy,
+                                                     (images, boxes, mask)))
+            np.testing.assert_allclose(got[0].numpy().transpose(0, 2, 3, 1),
+                                       want[0], rtol=0, atol=1e-4)
+            np.testing.assert_array_equal(got[1].numpy(), want[1][..., :6])
+            np.testing.assert_array_equal(got[2].numpy(), want[2])
+    finally:
+        restore()
+    assert Trainer.step_draws is original
+
+
+def test_hflip_injection_runs_on_the_cpu(tmp_path, small_protocol):
+    """The injected arm of one seed, 8 images for 1 epoch, in this process
+    (``--one``, what ``run_all`` starts a process for; the own arm is
+    ``parity_run``'s, run above); ``Trainer.step_draws`` is put back."""
+    original = Trainer.step_draws
+    work = tmp_path / 'jax_24'
+    result = hflip_injection.main([
+        '--one', '--draws', FLIPS, '--seed', '24', '--train-n', '8',
+        '--eval-n', '4', '--epochs', '1', '--cpu', '--workdir', str(work)])
+    assert Trainer.step_draws is original
+    assert 0.0 <= result['mAP'] <= 1.0
+    assert result['mAP'] == parity_run.last_eval_map(str(work / 'ours_out'))
+    with open(work / 'results.json') as f:
+        assert json.load(f)['ours_jax_hflips']['mAP'] == result['mAP']
+    assert hflip_injection.summary([0.5, 0.7, 0.55]) == {
+        'n': 3, 'mean': pytest.approx(0.5833333), 'median': 0.55,
+        'sd': pytest.approx(0.1040833), 'under_0.6': 2}
+    assert hflip_injection.seed_list('23-25,30') == [23, 24, 25, 30]

@@ -28,7 +28,6 @@ from single_shot_detection_tpu.train import checkpoint as jax_ckpt
 from single_shot_detection_tpu.train import deps as jax_deps
 from single_shot_detection_tpu.train import optimizers as jax_optimizers
 from single_shot_detection_tpu.train import pruning as jax_pruning
-from single_shot_detection_tpu.train.state import create_train_state
 from single_shot_detection_tpu_torch import cli
 from single_shot_detection_tpu_torch.models import builder as pt_builder
 from single_shot_detection_tpu_torch.train import checkpoint as ckpt
@@ -41,6 +40,7 @@ from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.weights import (_pruning_mask,
                                                            from_jax_variables,
                                                            to_jax_variables)
+from _torch_port_fixtures import jax_train_state
 from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
@@ -164,7 +164,7 @@ def test_pruner_matches_jax_over_three_rounds(flagship):
                             include_paths=PRUNER['include_paths'],
                             spaces=spaces)
     tx = jax_pruning.masked(optax.sgd(1e-2))
-    jstate = create_train_state({'params': jax_params(variables)}, tx)
+    jstate = jax_train_state({'params': jax_params(variables)}, tx)
     jpruner = jax_pruning.Pruner(jstate.params, {'name': 'MinL1Norm'},
                                  include_paths=PRUNER['include_paths'],
                                  num=12, spaces=jax_spaces)
@@ -285,7 +285,7 @@ def test_masked_sgd_steps_match_jax(flagship):
 
     tx = jax_pruning.masked(jax_optimizers.create_optimizer(
         dict(SGD), lr_schedule=lambda count: 0.1))
-    jstate = create_train_state({'params': jax_params(variables)}, tx)
+    jstate = jax_train_state({'params': jax_params(variables)}, tx)
     jpruner = jax_pruning.Pruner(jstate.params, {'name': 'MinL1Norm'},
                                  include_paths=PRUNER['include_paths'],
                                  num=12, spaces=jax_spaces)
@@ -337,8 +337,8 @@ def test_masked_states_round_trip(flagship, tmp_path):
     bundle, _, _, variables, jax_spaces = flagship
     tx = jax_pruning.masked(jax_optimizers.create_optimizer(
         dict(SGD), lr_schedule=lambda count: 0.1))
-    jstate = create_train_state({'params': jax_params(variables),
-                                 'batch_stats': variables['batch_stats']}, tx)
+    jstate = jax_train_state({'params': jax_params(variables),
+                              'batch_stats': variables['batch_stats']}, tx)
     jpruner = jax_pruning.Pruner(jstate.params, {'name': 'MinL1Norm'}, num=12,
                                  include_paths=PRUNER['include_paths'],
                                  spaces=jax_spaces)

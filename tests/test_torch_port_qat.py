@@ -54,6 +54,7 @@ from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.weights import (from_jax_variables,
                                                            to_jax_variables)
+from _torch_port_fixtures import jax_train_state
 from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
@@ -314,7 +315,7 @@ def test_qat_train_step_matches_jax_on_a_small_model():
     apply = jq.qat_apply(module)
     tx = jax_optimizers.create_optimizer(dict(OPTIMIZER),
                                          lr_schedule=lambda step: 0.1)
-    state_j = create_train_state(variables, tx)
+    state_j = jax_train_state(variables, tx)
 
     @jax.jit
     def step_j(state, x):

@@ -40,7 +40,6 @@ from single_shot_detection_tpu.ops import matching as jax_matching
 from single_shot_detection_tpu.ops import sampling as jax_sampling
 from single_shot_detection_tpu.train import optimizers as jax_optimizers
 from single_shot_detection_tpu.train import schedulers as jax_schedulers
-from single_shot_detection_tpu.train.state import create_train_state
 from single_shot_detection_tpu.train.step import make_train_step
 from single_shot_detection_tpu.utils.config import load_config as jax_load_config
 from single_shot_detection_tpu_torch.data.transforms import Pipeline as PortPipeline
@@ -53,6 +52,7 @@ from single_shot_detection_tpu_torch.train import optimizers as pt_optimizers
 from single_shot_detection_tpu_torch.train import schedulers as pt_schedulers
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
+from _torch_port_fixtures import jax_train_state
 from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
@@ -190,9 +190,9 @@ def test_multibox_loss_and_gradients_match_jax():
     def total(s, l):
         return crit_j(s, l, jnp.asarray(anchors), jnp.asarray(target))
 
-    want = total(jnp.asarray(scores), jnp.asarray(locs))
-    grads = jax.grad(lambda s, l: total(s, l)[0], argnums=(0, 1))(
-        jnp.asarray(scores), jnp.asarray(locs))
+    want = jax.jit(total)(scores, locs)
+    grads = jax.jit(jax.grad(lambda s, l: total(s, l)[0], argnums=(0, 1)))(
+        scores, locs)
     s_t, l_t = t(scores).requires_grad_(), t(locs).requires_grad_()
     got = crit_p(s_t, l_t, t(anchors), t(target))
     got[0].backward()
@@ -234,9 +234,14 @@ def test_sgd_multistep_matches_optax_chain():
     p_t = {k: torch.nn.Parameter(t(v)) for k, v in params.items()}
     opt = pt_optimizers.create_optimizer(dict(opt_cfg), p_t.values())
     schedule_p = pt_schedulers.create_lr_schedule(dict(sched_cfg), 0.1, 1)[0]
+
+    @jax.jit
+    def jax_update(g, opt_state, p):
+        updates, opt_state = tx.update(g, opt_state, p)
+        return optax.apply_updates(p, updates), opt_state
+
     for step, g in enumerate(grads):
-        updates, opt_state = tx.update(g, opt_state, p_j)
-        p_j = optax.apply_updates(p_j, updates)
+        p_j, opt_state = jax_update(g, opt_state, p_j)
         for k, p in p_t.items():
             p.grad = t(g[k])
         opt.step(count=step, schedule=schedule_p)
@@ -325,7 +330,7 @@ def jax_train_step(variables, overrides=OVERRIDES):
                            tx, pipeline=pipeline,
                            apply_fn=bn_pallas.fused_bn_apply(bundle.module),
                            donate=False)
-    return bundle, step, create_train_state(variables, tx)
+    return bundle, step, jax_train_state(variables, tx)
 
 
 def step_batch():

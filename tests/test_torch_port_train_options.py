@@ -41,7 +41,6 @@ from single_shot_detection_tpu.train import checkpoint as jax_ckpt
 from single_shot_detection_tpu.train import optimizers as jax_optimizers
 from single_shot_detection_tpu.train import schedulers as jax_schedulers
 from single_shot_detection_tpu.train import step as jax_step
-from single_shot_detection_tpu.train.state import create_train_state
 from single_shot_detection_tpu.utils.config import load_config as jax_load_config
 from single_shot_detection_tpu_torch.data.transforms import Pipeline as PortPipeline
 from single_shot_detection_tpu_torch.models import layers
@@ -50,6 +49,7 @@ from single_shot_detection_tpu_torch.train import checkpoint as pt_ckpt
 from single_shot_detection_tpu_torch.train.engine import Experiment
 from single_shot_detection_tpu_torch.trainer import Trainer
 from single_shot_detection_tpu_torch.utils.weights import from_jax_variables
+from _torch_port_fixtures import jax_train_state
 from _torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SMOKE = 'samples/synthetic_smoke.py'
@@ -203,7 +203,7 @@ def test_frozen_bn_ema_accumulation_mixup_match_jax(variables, monkeypatch):
              'mixup': MIXUP}
     cfg = {'loss': loss, 'sampler': {'name': 'naive_sampler'}}
     bundle, criterion, assigner, tx, pipeline = jax_parts(train, cfg)
-    state_j = create_train_state(variables, tx, ema=True)
+    state_j = jax_train_state(variables, tx, ema=True)
     batches = mixed_batches(pipeline, 2)
     # the same HLO program with LLVM at -O0: compiled in 40 % of the time
     step_j = jax.jit(jax_step._train_step_body(
@@ -359,7 +359,7 @@ def test_ema_adam_and_multisteps_cross_checkpoints(variables, tmp_path, caplog):
     train = {'optimizer': opt, 'accumulation_steps': 2, 'ema': 0.99,
              'scheduler': SCHEDULER}
     tx = jax_optimizers.create_optimizer(dict(opt), accumulation_steps=2)
-    state = create_train_state(variables, tx, ema=True)
+    state = jax_train_state(variables, tx, ema=True)
     rs = np.random.RandomState(0)
 
     def noise(tree, scale=0.01):

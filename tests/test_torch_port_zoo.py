@@ -74,6 +74,9 @@ ZOO = {
 
 # ---------------------------------------------------------------- geometry
 
+JAX_SHAPES = {}
+
+
 @pytest.mark.parametrize('config', sorted(ZOO))
 def test_zoo_geometry_matches_jax(config):
     """Parameters, train-mode BNs, feature-map sizes and anchors (bit for
@@ -82,14 +85,17 @@ def test_zoo_geometry_matches_jax(config):
     model = dict(cfg.model)
     # ``detector.weight`` (the pruning config's trained checkpoint) is the
     # JAX engine's to read, not its builder's
-    jb = jax_builder.build(base=model['base'],
-                           anchor_generator=model['anchor_generator'],
-                           input_size=tuple(cfg.input_size),
-                           **{k: v for k, v in dict(model['detector']).items()
-                              if k != 'weight'})
+    args = dict(base=model['base'], anchor_generator=model['anchor_generator'],
+                input_size=tuple(cfg.input_size),
+                **{k: v for k, v in dict(model['detector']).items()
+                   if k != 'weight'})
+    jb = jax_builder.build(**args)
     w, h = cfg.input_size
-    out, variables = jax.eval_shape(lambda: jb.module.init_with_output(
-        jax.random.PRNGKey(0), jnp.zeros((1, h, w, 3)), return_sources=True))
+    key = repr(args)  # the pruning config's model is ssd_mb2_coco's: one trace
+    if key not in JAX_SHAPES:
+        JAX_SHAPES[key] = jax.eval_shape(lambda: jb.module.init_with_output(
+            jax.random.PRNGKey(0), jnp.zeros((1, h, w, 3)), return_sources=True))
+    out, variables = JAX_SHAPES[key]
     jax_params = sum(int(np.prod(x.shape)) for x in
                      jax.tree_util.tree_leaves(variables['params']))
     jax_bns = len(jax.tree_util.tree_leaves(variables['batch_stats'])) // 2
@@ -97,7 +103,8 @@ def test_zoo_geometry_matches_jax(config):
     jax_anchors_ = jax_anchors.generate_anchors(jb.anchor_generators, (w, h),
                                                 jax_sizes)
 
-    bundle = pt_builder.from_config(load_config(config))
+    with torch.device('meta'):  # shapes alone: no initializer runs
+        bundle = pt_builder.from_config(load_config(config))
     params = sum(p.numel() for p in bundle.module.parameters())
     bns = sum(isinstance(m, BatchNorm) for m in bundle.module.modules())
     assert (params, bns) == (jax_params, jax_bns)
@@ -382,29 +389,31 @@ def test_builder_raises_on_what_it_does_not_read():
     have raises rather than building another model (``heads.dtype`` is
     read: ``test_torch_port_bf16.py``); the FPN's ``width_overrides``
     (pruning's narrow widths) and a bilinear neck are read, as the JAX
-    builder passes them to the neck."""
-    cfg = load_config('samples/synthetic_smoke.py')
-    cfg.config.model['detector']['frobnicate'] = 3
-    with pytest.raises(NotImplementedError, match='frobnicate'):
-        pt_builder.from_config(cfg)
-    cfg = load_config('samples/ssd_300_vgg16_voc.py')
-    cfg.config.model['base']['packed_stem'] = True
-    with pytest.raises(NotImplementedError, match='packed_stem'):
-        pt_builder.from_config(cfg)
-    cfg = load_config('samples/retina_rn50_500_voc.py')
-    cfg.config.model['detector']['features']['width_overrides'] = {'lateral': 8}
-    cfg.config.model['detector']['features']['interpolation_mode'] = 'bilinear'
-    cfg.config.input_size = (64, 64)
-    narrow = pt_builder.from_config(cfg).module.features
-    assert [narrow.get_submodule(f'lateral{i}').out_channels
-            for i in range(3)] == [8] * 3
-    assert narrow.output0.conv.in_channels == 8
-    assert narrow.interpolation_mode == 'bilinear'
-    cfg = load_config('samples/m2det_512_vgg16_voc.py')
-    cfg.config.model['detector']['features']['interpolation_mode'] = 'bicubic'
-    with pytest.raises(ValueError, match='bicubic'):
-        pt_builder.from_config(cfg)
-    cfg = load_config('samples/synthetic_smoke.py')
-    cfg.config.model['detector']['heads'] = {'dtype': 'float32'}
-    cfg.config.model['detector']['torch_weight'] = None
-    pt_builder.from_config(cfg)  # float32 heads and an unset key build
+    builder passes them to the neck.  The models are built on the meta
+    device: what is read is structure, not values."""
+    with torch.device('meta'):
+        cfg = load_config('samples/synthetic_smoke.py')
+        cfg.config.model['detector']['frobnicate'] = 3
+        with pytest.raises(NotImplementedError, match='frobnicate'):
+            pt_builder.from_config(cfg)
+        cfg = load_config('samples/ssd_300_vgg16_voc.py')
+        cfg.config.model['base']['packed_stem'] = True
+        with pytest.raises(NotImplementedError, match='packed_stem'):
+            pt_builder.from_config(cfg)
+        cfg = load_config('samples/retina_rn50_500_voc.py')
+        cfg.config.model['detector']['features']['width_overrides'] = {'lateral': 8}
+        cfg.config.model['detector']['features']['interpolation_mode'] = 'bilinear'
+        cfg.config.input_size = (64, 64)
+        narrow = pt_builder.from_config(cfg).module.features
+        assert [narrow.get_submodule(f'lateral{i}').out_channels
+                for i in range(3)] == [8] * 3
+        assert narrow.output0.conv.in_channels == 8
+        assert narrow.interpolation_mode == 'bilinear'
+        cfg = load_config('samples/m2det_512_vgg16_voc.py')
+        cfg.config.model['detector']['features']['interpolation_mode'] = 'bicubic'
+        with pytest.raises(ValueError, match='bicubic'):
+            pt_builder.from_config(cfg)
+        cfg = load_config('samples/synthetic_smoke.py')
+        cfg.config.model['detector']['heads'] = {'dtype': 'float32'}
+        cfg.config.model['detector']['torch_weight'] = None
+        pt_builder.from_config(cfg)  # float32 heads and an unset key build
